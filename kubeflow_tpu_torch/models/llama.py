@@ -1,0 +1,195 @@
+"""Llama-family decoder in PyTorch — counterpart of
+``kubeflow_tpu/models/llama.py`` (dense configs only).
+
+GQA + RoPE (half-split) + RMSNorm + SwiGLU, ``lm_head`` in f32.  The
+parameter names follow the reference's tree (``models/convert.py`` maps
+one onto the other).  Every op with a CUDA kernel (RMSNorm, causal flash
+prefill, flash decode) routes through ``cfg.impl``: "auto" takes the
+kernels on the card and the plain versions on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from kubeflow_tpu_torch.models.layers import (
+    Attention,
+    Embed,
+    KVCache,
+    Linear,
+    RMSNorm,
+    SwiGLU,
+)
+from kubeflow_tpu_torch.models.registry import register_model
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    ffn_dim: int = 11008
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    # "auto" | "kernel" | "plain": routes RMSNorm and attention (ops/).
+    impl: str = "auto"
+    # MoE (Mixtral-style) is not ported: n_experts > 0 raises in Llama.
+    n_experts: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+
+# The reference's registry names and shapes.
+CONFIGS = {
+    "llama_debug": LlamaConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        ffn_dim=128, max_seq_len=256, dtype=torch.float32,
+    ),
+    "llama_125m": LlamaConfig(
+        vocab_size=32000, dim=768, n_layers=12, n_heads=12, n_kv_heads=12,
+        ffn_dim=2048,
+    ),
+    "llama_1b4": LlamaConfig(
+        vocab_size=32000, dim=2048, n_layers=24, n_heads=16, n_kv_heads=16,
+        ffn_dim=5632,
+    ),
+    "llama2_7b": LlamaConfig(),
+    "llama2_13b": LlamaConfig(dim=5120, n_layers=40, n_heads=40, n_kv_heads=40,
+                              ffn_dim=13824),
+    "llama3_8b": LlamaConfig(vocab_size=128256, dim=4096, n_layers=32,
+                             n_heads=32, n_kv_heads=8, ffn_dim=14336,
+                             rope_theta=500000.0, max_seq_len=8192),
+    "mixtral_debug": LlamaConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        ffn_dim=128, max_seq_len=256, dtype=torch.float32, n_experts=4,
+    ),
+    "mixtral_8x7b": LlamaConfig(
+        dim=4096, n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336,
+        max_seq_len=32768, rope_theta=1000000.0, n_experts=8,
+    ),
+}
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, *, device=None):
+        super().__init__()
+        self.attn_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps, impl=cfg.impl,
+                                 device=device)
+        self.attn = Attention(
+            cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            rope_theta=cfg.rope_theta, dtype=cfg.dtype, impl=cfg.impl,
+            device=device)
+        self.mlp_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps, impl=cfg.impl,
+                                device=device)
+        self.mlp = SwiGLU(cfg.dim, cfg.ffn_dim, dtype=cfg.dtype,
+                          device=device)
+
+    def forward(self, x, positions, *, segment_ids=None, cache=None,
+                layer=0, bias_rows=None):
+        h = self.attn(self.attn_norm(x), positions, segment_ids=segment_ids,
+                      cache=cache, layer=layer, bias_rows=bias_rows)
+        x = x + h
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class Llama(nn.Module):
+    """The dense decoder.  Parameters are uninitialised after
+    construction: call ``reset_parameters(generator)`` or
+    ``load_state_dict``."""
+
+    def __init__(self, cfg: LlamaConfig, *, device=None):
+        super().__init__()
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "MoE (n_experts > 0) is not ported yet; see ROADMAP.md")
+        self.cfg = cfg
+        self.embed = Embed(cfg.vocab_size, cfg.dim, dtype=cfg.dtype,
+                           device=device)
+        self.layers = nn.ModuleList(
+            LlamaBlock(cfg, device=device) for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps, impl=cfg.impl,
+                                  device=device)
+        # The reference computes the head in f32 (dtype=jnp.float32).
+        self.lm_head = Linear(cfg.dim, cfg.vocab_size, dtype=torch.float32,
+                              device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.embedding.device
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's flax initialisers, drawn from ``generator`` on
+        the parameters' device."""
+        for mod in self.modules():
+            if mod is not self and hasattr(mod, "reset_parameters"):
+                mod.reset_parameters(generator)
+
+    def new_cache(self, batch: int, length: int) -> KVCache:
+        cfg = self.cfg
+        if length > cfg.max_seq_len:
+            raise ValueError(
+                f"cache_len {length} exceeds max_seq_len {cfg.max_seq_len}")
+        return KVCache.empty(cfg.n_layers, batch, length, cfg.n_kv_heads,
+                             cfg.head_dim, dtype=cfg.dtype,
+                             device=self.device)
+
+    def forward(self, tokens: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None,
+                pad_bias: Optional[torch.Tensor] = None,
+                logits_at: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits [b, s, vocab] f32, or [b, vocab] at the per-row
+        positions ``logits_at`` [b] (the head then runs on those rows only).
+
+        With ``cache``, the call writes its K/V at ``cache.index`` and
+        advances it.  A single-token call attends over the whole cache
+        with one bias row per batch row, built here once per step (not
+        once per layer): slot j is visible iff j <= cache.index, plus
+        ``pad_bias`` [b, length] (0 or -1e30) hiding prompt padding."""
+        b, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        bias_rows = None
+        if cache is not None and s == 1:
+            slots = torch.arange(cache.length, device=tokens.device)
+            bias_rows = torch.where(slots <= cache.index, 0.0, NEG_INF)
+            bias_rows = bias_rows[None].expand(b, -1).float()
+            if pad_bias is not None:
+                bias_rows = bias_rows + pad_bias
+            bias_rows = bias_rows.contiguous()
+        x = self.embed(tokens)
+        for i, block in enumerate(self.layers):
+            x = block(x, positions, segment_ids=segment_ids, cache=cache,
+                      layer=i, bias_rows=bias_rows)
+        if cache is not None:
+            cache.index += s
+        if logits_at is not None:
+            x = x[torch.arange(b, device=x.device), logits_at][:, None]
+        logits = self.lm_head(self.final_norm(x))
+        return logits[:, 0] if logits_at is not None else logits
+
+
+def _factory(name):
+    @register_model(name)
+    def make(*, device=None, **overrides):
+        return Llama(dataclasses.replace(CONFIGS[name], **overrides),
+                     device=device)
+
+    make.__name__ = name
+    return make
+
+
+for _n in CONFIGS:
+    _factory(_n)
