@@ -22,6 +22,29 @@ Phases, each of which raises on failure (exit code 1):
    POST /v1/generate: A greedy, B sampled, C = A again (token-identical).
    The kernels' launch counts are set to 0 just before A and read just
    after it; each must equal what the path launches.
+6. profile: request A's device time by kernel class (torch.profiler).
+7. train-kernels: the training kernels (K2-lse forward, K3 dq, K4 dk/dv)
+   against their plain versions in f32 on the same bf16 inputs, at
+   llama_1b4's training shape (b1 s8192 h16 d128 causal), the same with
+   the packed loader's segment ids, and llama3_8b's GQA shape (b1 s4096
+   h32/8), timed beside each one's bound and the SDPA library call
+   (forward, or its backward through ``torch.autograd.grad``).
+8. train-edges: the same kernels at ragged, cross-length, head_dim 64,
+   one-key, GQA 1/2/4/8, segment-with-pad and nonzero-g_lse cases.
+9. train-compose: ``llama_1b4`` at full width, 2 layers: one grad step on
+   the kernel route, the bf16 plain route and an f32 plain model; the
+   kernel route's gradients may be no farther from the f32 model's than
+   COMPOSE_RATIO times the plain route's.
+10. train-variants: the same model's step with remat "block" and "mlp"
+   and with the chunked head and loss, against the base step, and with 2
+   accumulated microbatches against the whole batch: exact launches per
+   step (remat "block" re-runs each block's K1 and K2-lse), peak memory,
+   and loss and gradients within VARIANT_TOL.
+11. train:  ``kubeflow_tpu_torch.train.run.main`` trains ``llama_1b4``
+   (24 layers, b1 s8192, bf16 grads) for 6 steps with the counts set to
+   0 just before and read just after (exact launches per step), then one
+   profiled step; then 2 packed steps (b4 s2048, segment ids through all
+   three training kernels).
 
 Every line of standard output is one JSON object; the line before the
 last lists every kernel with its launches, error and times, and the last
@@ -29,7 +52,11 @@ line is the result, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -47,8 +74,21 @@ TIMING_RUNS = 25
 # the output to bf16 (relative error <= 2^-9), so 1e-2 leaves about 5x
 # room; K2 also rounds the probabilities to bf16 before the P V product,
 # which doubles its error, so it gets 2e-2.
+#
+# The training kernels, against the plain versions in f32 on the same
+# bf16 inputs.  K2-lse: its O is held to K2's tolerance, and its lse, an
+# f32 m + log(l) from the same m and l (the m from bf16 logits that the
+# plain version also sees), to atol 1e-3 with no rtol.  K3 (dq) and K4
+# (dk, dv): relative L2 <= 2e-2 against autograd through the f32 plain
+# attention; the kernels round P and dS to bf16 to feed the tensor cores
+# (the reference's f32 products do not) and write bf16 gradients, each a
+# relative error of ~2^-9 per element, well inside 2e-2.  A reference
+# that is zero (dq and dk when a row sees one key) has no scale of its
+# own: the distance is then taken against 1e-3 * sqrt(numel).
 KERNEL_TOL = {"rms_norm": 1e-2, "flash_attention_fwd": 2e-2,
-              "flash_decode": 1e-2}
+              "flash_decode": 1e-2, "flash_attention_fwd_lse": 1e-3,
+              "flash_attention_dq": 2e-2, "flash_attention_dkv": 2e-2}
+SERVE_KERNELS = ("rms_norm", "flash_attention_fwd", "flash_decode")
 # Composition: the bf16 kernel route's relative L2 distance from the same
 # model in f32 may be at most this multiple of the bf16 plain route's.
 # Both routes round to bf16 at the same places except inside attention
@@ -56,10 +96,35 @@ KERNEL_TOL = {"rms_norm": 1e-2, "flash_attention_fwd": 2e-2,
 # decode), so an honest kernel route sits about as far from f32 as the
 # plain one; a wrong mask or scale would put it many times farther.
 COMPOSE_RATIO = 1.5
+# Train-variants: (relative loss difference, relative L2 distance of all
+# gradients) from the reference step.  Remat recomputes the checkpointed
+# forward with the same kernels on the same inputs, so its loss and
+# gradients should repeat the base step's; 1e-6 and 1e-3 catch a
+# recompute that saw other inputs (a lost segment id or position moves
+# them by order 1) without failing on a reordered f32 sum.  The chunked
+# head sums the loss in another order (f32, ~1e-7 a term), and its
+# gradients, like those of 2 microbatches accumulated in f32, can round
+# to the neighbouring bf16 value (2^-8 relative) where an f32 sum moved:
+# 1e-5 on the loss and 1e-2 on the gradients.  The microbatches also run
+# GEMMs of half the rows, which cuBLAS may tile differently in bf16, so
+# their loss gets 1e-3.
+VARIANT_TOL = {"remat_block": (1e-6, 1e-3), "remat_mlp": (1e-6, 1e-3),
+               "ce_chunk_1024": (1e-5, 1e-2), "grad_accum_2": (1e-3, 1e-2)}
 
 # Serving phase: 4 right-padded rows, max_new_tokens 32.
 PROMPT_LENS = (17, 128, 300, 512)
 NEW_TOKENS = 32
+
+# Training phase: the repo's training configuration at full width and
+# depth, as the reference's bench trains it (b1 s8192, bf16 gradients).
+TRAIN_MODEL = "llama_1b4"
+TRAIN_SEQ = 8192
+TRAIN_ARGS = ["--model", TRAIN_MODEL, "--batch", "1", "--seq",
+              str(TRAIN_SEQ), "--grad-dtype", "bf16", "--steps", "6",
+              "--log-every", "1"]
+PACKED_ARGS = ["--model", TRAIN_MODEL, "--batch", "4", "--seq", "2048",
+               "--grad-dtype", "bf16", "--steps", "2", "--log-every", "1",
+               "--packed"]
 
 
 def emit(obj) -> None:
@@ -270,8 +335,8 @@ def phase_edges(torch, dev):
     rnd = lambda *s, dt=torch.bfloat16: torch.randn(
         *s, generator=gen, device=dev).to(dt)
     # Per kernel: cases run, and the case that used most of its limit.
-    worst = {name: {"cases": 0, "tol": tol, "tol_share": 0.0}
-             for name, tol in KERNEL_TOL.items()}
+    worst = {name: {"cases": 0, "tol": KERNEL_TOL[name], "tol_share": 0.0}
+             for name in SERVE_KERNELS}
 
     def check(kernel, case, got, want):
         err, share = check_close(f"{kernel} {case}", got, want,
@@ -436,6 +501,8 @@ def phase_serve(torch, dev):
         forwards = NEW_TOKENS            # 1 prefill + 31 decode steps
         want = {"rms_norm": (2 * cfg.n_layers + 1) * forwards,
                 "flash_attention_fwd": cfg.n_layers,
+                "flash_attention_fwd_lse": 0, "flash_attention_dq": 0,
+                "flash_attention_dkv": 0,
                 "flash_decode": cfg.n_layers * (NEW_TOKENS - 1)}
         if counts != want:
             raise AssertionError(f"launch counts {counts}, expected {want}")
@@ -533,15 +600,601 @@ def phase_profile(torch, dev, model):
                           for name, (t, c) in top]})
 
 
+def check_rel_l2(name, got, want, tol):
+    """Relative L2 distance |got - want| / max(|want|, 1e-3 sqrt(n)) within
+    ``tol``.  Returns (distance, share of the limit, max abs error)."""
+    torch = sys.modules["torch"]
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    scale = max(want.norm().item(), 1e-3 * math.sqrt(want.numel()))
+    err = (got - want).norm().item() / scale
+    if err > tol:
+        raise AssertionError(f"{name}: relative L2 {err} beyond {tol}")
+    return err, err / tol, (got - want).abs().max().item()
+
+
+def check_lse(name, got, want):
+    atol = KERNEL_TOL["flash_attention_fwd_lse"]
+    diff = (got - want).abs().max().item()
+    if not math.isfinite(diff) or diff > atol:
+        raise AssertionError(f"{name}: lse max abs err {diff} beyond "
+                             f"atol {atol}")
+    return diff, diff / atol
+
+
+def visible_pairs(torch, dev, b, sq, sk, h, causal, seg):
+    """Visible (query, key) pairs summed over batch and q heads."""
+    vis = torch.ones(sq, sk, dtype=torch.bool, device=dev)
+    if causal:
+        vis = torch.tril(vis, diagonal=sk - sq)
+    if seg is None:
+        return vis.sum().item() * b * h, vis
+    vis = vis[None] & (seg[:, :, None] == seg[:, None, :])
+    return vis.sum().item() * h, vis
+
+
+def packed_segments(torch, dev, seq):
+    """One row of segment ids as the trainer's packed loader makes them
+    (documents of 8 to 256 tokens, seed 0)."""
+    from kubeflow_tpu_torch.data.loader import synthetic_lm_documents
+    from kubeflow_tpu_torch.data.packing import packed_lm_batches
+
+    _, seg = next(packed_lm_batches(
+        synthetic_lm_documents(vocab_size=32000, seed=SEED, max_len=256),
+        batch_rows=1, seq_len=seq))
+    return torch.from_numpy(seg).to(dev)
+
+
+def train_kernel_case(torch, dev, gen, b, sq, sk, h, kvh, d, causal, seg,
+                      g_lse):
+    """Run K2-lse, K3 and K4 once and check each against its plain
+    version in f32.  Returns the inputs, outputs and checks."""
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+
+    bf = torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf)
+    q, k, v = rnd(b, sq, h, d), rnd(b, sk, kvh, d), rnd(b, sk, kvh, d)
+    do = rnd(b, sq, h, d)
+    gl = (torch.randn(b, h, sq, generator=gen, device=dev)
+          if g_lse else None)
+    kw = dict(causal=causal, segment_ids=seg)
+    o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
+    dq, delta = fa.flash_attention_dq(q, k, v, o, do, lse, g_lse=gl, **kw)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = fa.plain_attention_with_lse(*f32[:3], **kw)
+    checks = {"o": check_close("flash_attention_fwd_lse o", o, o_ref,
+                               KERNEL_TOL["flash_attention_fwd"]),
+              "lse": check_lse("flash_attention_fwd_lse", lse, lse_ref)}
+    del o_ref, lse_ref
+    ref = fa.plain_attention_bwd(*f32, g_lse=gl, **kw)
+    for name, got, want, kernel in (
+            ("dq", dq, ref[0], "flash_attention_dq"),
+            ("dk", dk, ref[1], "flash_attention_dkv"),
+            ("dv", dv, ref[2], "flash_attention_dkv")):
+        checks[name] = check_rel_l2(f"{kernel} {name}", got, want,
+                                    KERNEL_TOL[kernel])
+    del ref, f32
+    return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta,
+                checks=checks)
+
+
+def phase_train_kernels(torch, dev, timer):
+    """K2-lse, K3 and K4 at the training path's shapes; returns the
+    summary row per kernel at llama_1b4's shape."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+    from kubeflow_tpu_torch.ops.cuda import rms_norm as k1
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows = {}
+    # K1 at the training rows: b1 x s8192 tokens of llama_1b4's dim 2048.
+    n, dm = TRAIN_SEQ, 2048
+    x = torch.randn(n, dm, generator=gen, device=dev).to(torch.bfloat16)
+    scale = (1.0 + 0.1 * torch.randn(dm, generator=gen, device=dev)).float()
+    tol = KERNEL_TOL["rms_norm"]
+    err, share = check_close("rms_norm", k1.rms_norm(x, scale, eps=1e-5),
+                             k1.plain_rms_norm(x.float(), scale, eps=1e-5),
+                             tol)
+    bms, by = bound_ms(n * dm * 4 + dm * 4, 4 * n * dm, PEAK_F32_FLOPS)
+    emit({"kernel": "rms_norm", "shape": [n, dm], "path": "train",
+          "max_abs_err": err, "tol": tol, "tol_share": share,
+          "kernel_ms": timer(lambda: k1.rms_norm(x, scale, eps=1e-5)),
+          "plain_ms": timer(lambda: k1.plain_rms_norm(x, scale, eps=1e-5)),
+          "library_ms": timer(lambda: F.rms_norm(
+              x, (dm,), weight=scale.to(torch.bfloat16), eps=1e-5)),
+          "bound_ms": bms, "bound_by": by})
+    del x, scale
+    for name, (b, s, h, kvh, d, packed) in (
+            ("llama_1b4", (1, 8192, 16, 16, 128, False)),
+            ("llama_1b4 packed", (1, 8192, 16, 16, 128, True)),
+            ("llama3_8b gqa", (1, 4096, 32, 8, 128, False))):
+        seg = packed_segments(torch, dev, s) if packed else None
+        c = train_kernel_case(torch, dev, gen, b, s, s, h, kvh, d, True,
+                              seg, False)
+        q, k, v, do, o, lse, delta = (c[x] for x in (
+            "q", "k", "v", "do", "o", "lse", "delta"))
+        kw = dict(causal=True, segment_ids=seg)
+        pairs, vis = visible_pairs(torch, dev, b, s, s, h, True, seg)
+        qkv_bytes = 2 * (b * s * h * d + 2 * b * s * kvh * d)
+        qo_bytes = 2 * b * s * h * d          # one bf16 tensor of q's shape
+        row_bytes = 4 * b * h * s             # one f32 [b, h, s]
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        sdpa = (dict(is_causal=True) if seg is None
+                else dict(attn_mask=vis[:, None]))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                 **sdpa)
+        go = do.transpose(1, 2)
+        lib_fwd = lambda: F.scaled_dot_product_attention(
+            qt.detach(), kt.detach(), vt.detach(), enable_gqa=True, **sdpa)
+        lib_bwd_ms = timer(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), go, retain_graph=True))
+        shape = [b, s, h, kvh, d]
+        out = {
+            "flash_attention_fwd_lse": dict(
+                check=c["checks"]["lse"], o_check=c["checks"]["o"],
+                bound=bound_ms(qkv_bytes + qo_bytes + row_bytes,
+                               4 * pairs * d, PEAK_BF16_FLOPS),
+                ms=timer(lambda: fa.flash_attention_fwd_lse(q, k, v, **kw)),
+                plain_ms=timer(lambda: fa.plain_attention_with_lse(
+                    q, k, v, **kw)),
+                library_ms=timer(lib_fwd)),
+            "flash_attention_dq": dict(
+                check=c["checks"]["dq"],
+                bound=bound_ms(qkv_bytes + 3 * qo_bytes + 2 * row_bytes,
+                               6 * pairs * d, PEAK_BF16_FLOPS),
+                ms=timer(lambda: fa.flash_attention_dq(
+                    q, k, v, o, do, lse, **kw)),
+                plain_ms=timer(lambda: fa.plain_attention_dq(
+                    q, k, v, o, do, lse, **kw)),
+                library_ms=lib_bwd_ms),
+            "flash_attention_dkv": dict(
+                check=max(c["checks"]["dk"], c["checks"]["dv"],
+                          key=lambda x: x[1]),
+                bound=bound_ms(2 * qkv_bytes + 2 * row_bytes,
+                               8 * pairs * d, PEAK_BF16_FLOPS),
+                ms=timer(lambda: fa.flash_attention_dkv(
+                    q, k, v, do, lse, delta, **kw)),
+                plain_ms=timer(lambda: fa.plain_attention_dkv(
+                    q, k, v, do, lse, delta, **kw)),
+                library_ms=lib_bwd_ms),
+        }
+        for kernel, r in out.items():
+            err, share = r["check"][:2]
+            row = {"kernel": kernel, "shape": shape, "case": name,
+                   "segments": packed, "path": "train",
+                   "max_abs_err": (err if kernel.endswith("lse")
+                                   else r["check"][2]),
+                   "tol": KERNEL_TOL[kernel],
+                   "tol_share": share, "kernel_ms": r["ms"],
+                   "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                   "library": ("sdpa forward" if kernel.endswith("lse")
+                               else "sdpa backward (dq, dk and dv)"),
+                   "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                   "visible_pairs": pairs}
+            if kernel.endswith("lse"):
+                row["o_tol_share"] = r["o_check"][1]
+            else:
+                row["rel_l2"] = err
+            if kernel == "flash_attention_dkv":
+                row["dk_rel_l2"] = c["checks"]["dk"][0]
+                row["dv_rel_l2"] = c["checks"]["dv"][0]
+            emit(row)
+            if name == "llama_1b4":
+                rows[kernel] = row
+        del c, q, k, v, do, o, lse, delta, qt, kt, vt, lib_out, go, vis
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_edges(torch, dev):
+    """K2-lse, K3 and K4 beyond the training path's shapes, each against
+    its plain version (untimed)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst = {}
+    # (b, sq, sk, h, kv_h, d, causal, segments, g_lse)
+    cases = [(2, 100, 100, 4, 2, 128, True, False, False),
+             (2, 37, 200, 4, 1, 128, True, False, False),
+             (1, 50, 130, 4, 2, 64, False, False, False),
+             (2, 130, 130, 4, 4, 64, True, False, False),
+             (1, 1, 1, 2, 1, 128, True, False, False),
+             (2, 1, 70, 4, 2, 128, True, False, False)]
+    cases += [(1, 96, 96, 8, 8 // g, 128, True, False, False)
+              for g in (1, 2, 4, 8)]
+    cases += [(2, 130, 130, 4, 2, 128, True, True, False),
+              (1, 77, 77, 8, 2, 64, False, False, True),
+              (2, 100, 100, 4, 2, 128, True, True, True)]
+    for b, sq, sk, h, kvh, d, causal, segs, glse in cases:
+        seg = None
+        if segs:
+            # Row 0: two documents and a pad tail; row 1: pad rows first
+            # (segment 0 attends only to segment 0), then two documents.
+            pos = torch.arange(sq, device=dev)
+            seg = torch.stack([
+                torch.where(pos < 50, 1, torch.where(pos < sq - 20, 2, 0)),
+                torch.where(pos < 10, 0, torch.where(pos < 70, 1, 2))])
+            seg = seg[:b].int().contiguous()
+        case = (f"b{b} sq{sq} sk{sk} h{h}/{kvh} d{d} causal={causal} "
+                f"segments={segs} g_lse={glse}")
+        c = train_kernel_case(torch, dev, gen, b, sq, sk, h, kvh, d, causal,
+                              seg, glse)
+        for name, check in c["checks"].items():
+            share = check[1]
+            w = worst.setdefault(name, {"cases": 0, "tol_share": 0.0})
+            w["cases"] += 1
+            if share >= w["tol_share"]:
+                w.update(tol_share=share, err=check[0], case=case)
+        del c
+    emit({"phase": "train-edges", "cases": len(cases),
+          "worst_by_output": worst})
+    torch.cuda.empty_cache()
+
+
+def phase_train_compose(torch, dev):
+    """``llama_1b4`` at full width, 2 layers, the same f32 master weights
+    three ways: the kernel route and the plain route computing in bf16
+    with bf16 gradients (as the trainer runs), and an f32 plain model with
+    f32 gradients as the reference.  One grad step on one b1 s8192 batch
+    of the trainer's synthetic stream."""
+    from kubeflow_tpu_torch.data.loader import synthetic_lm_batches
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.models.llama import CONFIGS
+    from kubeflow_tpu_torch.train.steps import TrainState, make_lm_grad_fn
+
+    tokens = torch.from_numpy(next(synthetic_lm_batches(
+        global_batch=1, seq_len=TRAIN_SEQ,
+        vocab_size=CONFIGS[TRAIN_MODEL].vocab_size, seed=SEED))).to(dev)
+    variants = {"kernel": (dict(impl="auto"), torch.bfloat16),
+                "plain": (dict(impl="plain"), torch.bfloat16),
+                "f32": (dict(impl="plain", dtype=torch.float32), None)}
+    state = None
+    grads, losses = {}, {}
+    for name, (kw, grad_dtype) in variants.items():
+        model = create_model(TRAIN_MODEL, device=dev, n_layers=2,
+                             param_dtype=torch.float32, **kw)
+        if state is None:
+            with torch.no_grad():
+                model.reset_parameters(
+                    torch.Generator(device=dev).manual_seed(SEED))
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        g, m = make_lm_grad_fn(grad_dtype=grad_dtype)(
+            TrainState(model, None), tokens)
+        grads[name] = {n: t.float() for n, t in g.items()}
+        losses[name] = m["loss"].item()
+        del model, g
+        torch.cuda.empty_cache()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    per_tensor, worst = {}, (0.0, "")
+    for n, ref in grads["f32"].items():
+        e_k = rel(grads["kernel"][n], ref)
+        e_p = rel(grads["plain"][n], ref)
+        if not math.isfinite(e_k):
+            raise AssertionError(f"train-compose {n}: non-finite gradient")
+        per_tensor[n] = {"kernel_vs_f32": e_k, "plain_vs_f32": e_p}
+        if e_k / e_p > worst[0]:
+            worst = (e_k / e_p, n)
+    cat = lambda name: torch.cat([t.flatten() for t in grads[name].values()])
+    row = {"phase": "train-compose", "model": TRAIN_MODEL, "n_layers": 2,
+           "batch": [1, TRAIN_SEQ], "loss": losses,
+           "all_grads_rel_l2_kernel_vs_f32": rel(cat("kernel"), cat("f32")),
+           "all_grads_rel_l2_plain_vs_f32": rel(cat("plain"), cat("f32")),
+           "worst_ratio": worst[0], "worst_tensor": worst[1],
+           "ratio_limit": COMPOSE_RATIO, "per_tensor": per_tensor}
+    emit(row)
+    for name in ("kernel", "plain"):
+        if not math.isfinite(losses[name]) or abs(
+                losses[name] - losses["f32"]) > 1e-2 * abs(losses["f32"]):
+            raise AssertionError(f"train-compose loss {losses}")
+    if worst[0] > COMPOSE_RATIO:
+        raise AssertionError(
+            f"train-compose: {worst[1]} kernel-route gradient {worst[0]} x "
+            f"the plain route's distance from f32, above {COMPOSE_RATIO}")
+    del grads, state
+    torch.cuda.empty_cache()
+
+
+def phase_train_variants(torch, dev):
+    """``llama_1b4`` at full width, 2 layers, kernel route, bf16 gradients:
+    the step's other paths against the base step (b1, no remat, whole
+    head) on the same weights and tokens, each with its exact launches
+    per step and its peak memory.  Remat "block" and "mlp" and the chunked
+    head and loss (``--ce-chunk``) are held against the base step;
+    2 accumulated microbatches (``--grad-accum 2``) against the whole b2
+    batch in one step."""
+    from kubeflow_tpu_torch.data.loader import synthetic_lm_batches
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.models.llama import CONFIGS
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.train.steps import (
+        TrainState,
+        make_grad_accum_step,
+        make_lm_grad_fn,
+    )
+
+    class Captured(TrainState):
+        """Keeps the gradients the accumulating step would apply."""
+
+        def apply_gradients(self, grads):
+            self.grads = grads
+            return self
+
+    def grad_step(**kw):
+        return make_lm_grad_fn(grad_dtype=torch.bfloat16, **kw)
+
+    def accum_step(n):
+        step = make_grad_accum_step(
+            make_lm_grad_fn(grad_dtype=torch.bfloat16), n)
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            return state.grads, metrics
+        return run
+
+    n_layers = 2
+    cfg = CONFIGS[TRAIN_MODEL]
+    tokens = torch.from_numpy(next(synthetic_lm_batches(
+        global_batch=2, seq_len=TRAIN_SEQ, vocab_size=cfg.vocab_size,
+        seed=SEED))).to(dev)
+    base = train_launches_per_step(cfg, n_layers=n_layers)
+    recompute = dict(base, rms_norm=base["rms_norm"] + 2 * n_layers,
+                     flash_attention_fwd_lse=2 * n_layers)
+    twice = {k: 2 * n for k, n in base.items()}
+    # name: (model overrides, step, rows, reference, launches per step)
+    variants = {
+        "base": ({}, grad_step(), 1, None, base),
+        "remat_block": (dict(remat=True, remat_mode="block"), grad_step(),
+                        1, "base", recompute),
+        "remat_mlp": (dict(remat=True, remat_mode="mlp"), grad_step(), 1,
+                      "base", base),
+        "ce_chunk_1024": ({}, grad_step(ce_chunk=1024), 1, "base", base),
+        "base_b2": ({}, grad_step(), 2, None, base),
+        "grad_accum_2": ({}, accum_step(2), 2, "base_b2", twice),
+    }
+    cat = lambda v: torch.cat([t.flatten() for t in grads[v].values()])
+    state = None
+    grads, rows = {}, {}
+    for name, (kw, step, n_rows, ref, want) in variants.items():
+        # Peak memory of the variant's model and step, above what the
+        # phase already holds (the weights and earlier gradients).
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = create_model(TRAIN_MODEL, device=dev, n_layers=n_layers,
+                             param_dtype=torch.float32, **kw)
+        if state is None:
+            with torch.no_grad():
+                model.reset_parameters(
+                    torch.Generator(device=dev).manual_seed(SEED))
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        kernels.reset_launch_counts()
+        g, m = step(Captured(model, None), tokens[:n_rows])
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        grads[name] = {n: t.float() for n, t in g.items()}
+        rows[name] = {"loss": m["loss"].item(), "launches": counts,
+                      "peak_bytes": peak}
+        if counts != want:
+            raise AssertionError(
+                f"train-variants {name}: launches {counts}, expected {want}")
+        if not math.isfinite(rows[name]["loss"]):
+            raise AssertionError(f"train-variants {name}: loss not finite")
+        if ref is not None:
+            rows[name]["reference"] = ref
+            rows[name]["loss_rel_diff"] = abs(
+                rows[name]["loss"] - rows[ref]["loss"]) / rows[ref]["loss"]
+            rows[name]["grads_rel_l2"] = ((cat(name) - cat(ref)).norm()
+                                          / cat(ref).norm()).item()
+        del model, g
+        torch.cuda.empty_cache()
+    emit({"phase": "train-variants", "model": TRAIN_MODEL,
+          "n_layers": n_layers, "seq": TRAIN_SEQ, "tol": VARIANT_TOL,
+          "variants": rows})
+    for name, row in rows.items():
+        if "reference" not in row:
+            continue
+        loss_tol, grad_tol = VARIANT_TOL[name]
+        if row["loss_rel_diff"] > loss_tol or row["grads_rel_l2"] > grad_tol:
+            raise AssertionError(
+                f"train-variants {name}: loss off by {row['loss_rel_diff']} "
+                f"(limit {loss_tol}), gradients by {row['grads_rel_l2']} "
+                f"(limit {grad_tol}) from {row['reference']}")
+    del grads, state
+    torch.cuda.empty_cache()
+
+
+def run_trainer(argv):
+    """``train.run.main(argv)`` with its standard output captured; returns
+    the exit code and the parsed ``train_step`` lines."""
+    from kubeflow_tpu_torch.train import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run.main(argv)
+    lines = buf.getvalue().splitlines()
+    steps = []
+    for line in lines:
+        if line.startswith("train_step "):
+            kv = dict(p.split("=", 1) for p in line.split()[1:])
+            steps.append({k: float(v) for k, v in kv.items()})
+    if rc != 0 or not lines or not lines[-1].startswith("done: step "):
+        raise AssertionError(f"trainer exited {rc}: {lines[-3:]}")
+    return steps, lines[-1]
+
+
+def train_launches_per_step(cfg, n_layers=None):
+    n = cfg.n_layers if n_layers is None else n_layers
+    return {"rms_norm": 2 * n + 1, "flash_attention_fwd": 0,
+            "flash_attention_fwd_lse": n, "flash_attention_dq": n,
+            "flash_attention_dkv": n, "flash_decode": 0}
+
+
+def profile_train_step(torch, argv):
+    """Build the trainer as ``main`` does, run two steps, then one step
+    under torch.profiler: its wall time, device kernel time by class."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.train import run
+
+    _, args = run.parse_args(argv)
+    state, step, batches = run.build_lm(args, torch.device("cuda"))
+    it = iter(batches(0))
+    for _ in range(2):
+        state, m = step(state, next(it))
+    m["loss"].item()
+    batch = next(it)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    classes = {"flash_attention_fwd_lse": 0.0, "flash_attention_dq": 0.0,
+               "flash_attention_dkv": 0.0, "rms_norm": 0.0, "matmul": 0.0,
+               "optimizer": 0.0, "other": 0.0}
+    by_name, spans = {}, []
+    for e in prof.events():
+        # A user annotation on the device timeline (the optimizer's
+        # "Optimizer.step#AdamW.step") spans kernels counted on their own.
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False) or "#" in e.name:
+            continue
+        us = e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+        name = e.name
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us, c + 1)
+        if "flash_fwd_kernel" in name:
+            classes["flash_attention_fwd_lse"] += us
+        elif "flash_bwd_dq_kernel" in name:
+            classes["flash_attention_dq"] += us
+        elif "flash_bwd_dkv_kernel" in name:
+            classes["flash_attention_dkv"] += us
+        elif "rms_norm_kernel" in name:
+            classes["rms_norm"] += us
+        elif any(t in name.lower() for t in ("gemm", "gemv", "cutlass",
+                                             "xmma", "cublas", "nvjet")):
+            classes["matmul"] += us
+        elif "multi_tensor_apply" in name:   # the foreach AdamW update
+            classes["optimizer"] += us
+        else:
+            classes["other"] += us
+    # Busy time is the union of the device intervals: activities that
+    # overlap (a copy beside a kernel) count once.
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    del state, step, batches, it, batch, prof
+    return {"wall_seconds": wall_s,
+            "device_kernel_seconds": sum(classes.values()) / 1e6,
+            "device_busy_seconds": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall_s,
+            "device_kernels": len(spans),
+            "device_ms_by_class": {k: v / 1e3 for k, v in classes.items()},
+            "top_kernels": [{"name": name[:90], "ms": t / 1e3, "count": c}
+                            for name, (t, c) in top]}
+
+
+def phase_train(torch):
+    """The trainer's main path, then a profiled step, then the packed
+    run.  Returns the launch counts of the 6-step run."""
+    from kubeflow_tpu_torch.models.llama import CONFIGS
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.telemetry import compute as ctel
+
+    cfg = CONFIGS[TRAIN_MODEL]
+    n_steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps, done = run_trainer(TRAIN_ARGS)
+    wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: n * n_steps for k, n in train_launches_per_step(cfg).items()}
+    if counts != want:
+        raise AssertionError(f"train launch counts {counts}, expected {want}")
+    losses = [s["loss"] for s in steps]
+    if len(steps) != n_steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_train_step(torch, TRAIN_ARGS)
+    steady = steps[1:]
+    step_s = statistics.median(s["step_seconds"] for s in steady)
+    fpt = ctel.lm_train_flops_per_token(cfg, TRAIN_SEQ)
+    emit({"phase": "train", "model": TRAIN_MODEL, "args": TRAIN_ARGS,
+          "n_layers": cfg.n_layers, "losses": losses,
+          "step_seconds": [s["step_seconds"] for s in steps],
+          "median_step_seconds_2_to_6": step_s,
+          "tokens_per_sec": TRAIN_SEQ / step_s,
+          "mfu": ctel.mfu(TRAIN_SEQ / step_s, fpt), "flops_per_token": fpt,
+          "mfu_peak_tflops": ctel.H100_SXM_BF16_PEAK_TFS,
+          "wall_seconds_with_build": wall_s,
+          "max_memory_allocated_bytes": peak,
+          "launches": counts,
+          "launches_per_step": train_launches_per_step(cfg),
+          "profiled_step": prof, "done": done})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_packed = int(PACKED_ARGS[PACKED_ARGS.index("--steps") + 1])
+    kernels.reset_launch_counts()
+    steps_p, done_p = run_trainer(PACKED_ARGS)
+    counts_p = kernels.launch_counts()
+    want_p = {k: n * n_packed
+              for k, n in train_launches_per_step(cfg).items()}
+    losses_p = [s["loss"] for s in steps_p]
+    if counts_p != want_p:
+        raise AssertionError(f"packed launch counts {counts_p}, "
+                             f"expected {want_p}")
+    if len(steps_p) != n_packed or not all(math.isfinite(x)
+                                           for x in losses_p):
+        raise AssertionError(f"packed losses {losses_p}")
+    emit({"phase": "train-packed", "args": PACKED_ARGS, "losses": losses_p,
+          "step_seconds": [s["step_seconds"] for s in steps_p],
+          "launches": counts_p, "done": done_p})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 SOURCES = {
     "rms_norm": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
                  "kubeflow_tpu/ops/pallas/rms_norm.py:53"),
     "flash_attention_fwd": (
         "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "kubeflow_tpu/ops/pallas/flash_attention.py:151"),
+    "flash_attention_fwd_lse": (
+        "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "kubeflow_tpu/ops/pallas/flash_attention.py:214"),
+    "flash_attention_dq": (
+        "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "kubeflow_tpu/ops/pallas/flash_attention.py:391"),
+    "flash_attention_dkv": (
+        "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "kubeflow_tpu/ops/pallas/flash_attention.py:424"),
     "flash_decode": ("kubeflow_tpu_torch/ops/csrc/flash_decode.cu",
                      "kubeflow_tpu/ops/pallas/flash_decode.py:94"),
 }
+# The path each kernel's ``launches`` is read from (K1 runs on both; its
+# train count is in ``launches_by_path``).
+TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_dq",
+                 "flash_attention_dkv")
 
 
 def main() -> int:
@@ -555,14 +1208,26 @@ def main() -> int:
     timer = Timer(torch, dev)
     rows = phase_kernels(torch, dev, timer)
     phase_edges(torch, dev)
+    rows.update(phase_train_kernels(torch, dev, timer))
+    phase_train_edges(torch, dev)
     del timer
     torch.cuda.empty_cache()
     phase_compose(torch, dev)
-    counts, model = phase_serve(torch, dev)
+    serve_counts, model = phase_serve(torch, dev)
     phase_profile(torch, dev, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_compose(torch, dev)
+    phase_train_variants(torch, dev)
+    train_counts = phase_train(torch)
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
-        "replaces": SOURCES[name][1], "launches": counts[name],
+        "replaces": SOURCES[name][1],
+        "launches": (train_counts if name in TRAIN_KERNELS
+                     else serve_counts)[name],
+        "launches_by_path": {"serve": serve_counts[name],
+                             "train": train_counts[name]},
         "shape": rows[name]["shape"], "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["kernel_ms"], "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"],

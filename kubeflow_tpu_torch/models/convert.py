@@ -8,7 +8,7 @@ of numpy arrays (the caller fetches it from JAX, e.g. with
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -72,12 +72,16 @@ def _convert(path: str, arr: np.ndarray) -> np.ndarray:
     return arr.T                                              # (in, out)
 
 
-def params_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping, cfg,
+                    param_dtype: Optional[torch.dtype] = None
+                    ) -> Dict[str, torch.Tensor]:
     """State dict for ``Llama(cfg)`` from the reference's param tree.
-    Dense and embedding weights are cast to ``cfg.dtype`` (the reference
-    casts them at use); norm scales and ``lm_head`` stay f32.  Raises
-    ``KeyError`` on a missing or extra leaf and ``ValueError`` on a
-    shape mismatch."""
+    Dense and embedding weights are stored in ``param_dtype`` (default
+    ``cfg.param_dtype``, else ``cfg.dtype``: the reference casts them at
+    use); norm scales and ``lm_head`` stay f32.  With f32 every leaf is
+    the reference's master weight exactly.  Raises ``KeyError`` on a
+    missing or extra leaf and ``ValueError`` on a shape mismatch."""
+    dense_dtype = param_dtype or cfg.param_dtype or cfg.dtype
     flat = _flatten(tree)
     want = expected_leaves(cfg)
     missing = sorted(set(want) - set(flat))
@@ -91,7 +95,7 @@ def params_from_jax(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
         if tuple(arr.shape) != shape:
             raise ValueError(f"{path}: shape {arr.shape}, expected {shape}")
         dtype = (torch.float32 if path.endswith("/scale")
-                 or path == "lm_head/kernel" else cfg.dtype)
+                 or path == "lm_head/kernel" else dense_dtype)
         t = torch.from_numpy(np.ascontiguousarray(
             _convert(path, arr).astype(np.float32)))
         state[_target(path)] = t.to(dtype)

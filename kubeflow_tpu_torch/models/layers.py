@@ -5,9 +5,15 @@ Counterpart of ``kubeflow_tpu/models/layers.py``.  Parameters are made
 with ``torch.empty`` (no initialisation at construction, so an 8B model
 is built on the card in moments); ``reset_parameters(generator)`` fills
 them with the reference's flax initialisers, or ``load_state_dict`` with
-converted weights (``models/convert.py``).  Dense weights are stored in
-the compute dtype: the reference keeps them f32 and casts at use, which
-gives the same values.
+converted weights (``models/convert.py``).
+
+Each layer has a compute dtype and a storage dtype (``param_dtype``, by
+default the compute dtype): the reference stores f32 parameters and casts
+them to the compute dtype at use (flax ``param_dtype``, ``.astype`` at
+``layers.py:74``).  Serving stores bf16, which gives the same values;
+training stores the f32 master weights.  Parameters are made frozen
+(``requires_grad=False``, what serving needs); a trainer unfreezes them
+with ``module.requires_grad_(True)``.
 """
 from __future__ import annotations
 
@@ -40,21 +46,24 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 class Linear(nn.Module):
     """Bias-free ``y = x @ W.T`` with W [out, in] (``nn.Linear``'s layout,
-    uninitialised at construction)."""
+    uninitialised at construction), computed in ``dtype`` from W stored in
+    ``param_dtype``."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, param_dtype: Optional[torch.dtype] = None,
+                 device=None):
         super().__init__()
         self.in_features = in_features
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(
-            out_features, in_features, dtype=dtype, device=device),
-            requires_grad=False)
+            out_features, in_features, dtype=param_dtype or dtype,
+            device=device), requires_grad=False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight, self.in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
 class Embed(nn.Module):
@@ -62,12 +71,14 @@ class Embed(nn.Module):
     out_axis=0), i.e. normal with std sqrt(1 / features)."""
 
     def __init__(self, num_embeddings: int, features: int, *,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, param_dtype: Optional[torch.dtype] = None,
+                 device=None):
         super().__init__()
         self.features = features
+        self.dtype = dtype
         self.embedding = nn.Parameter(torch.empty(
-            num_embeddings, features, dtype=dtype, device=device),
-            requires_grad=False)
+            num_embeddings, features, dtype=param_dtype or dtype,
+            device=device), requires_grad=False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         w32 = torch.empty(self.embedding.shape, dtype=torch.float32,
@@ -77,11 +88,13 @@ class Embed(nn.Module):
             self.embedding.copy_(w32)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding)
+        return F.embedding(tokens, self.embedding.to(self.dtype))
 
 
 class RMSNorm(nn.Module):
-    """RMSNorm with an f32 scale (ones at init) over ``ops.rms_norm``."""
+    """RMSNorm with an f32 scale (ones at init) over ``ops.rms_norm``; a
+    scale stored in another dtype (a bf16 copy differentiated for bf16
+    gradients) is cast to f32 at use."""
 
     def __init__(self, dim: int, *, eps: float = 1e-6, impl: str = "auto",
                  device=None):
@@ -98,7 +111,8 @@ class RMSNorm(nn.Module):
             self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ops.rms_norm(x, self.scale, eps=self.eps, impl=self.impl)
+        return ops.rms_norm(x, self.scale.float(), eps=self.eps,
+                            impl=self.impl)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
@@ -157,6 +171,7 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, *, rope_theta: float, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None,
                  impl: str = "auto", device=None):
         super().__init__()
         self.num_heads = num_heads
@@ -164,7 +179,8 @@ class Attention(nn.Module):
         self.head_dim = head_dim
         self.rope_theta = rope_theta
         self.impl = impl
-        lin = lambda i, o: Linear(i, o, dtype=dtype, device=device)
+        lin = lambda i, o: Linear(i, o, dtype=dtype, param_dtype=param_dtype,
+                                  device=device)
         self.q_proj = lin(dim, num_heads * head_dim)
         self.k_proj = lin(dim, num_kv_heads * head_dim)
         self.v_proj = lin(dim, num_kv_heads * head_dim)
@@ -218,11 +234,13 @@ class Attention(nn.Module):
 
 class SwiGLU(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, *, dtype: torch.dtype,
-                 device=None):
+                 param_dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
-        self.gate_proj = Linear(dim, hidden_dim, dtype=dtype, device=device)
-        self.up_proj = Linear(dim, hidden_dim, dtype=dtype, device=device)
-        self.down_proj = Linear(hidden_dim, dim, dtype=dtype, device=device)
+        lin = lambda i, o: Linear(i, o, dtype=dtype, param_dtype=param_dtype,
+                                  device=device)
+        self.gate_proj = lin(dim, hidden_dim)
+        self.up_proj = lin(dim, hidden_dim)
+        self.down_proj = lin(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))

@@ -4,8 +4,11 @@
 GQA + RoPE (half-split) + RMSNorm + SwiGLU, ``lm_head`` in f32.  The
 parameter names follow the reference's tree (``models/convert.py`` maps
 one onto the other).  Every op with a CUDA kernel (RMSNorm, causal flash
-prefill, flash decode) routes through ``cfg.impl``: "auto" takes the
-kernels on the card and the plain versions on the CPU.
+attention forward and backward, flash decode) routes through ``cfg.impl``:
+"auto" takes the kernels on the card and the plain versions on the CPU.
+Training stores f32 parameters (``param_dtype``) and computes in
+``dtype``; ``remat`` recomputes a block or its MLP in the backward
+(``torch.utils.checkpoint``, the reference's ``nn.remat``).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.models.layers import (
     Attention,
@@ -28,6 +32,19 @@ from kubeflow_tpu_torch.models.registry import register_model
 NEG_INF = -1e30
 
 
+def _remat(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` under ``torch.utils.checkpoint``, with
+    the parameters it runs with passed in explicitly.  The backward's
+    recompute runs after a caller's ``torch.func.functional_call`` has put
+    the module's own parameters back (``train/steps.py`` differentiates
+    bf16 copies of the f32 masters): it must see the tensors the forward
+    saw, not the masters."""
+    params = dict(module.named_parameters())
+    return checkpoint(
+        lambda p, *a: torch.func.functional_call(module, p, a, kwargs),
+        params, *args, use_reentrant=False)
+
+
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     vocab_size: int = 32000
@@ -40,10 +57,22 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # Storage dtype of the parameters (None: ``dtype``); training keeps the
+    # f32 master weights the reference keeps (flax param_dtype).
+    param_dtype: Optional[torch.dtype] = None
+    # With remat: "block" recomputes the whole layer in the backward, "mlp"
+    # only the SwiGLU (the reference's llama.py:41-49).
+    remat: bool = False
+    remat_mode: str = "block"
     # "auto" | "kernel" | "plain": routes RMSNorm and attention (ops/).
     impl: str = "auto"
     # MoE (Mixtral-style) is not ported: n_experts > 0 raises in Llama.
     n_experts: int = 0
+
+    def __post_init__(self):
+        if self.remat_mode not in ("block", "mlp"):
+            raise ValueError("remat_mode must be 'block' or 'mlp', got "
+                             f"{self.remat_mode!r}")
 
     @property
     def head_dim(self) -> int:
@@ -88,19 +117,23 @@ class LlamaBlock(nn.Module):
                                  device=device)
         self.attn = Attention(
             cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-            rope_theta=cfg.rope_theta, dtype=cfg.dtype, impl=cfg.impl,
-            device=device)
+            rope_theta=cfg.rope_theta, dtype=cfg.dtype,
+            param_dtype=cfg.param_dtype, impl=cfg.impl, device=device)
         self.mlp_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps, impl=cfg.impl,
                                 device=device)
         self.mlp = SwiGLU(cfg.dim, cfg.ffn_dim, dtype=cfg.dtype,
-                          device=device)
+                          param_dtype=cfg.param_dtype, device=device)
+        self.remat_mlp = cfg.remat and cfg.remat_mode == "mlp"
 
     def forward(self, x, positions, *, segment_ids=None, cache=None,
                 layer=0, bias_rows=None):
         h = self.attn(self.attn_norm(x), positions, segment_ids=segment_ids,
                       cache=cache, layer=layer, bias_rows=bias_rows)
         x = x + h
-        return x + self.mlp(self.mlp_norm(x))
+        h = self.mlp_norm(x)
+        if self.remat_mlp and torch.is_grad_enabled():
+            return x + _remat(self.mlp, h)
+        return x + self.mlp(h)
 
 
 class Llama(nn.Module):
@@ -115,7 +148,7 @@ class Llama(nn.Module):
                 "MoE (n_experts > 0) is not ported yet; see ROADMAP.md")
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.dim, dtype=cfg.dtype,
-                           device=device)
+                           param_dtype=cfg.param_dtype, device=device)
         self.layers = nn.ModuleList(
             LlamaBlock(cfg, device=device) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps, impl=cfg.impl,
@@ -149,9 +182,13 @@ class Llama(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
                 pad_bias: Optional[torch.Tensor] = None,
-                logits_at: Optional[torch.Tensor] = None) -> torch.Tensor:
+                logits_at: Optional[torch.Tensor] = None,
+                return_hidden: bool = False) -> torch.Tensor:
         """Logits [b, s, vocab] f32, or [b, vocab] at the per-row
-        positions ``logits_at`` [b] (the head then runs on those rows only).
+        positions ``logits_at`` [b] (the head then runs on those rows only),
+        or with ``return_hidden`` the final-normed hidden states [b, s, dim]
+        without the head (the caller applies it per chunk:
+        ``train/steps.py`` ``chunked_cross_entropy``).
 
         With ``cache``, the call writes its K/V at ``cache.index`` and
         advances it.  A single-token call attends over the whole cache
@@ -170,11 +207,18 @@ class Llama(nn.Module):
                 bias_rows = bias_rows + pad_bias
             bias_rows = bias_rows.contiguous()
         x = self.embed(tokens)
+        remat_block = (self.cfg.remat and self.cfg.remat_mode == "block"
+                       and cache is None and torch.is_grad_enabled())
         for i, block in enumerate(self.layers):
-            x = block(x, positions, segment_ids=segment_ids, cache=cache,
-                      layer=i, bias_rows=bias_rows)
+            if remat_block:
+                x = _remat(block, x, positions, segment_ids=segment_ids)
+            else:
+                x = block(x, positions, segment_ids=segment_ids, cache=cache,
+                          layer=i, bias_rows=bias_rows)
         if cache is not None:
             cache.index += s
+        if return_hidden:
+            return self.final_norm(x)
         if logits_at is not None:
             x = x[torch.arange(b, device=x.device), logits_at][:, None]
         logits = self.lm_head(self.final_norm(x))

@@ -35,9 +35,18 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, scale, y, rows, d, eps, x_is_bf16, stream
     "kft_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _P),
-    # q, k, v, seg_or_null, o, b, sq, sk, hq, hk, d, causal, scale, stream
-    "kft_flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _F, _P),
+    # q, k, v, seg_or_null, o, lse_or_null, b, sq, sk, hq, hk, d, causal,
+    # scale, stream
+    "kft_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _P),
+    # q, k, v, o, dout, lse, glse_or_null, seg_or_null, dq, delta, b, sq, sk,
+    # hq, hk, d, causal, scale, stream
+    "kft_flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, dout, lse, delta, seg_or_null, dk, dv, b, sq, sk, hq, hk, d,
+    # causal, scale, stream
+    "kft_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _P),
     # q, k, v, bias, o, part_o, part_ml, b, S, h, kv_h, d, scale, stream
     "kft_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _F, _P),

@@ -48,7 +48,9 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           impl: str = "auto") -> torch.Tensor:
     """Scaled dot-product attention, BSHD.  The flash kernel takes no
     additive ``bias``: a biased call on CUDA tensors raises unless
-    ``impl="plain"``."""
+    ``impl="plain"``.  On CUDA tensors, a call that autograd records (grad
+    enabled and q, k or v requiring grad) runs the differentiable kernels
+    (K2-lse forward, K3 + K4 backward); any other runs K2 alone."""
     if _route(impl, q):
         return plain_attention(q, k, v, causal=causal,
                                segment_ids=segment_ids, bias=bias,
@@ -56,6 +58,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias is not None:
         raise ValueError("the flash kernel takes no additive bias; pass "
                          "impl='plain' for a biased call on the card")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _k2.flash_attention_with_lse(
+            q, k, v, causal=causal, segment_ids=segment_ids,
+            softmax_scale=softmax_scale)[0]
     return _k2.flash_attention(q, k, v, causal=causal,
                                segment_ids=segment_ids,
                                softmax_scale=softmax_scale)

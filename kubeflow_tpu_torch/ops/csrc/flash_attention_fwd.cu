@@ -1,8 +1,12 @@
 // Flash attention forward (online softmax) for Hopper, BSHD layout, bf16.
 //
 // Replaces: kubeflow_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (via
-// `_flash_fwd`, `flash_attention`), the forward without the logsumexp
-// output.  Same semantics: end-aligned causal mask (query row i sees keys
+// `_flash_fwd`, `flash_attention`), with and without the logsumexp output
+// (`return_residuals`, the forward of `flash_attention_with_lse` and of
+// training).  Given an `lse` pointer ([b, hq, sq] f32; the reference
+// lane-replicates it as [b, hq, sq, 128]) the kernel also writes
+// m + log(l) per row from the registers that normalise O; serving passes
+// null.  Same semantics: end-aligned causal mask (query row i sees keys
 // j <= i + sk - sq), dead kv tiles skipped, `segment_ids` equality mask,
 // GQA with kv head = h / (hq / hk), probabilities of masked slots zeroed
 // (so a row with no visible key in a tile adds nothing), and l == 0 -> 1.
@@ -41,25 +45,9 @@ constexpr int kBK = 64;    // keys per staged tile
 constexpr int kWarps = 4;
 constexpr int kPad = 8;    // bf16 elements of padding per shared-memory row
 
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 that are not adjacent in memory -> one packed register.
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
+using kft::ld32;
+using kft::mma16816;
+using kft::pack2;
 
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -67,8 +55,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const int* __restrict__ seg,
-                 __nv_bfloat16* __restrict__ o, int sq, int sk, int hq,
-                 int hk, int causal, float scale) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int sq, int sk, int hq, int hk, int causal, float scale) {
   constexpr int KD = D / 16;   // k-steps of the QK^T product
   constexpr int NS = kBK / 8;  // n-tiles of S per warp
   constexpr int ND = D / 8;    // n-tiles of O per warp
@@ -230,6 +218,14 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
+  // The logsumexp of each row's scaled logits, from the m and l that
+  // normalise O (unguarded, as the reference writes it: every row the
+  // kernel admits sees at least one key).
+  if (lse != nullptr && t == 0) {
+    float* row_lse = lse + ((size_t)bi * hq + h) * sq;
+    if (r0 < sq) row_lse[r0] = m0 + logf(l0);
+    if (r1 < sq) row_lse[r1] = m1 + logf(l1);
+  }
   const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
   const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
   __nv_bfloat16* o0 = o + ((size_t)(bi * sq + r0) * hq + h) * D;
@@ -250,7 +246,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
 extern "C" int kft_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* seg,
-                                       void* o, int b, int sq, int sk, int hq,
+                                       void* o, void* lse, int b, int sq,
+                                       int sk, int hq,
                                        int hk, int d, int causal, float scale,
                                        void* stream) {
   dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
@@ -260,12 +257,13 @@ extern "C" int kft_flash_attention_fwd(const void* q, const void* k,
   const auto* v_ = static_cast<const __nv_bfloat16*>(v);
   const auto* seg_ = static_cast<const int*>(seg);
   auto* o_ = static_cast<__nv_bfloat16*>(o);
+  auto* lse_ = static_cast<float*>(lse);
   if (d == 128) {
     flash_fwd_kernel<128><<<grid, kWarps * 32, 0, s>>>(
-        q_, k_, v_, seg_, o_, sq, sk, hq, hk, causal, scale);
+        q_, k_, v_, seg_, o_, lse_, sq, sk, hq, hk, causal, scale);
   } else if (d == 64) {
     flash_fwd_kernel<64><<<grid, kWarps * 32, 0, s>>>(
-        q_, k_, v_, seg_, o_, sq, sk, hq, hk, causal, scale);
+        q_, k_, v_, seg_, o_, lse_, sq, sk, hq, hk, causal, scale);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

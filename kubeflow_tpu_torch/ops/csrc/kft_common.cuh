@@ -37,4 +37,30 @@ __device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
   return __bfloat1622float2(h);
 }
 
+// Two adjacent bf16 (4-byte aligned) -> one packed register.
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two bf16 that are not adjacent in memory -> one packed register.
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
+                                          __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// c += a * b on the tensor cores: m16n8k16, bf16 inputs, f32 accumulate.
+// Fragments (g = lane / 4, t = lane % 4): a[0..3] hold A rows g, g+8 at
+// columns 2t, 2t+1 (a[0], a[1]) and 2t+8, 2t+9 (a[2], a[3]); b0/b1 hold
+// B column g at rows 2t, 2t+1 and 2t+8, 2t+9; c[0..1] is row g and
+// c[2..3] row g+8, both at columns 2t, 2t+1.
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 }  // namespace kft

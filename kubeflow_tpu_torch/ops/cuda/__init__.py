@@ -13,6 +13,9 @@ from kubeflow_tpu_torch.ops.cuda import flash_attention, flash_decode, rms_norm
 WRAPPERS = {
     "rms_norm": rms_norm.rms_norm,
     "flash_attention_fwd": flash_attention.flash_attention,
+    "flash_attention_fwd_lse": flash_attention.flash_attention_fwd_lse,
+    "flash_attention_dq": flash_attention.flash_attention_dq,
+    "flash_attention_dkv": flash_attention.flash_attention_dkv,
     "flash_decode": flash_decode.flash_decode,
 }
 

@@ -3,7 +3,10 @@
 
 ``rms_norm`` launches the kernel for a CUDA tensor and raises on what the
 kernel does not take; it takes the plain version only for a CPU tensor.
-``rms_norm.launches`` counts kernel launches.
+``rms_norm.launches`` counts kernel launches.  ``RMSNormFunction`` makes
+it differentiable: the kernel forward and the reference's analytic
+backward in plain PyTorch (``rms_norm_backward``; the reference has no
+backward kernel, ``kubeflow_tpu/ops/pallas/rms_norm.py`` ``_bwd``).
 """
 from __future__ import annotations
 
@@ -57,3 +60,35 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
 
 
 rms_norm.launches = 0
+
+
+def rms_norm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                      *, eps: float = 1e-6):
+    """``(dx, dscale)`` of ``rms_norm`` for the cotangent ``g``: the
+    reference's formula in f32, dx = r * g * scale - x * r^3 *
+    mean(g * scale * x), dscale = sum over rows of g * x * r, with
+    r = rsqrt(mean(x^2) + eps); dx in x's dtype, dscale in scale's."""
+    d = x.shape[-1]
+    x32, g32, s32 = x.float(), g.float(), scale.float()
+    r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    gs = g32 * s32
+    dx = r * gs - x32 * r.pow(3) * (gs * x32).mean(dim=-1, keepdim=True)
+    dscale = (g32 * x32 * r).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """Differentiable ``rms_norm`` on the card: the kernel forward (one
+    launch) and ``rms_norm_backward``.  Saves x and scale."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rms_norm(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rms_norm_backward(x, scale, g, eps=ctx.eps)
+        return dx, dscale, None

@@ -17,11 +17,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
 
     impl: "auto" runs the CUDA kernel on a CUDA tensor and the plain
     version on a CPU tensor; "kernel" requires a CUDA tensor (raises on
-    the CPU); "plain" always runs the plain PyTorch version."""
+    the CPU); "plain" always runs the plain PyTorch version.  Every route
+    is differentiable: the kernel's through ``RMSNormFunction`` (the
+    reference's analytic backward), the plain one by torch autograd."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
-    if impl == "plain":
-        return plain_rms_norm(x, scale, eps=eps)
     if impl == "kernel" and x.device.type != "cuda":
         raise ValueError(f"impl='kernel' needs a CUDA tensor, got {x.device}")
-    return _k1.rms_norm(x, scale, eps=eps)
+    if impl == "plain" or x.device.type == "cpu":
+        return plain_rms_norm(x, scale, eps=eps)
+    return _k1.RMSNormFunction.apply(x, scale, eps)

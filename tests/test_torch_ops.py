@@ -131,7 +131,9 @@ def test_wrappers_take_plain_path_on_cpu_without_launching():
     torch.testing.assert_close(o, ops.plain_attention(q, k, v, causal=True))
     torch.testing.assert_close(od, ops.plain_decode(q[:, :1], k, v, rows))
     assert kernels.launch_counts() == {
-        "rms_norm": 0, "flash_attention_fwd": 0, "flash_decode": 0}
+        "rms_norm": 0, "flash_attention_fwd": 0,
+        "flash_attention_fwd_lse": 0, "flash_attention_dq": 0,
+        "flash_attention_dkv": 0, "flash_decode": 0}
 
 
 def test_kernel_impl_on_cpu_raises_and_unported_impls_name_roadmap():
