@@ -111,6 +111,13 @@ COMPOSE_RATIO = 1.5
 VARIANT_TOL = {"remat_block": (1e-6, 1e-3), "remat_mlp": (1e-6, 1e-3),
                "ce_chunk_1024": (1e-5, 1e-2), "grad_accum_2": (1e-3, 1e-2)}
 
+# Tiles and ring depths of the attention kernels in ops/csrc, so the edge
+# cases reach one short of a tile, a whole tile, one past it, and one past
+# a full ring: K2 streams 128-key tiles through 2 stages; K4 holds 128
+# keys a block and streams 64-row q tiles through 2 stages.
+K2_TILE, K2_STAGES = 128, 2
+K4_KEYS, K4_ROWS, K4_STAGES = 128, 64, 2
+
 # Serving phase: 4 right-padded rows, max_new_tokens 32.
 PROMPT_LENS = (17, 128, 300, 512)
 NEW_TOKENS = 32
@@ -136,6 +143,15 @@ def bound_ms(nbytes: float, flops: float, flops_peak: float):
     t_ops = flops / flops_peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def add_rates(row, flops):
+    """A timed row's achieved rate and roofline share: ``tflops`` is the
+    flops its bound counts (visible pairs for attention) over the kernel's
+    time, ``bound_share`` is bound_ms / kernel_ms."""
+    row["tflops"] = flops / (row["kernel_ms"] * 1e-3) / 1e12
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    return row
 
 
 class Timer:
@@ -235,7 +251,8 @@ def phase_kernels(torch, dev, timer):
         tol = KERNEL_TOL["rms_norm"]
         err, share = check_close("rms_norm", got, want, tol)
         nbytes = nrows * d * 4 + d * 4
-        bms, by = bound_ms(nbytes, 4 * nrows * d, PEAK_F32_FLOPS)
+        flops = 4 * nrows * d
+        bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
         row = {"kernel": "rms_norm", "shape": [nrows, d], "path": where,
                "max_abs_err": err, "tol": tol, "tol_share": share,
                "kernel_ms": timer(lambda: k1.rms_norm(x, scale, eps=1e-5)),
@@ -244,7 +261,7 @@ def phase_kernels(torch, dev, timer):
                "library_ms": timer(lambda: F.rms_norm(
                    x, (d,), weight=scale.to(bf), eps=1e-5)),
                "bound_ms": bms, "bound_by": by}
-        emit(row)
+        emit(add_rates(row, flops))
         if where == "decode":
             rows["rms_norm"] = row
 
@@ -272,7 +289,8 @@ def phase_kernels(torch, dev, timer):
         else:
             pairs = vis.sum().item() * h * b
         nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
-        bms, by = bound_ms(nbytes, 4 * pairs * hd, PEAK_BF16_FLOPS)
+        flops = 4 * pairs * hd
+        bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if seg is None:
             lib = lambda: F.scaled_dot_product_attention(
@@ -288,7 +306,7 @@ def phase_kernels(torch, dev, timer):
                "plain_ms": timer(lambda: k2.plain_attention(
                    q, k, v, causal=True, segment_ids=seg)),
                "library_ms": timer(lib), "bound_ms": bms, "bound_by": by}
-        emit(row)
+        emit(add_rates(row, flops))
         if s == 512 and not packed:
             rows["flash_attention_fwd"] = row
 
@@ -304,7 +322,8 @@ def phase_kernels(torch, dev, timer):
         tol = KERNEL_TOL["flash_decode"]
         err, share = check_close("flash_decode", got, want, tol)
         nbytes = 2 * b * S * kvh * hd * 2 + b * S * 4 + 2 * b * h * hd * 2
-        bms, by = bound_ms(nbytes, 4 * b * h * S * hd, PEAK_BF16_FLOPS)
+        flops = 4 * b * h * S * hd
+        bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         mask = bias[:, None, None, :].to(bf)
         row = {"kernel": "flash_decode", "shape": [b, S, h, kvh, hd],
@@ -315,17 +334,48 @@ def phase_kernels(torch, dev, timer):
                "library_ms": timer(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, attn_mask=mask, enable_gqa=True)),
                "bound_ms": bms, "bound_by": by}
-        emit(row)
+        emit(add_rates(row, flops))
         if S == 512 + NEW_TOKENS:
             rows["flash_decode"] = row
     return rows
+
+
+def edge_segments(torch, dev, gen, kind, b, s):
+    """Segment ids [b, s] int32 for an edge case, or None.  "blocks": runs
+    of 50 (at s300 without the causal mask, tiles whose id ranges do not
+    meet are skipped by K2 and K4); "pads": row 0 two documents and a pad tail, row 1 pad rows
+    first (segment 0 attends only to segment 0), then two documents;
+    "random": ids drawn from {1, 2, 3} per position (not monotone, no
+    runs); "permuted": runs of 50 at positions permuted at random;
+    "lone": runs of 50 whose row 0 is a one-token segment, so row 0 sees
+    no key in any kv tile past the first."""
+    if kind is None:
+        return None
+    pos = torch.arange(s, device=dev)
+    if kind == "pads":
+        seg = torch.stack([
+            torch.where(pos < 50, 1, torch.where(pos < s - 20, 2, 0)),
+            torch.where(pos < 10, 0, torch.where(pos < 70, 1, 2))])[:b]
+    elif kind == "random":
+        seg = torch.randint(1, 4, (b, s), generator=gen, device=dev)
+    else:
+        seg = (pos // 50 + 1).expand(b, s).clone()
+        if kind == "permuted":
+            seg = torch.stack([row[torch.randperm(s, generator=gen,
+                                                  device=dev)]
+                               for row in seg])
+        elif kind == "lone":
+            seg[:, 0] = -7
+    return seg.int().contiguous()
 
 
 def phase_edges(torch, dev):
     """The shapes the kernels accept beyond the serving path's, each
     against its plain version (untimed): f32 and narrow/wide rows for K1;
     head_dim 64, no mask, cross-length causal, one query or one key,
-    single-row segments for K2; every GQA group size, head_dim 64 and
+    key counts around K2's tile and ring, sq 8191, GQA 8 at head_dim 64,
+    and segment ids in runs, drawn at random, permuted, or with a
+    one-token segment for K2; every GQA group size, head_dim 64 and
     ragged chunk tails for K5."""
     from kubeflow_tpu_torch.ops.cuda import flash_attention as k2
     from kubeflow_tpu_torch.ops.cuda import flash_decode as k5
@@ -352,18 +402,28 @@ def phase_edges(torch, dev):
         check("rms_norm", f"{rows}x{d} {str(dt)[6:]}", k1.rms_norm(x, scale),
               k1.plain_rms_norm(x.float(), scale))
     # (b, sq, sk, h, kv_h, d, causal, segments)
+    tile_edges = (K2_TILE - 1, K2_TILE, K2_TILE + 1,
+                  K2_STAGES * K2_TILE + 1)
     for b, sq, sk, h, kvh, d, causal, segs in (
-            (2, 100, 100, 4, 4, 64, True, False),
-            (1, 77, 77, 8, 2, 128, False, False),
-            (2, 37, 200, 4, 1, 128, True, False),
-            (1, 1, 1, 2, 1, 128, True, False),
-            (2, 1, 130, 4, 2, 64, True, False),
-            (1, 130, 130, 4, 2, 128, True, True)):
+            (2, 100, 100, 4, 4, 64, True, None),
+            (1, 77, 77, 8, 2, 128, False, None),
+            (2, 37, 200, 4, 1, 128, True, None),
+            (1, 1, 1, 2, 1, 128, True, None),
+            (2, 1, 130, 4, 2, 64, True, None),
+            (1, 130, 130, 4, 2, 128, True, "blocks"),
+            (1, 64, 1, 4, 2, 128, False, None),
+            *((1, n, n, 4, 2, 128, True, None) for n in tile_edges),
+            *((1, 50, n, 4, 2, 64, False, None) for n in tile_edges),
+            (1, 8191, 8191, 2, 1, 128, True, None),
+            (1, 129, 300, 4, 2, 128, True, None),
+            (2, 200, 200, 8, 1, 64, True, None),
+            (2, 300, 300, 4, 2, 128, False, "blocks"),
+            (2, 300, 300, 4, 2, 128, True, "random"),
+            (1, 257, 257, 4, 4, 64, False, "random"),
+            (2, 300, 300, 4, 2, 128, True, "permuted"),
+            (1, 300, 300, 4, 2, 128, False, "lone")):
         q, k, v = rnd(b, sq, h, d), rnd(b, sk, kvh, d), rnd(b, sk, kvh, d)
-        seg = None
-        if segs:
-            seg = (torch.arange(sq, device=dev)[None] // 50 + 1).expand(
-                b, sq).contiguous()
+        seg = edge_segments(torch, dev, gen, segs, b, sq)
         check("flash_attention_fwd",
               f"b{b} sq{sq} sk{sk} h{h}/{kvh} d{d} causal={causal} "
               f"segments={segs}",
@@ -662,7 +722,14 @@ def train_kernel_case(torch, dev, gen, b, sq, sk, h, kvh, d, causal, seg,
     o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
     dq, delta = fa.flash_attention_dq(q, k, v, o, do, lse, g_lse=gl, **kw)
     dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
+    # K4 sums each GQA group in a fixed order, without atomics: a second
+    # launch on the same inputs must repeat dk and dv to the bit.
+    dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError("flash_attention_dkv: a second launch on the "
+                             "same inputs gave other dk/dv bits")
+    del dk2, dv2
     f32 = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = fa.plain_attention_with_lse(*f32[:3], **kw)
     checks = {"o": check_close("flash_attention_fwd_lse o", o, o_ref,
@@ -678,7 +745,7 @@ def train_kernel_case(torch, dev, gen, b, sq, sk, h, kvh, d, causal, seg,
                                     KERNEL_TOL[kernel])
     del ref, f32
     return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta,
-                checks=checks)
+                checks=checks, dkv_bit_equal=True)
 
 
 def phase_train_kernels(torch, dev, timer):
@@ -700,13 +767,13 @@ def phase_train_kernels(torch, dev, timer):
                              k1.plain_rms_norm(x.float(), scale, eps=1e-5),
                              tol)
     bms, by = bound_ms(n * dm * 4 + dm * 4, 4 * n * dm, PEAK_F32_FLOPS)
-    emit({"kernel": "rms_norm", "shape": [n, dm], "path": "train",
+    emit(add_rates({"kernel": "rms_norm", "shape": [n, dm], "path": "train",
           "max_abs_err": err, "tol": tol, "tol_share": share,
           "kernel_ms": timer(lambda: k1.rms_norm(x, scale, eps=1e-5)),
           "plain_ms": timer(lambda: k1.plain_rms_norm(x, scale, eps=1e-5)),
           "library_ms": timer(lambda: F.rms_norm(
               x, (dm,), weight=scale.to(torch.bfloat16), eps=1e-5)),
-          "bound_ms": bms, "bound_by": by})
+          "bound_ms": bms, "bound_by": by}, 4 * n * dm))
     del x, scale
     for name, (b, s, h, kvh, d, packed) in (
             ("llama_1b4", (1, 8192, 16, 16, 128, False)),
@@ -737,6 +804,7 @@ def phase_train_kernels(torch, dev, timer):
         out = {
             "flash_attention_fwd_lse": dict(
                 check=c["checks"]["lse"], o_check=c["checks"]["o"],
+                flops=4 * pairs * d,
                 bound=bound_ms(qkv_bytes + qo_bytes + row_bytes,
                                4 * pairs * d, PEAK_BF16_FLOPS),
                 ms=timer(lambda: fa.flash_attention_fwd_lse(q, k, v, **kw)),
@@ -745,6 +813,7 @@ def phase_train_kernels(torch, dev, timer):
                 library_ms=timer(lib_fwd)),
             "flash_attention_dq": dict(
                 check=c["checks"]["dq"],
+                flops=6 * pairs * d,
                 bound=bound_ms(qkv_bytes + 3 * qo_bytes + 2 * row_bytes,
                                6 * pairs * d, PEAK_BF16_FLOPS),
                 ms=timer(lambda: fa.flash_attention_dq(
@@ -755,6 +824,7 @@ def phase_train_kernels(torch, dev, timer):
             "flash_attention_dkv": dict(
                 check=max(c["checks"]["dk"], c["checks"]["dv"],
                           key=lambda x: x[1]),
+                flops=8 * pairs * d,
                 bound=bound_ms(2 * qkv_bytes + 2 * row_bytes,
                                8 * pairs * d, PEAK_BF16_FLOPS),
                 ms=timer(lambda: fa.flash_attention_dkv(
@@ -783,7 +853,8 @@ def phase_train_kernels(torch, dev, timer):
             if kernel == "flash_attention_dkv":
                 row["dk_rel_l2"] = c["checks"]["dk"][0]
                 row["dv_rel_l2"] = c["checks"]["dv"][0]
-            emit(row)
+                row["bit_equal_on_relaunch"] = c["dkv_bit_equal"]
+            emit(add_rates(row, r["flops"]))
             if name == "llama_1b4":
                 rows[kernel] = row
         del c, q, k, v, do, o, lse, delta, qt, kt, vt, lib_out, go, vis
@@ -794,31 +865,41 @@ def phase_train_kernels(torch, dev, timer):
 
 def phase_train_edges(torch, dev):
     """K2-lse, K3 and K4 beyond the training path's shapes, each against
-    its plain version (untimed)."""
+    its plain version (untimed), K4 also against its own second launch
+    (bit-equal): ragged and cross-length causal, head_dim 64, one key,
+    every GQA group size and GQA 8 at head_dim 64, lengths around K2's
+    key tile and ring and K4's q tile and ring, sq 8191, nonzero g_lse,
+    and segment ids with pads, drawn at random, permuted, or with a
+    one-token segment (``edge_segments``)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst = {}
     # (b, sq, sk, h, kv_h, d, causal, segments, g_lse)
-    cases = [(2, 100, 100, 4, 2, 128, True, False, False),
-             (2, 37, 200, 4, 1, 128, True, False, False),
-             (1, 50, 130, 4, 2, 64, False, False, False),
-             (2, 130, 130, 4, 4, 64, True, False, False),
-             (1, 1, 1, 2, 1, 128, True, False, False),
-             (2, 1, 70, 4, 2, 128, True, False, False)]
-    cases += [(1, 96, 96, 8, 8 // g, 128, True, False, False)
+    cases = [(2, 100, 100, 4, 2, 128, True, None, False),
+             (2, 37, 200, 4, 1, 128, True, None, False),
+             (1, 50, 130, 4, 2, 64, False, None, False),
+             (2, 130, 130, 4, 4, 64, True, None, False),
+             (1, 1, 1, 2, 1, 128, True, None, False),
+             (2, 1, 70, 4, 2, 128, True, None, False)]
+    cases += [(1, 96, 96, 8, 8 // g, 128, True, None, False)
               for g in (1, 2, 4, 8)]
-    cases += [(2, 130, 130, 4, 2, 128, True, True, False),
-              (1, 77, 77, 8, 2, 64, False, False, True),
-              (2, 100, 100, 4, 2, 128, True, True, True)]
+    cases += [(2, 130, 130, 4, 2, 128, True, "pads", False),
+              (1, 77, 77, 8, 2, 64, False, None, True),
+              (2, 100, 100, 4, 2, 128, True, "pads", True)]
+    lengths = sorted({1, K2_TILE - 1, K2_TILE, K2_TILE + 1,
+                      K2_STAGES * K2_TILE + 1, K4_ROWS - 1, K4_ROWS,
+                      K4_ROWS + 1, K4_STAGES * K4_ROWS + 1, K4_KEYS + 1})
+    cases += [(1, n, n, 4, 2, 128, True, None, False) for n in lengths]
+    cases += [(1, 40, n, 4, 2, 64, False, None, False) for n in lengths]
+    cases += [(1, 8191, 8191, 2, 1, 128, True, None, False),
+              (1, 129, 300, 4, 2, 128, True, None, False),
+              (2, 200, 200, 8, 1, 64, True, None, False),
+              (2, 300, 300, 4, 2, 128, False, "blocks", False),
+              (2, 300, 300, 4, 2, 128, True, "random", False),
+              (1, 257, 257, 4, 4, 64, False, "random", True),
+              (2, 300, 300, 4, 2, 128, True, "permuted", False),
+              (1, 300, 300, 4, 2, 128, False, "lone", False)]
     for b, sq, sk, h, kvh, d, causal, segs, glse in cases:
-        seg = None
-        if segs:
-            # Row 0: two documents and a pad tail; row 1: pad rows first
-            # (segment 0 attends only to segment 0), then two documents.
-            pos = torch.arange(sq, device=dev)
-            seg = torch.stack([
-                torch.where(pos < 50, 1, torch.where(pos < sq - 20, 2, 0)),
-                torch.where(pos < 10, 0, torch.where(pos < 70, 1, 2))])
-            seg = seg[:b].int().contiguous()
+        seg = edge_segments(torch, dev, gen, segs, b, sq)
         case = (f"b{b} sq{sq} sk{sk} h{h}/{kvh} d{d} causal={causal} "
                 f"segments={segs} g_lse={glse}")
         c = train_kernel_case(torch, dev, gen, b, sq, sk, h, kvh, d, causal,
