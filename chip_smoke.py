@@ -12,7 +12,8 @@ Phases, each of which raises on failure (exit code 1):
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the serving path gives it, timed with CUDA events (median of 25 runs,
    L2 flushed before each), beside its bound and one PyTorch library call
-   that computes the same function (a yardstick the port never calls).
+   that computes the same function (a yardstick the port never calls);
+   first, the timer's reading of a kernel that does no work.
    Then the shapes the kernels accept beyond the serving path's.
 4. compose: ``llama3_8b`` at full width, 2 layers, on the card: the
    kernel route (impl="auto") against impl="plain" on the logits of a
@@ -111,12 +112,18 @@ COMPOSE_RATIO = 1.5
 VARIANT_TOL = {"remat_block": (1e-6, 1e-3), "remat_mlp": (1e-6, 1e-3),
                "ce_chunk_1024": (1e-5, 1e-2), "grad_accum_2": (1e-3, 1e-2)}
 
-# Tiles and ring depths of the attention kernels in ops/csrc, so the edge
-# cases reach one short of a tile, a whole tile, one past it, and one past
-# a full ring: K2 streams 128-key tiles through 2 stages; K4 holds 128
-# keys a block and streams 64-row q tiles through 2 stages.
+# Tiles, rings and slices of the attention kernels in ops/csrc (the
+# constexprs of the .cu files; tests/test_torch_build_abi.py holds the two
+# equal), so the edge cases reach one short of a tile, a whole tile, one
+# past it, and one past a full ring: K2 streams 128-key tiles through 2
+# stages; K3 holds 128 q rows a block and streams 128-key tiles through 2
+# stages; K4 holds 128 keys a block and streams 64-row q tiles through 2
+# stages; K5 gives each block of a cluster of at most 8 at least 64 keys,
+# streamed in chunks of up to 64 keys through 4 stages.
 K2_TILE, K2_STAGES = 128, 2
+K3_ROWS, K3_KEYS, K3_STAGES = 128, 128, 2
 K4_KEYS, K4_ROWS, K4_STAGES = 128, 64, 2
+K5_SLICE, K5_CLUSTER, K5_CHUNK, K5_STAGES = 64, 8, 64, 4
 
 # Serving phase: 4 right-padded rows, max_new_tokens 32.
 PROMPT_LENS = (17, 128, 300, 512)
@@ -240,6 +247,10 @@ def phase_kernels(torch, dev, timer):
     bf = torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf)
     rows = {}
+    # The timer's floor: its reading of a kernel that does no work (a
+    # one-element fill).  A row that reads near it is launch latency.
+    one = torch.zeros(1, device=dev)
+    emit({"phase": "timer", "one_element_fill_ms": timer(one.zero_)})
 
     # K1: prefill rows (4 x 512 tokens) and decode rows (4 tokens).
     d = 4096
@@ -310,12 +321,14 @@ def phase_kernels(torch, dev, timer):
         if s == 512 and not packed:
             rows["flash_attention_fwd"] = row
 
-    # K5: one decode token over S = prompt + 32 slots, padded rows masked.
-    for S in (512 + NEW_TOKENS, 1000):
+    # K5: one decode token over S = prompt + 32 slots, padded rows masked;
+    # and one long row (b1 S8192), whose cache is 33.5 MB.
+    for b, S in ((4, 512 + NEW_TOKENS), (4, 1000), (1, 8192)):
         q = rnd(b, 1, h, hd)
         k, v = rnd(b, S, kvh, hd), rnd(b, S, kvh, hd)
+        lens = [[17], [128], [300], [S]] if b == 4 else [[S]]
         valid = torch.arange(S, device=dev)[None] < torch.tensor(
-            [[17], [128], [300], [S]], device=dev)
+            lens, device=dev)
         bias = torch.where(valid, 0.0, -1e30).float().contiguous()
         got = k5.flash_decode(q, k, v, bias)
         want = k5.plain_decode(q.float(), k.float(), v.float(), bias)
@@ -369,14 +382,36 @@ def edge_segments(torch, dev, gen, kind, b, s):
     return seg.int().contiguous()
 
 
+def decode_bias(torch, dev, kind, b, S):
+    """A K5 bias [b, S] f32 of -1e30 (the reference's pad value) and 0:
+    "thirds" masks every third slot; "block" also masks the whole slice
+    of the second block of a cluster of min(K5_CLUSTER, S // K5_SLICE)
+    blocks (the first when there is one; where the card holds fewer such
+    clusters at once than the grid has, the kernel takes smaller clusters
+    and the run spans two slices); "all" masks every slot of row 0 (it
+    averages V uniformly)."""
+    pos = torch.arange(S, device=dev)
+    masked = (pos % 3 == 1)[None].expand(b, S).clone()
+    if kind == "block":
+        n = max(1, min(K5_CLUSTER, S // K5_SLICE))
+        per = -(-S // n)
+        r = 1 if n > 1 else 0
+        masked |= ((pos >= r * per) & (pos < (r + 1) * per))[None]
+    elif kind == "all":
+        masked[0] = True
+    return torch.where(masked, -1e30, 0.0).float().contiguous()
+
+
 def phase_edges(torch, dev):
     """The shapes the kernels accept beyond the serving path's, each
     against its plain version (untimed): f32 and narrow/wide rows for K1;
     head_dim 64, no mask, cross-length causal, one query or one key,
     key counts around K2's tile and ring, sq 8191, GQA 8 at head_dim 64,
     and segment ids in runs, drawn at random, permuted, or with a
-    one-token segment for K2; every GQA group size, head_dim 64 and
-    ragged chunk tails for K5."""
+    one-token segment for K2; for K5 every GQA group size, head_dim 64,
+    S = 1, lengths around its slice, cluster, chunk and ring, b1 S8192,
+    and bias rows that mask every third slot, one whole block's slice
+    (``decode_bias``), or every slot of a row."""
     from kubeflow_tpu_torch.ops.cuda import flash_attention as k2
     from kubeflow_tpu_torch.ops.cuda import flash_decode as k5
     from kubeflow_tpu_torch.ops.cuda import rms_norm as k1
@@ -430,14 +465,24 @@ def phase_edges(torch, dev):
               k2.flash_attention(q, k, v, causal=causal, segment_ids=seg),
               k2.plain_attention(q.float(), k.float(), v.float(),
                                  causal=causal, segment_ids=seg))
-    # (b, S, h, kv_h, d)
-    for b, S, h, kvh, d in ((3, 1, 8, 8, 128), (2, 63, 4, 2, 64),
-                            (2, 65, 8, 2, 128), (1, 300, 8, 1, 64),
-                            (2, 129, 16, 2, 128)):
+    # (b, S, h, kv_h, d, bias)
+    lengths = sorted({1, K5_SLICE - 1, K5_SLICE, K5_SLICE + 1,
+                      K5_CHUNK - 1, K5_CHUNK, K5_CHUNK + 1,
+                      K5_CLUSTER * K5_SLICE - 1, K5_CLUSTER * K5_SLICE,
+                      K5_CLUSTER * K5_SLICE + 1,
+                      K5_CLUSTER * (K5_STAGES * K5_CHUNK + 1)})
+    cases = [(3, 1, 8, 8, 128, "thirds"), (2, 63, 4, 2, 64, "thirds"),
+             (2, 65, 8, 2, 128, "thirds"), (1, 300, 8, 1, 64, "thirds"),
+             (2, 129, 16, 2, 128, "thirds")]
+    cases += [(2, n, 8, 2, 128, "thirds") for n in lengths]
+    cases += [(1, n, 16, 2, 64, "block") for n in lengths if n > 1]
+    cases += [(1, 8192, 32, 8, 128, "thirds"), (2, 8192, 8, 8, 64, "block"),
+              (2, 544, 32, 8, 128, "all"), (2, 100, 4, 4, 64, "all"),
+              (2, 2000, 16, 4, 128, "block")]
+    for b, S, h, kvh, d, kind in cases:
         q, k, v = rnd(b, 1, h, d), rnd(b, S, kvh, d), rnd(b, S, kvh, d)
-        bias = torch.where(torch.arange(S, device=dev)[None] % 3 == 1,
-                           -1e30, 0.0).expand(b, S).contiguous().float()
-        check("flash_decode", f"b{b} S{S} h{h}/{kvh} d{d}",
+        bias = decode_bias(torch, dev, kind, b, S)
+        check("flash_decode", f"b{b} S{S} h{h}/{kvh} d{d} bias={kind}",
               k5.flash_decode(q, k, v, bias),
               k5.plain_decode(q.float(), k.float(), v.float(), bias))
     emit({"phase": "edges", "worst_by_kernel": worst})
@@ -642,7 +687,7 @@ def phase_profile(torch, dev, model):
             classes["rms_norm"] += us
         elif "flash_fwd_kernel" in name:
             classes["flash_attention_fwd"] += us
-        elif "decode_split" in name or "decode_merge" in name:
+        elif "flash_decode_kernel" in name:
             classes["flash_decode"] += us
         elif any(t in name.lower() for t in ("gemm", "gemv", "cutlass",
                                              "xmma", "cublas", "nvjet")):
@@ -722,14 +767,19 @@ def train_kernel_case(torch, dev, gen, b, sq, sk, h, kvh, d, causal, seg,
     o, lse = fa.flash_attention_fwd_lse(q, k, v, **kw)
     dq, delta = fa.flash_attention_dq(q, k, v, o, do, lse, g_lse=gl, **kw)
     dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
-    # K4 sums each GQA group in a fixed order, without atomics: a second
-    # launch on the same inputs must repeat dk and dv to the bit.
+    # K3 sums a block's key tiles and K4 each GQA group in a fixed order,
+    # without atomics: a second launch on the same inputs must repeat dq
+    # and delta, dk and dv to the bit.
+    dq2, delta2 = fa.flash_attention_dq(q, k, v, o, do, lse, g_lse=gl, **kw)
     dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
+    if not (torch.equal(dq, dq2) and torch.equal(delta, delta2)):
+        raise AssertionError("flash_attention_dq: a second launch on the "
+                             "same inputs gave other dq/delta bits")
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError("flash_attention_dkv: a second launch on the "
                              "same inputs gave other dk/dv bits")
-    del dk2, dv2
+    del dq2, delta2, dk2, dv2
     f32 = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = fa.plain_attention_with_lse(*f32[:3], **kw)
     checks = {"o": check_close("flash_attention_fwd_lse o", o, o_ref,
@@ -745,7 +795,7 @@ def train_kernel_case(torch, dev, gen, b, sq, sk, h, kvh, d, causal, seg,
                                     KERNEL_TOL[kernel])
     del ref, f32
     return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta,
-                checks=checks, dkv_bit_equal=True)
+                checks=checks, bit_equal=True)
 
 
 def phase_train_kernels(torch, dev, timer):
@@ -853,7 +903,8 @@ def phase_train_kernels(torch, dev, timer):
             if kernel == "flash_attention_dkv":
                 row["dk_rel_l2"] = c["checks"]["dk"][0]
                 row["dv_rel_l2"] = c["checks"]["dv"][0]
-                row["bit_equal_on_relaunch"] = c["dkv_bit_equal"]
+            if not kernel.endswith("lse"):
+                row["bit_equal_on_relaunch"] = c["bit_equal"]
             emit(add_rates(row, r["flops"]))
             if name == "llama_1b4":
                 rows[kernel] = row
@@ -865,10 +916,11 @@ def phase_train_kernels(torch, dev, timer):
 
 def phase_train_edges(torch, dev):
     """K2-lse, K3 and K4 beyond the training path's shapes, each against
-    its plain version (untimed), K4 also against its own second launch
-    (bit-equal): ragged and cross-length causal, head_dim 64, one key,
-    every GQA group size and GQA 8 at head_dim 64, lengths around K2's
-    key tile and ring and K4's q tile and ring, sq 8191, nonzero g_lse,
+    its plain version (untimed), K3 and K4 also against their own second
+    launch (bit-equal): ragged and cross-length causal, head_dim 64, one
+    key, every GQA group size and GQA 8 at head_dim 64, lengths around
+    K2's key tile and ring, K3's q tile, key tile and ring and K4's q
+    tile and ring, sq 8191, nonzero g_lse,
     and segment ids with pads, drawn at random, permuted, or with a
     one-token segment (``edge_segments``)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -886,7 +938,9 @@ def phase_train_edges(torch, dev):
               (1, 77, 77, 8, 2, 64, False, None, True),
               (2, 100, 100, 4, 2, 128, True, "pads", True)]
     lengths = sorted({1, K2_TILE - 1, K2_TILE, K2_TILE + 1,
-                      K2_STAGES * K2_TILE + 1, K4_ROWS - 1, K4_ROWS,
+                      K2_STAGES * K2_TILE + 1, K3_ROWS - 1, K3_ROWS,
+                      K3_ROWS + 1, K3_KEYS - 1, K3_KEYS, K3_KEYS + 1,
+                      K3_STAGES * K3_KEYS + 1, K4_ROWS - 1, K4_ROWS,
                       K4_ROWS + 1, K4_STAGES * K4_ROWS + 1, K4_KEYS + 1})
     cases += [(1, n, n, 4, 2, 128, True, None, False) for n in lengths]
     cases += [(1, 40, n, 4, 2, 64, False, None, False) for n in lengths]

@@ -47,9 +47,8 @@ SIGNATURES = {
     # causal, scale, stream
     "kft_flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k, v, bias, o, part_o, part_ml, b, S, h, kv_h, d, scale, stream
-    "kft_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _F, _P),
+    # q, k, v, bias, o, b, S, h, kv_h, d, scale, stream
+    "kft_flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -18,15 +18,52 @@
 // 2*d flops, against q, k, v, o, dO read once and dq, dk, dv written once:
 // at b1 s8192 h16 d128 causal that is ~412 and ~550 GFLOP against
 // ~0.26 GB, three orders of magnitude past the 295 flop/byte ridge.
+// With a packed row's segment ids most pairs are masked and the visible
+// ones are few: there the bytes bound it, and only a kernel that skips
+// the masked tiles comes near.
 //
-// dq kernel (K3): one block of 4 warps per (64 query rows, head, batch);
-// each warp owns 16 rows and keeps their Q and dO fragments and the dQ
-// accumulator in registers; K and V tiles of 64 keys are staged in shared
-// memory by the block's threads, and the products run on mma.sync
-// m16n8k16 (B operands along the key axis from 16-bit shared loads).  It
-// also computes delta for its rows (O read once, beside dO already in
-// registers), subtracts g_lse, and writes delta [b, hq, sq] f32 for the
-// dk/dv kernel, which the wrapper launches after it on the same stream.
+// dq kernel (K3), on wgmma with a TMA pipeline, the structure of the
+// forward's:
+// * One block of 288 threads per (128 query rows, q head, batch): two
+//   consumer warpgroups of 64 rows each and one producer warp that
+//   issues every load.  Q and dO for the block's rows are loaded once by
+//   TMA and stay in shared memory.
+// * The producer streams K and V tiles of kDqKeys keys, with their
+//   segment ids, through a ring of kDqStages stages with full/empty
+//   mbarriers, up to the block's causal diagonal.  One TMA load of K
+//   serves two products: S = Q K^T reads it K-major, dQ += dS K reads the
+//   same tile MN-major (the transpose bit), as the forward reads V.
+// * With segment ids the producer loads the always-live diagonal tile
+//   first, then tests the others 32 at a time (`hw::live_tiles`: their
+//   ids against the block's rows'), from the diagonal down; a tile that
+//   shares no id is neither loaded nor computed.  A consumer warpgroup
+//   also passes over a live tile that shares no id with its own rows.
+// * Per tile, in slabs of kDqSlab keys: S = Q K^T and dP = dO V^T as SS
+//   wgmma (all four operands K-major), P and dS in registers, then
+//   dQ += dS K as an RS wgmma with dS re-packed as bf16 from the
+//   accumulators.  One slab's dQ product runs while the next slab's S
+//   and dP are issued; register fences keep the dS fragments live until
+//   the wgmma that reads them has completed.  The per-element mask runs
+//   only on tiles that cross the diagonal, reach past sq or sk, or carry
+//   segment ids.
+// * Registers: the dQ accumulator is d / 2 f32 a thread (64 at d = 128),
+//   S and dP kDqSlab / 2 each, the packed dS kDqSlab / 4: under the 168
+//   a thread of a 9-warp block may hold.  `-Xptxas -v`: 168 registers at
+//   d = 128 and 166 at d = 64, no spill, no wgmma-serialisation note.
+//   Slabs of 64 keys (32 registers each for S and dP) spilled 540 bytes
+//   and made ptxas serialise the wgmmas (C7512) at d = 128.  Dynamic
+//   shared memory: 195 KiB at d = 128 (Q and dO 64 KiB, two K/V stages
+//   128 KiB), 99 KiB at d = 64.
+// * delta = rowsum(dO * O) - g_lse is computed by the consumers before
+//   the key loop, from dO in shared memory (read through the swizzle)
+//   and O read once with 16-byte loads; it is written to delta [b, hq,
+//   sq] f32 for the dk/dv kernel, which the wrapper launches after this
+//   one on the same stream.
+// * One block owns its rows' dQ and sums the key tiles in a fixed order:
+//   deterministic.  Blocks are ordered longest causal tile first, across
+//   all heads.
+// * P and dS are rounded to bf16 to feed the tensor cores, which the
+//   reference's f32 products do not do.
 //
 // dk/dv kernel (K4), on wgmma with a TMA pipeline:
 // * One block of 288 threads per (128 keys, kv head, batch): two consumer
@@ -71,234 +108,426 @@
 
 namespace {
 
-using kft::ld32;
-using kft::mma16816;
-using kft::pack2;
 using kft::pack_bf16x2;
 namespace hw = kft::hopper;
 
+constexpr int kConsumers = 2;  // consumer warpgroups of either kernel
+// Two consumer warpgroups and one producer warp: 288 threads.
+constexpr int kThreads = kConsumers * 128 + 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
 // dq kernel.
-constexpr int kWarps = 4;
-constexpr int kRows = 64;   // q rows a block owns
-constexpr int kTile = 64;   // keys staged a step
-constexpr int kPad = 8;     // bf16 elements of padding per shared-memory row
-
-// Two m16n8 accumulators (16 x 16) re-packed as one bf16 A fragment.
-__device__ __forceinline__ void pack_a(uint32_t* a, const float (*c)[4]) {
-  a[0] = pack_bf16x2(c[0][0], c[0][1]);
-  a[1] = pack_bf16x2(c[0][2], c[0][3]);
-  a[2] = pack_bf16x2(c[1][0], c[1][1]);
-  a[3] = pack_bf16x2(c[1][2], c[1][3]);
-}
-
-// acc[j] += A (16 x 16) * tile[r0 .. r0 + 16)[j * 8 .. j * 8 + 8): the B
-// operand runs down the tile's rows, so it is built from 16-bit loads.
-template <int D, int LD>
-__device__ __forceinline__ void mma_rows(float (*acc)[4], const uint32_t* a,
-                                         const __nv_bfloat16 (*tile)[LD],
-                                         int r0, int g, int t) {
-  const int r = r0 + 2 * t;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = j * 8 + g;
-    const uint32_t b0 = pack2(tile[r][col], tile[r + 1][col]);
-    const uint32_t b1 = pack2(tile[r + 8][col], tile[r + 9][col]);
-    mma16816(acc[j], a, b0, b1);
-  }
-}
-
-// Stage rows [start, start + 64) of head `head` of a [b, s, heads, D]
-// tensor into a shared tile of 64 rows (kRows = kTile), zeros past s.
-template <int D, int LD>
-__device__ __forceinline__ void stage(__nv_bfloat16 (*tile)[LD],
-                                      const __nv_bfloat16* __restrict__ x,
-                                      int bi, int start, int s, int heads,
-                                      int head, int tid) {
-  static_assert(kRows == kTile, "stage() fills 64-row tiles of both kinds");
-  for (int idx = tid; idx < kTile * (D / 8); idx += kWarps * 32) {
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    const int row = start + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < s)
-      val = *reinterpret_cast<const uint4*>(
-          x + ((size_t)(bi * s + row) * heads + head) * D + c);
-    *reinterpret_cast<uint4*>(&tile[r][c]) = val;
-  }
-}
+constexpr int kDqRows = 128;   // q rows per block (64 per consumer)
+constexpr int kDqKeys = 128;   // keys per streamed K/V tile
+constexpr int kDqSlab = 32;    // keys per S / dP product (m64n32)
+constexpr int kDqStages = 2;   // K/V ring depth
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ o,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ glse,
-                    const int* __restrict__ seg,
-                    __nv_bfloat16* __restrict__ dq,
-                    float* __restrict__ delta, int sq, int sk, int hq, int hk,
-                    int causal, float scale) {
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
-  constexpr int LD = D + kPad;
+struct DqSmem {
+  static constexpr int NCB = D / 64;  // 64-column blocks of a row
+  alignas(1024) __nv_bfloat16 q[NCB][kDqRows * 64];
+  alignas(1024) __nv_bfloat16 dout[NCB][kDqRows * 64];
+  alignas(1024) __nv_bfloat16 k[kDqStages][NCB][kDqKeys * 64];
+  alignas(1024) __nv_bfloat16 v[kDqStages][NCB][kDqKeys * 64];
+  float delta[kDqRows];
+  int kseg[kDqStages][kDqKeys];
+  hw::IdSet kset[kDqStages];       // the ids of the stage's keys
+  hw::IdSet wgset[kConsumers][4];  // scratch: each consumer's row ids
+  hw::IdSet rows[kConsumers];      // each consumer warpgroup's row ids
+  int tile[kDqStages];  // kv tile index of the stage, -1 after the last
+  uint64_t q_full;
+  uint64_t full[kDqStages];
+  uint64_t empty[kDqStages];
+};
 
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile][LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile][LD];
-  __shared__ int kseg[kTile];
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(DqSmem<D>) + 1024;  // +1024 to align the base
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int kh = h / (hq / hk);
-  const int q_start = blockIdx.x * kRows;
-  const int warp_row = q_start + warp * 16;
-  const int r0 = warp_row + g;  // this thread's two rows
-  const int r1 = r0 + 8;
-  const int offset = causal ? sk - sq : 0;
+// acc (64 x D) += A (64 x 16, registers) * B (16 x D, shared, MN-major):
+// dQ += dS K in the dq kernel, dV += P^T dO and dK += dS^T Q in dk/dv.
+template <int D>
+__device__ __forceinline__ void wgmma_acc(float* acc, const uint32_t* a,
+                                          uint64_t b) {
+  if constexpr (D == 128) hw::wgmma_m64n128k16_rs(acc, a, b, 1);
+  else hw::wgmma_m64n64k16_rs(acc, a, b, 1);
+}
 
-  // Q and dO fragments (A operands), zero past sq; delta partials from
-  // the same dO values and O at the same positions.
-  uint32_t qa[KD][4], da[KD][4];
-  float dl0 = 0.f, dl1 = 0.f;
-  {
-    const size_t o0 = ((size_t)(bi * sq + r0) * hq + h) * D;
-    const size_t o1 = ((size_t)(bi * sq + r1) * hq + h) * D;
+// The dot product of two rows of 8 bf16 in f32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      const int c = kk * 16 + t * 2;
-      qa[kk][0] = r0 < sq ? ld32(q + o0 + c) : 0u;
-      qa[kk][1] = r1 < sq ? ld32(q + o1 + c) : 0u;
-      qa[kk][2] = r0 < sq ? ld32(q + o0 + c + 8) : 0u;
-      qa[kk][3] = r1 < sq ? ld32(q + o1 + c + 8) : 0u;
-      da[kk][0] = r0 < sq ? ld32(dout + o0 + c) : 0u;
-      da[kk][1] = r1 < sq ? ld32(dout + o1 + c) : 0u;
-      da[kk][2] = r0 < sq ? ld32(dout + o0 + c + 8) : 0u;
-      da[kk][3] = r1 < sq ? ld32(dout + o1 + c + 8) : 0u;
-      if (r0 < sq) {
-        const float2 a = kft::unpack_bf16x2(da[kk][0]);
-        const float2 b = kft::unpack_bf16x2(ld32(o + o0 + c));
-        const float2 a8 = kft::unpack_bf16x2(da[kk][2]);
-        const float2 b8 = kft::unpack_bf16x2(ld32(o + o0 + c + 8));
-        dl0 += a.x * b.x + a.y * b.y + a8.x * b8.x + a8.y * b8.y;
-      }
-      if (r1 < sq) {
-        const float2 a = kft::unpack_bf16x2(da[kk][1]);
-        const float2 b = kft::unpack_bf16x2(ld32(o + o1 + c));
-        const float2 a8 = kft::unpack_bf16x2(da[kk][3]);
-        const float2 b8 = kft::unpack_bf16x2(ld32(o + o1 + c + 8));
-        dl1 += a.x * b.x + a.y * b.y + a8.x * b8.x + a8.y * b8.y;
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = kft::unpack_bf16x2(x[i]), q = kft::unpack_bf16x2(y[i]);
+    s = fmaf(p.x, q.x, fmaf(p.y, q.y, s));
+  }
+  return s;
+}
+
+// The producer warp: the Q and dO loads, then the K and V loads of every
+// live kv tile through the ring.  With segment ids it loads the diagonal
+// tile, then tests the others 32 at a time (`hw::live_tiles`: their ids
+// against the block's rows'), from the diagonal down, and loads the live
+// ones.
+template <int D>
+__device__ __forceinline__ void dq_producer(
+    DqSmem<D>& sm, const CUtensorMap* tq, const CUtensorMap* tk,
+    const CUtensorMap* tv, const CUtensorMap* tdo,
+    const int* __restrict__ seg, int bi, int h, int kh, int q0, int sq,
+    int sk, int n_kv, int lane) {
+  constexpr int NCB = DqSmem<D>::NCB;
+  constexpr uint32_t kTileBytes = 2 * NCB * kDqKeys * 128;  // K and V
+  int stage = 0;
+  uint32_t phase = 0;
+  // One kv tile into the ring.
+  auto load = [&](int j) {
+    const int k0 = j * kDqKeys;
+    int ids[kDqKeys / 32];
+    if (seg != nullptr) {
+#pragma unroll
+      for (int i = 0; i < kDqKeys / 32; ++i) {
+        const int key = k0 + lane + 32 * i;
+        ids[i] = key < sk ? seg[bi * sk + key] : 0;
       }
     }
-  }
+    hw::mbar_wait(&sm.empty[stage], phase ^ 1);
+    if (seg != nullptr) {
+      hw::IdSet set = hw::IdSet::empty();
 #pragma unroll
-  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-    dl0 += __shfl_xor_sync(0xffffffffu, dl0, o_);
-    dl1 += __shfl_xor_sync(0xffffffffu, dl1, o_);
+      for (int i = 0; i < kDqKeys / 32; ++i) {
+        sm.kseg[stage][lane + 32 * i] = ids[i];
+        if (k0 + lane + 32 * i < sk) set.add(ids[i]);
+      }
+      set.warp_reduce();
+      if (lane == 0) sm.kset[stage] = set;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      sm.tile[stage] = j;
+      hw::mbar_arrive_expect_tx(&sm.full[stage], kTileBytes);
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) {
+        hw::tma_load_4d(sm.k[stage][cb], tk, &sm.full[stage], cb * 64, kh,
+                        k0, bi);
+        hw::tma_load_4d(sm.v[stage][cb], tv, &sm.full[stage], cb * 64, kh,
+                        k0, bi);
+      }
+    }
+    if (++stage == kDqStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+
+  if (lane == 0) {
+    hw::tma_prefetch_map(tk);
+    hw::tma_prefetch_map(tv);
+    hw::mbar_arrive_expect_tx(&sm.q_full, 2 * NCB * kDqRows * 128);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) {
+      hw::tma_load_4d(sm.q[cb], tq, &sm.q_full, cb * 64, h, q0, bi);
+      hw::tma_load_4d(sm.dout[cb], tdo, &sm.q_full, cb * 64, h, q0, bi);
+    }
   }
+  if (seg == nullptr) {
+    for (int j = 0; j < n_kv; ++j) load(j);
+  } else {
+    // The diagonal tile holds each row's own key (segment ids need
+    // sq == sk), so it is live: load it before testing the rest.
+    const int diag = q0 / kDqKeys;
+    load(diag);
+    const hw::IdSet qset =
+        hw::warp_id_set<kDqRows / 32>(seg + bi * sq, sq, q0, lane);
+    for (int last = n_kv; last > 0; last -= 32) {
+      const int first = max(0, last - 32);
+      uint32_t bits = hw::live_tiles<kDqKeys, 8>(seg + bi * sk, sk, first,
+                                                 last - first, qset, lane);
+      if (diag >= first && diag < last) bits &= ~(1u << (diag - first));
+      for (; bits != 0u; bits &= ~(1u << (31 - __clz(bits))))
+        load(first + 31 - __clz(bits));
+    }
+  }
+  hw::mbar_wait(&sm.empty[stage], phase ^ 1);
+  if (lane == 0) {
+    sm.tile[stage] = -1;
+    hw::mbar_arrive(&sm.full[stage]);
+  }
+}
+
+// A consumer warpgroup: 64 query rows (`wg` 0 or 1 of the block's 128).
+template <int D>
+__device__ __forceinline__ void dq_consumer(
+    DqSmem<D>& sm, const __nv_bfloat16* __restrict__ o,
+    const float* __restrict__ lse, const float* __restrict__ glse,
+    const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq,
+    float* __restrict__ delta, int bi, int h, int q0, int sq, int sk,
+    int hq, int causal, int offset, float scale, int wg, int ctid) {
+  constexpr int KD = D / 16;          // k-steps of Q K^T and dO V^T
+  constexpr int NS = kDqSlab / 2;     // S / dP registers a thread
+  constexpr int NA = D / 2;           // dQ registers a thread
+  constexpr int NP = kDqSlab / 16;    // dS fragments (16 keys each)
+  constexpr uint32_t kRowBlock = kDqRows * 128;  // bytes, a column block
+  constexpr uint32_t kKeyBlock = kDqKeys * 128;
+  const int warp = ctid / 32, lane = ctid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row_base = q0 + wg * 64;
+  const int r0 = row_base + warp * 16 + g;  // this thread's two rows
+  const int r1 = r0 + 8;
+  const bool wg_live = row_base < sq;
+  const int wg_last = min(row_base + 63, sq - 1);
   const size_t lrow = ((size_t)bi * hq + h) * sq;
-  const float lse0 = r0 < sq ? lse[lrow + r0] : 0.f;
-  const float lse1 = r1 < sq ? lse[lrow + r1] : 0.f;
-  if (glse != nullptr) {
-    dl0 -= r0 < sq ? glse[lrow + r0] : 0.f;
-    dl1 -= r1 < sq ? glse[lrow + r1] : 0.f;
-  }
-  if (t == 0) {
-    if (r0 < sq) delta[lrow + r0] = dl0;
-    if (r1 < sq) delta[lrow + r1] = dl1;
-  }
   int qs0 = 0, qs1 = 0;
   if (seg != nullptr) {
     qs0 = r0 < sq ? seg[bi * sq + r0] : 0;
     qs1 = r1 < sq ? seg[bi * sq + r1] : 0;
+    hw::IdSet rows = hw::IdSet::empty();
+    if (r0 < sq) rows.add(qs0);
+    if (r1 < sq) rows.add(qs1);
+    rows = hw::warpgroup_union(rows, sm.wgset[wg], wg, warp, lane);
+    if (ctid == 0) sm.rows[wg] = rows;
+    hw::named_barrier(1 + wg, 128);
   }
+  const float l2_0 = r0 < sq ? lse[lrow + r0] * kLog2e : 0.f;
+  const float l2_1 = r1 < sq ? lse[lrow + r1] * kLog2e : 0.f;
 
-  float acc[ND][4];
+  // delta = rowsum(dO * O) - g_lse: two threads a row, each half of its
+  // 16-byte chunks; dO from shared memory, where chunk c of row r sits at
+  // chunk c ^ (r % 8) of its 128-byte line (the TMA swizzle).
+  hw::mbar_wait(&sm.q_full, 0);
+  {
+    const int rb = wg * 64 + ctid / 2;  // row in the block
+    const int row = q0 + rb;
+    const int half = ctid % 2;
+    float dl = 0.f;
+    if (row < sq) {
+      const __nv_bfloat16* orow = o + ((size_t)(bi * sq + row) * hq + h) * D;
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  int kv_end = sk;
-  if (causal) kv_end = min(sk, min(q_start + kRows, sq) - 1 + offset + 1);
-  const bool warp_live = warp_row < sq;
-  const int warp_last = min(warp_row + 15, sq - 1) + offset;  // causal reach
-
-  for (int k_start = 0; k_start < kv_end; k_start += kTile) {
-    stage<D, LD>(ks, k, bi, k_start, sk, hk, kh, tid);
-    stage<D, LD>(vs, v, bi, k_start, sk, hk, kh, tid);
-    if (seg != nullptr) {
-      for (int r = tid; r < kTile; r += kWarps * 32) {
-        const int key = k_start + r;
-        kseg[r] = key < sk ? seg[bi * sk + key] : 0;
+      for (int i = 0; i < D / 16; ++i) {
+        const int c = half * (D / 16) + i;
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(
+            reinterpret_cast<const char*>(sm.dout[c / 8]) + rb * 128 +
+            (((c % 8) ^ (rb % 8)) << 4));
+        dl += dot8(ov, dv);
       }
     }
-    __syncthreads();
-    if (warp_live) {
-#pragma unroll 1
-      for (int sl = 0; sl < kTile / 16; ++sl) {
-        if (causal && k_start + sl * 16 > warp_last) break;
-        float s[2][4], dp[2][4];
+    dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+    if (row < sq && glse != nullptr) dl -= glse[lrow + row];
+    if (half == 0) {
+      if (row < sq) delta[lrow + row] = dl;
+      sm.delta[rb] = row < sq ? dl : 0.f;
+    }
+    hw::named_barrier(1 + wg, 128);
+  }
+  const float dl0 = sm.delta[wg * 64 + warp * 16 + g];
+  const float dl1 = sm.delta[wg * 64 + warp * 16 + g + 8];
+  const float sl2 = scale * kLog2e;
+
+  float acc[NA];
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+  const uint32_t q_base = hw::smem_u32(sm.q[0]) + wg * 64 * 128;
+  const uint32_t do_base = hw::smem_u32(sm.dout[0]) + wg * 64 * 128;
+
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    hw::mbar_wait(&sm.full[stage], phase);
+    const int j = sm.tile[stage];
+    if (j < 0) break;
+    const int k0 = j * kDqKeys;
+    const bool dead = !wg_live || (causal && k0 > wg_last + offset) ||
+                      (seg != nullptr && !sm.rows[wg].meets(sm.kset[stage]));
+    const bool need_mask = seg != nullptr || k0 + kDqKeys > sk ||
+                           row_base + 64 > sq ||
+                           (causal && k0 + kDqKeys - 1 > row_base + offset);
+    if (!dead) {
+      const uint32_t q_addr = hw::opaque(q_base);
+      const uint32_t do_addr = hw::opaque(do_base);
+      const uint32_t k_addr = hw::opaque(hw::smem_u32(sm.k[stage][0]));
+      const uint32_t v_addr = hw::opaque(hw::smem_u32(sm.v[stage][0]));
+      uint32_t pa[NP][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      for (int slab = 0; slab < kDqKeys / kDqSlab; ++slab) {
+        const uint32_t soff = slab * kDqSlab * 128;  // bytes: the slab's keys
+        // S = Q K^T and dP = dO V^T: 64 rows x kDqSlab keys.
+        float s[NS], dp[NS];
+        hw::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const int r = sl * 16 + n * 8 + g, c = kk * 16 + t * 2;
-            const __nv_bfloat16* kr = &ks[r][c];
-            const __nv_bfloat16* vr = &vs[r][c];
-            mma16816(s[n], qa[kk], ld32(kr), ld32(kr + 8));
-            mma16816(dp[n], da[kk], ld32(vr), ld32(vr + 8));
-          }
+          const uint32_t qo = (kk / 4) * kRowBlock + (kk % 4) * 32;
+          const uint32_t ko = (kk / 4) * kKeyBlock + (kk % 4) * 32 + soff;
+          hw::wgmma_m64n32k16_ss(s, hw::desc_sw128(q_addr + qo, 16, 1024),
+                                 hw::desc_sw128(k_addr + ko, 16, 1024),
+                                 kk > 0);
         }
-        // dS = P * (dP - delta) * scale, P recomputed from the lse.
+        hw::wgmma_commit();
 #pragma unroll
-        for (int n = 0; n < 2; ++n) {
+        for (int kk = 0; kk < KD; ++kk) {
+          const uint32_t qo = (kk / 4) * kRowBlock + (kk % 4) * 32;
+          const uint32_t ko = (kk / 4) * kKeyBlock + (kk % 4) * 32 + soff;
+          hw::wgmma_m64n32k16_ss(dp,
+                                 hw::desc_sw128(do_addr + qo, 16, 1024),
+                                 hw::desc_sw128(v_addr + ko, 16, 1024),
+                                 kk > 0);
+        }
+        hw::wgmma_commit();
+        // S has landed (and the previous slab's dQ product, which read
+        // pa); dP may still be in flight.
+        hw::wgmma_wait<1>();
+        hw::fence_regs<NS>(s);
+        hw::fence_regs<NP * 4>(&pa[0][0]);
+
+        // P = exp2(S * sl2 - lse * log2 e), zero where masked.
+#pragma unroll
+        for (int n = 0; n < kDqSlab / 8; ++n) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int col = sl * 16 + n * 8 + t * 2 + (e & 1);
-            const int key = k_start + col;
-            const int row = e < 2 ? r0 : r1;
-            bool ok = key < sk && row < sq;
-            if (causal) ok = ok && (row + offset >= key);
-            if (seg != nullptr) ok = ok && ((e < 2 ? qs0 : qs1) == kseg[col]);
-            const float p =
-                ok ? __expf(s[n][e] * scale - (e < 2 ? lse0 : lse1)) : 0.f;
-            s[n][e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1)) * scale;
+            float p = hw::ex2(fmaf(s[4 * n + e], sl2, e < 2 ? -l2_0 : -l2_1));
+            if (need_mask) {
+              const int col = slab * kDqSlab + n * 8 + t * 2 + (e & 1);
+              const int key = k0 + col;
+              const int row = e < 2 ? r0 : r1;
+              bool ok = key < sk && row < sq;
+              if (causal) ok = ok && (row + offset >= key);
+              if (seg != nullptr)
+                ok = ok && ((e < 2 ? qs0 : qs1) == sm.kseg[stage][col]);
+              if (!ok) p = 0.f;
+            }
+            s[4 * n + e] = p;
           }
         }
-        uint32_t dsa[4];
-        pack_a(dsa, s);
-        mma_rows<D, LD>(acc, dsa, ks, sl * 16, g, t);
+        // dS = P * (dP - delta) * scale, as bf16 A fragments of 16 keys.
+        hw::wgmma_wait<0>();
+        hw::fence_regs<NS>(dp);
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          s[i] *= (dp[i] - ((i & 3) < 2 ? dl0 : dl1)) * scale;
+#pragma unroll
+        for (int kk = 0; kk < NP; ++kk) {
+          pa[kk][0] = pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
+          pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        // dQ += dS K over the slab's keys (K MN-major).
+        hw::fence_regs<NA>(acc);
+        hw::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NP; ++kk)
+          wgmma_acc<D>(acc, pa[kk],
+                       hw::desc_sw128(k_addr + soff + kk * 16 * 128,
+                                      kKeyBlock, 1024));
+        hw::wgmma_commit();
       }
+      hw::wgmma_wait<0>();
+      hw::fence_regs<NA>(acc);
+      hw::fence_regs<NP * 4>(&pa[0][0]);  // read until the wait
     }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) hw::mbar_arrive(&sm.empty[stage]);
+    if (++stage == kDqStages) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
 
-  __nv_bfloat16* d0 = dq + ((size_t)(bi * sq + r0) * hq + h) * D;
-  __nv_bfloat16* d1 = dq + ((size_t)(bi * sq + r1) * hq + h) * D;
+  if (wg_live) {
+    __nv_bfloat16* d0 = dq + ((size_t)(bi * sq + r0) * hq + h) * D;
+    __nv_bfloat16* d1 = dq + ((size_t)(bi * sq + r1) * hq + h) * D;
 #pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    const int c = j * 8 + t * 2;
-    if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(d0 + c) = pack_bf16x2(acc[j][0], acc[j][1]);
-    if (r1 < sq)
-      *reinterpret_cast<uint32_t*>(d1 + c) = pack_bf16x2(acc[j][2], acc[j][3]);
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + t * 2;
+      if (r0 < sq)
+        *reinterpret_cast<uint32_t*>(d0 + c) =
+            pack_bf16x2(acc[4 * n], acc[4 * n + 1]);
+      if (r1 < sq)
+        *reinterpret_cast<uint32_t*>(d1 + c) =
+            pack_bf16x2(acc[4 * n + 2], acc[4 * n + 3]);
+    }
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __nv_bfloat16* __restrict__ o,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ glse,
+                    const int* __restrict__ seg,
+                    __nv_bfloat16* __restrict__ dq,
+                    float* __restrict__ delta, int b, int sq, int sk, int hq,
+                    int hk, int causal, float scale, int n_qtiles) {
+  using Smem = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  // Longest causal q tiles first, across every (head, batch).
+  const int hb = hq * b;
+  const int qt = n_qtiles - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int h = static_cast<int>(blockIdx.x) % hb % hq;
+  const int bi = static_cast<int>(blockIdx.x) % hb / hq;
+  const int kh = h / (hq / hk);
+  const int q0 = qt * kDqRows;
+  const int offset = causal ? sk - sq : 0;
+  int kv_end = sk;
+  if (causal) kv_end = min(sk, min(q0 + kDqRows, sq) - 1 + offset + 1);
+  const int n_kv = (kv_end + kDqKeys - 1) / kDqKeys;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hw::mbar_init(&sm.full[s], 1);
+      hw::mbar_init(&sm.empty[s], kConsumers * 4);
+    }
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    dq_producer<D>(sm, &tq, &tk, &tv, &tdo, seg, bi, h, kh, q0, sq, sk, n_kv,
+                   threadIdx.x % 32);
+  } else {
+    dq_consumer<D>(sm, o, lse, glse, seg, dq, delta, bi, h, q0, sq, sk, hq,
+                   causal, offset, scale, wg, threadIdx.x - wg * 128);
+  }
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const float* lse, const float* glse,
+              const int* seg, __nv_bfloat16* dq, float* delta, int b, int sq,
+              int sk, int hq, int hk, int causal, float scale,
+              cudaStream_t stream) {
+  namespace hh = kft::hopper_host;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = hh::encode_bshd(&tq, q, b, sq, hq, D, kDqRows);
+  if (err == 0) err = hh::encode_bshd(&tdo, dout, b, sq, hq, D, kDqRows);
+  if (err == 0) err = hh::encode_bshd(&tk, k, b, sk, hk, D, kDqKeys);
+  if (err == 0) err = hh::encode_bshd(&tv, v, b, sk, hk, D, kDqKeys);
+  if (err != 0) return err;
+  constexpr size_t bytes = dq_smem_bytes<D>();
+  static const int attr = hh::allow_smem(flash_bwd_dq_kernel<D>, bytes);
+  if (attr != 0) return attr;
+  const int n_qtiles = (sq + kDqRows - 1) / kDqRows;
+  flash_bwd_dq_kernel<D><<<n_qtiles * hq * b, kThreads, bytes, stream>>>(
+      tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o), lse, glse, seg,
+      dq, delta, b, sq, sk, hq, hk, causal, scale, n_qtiles);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // dk/dv kernel.
 constexpr int kDkvKeys = 128;  // keys per block (64 per consumer)
 constexpr int kDkvRows = 64;   // q rows per streamed tile
 constexpr int kHalf = 32;      // q rows per S^T / dP^T product
 constexpr int kDkvStages = 2;  // q/dO ring depth (3 measured slower)
-constexpr int kConsumers = 2;  // consumer warpgroups
-// Two consumer warpgroups and one producer warp: 288 threads.
-constexpr int kDkvThreads = kConsumers * 128 + 32;
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct DkvSmem {
@@ -321,15 +550,6 @@ struct DkvSmem {
 template <int D>
 constexpr size_t dkv_smem_bytes() {
   return sizeof(DkvSmem<D>) + 1024;  // +1024 to align the base
-}
-
-// acc (64 keys x D) += A (64 keys x 16 q rows, registers) * B (16 q rows
-// x D, shared, MN-major).
-template <int D>
-__device__ __forceinline__ void wgmma_acc(float* acc, const uint32_t* a,
-                                          uint64_t b) {
-  if constexpr (D == 128) hw::wgmma_m64n128k16_rs(acc, a, b, 1);
-  else hw::wgmma_m64n64k16_rs(acc, a, b, 1);
 }
 
 // An m64n32 accumulator (n-tile pairs) -> bf16 A fragments of 16 q rows.
@@ -656,7 +876,7 @@ __device__ __forceinline__ void dkv_consumer(
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDkvThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
@@ -716,7 +936,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   static const int attr = hh::allow_smem(flash_bwd_dkv_kernel<D>, bytes);
   if (attr != 0) return attr;
   const int n_ktiles = (sk + kDkvKeys - 1) / kDkvKeys;
-  flash_bwd_dkv_kernel<D><<<n_ktiles * hk * b, kDkvThreads, bytes, stream>>>(
+  flash_bwd_dkv_kernel<D><<<n_ktiles * hk * b, kThreads, bytes, stream>>>(
       tq, tk, tv, tdo, lse, delta, seg, dk, dv, b, sq, sk, hq, hk, causal,
       scale);
   return static_cast<int>(cudaGetLastError());
@@ -732,31 +952,19 @@ extern "C" int kft_flash_attention_bwd_dq(
     const void* dout, const void* lse, const void* glse, const void* seg,
     void* dq, void* delta, int b, int sq, int sk, int hq, int hk, int d,
     int causal, float scale, void* stream) {
-  dim3 grid((sq + kRows - 1) / kRows, hq, b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
-  const auto* q_ = static_cast<const bf*>(q);
-  const auto* k_ = static_cast<const bf*>(k);
-  const auto* v_ = static_cast<const bf*>(v);
-  const auto* o_ = static_cast<const bf*>(o);
-  const auto* do_ = static_cast<const bf*>(dout);
   const auto* lse_ = static_cast<const float*>(lse);
   const auto* glse_ = static_cast<const float*>(glse);
   const auto* seg_ = static_cast<const int*>(seg);
-  auto* dq_ = static_cast<bf*>(dq);
+  auto* dq_ = static_cast<__nv_bfloat16*>(dq);
   auto* delta_ = static_cast<float*>(delta);
-  if (d == 128) {
-    flash_bwd_dq_kernel<128><<<grid, kWarps * 32, 0, s>>>(
-        q_, k_, v_, o_, do_, lse_, glse_, seg_, dq_, delta_, sq, sk, hq, hk,
-        causal, scale);
-  } else if (d == 64) {
-    flash_bwd_dq_kernel<64><<<grid, kWarps * 32, 0, s>>>(
-        q_, k_, v_, o_, do_, lse_, glse_, seg_, dq_, delta_, sq, sk, hq, hk,
-        causal, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (d == 128)
+    return launch_dq<128>(q, k, v, o, dout, lse_, glse_, seg_, dq_, delta_,
+                          b, sq, sk, hq, hk, causal, scale, s);
+  if (d == 64)
+    return launch_dq<64>(q, k, v, o, dout, lse_, glse_, seg_, dq_, delta_, b,
+                         sq, sk, hq, hk, causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 

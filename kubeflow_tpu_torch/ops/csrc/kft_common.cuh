@@ -9,8 +9,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define KFT_NEG_INF (-1e30f)
-
 namespace kft {
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -35,18 +33,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
   return __bfloat1622float2(h);
-}
-
-// Two adjacent bf16 (4-byte aligned) -> one packed register.
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 that are not adjacent in memory -> one packed register.
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
 // c += a * b on the tensor cores: m16n8k16, bf16 inputs, f32 accumulate.

@@ -1,8 +1,9 @@
 // Hopper building blocks for the port's kernels, as raw PTX (sm_90a):
-// mbarriers, TMA tile loads and their tensor maps, wgmma with its shared
-// memory descriptors, and the producer's segment-id tile test.  No
-// CUTLASS, no -lcuda: the tensor map encoder, cuTensorMapEncodeTiled, is
-// looked up at run time with the runtime's cudaGetDriverEntryPoint.
+// mbarriers, TMA tile loads and their tensor maps, thread block cluster
+// barriers and stores, wgmma with its shared memory descriptors, and the
+// producer's segment-id tile test.  No CUTLASS, no -lcuda: the tensor map
+// encoder, cuTensorMapEncodeTiled, is looked up at run time with the
+// runtime's cudaGetDriverEntryPoint.
 //
 // Layout every user of this header shares: a bf16 tile in shared memory
 // is stored as column blocks of 64 elements (128 bytes) per row, the
@@ -89,6 +90,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- thread block clusters --------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: the shared-memory writes
+// before it are visible to the reads of any block after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The two halves of a cluster barrier, split so that work runs between
+// them: arrive (no ordering), later wait.  A block may touch another's
+// shared memory only after a barrier both have passed: every block of the
+// cluster has then started.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Store `v` in the shared memory of block `rank` of the cluster, at the
+// offset `p` has in this block's.
+__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v)
+               : "memory");
 }
 
 // ---- barriers -------------------------------------------------------------

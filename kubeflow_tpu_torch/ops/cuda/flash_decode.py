@@ -1,10 +1,11 @@
 """Single-token decode attention: the plain PyTorch version and the
-wrapper of the CUDA split-S kernel ``ops/csrc/flash_decode.cu`` (replaces
+wrapper of the CUDA kernel ``ops/csrc/flash_decode.cu`` (replaces
 ``kubeflow_tpu/ops/pallas/flash_decode.py`` ``_decode_kernel``).
 
-``flash_decode`` launches the kernel (a split pass and a merge pass, one
-count) for CUDA tensors and raises on what the kernel does not take; it
-takes ``plain_decode`` only for CPU tensors.  ``flash_decode.launches``
+``flash_decode`` launches the kernel (one launch: a thread block cluster
+per kv head and row, merged in shared memory, so the only allocation is
+the output) for CUDA tensors and raises on what the kernel does not take;
+it takes ``plain_decode`` only for CPU tensors.  ``flash_decode.launches``
 counts calls that launched the kernel.
 """
 from __future__ import annotations
@@ -16,7 +17,6 @@ import torch
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.cuda.flash_attention import HEAD_DIMS, plain_attention
 
-CHUNK = 64            # kChunk of flash_decode.cu: sizes the partials
 GROUP_SIZES = (1, 2, 4, 8)
 
 
@@ -72,17 +72,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, _, h, d = q.shape
     S, kv_h = k.shape[1], k.shape[2]
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    g = h // kv_h
-    nsplit = -(-S // CHUNK)
-    part_o = torch.empty(b, kv_h, nsplit, g, d, dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty(b, kv_h, nsplit, g, 2, dtype=torch.float32,
-                          device=q.device)
     o = torch.empty_like(q)
     err = _build.library().kft_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_rows.data_ptr(),
-        o.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), b, S, h, kv_h,
-        d, float(scale), _build.stream_handle(q.device))
+        o.data_ptr(), b, S, h, kv_h, d, float(scale),
+        _build.stream_handle(q.device))
     _build.check("kft_flash_decode", err)
     flash_decode.launches += 1
     return o

@@ -6,12 +6,18 @@ with the source passes silently, and a pointer bound as ``c_int`` is cut to
 32 bits.  So every ``extern "C" int kft_*(...)`` declaration is parsed here
 and held against ``_build.SIGNATURES``: the same functions, the same number
 of arguments, and the same kind for each (pointer -> ``c_void_p``, ``int``
--> ``c_int``, ``float`` -> ``c_float``).  Runs on the CPU: no compiler.
+-> ``c_int``, ``float`` -> ``c_float``).  The tile, ring and slice sizes
+that ``chip_smoke.py``'s edge cases aim at are held against the
+``constexpr`` sizes of the kernels' sources the same way, so a retiling
+cannot leave the edge cases at stale lengths.  Runs on the CPU: no
+compiler.
 """
 from __future__ import annotations
 
+import ast
 import ctypes
 import re
+from pathlib import Path
 
 import pytest
 
@@ -70,3 +76,65 @@ def test_parser_reads_kinds():
         "pointer", "pointer", "int", "float", "pointer"]
     with pytest.raises(AssertionError):
         _kind("double x")
+
+
+# chip_smoke.py constant -> (source in ops/csrc, constexpr it names).
+EDGE_CONSTANTS = {
+    "K2_TILE": ("flash_attention_fwd.cu", "kBN"),
+    "K2_STAGES": ("flash_attention_fwd.cu", "kStages"),
+    "K3_ROWS": ("flash_attention_bwd.cu", "kDqRows"),
+    "K3_KEYS": ("flash_attention_bwd.cu", "kDqKeys"),
+    "K3_STAGES": ("flash_attention_bwd.cu", "kDqStages"),
+    "K4_KEYS": ("flash_attention_bwd.cu", "kDkvKeys"),
+    "K4_ROWS": ("flash_attention_bwd.cu", "kDkvRows"),
+    "K4_STAGES": ("flash_attention_bwd.cu", "kDkvStages"),
+    "K5_SLICE": ("flash_decode.cu", "kDecodeSlice"),
+    "K5_CLUSTER": ("flash_decode.cu", "kDecodeCluster"),
+    "K5_CHUNK": ("flash_decode.cu", "kDecodeChunk"),
+    "K5_STAGES": ("flash_decode.cu", "kDecodeStages"),
+}
+_CONSTEXPR = re.compile(r"constexpr\s+int\s+(k\w+)\s*=\s*(\d+)\s*;")
+
+
+def smoke_constants() -> dict:
+    """The module-level integer constants K<n>_* of chip_smoke.py, read
+    from its source (not imported)."""
+    path = Path(_build.__file__).resolve().parents[2] / "chip_smoke.py"
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if not isinstance(node, ast.Assign):
+            continue
+        targets = node.targets[0]
+        names = (targets.elts if isinstance(targets, ast.Tuple)
+                 else [targets])
+        values = (node.value.elts if isinstance(node.value, ast.Tuple)
+                  else [node.value])
+        for name, value in zip(names, values):
+            if (isinstance(name, ast.Name) and re.fullmatch(r"K\d_\w+",
+                                                            name.id)
+                    and isinstance(value, ast.Constant)):
+                out[name.id] = value.value
+    return out
+
+
+def source_constants(name: str) -> dict:
+    text = re.sub(r"//[^\n]*", "", (_build.CSRC / name).read_text())
+    found = {}
+    for const, value in _CONSTEXPR.findall(text):
+        assert const not in found, f"{const} defined twice in {name}"
+        found[const] = int(value)
+    return found
+
+
+def test_smoke_edge_constants_are_all_mapped():
+    assert set(smoke_constants()) == set(EDGE_CONSTANTS)
+
+
+@pytest.mark.parametrize("const", sorted(EDGE_CONSTANTS))
+def test_smoke_edges_aim_at_the_kernel_tiles(const):
+    src, name = EDGE_CONSTANTS[const]
+    found = source_constants(src)
+    assert name in found, f"{src} defines no constexpr int {name}"
+    assert smoke_constants()[const] == found[name], (
+        f"chip_smoke.py {const} = {smoke_constants()[const]}, "
+        f"{src} {name} = {found[name]}")

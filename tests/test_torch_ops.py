@@ -116,6 +116,31 @@ def test_plain_decode_matches_pallas_flash_decode():
                                rtol=0)
 
 
+@pytest.mark.parametrize("masked", ["every_slot", "run_of_96"])
+def test_plain_decode_matches_pallas_flash_decode_on_masked_rows(masked):
+    """The semantics the decode kernel keeps where the bias masks with the
+    reference's -1e30: a row masked in every slot averages V uniformly; a
+    row masked over one contiguous run of slots (a whole slice of one
+    block of the kernel's cluster) attends to the rest."""
+    rs = np.random.RandomState(21)
+    S = 256
+    q = rs.randn(2, 1, 8, 64).astype(np.float32)
+    k = rs.randn(2, S, 2, 64).astype(np.float32)
+    v = rs.randn(2, S, 2, 64).astype(np.float32)
+    rows = np.where(rs.rand(2, S) < 0.1, -1e30, 0.0).astype(np.float32)
+    if masked == "every_slot":
+        rows[0] = -1e30
+    else:
+        rows[:, 64:160] = -1e30
+    want = np.asarray(jfd.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(rows)))
+    got = ops.decode_attention(_t(q), _t(k), _t(v), _t(rows)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    if masked == "every_slot":
+        uniform = v[0].mean(axis=0).repeat(4, axis=0)  # kv head j // 4
+        np.testing.assert_allclose(got[0, 0], uniform, atol=1e-5, rtol=0)
+
+
 # -- routing and the wrappers on CPU tensors ----------------------------------
 
 
