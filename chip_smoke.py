@@ -24,14 +24,18 @@ Phases, each of which raises on failure (exit code 1):
    The kernels' launch counts are set to 0 just before A and read just
    after it; each must equal what the path launches.
 6. profile: request A's device time by kernel class (torch.profiler).
-7. train-kernels: the training kernels (K2-lse forward, K3 dq, K4 dk/dv)
-   against their plain versions in f32 on the same bf16 inputs, at
+7. train-kernels: the training kernels (K1 forward and backward, K2-lse
+   forward, K3 dq, K4 dk/dv) against their plain versions in f32 on the
+   same bf16 inputs, K1 at llama_1b4's rows ([8192, 2048]), attention at
    llama_1b4's training shape (b1 s8192 h16 d128 causal), the same with
    the packed loader's segment ids, and llama3_8b's GQA shape (b1 s4096
-   h32/8), timed beside each one's bound and the SDPA library call
-   (forward, or its backward through ``torch.autograd.grad``).
-8. train-edges: the same kernels at ragged, cross-length, head_dim 64,
-   one-key, GQA 1/2/4/8, segment-with-pad and nonzero-g_lse cases.
+   h32/8), timed beside each one's bound and the library call
+   (``F.rms_norm``'s backward, SDPA's forward, or its backward, both
+   through ``torch.autograd.grad``).
+8. train-edges: the K1 backward at row counts around its grid, widths
+   from 64 to 16384, f32 and bf16, zero rows and zero cotangents; the
+   attention kernels at ragged, cross-length, head_dim 64, one-key, GQA
+   1/2/4/8, segment-with-pad and nonzero-g_lse cases.
 9. train-compose: ``llama_1b4`` at full width, 2 layers: one grad step on
    the kernel route, the bf16 plain route and an f32 plain model; the
    kernel route's gradients may be no farther from the f32 model's than
@@ -86,9 +90,16 @@ TIMING_RUNS = 25
 # relative error of ~2^-9 per element, well inside 2e-2.  A reference
 # that is zero (dq and dk when a row sees one key) has no scale of its
 # own: the distance is then taken against 1e-3 * sqrt(numel).
+#
+# The K1 backward: dx, like K1's output, is f32 math rounded once to x's
+# dtype, so it gets K1's 1e-2; dscale sums the rows in another order than
+# the plain version (f32) and rounds once to scale's dtype (bf16 on the
+# training path, a relative error <= 2^-9 an element), so it is held by
+# relative L2 <= 4e-3 ("rms_norm_bwd_dscale"), twice that rounding.
 KERNEL_TOL = {"rms_norm": 1e-2, "flash_attention_fwd": 2e-2,
               "flash_decode": 1e-2, "flash_attention_fwd_lse": 1e-3,
-              "flash_attention_dq": 2e-2, "flash_attention_dkv": 2e-2}
+              "flash_attention_dq": 2e-2, "flash_attention_dkv": 2e-2,
+              "rms_norm_bwd": 1e-2, "rms_norm_bwd_dscale": 4e-3}
 SERVE_KERNELS = ("rms_norm", "flash_attention_fwd", "flash_decode")
 # Composition: the bf16 kernel route's relative L2 distance from the same
 # model in f32 may be at most this multiple of the bf16 plain route's.
@@ -152,12 +163,21 @@ def bound_ms(nbytes: float, flops: float, flops_peak: float):
                                        else "operations")
 
 
-def add_rates(row, flops):
+def add_rates(row, flops, floor_ms=None):
     """A timed row's achieved rate and roofline share: ``tflops`` is the
     flops its bound counts (visible pairs for attention) over the kernel's
-    time, ``bound_share`` is bound_ms / kernel_ms."""
+    time, ``bound_share`` is bound_ms / kernel_ms; with the timer's floor,
+    ``net_bound_share`` is bound_ms / (kernel_ms - floor).  (K1's rows
+    also carry ``same_bytes_ms``: the timer's reading of one PyTorch
+    elementwise op that moves the same bytes, a copy for the forward and
+    an add of x and g for the backward, the practical floor of a
+    bytes-bound kernel under this timer, whose L2 flush leaves dirty lines
+    for the timed call to write back.)"""
     row["tflops"] = flops / (row["kernel_ms"] * 1e-3) / 1e12
     row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    if floor_ms is not None and row["kernel_ms"] > floor_ms:
+        row["net_bound_share"] = row["bound_ms"] / (row["kernel_ms"]
+                                                    - floor_ms)
     return row
 
 
@@ -171,6 +191,7 @@ class Timer:
     def __init__(self, torch, device):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        self.floor_ms = None    # its reading of a kernel that does no work
 
     def __call__(self, fn) -> float:
         torch = self.torch
@@ -250,7 +271,8 @@ def phase_kernels(torch, dev, timer):
     # The timer's floor: its reading of a kernel that does no work (a
     # one-element fill).  A row that reads near it is launch latency.
     one = torch.zeros(1, device=dev)
-    emit({"phase": "timer", "one_element_fill_ms": timer(one.zero_)})
+    timer.floor_ms = timer(one.zero_)
+    emit({"phase": "timer", "one_element_fill_ms": timer.floor_ms})
 
     # K1: prefill rows (4 x 512 tokens) and decode rows (4 tokens).
     d = 4096
@@ -271,8 +293,9 @@ def phase_kernels(torch, dev, timer):
                                                            eps=1e-5)),
                "library_ms": timer(lambda: F.rms_norm(
                    x, (d,), weight=scale.to(bf), eps=1e-5)),
+               "same_bytes_ms": timer(lambda: got.copy_(x)),
                "bound_ms": bms, "bound_by": by}
-        emit(add_rates(row, flops))
+        emit(add_rates(row, flops, timer.floor_ms))
         if where == "decode":
             rows["rms_norm"] = row
 
@@ -431,11 +454,18 @@ def phase_edges(torch, dev):
         if share >= w["tol_share"]:
             w.update(tol_share=share, max_abs_err=err, case=case)
 
-    for rows, d, dt in ((5, 8, torch.float32), (3, 4104, torch.bfloat16),
-                        (7, 4096, torch.float32)):
-        x, scale = rnd(rows, d, dt=dt), rnd(d, dt=torch.float32)
-        check("rms_norm", f"{rows}x{d} {str(dt)[6:]}", k1.rms_norm(x, scale),
-              k1.plain_rms_norm(x.float(), scale))
+    # (rows, d, x dtype, scale dtype): widths from 8 to the widest a row
+    # held in registers takes (16384 bf16, 8192 f32), row counts that
+    # leave the grid's last pass ragged, both scale dtypes.
+    f32, bf = torch.float32, torch.bfloat16
+    for rows, d, dt, st in ((5, 8, f32, f32), (3, 4104, bf, f32),
+                            (7, 4096, f32, f32), (2, 64, bf, bf),
+                            (1000, 2048, bf, bf), (8193, 2048, bf, f32),
+                            (300, 4096, bf, bf), (9, 16384, bf, f32),
+                            (5, 8192, f32, bf)):
+        x, scale = rnd(rows, d, dt=dt), rnd(d, dt=st)
+        check("rms_norm", f"{rows}x{d} {str(dt)[6:]} scale {str(st)[6:]}",
+              k1.rms_norm(x, scale), k1.plain_rms_norm(x.float(), scale))
     # (b, sq, sk, h, kv_h, d, causal, segments)
     tile_edges = (K2_TILE - 1, K2_TILE, K2_TILE + 1,
                   K2_STAGES * K2_TILE + 1)
@@ -605,7 +635,7 @@ def phase_serve(torch, dev):
 
         forwards = NEW_TOKENS            # 1 prefill + 31 decode steps
         want = {"rms_norm": (2 * cfg.n_layers + 1) * forwards,
-                "flash_attention_fwd": cfg.n_layers,
+                "rms_norm_bwd": 0, "flash_attention_fwd": cfg.n_layers,
                 "flash_attention_fwd_lse": 0, "flash_attention_dq": 0,
                 "flash_attention_dkv": 0,
                 "flash_decode": cfg.n_layers * (NEW_TOKENS - 1)}
@@ -798,9 +828,46 @@ def train_kernel_case(torch, dev, gen, b, sq, sk, h, kvh, d, causal, seg,
                 checks=checks, bit_equal=True)
 
 
+def rms_bwd_case(torch, dev, gen, rows, d, dt, st, kind=None):
+    """Run the K1 backward twice on one case and check it against its
+    plain version in f32 on the same inputs: dx elementwise at
+    KERNEL_TOL["rms_norm_bwd"], dscale by relative L2 at
+    KERNEL_TOL["rms_norm_bwd_dscale"], and both bit-equal on relaunch.
+    ``kind``: "zero_row" zeroes x's rows 0 and rows // 2; "zero_g" makes
+    the cotangent 0.  Returns the inputs and the checks."""
+    from kubeflow_tpu_torch.ops.cuda import rms_norm as k1
+
+    x = torch.randn(rows, d, generator=gen, device=dev).to(dt)
+    g = torch.randn(rows, d, generator=gen, device=dev).to(dt)
+    scale = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(st)
+    if kind == "zero_row":
+        x[0] = 0
+        x[rows // 2] = 0
+    elif kind == "zero_g":
+        g.zero_()
+    dx, ds = k1.rms_norm_bwd(x, scale, g, eps=1e-5)
+    # dscale's sum runs in a fixed order over a fixed grid, no atomics: a
+    # second launch must repeat dx and dscale to the bit.
+    dx2, ds2 = k1.rms_norm_bwd(x, scale, g, eps=1e-5)
+    torch.cuda.synchronize()
+    if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
+        raise AssertionError("rms_norm_bwd: a second launch on the same "
+                             "inputs gave other dx/dscale bits")
+    want_dx, want_ds = k1.rms_norm_backward(x.float(), scale.float(),
+                                            g.float(), eps=1e-5)
+    if dx.dtype != dt or ds.dtype != st:
+        raise AssertionError(f"rms_norm_bwd: dtypes {dx.dtype} {ds.dtype}, "
+                             f"expected {dt} {st}")
+    checks = {"dx": check_close("rms_norm_bwd dx", dx, want_dx,
+                                KERNEL_TOL["rms_norm_bwd"]),
+              "dscale": check_rel_l2("rms_norm_bwd dscale", ds, want_ds,
+                                     KERNEL_TOL["rms_norm_bwd_dscale"])}
+    return dict(x=x, g=g, scale=scale, checks=checks, bit_equal=True)
+
+
 def phase_train_kernels(torch, dev, timer):
-    """K2-lse, K3 and K4 at the training path's shapes; returns the
-    summary row per kernel at llama_1b4's shape."""
+    """K1 (forward and backward), K2-lse, K3 and K4 at the training path's
+    shapes; returns the summary row per kernel at llama_1b4's shape."""
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
@@ -817,14 +884,55 @@ def phase_train_kernels(torch, dev, timer):
                              k1.plain_rms_norm(x.float(), scale, eps=1e-5),
                              tol)
     bms, by = bound_ms(n * dm * 4 + dm * 4, 4 * n * dm, PEAK_F32_FLOPS)
+    y = torch.empty_like(x)
     emit(add_rates({"kernel": "rms_norm", "shape": [n, dm], "path": "train",
           "max_abs_err": err, "tol": tol, "tol_share": share,
           "kernel_ms": timer(lambda: k1.rms_norm(x, scale, eps=1e-5)),
           "plain_ms": timer(lambda: k1.plain_rms_norm(x, scale, eps=1e-5)),
           "library_ms": timer(lambda: F.rms_norm(
               x, (dm,), weight=scale.to(torch.bfloat16), eps=1e-5)),
-          "bound_ms": bms, "bound_by": by}, 4 * n * dm))
-    del x, scale
+          "same_bytes_ms": timer(lambda: y.copy_(x)),
+          "bound_ms": bms, "bound_by": by}, 4 * n * dm, timer.floor_ms))
+    del x, y, scale
+    # The K1 backward at the same rows, as the bf16-gradient step calls it
+    # (x, g and the scale copy in bf16).  Bound: x, g and the scale read,
+    # dx and dscale written (the kernel's f32 workspace, one row of d per
+    # block, is not in it: ``workspace_bytes_at_most``); 11 f32 flops an
+    # element (x^2 and g*s*x sums, dx = r*gs - x*c, dscale += g*x*r).
+    bf = torch.bfloat16
+    c = rms_bwd_case(torch, dev, gen, n, dm, bf, bf)
+    x, g, scale = c["x"], c["g"], c["scale"]
+    flops = 11 * n * dm
+    bms, by = bound_ms(3 * n * dm * 2 + 2 * dm * 2, flops, PEAK_F32_FLOPS)
+    # The library call: F.rms_norm's backward, through autograd on a
+    # graph built once (timing only the backward).
+    xl, wl = x.detach().requires_grad_(True), scale.detach().requires_grad_(
+        True)
+    lib_out = F.rms_norm(xl, (dm,), weight=wl, eps=1e-5)
+    dx_out = torch.empty_like(x)
+    row = {"kernel": "rms_norm_bwd", "shape": [n, dm], "path": "train",
+           "dtypes": {"x": "bf16", "scale": "bf16"},
+           "max_abs_err": c["checks"]["dx"][0],
+           "tol": KERNEL_TOL["rms_norm_bwd"],
+           "tol_share": c["checks"]["dx"][1],
+           "dscale_rel_l2": c["checks"]["dscale"][0],
+           "dscale_tol": KERNEL_TOL["rms_norm_bwd_dscale"],
+           "dscale_tol_share": c["checks"]["dscale"][1],
+           "bit_equal_on_relaunch": c["bit_equal"],
+           "kernel_ms": timer(lambda: k1.rms_norm_bwd(x, scale, g,
+                                                      eps=1e-5)),
+           "plain_ms": timer(lambda: k1.rms_norm_backward(x, scale, g,
+                                                          eps=1e-5)),
+           "library_ms": timer(lambda: torch.autograd.grad(
+               lib_out, (xl, wl), g, retain_graph=True)),
+           "library": "F.rms_norm backward (dx, dweight)",
+           "same_bytes_ms": timer(lambda: torch.add(x, g, out=dx_out)),
+           "bound_ms": bms, "bound_by": by,
+           "workspace_bytes_at_most": 2 * 4 * dm * k1.bwd_blocks(
+               n, x.device)}
+    emit(add_rates(row, flops, timer.floor_ms))
+    rows["rms_norm_bwd"] = row
+    del c, x, g, scale, xl, wl, lib_out, dx_out
     for name, (b, s, h, kvh, d, packed) in (
             ("llama_1b4", (1, 8192, 16, 16, 128, False)),
             ("llama_1b4 packed", (1, 8192, 16, 16, 128, True)),
@@ -915,16 +1023,39 @@ def phase_train_kernels(torch, dev, timer):
 
 
 def phase_train_edges(torch, dev):
-    """K2-lse, K3 and K4 beyond the training path's shapes, each against
-    its plain version (untimed), K3 and K4 also against their own second
-    launch (bit-equal): ragged and cross-length causal, head_dim 64, one
-    key, every GQA group size and GQA 8 at head_dim 64, lengths around
-    K2's key tile and ring, K3's q tile, key tile and ring and K4's q
-    tile and ring, sq 8191, nonzero g_lse,
-    and segment ids with pads, drawn at random, permuted, or with a
-    one-token segment (``edge_segments``)."""
+    """The K1 backward and K2-lse, K3 and K4 beyond the training path's
+    shapes, each against its plain version (untimed), the K1 backward, K3
+    and K4 also against their own second launch (bit-equal).  K1
+    backward: 1, 3 and 8193 rows and 1000 (not a multiple of the grid's
+    rows), widths 64, 128, 4096, 8192 and 16384 (the widest bf16 row),
+    f32 and bf16 with either scale dtype, rows of x that are all zero, a
+    zero cotangent.  Attention: ragged and cross-length causal, head_dim
+    64, one key, every GQA group size and GQA 8 at head_dim 64, lengths
+    around K2's key tile and ring, K3's q tile, key tile and ring and K4's
+    q tile and ring, sq 8191, nonzero g_lse, and segment ids with pads,
+    drawn at random, permuted, or with a one-token segment
+    (``edge_segments``)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst = {}
+    f32, bf = torch.float32, torch.bfloat16
+    # (rows, d, x dtype, scale dtype, kind)
+    rms_cases = [(n, 2048, bf, bf, None) for n in (1, 3, 1000, 8193)]
+    rms_cases += [(33, d, dt, st, None) for d in (64, 128, 4096, 8192)
+                  for dt, st in ((bf, bf), (f32, f32), (bf, f32))]
+    rms_cases += [(5, 16384, bf, bf, None), (257, 2048, f32, bf, None),
+                  (100, 2048, bf, bf, "zero_row"),
+                  (100, 4096, f32, f32, "zero_row"),
+                  (100, 4096, bf, f32, "zero_g")]
+    for n, d, dt, st, kind in rms_cases:
+        case = f"{n}x{d} {str(dt)[6:]} scale {str(st)[6:]} {kind}"
+        c = rms_bwd_case(torch, dev, gen, n, d, dt, st, kind)
+        for name, check in c["checks"].items():
+            w = worst.setdefault(f"rms_norm_bwd {name}",
+                                 {"cases": 0, "tol_share": 0.0})
+            w["cases"] += 1
+            if check[1] >= w["tol_share"]:
+                w.update(tol_share=check[1], err=check[0], case=case)
+        del c
     # (b, sq, sk, h, kv_h, d, causal, segments, g_lse)
     cases = [(2, 100, 100, 4, 2, 128, True, None, False),
              (2, 37, 200, 4, 1, 128, True, None, False),
@@ -966,7 +1097,7 @@ def phase_train_edges(torch, dev):
                 w.update(tol_share=share, err=check[0], case=case)
         del c
     emit({"phase": "train-edges", "cases": len(cases),
-          "worst_by_output": worst})
+          "rms_norm_bwd_cases": len(rms_cases), "worst_by_output": worst})
     torch.cuda.empty_cache()
 
 
@@ -1166,8 +1297,11 @@ def run_trainer(argv):
 
 
 def train_launches_per_step(cfg, n_layers=None):
+    """Launches a step per wrapper: two norms a layer and the final one,
+    each run forward and backward once; one attention a layer."""
     n = cfg.n_layers if n_layers is None else n_layers
-    return {"rms_norm": 2 * n + 1, "flash_attention_fwd": 0,
+    return {"rms_norm": 2 * n + 1, "rms_norm_bwd": 2 * n + 1,
+            "flash_attention_fwd": 0,
             "flash_attention_fwd_lse": n, "flash_attention_dq": n,
             "flash_attention_dkv": n, "flash_decode": 0}
 
@@ -1196,8 +1330,9 @@ def profile_train_step(torch, argv):
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     classes = {"flash_attention_fwd_lse": 0.0, "flash_attention_dq": 0.0,
-               "flash_attention_dkv": 0.0, "rms_norm": 0.0, "matmul": 0.0,
-               "optimizer": 0.0, "other": 0.0}
+               "flash_attention_dkv": 0.0, "rms_norm": 0.0,
+               "rms_norm_bwd": 0.0, "matmul": 0.0, "optimizer": 0.0,
+               "other": 0.0}
     by_name, spans = {}, []
     for e in prof.events():
         # A user annotation on the device timeline (the optimizer's
@@ -1216,6 +1351,8 @@ def profile_train_step(torch, argv):
             classes["flash_attention_dq"] += us
         elif "flash_bwd_dkv_kernel" in name:
             classes["flash_attention_dkv"] += us
+        elif "rms_norm_bwd" in name:     # the row kernel and its sum
+            classes["rms_norm_bwd"] += us
         elif "rms_norm_kernel" in name:
             classes["rms_norm"] += us
         elif any(t in name.lower() for t in ("gemm", "gemv", "cutlass",
@@ -1311,6 +1448,8 @@ def phase_train(torch):
 SOURCES = {
     "rms_norm": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
                  "kubeflow_tpu/ops/pallas/rms_norm.py:53"),
+    "rms_norm_bwd": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
+                     "kubeflow_tpu/ops/pallas/rms_norm.py:91"),
     "flash_attention_fwd": (
         "kubeflow_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "kubeflow_tpu/ops/pallas/flash_attention.py:151"),
@@ -1328,8 +1467,8 @@ SOURCES = {
 }
 # The path each kernel's ``launches`` is read from (K1 runs on both; its
 # train count is in ``launches_by_path``).
-TRAIN_KERNELS = ("flash_attention_fwd_lse", "flash_attention_dq",
-                 "flash_attention_dkv")
+TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_fwd_lse",
+                 "flash_attention_dq", "flash_attention_dkv")
 
 
 def main() -> int:

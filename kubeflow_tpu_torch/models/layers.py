@@ -93,8 +93,9 @@ class Embed(nn.Module):
 
 class RMSNorm(nn.Module):
     """RMSNorm with an f32 scale (ones at init) over ``ops.rms_norm``; a
-    scale stored in another dtype (a bf16 copy differentiated for bf16
-    gradients) is cast to f32 at use."""
+    scale in another dtype (a bf16 copy differentiated for bf16 gradients)
+    goes to the op as it is, which casts it to f32 inside, as the
+    reference's kernel does, and returns its gradient in that dtype."""
 
     def __init__(self, dim: int, *, eps: float = 1e-6, impl: str = "auto",
                  device=None):
@@ -111,8 +112,7 @@ class RMSNorm(nn.Module):
             self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ops.rms_norm(x, self.scale.float(), eps=self.eps,
-                            impl=self.impl)
+        return ops.rms_norm(x, self.scale, eps=self.eps, impl=self.impl)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,

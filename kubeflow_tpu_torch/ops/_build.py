@@ -33,8 +33,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point in ops/csrc: (argtypes), restype int.
 SIGNATURES = {
-    # x, scale, y, rows, d, eps, x_is_bf16, stream
-    "kft_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _P),
+    # x, scale, y, rows, d, eps, x_is_bf16, scale_is_bf16, stream
+    "kft_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
+    # x, scale, g, dx, dscale, workspace, rows, d, eps, x_is_bf16,
+    # scale_is_bf16, max_blocks, stream
+    "kft_rms_norm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     # q, k, v, seg_or_null, o, lse_or_null, b, sq, sk, hq, hk, d, causal,
     # scale, stream
     "kft_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

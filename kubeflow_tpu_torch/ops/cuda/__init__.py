@@ -12,6 +12,7 @@ from kubeflow_tpu_torch.ops.cuda import flash_attention, flash_decode, rms_norm
 # Kernel name -> wrapper (each carries an integer ``launches``).
 WRAPPERS = {
     "rms_norm": rms_norm.rms_norm,
+    "rms_norm_bwd": rms_norm.rms_norm_bwd,
     "flash_attention_fwd": flash_attention.flash_attention,
     "flash_attention_fwd_lse": flash_attention.flash_attention_fwd_lse,
     "flash_attention_dq": flash_attention.flash_attention_dq,

@@ -19,7 +19,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     version on a CPU tensor; "kernel" requires a CUDA tensor (raises on
     the CPU); "plain" always runs the plain PyTorch version.  Every route
     is differentiable: the kernel's through ``RMSNormFunction`` (the
-    reference's analytic backward), the plain one by torch autograd."""
+    reference's analytic backward as a kernel), the plain one by torch
+    autograd.  The scale may be f32 or bf16; it is cast to f32 inside."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "kernel" and x.device.type != "cuda":

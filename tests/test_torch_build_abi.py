@@ -138,3 +138,25 @@ def test_smoke_edges_aim_at_the_kernel_tiles(const):
     assert smoke_constants()[const] == found[name], (
         f"chip_smoke.py {const} = {smoke_constants()[const]}, "
         f"{src} {name} = {found[name]}")
+
+
+# ops/cuda/rms_norm.py constant -> the rms_norm.cu constexpr it mirrors:
+# the launch shape that bounds d and sizes the backward's grid and
+# workspace.
+RMS_NORM_CONSTANTS = {
+    "MAX_WARPS_PER_ROW": "kWarpsPerBlock",
+    "VECS_PER_LANE": "kVecsPerLane",
+    "BWD_BLOCKS_PER_SM": "kBwdBlocksPerSm",
+}
+
+
+@pytest.mark.parametrize("const", sorted(RMS_NORM_CONSTANTS))
+def test_rms_norm_wrapper_constants_match_the_kernel(const):
+    from kubeflow_tpu_torch.ops.cuda import rms_norm as krms
+
+    name = RMS_NORM_CONSTANTS[const]
+    found = source_constants("rms_norm.cu")
+    assert name in found, f"rms_norm.cu defines no constexpr int {name}"
+    assert getattr(krms, const) == found[name], (
+        f"ops/cuda/rms_norm.py {const} = {getattr(krms, const)}, "
+        f"rms_norm.cu {name} = {found[name]}")

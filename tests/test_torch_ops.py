@@ -156,7 +156,7 @@ def test_wrappers_take_plain_path_on_cpu_without_launching():
     torch.testing.assert_close(o, ops.plain_attention(q, k, v, causal=True))
     torch.testing.assert_close(od, ops.plain_decode(q[:, :1], k, v, rows))
     assert kernels.launch_counts() == {
-        "rms_norm": 0, "flash_attention_fwd": 0,
+        "rms_norm": 0, "rms_norm_bwd": 0, "flash_attention_fwd": 0,
         "flash_attention_fwd_lse": 0, "flash_attention_dq": 0,
         "flash_attention_dkv": 0, "flash_decode": 0}
 
