@@ -13,17 +13,28 @@ Phases, each of which raises on failure (exit code 1):
    the serving path gives it, timed with CUDA events (median of 25 runs,
    L2 flushed before each), beside its bound and one PyTorch library call
    that computes the same function (a yardstick the port never calls);
-   first, the timer's reading of a kernel that does no work.
+   first, the timer's reading of a kernel that does no work.  K5 also at
+   the scheduler's pool shape (8 slots of 1024 at mixed depths, one free
+   slot fully masked, garbage behind the masks).
    Then the shapes the kernels accept beyond the serving path's.
 4. compose: ``llama3_8b`` at full width, 2 layers, on the card: the
    kernel route (impl="auto") against impl="plain" on the logits of a
    ragged batch, after prefill and after one decode step.
 5. serve:   ``load_service("llama3_8b")`` (32 layers, random bf16 weights
-   from seed 0 on the card) behind the HTTP app; /readyz, then three
-   POST /v1/generate: A greedy, B sampled, C = A again (token-identical).
-   The kernels' launch counts are set to 0 just before A and read just
-   after it; each must equal what the path launches.
+   from seed 0 on the card) behind the HTTP app, pinned to the lock path
+   (``use_scheduler=False``: one request at a time, whose launches it
+   counts exactly); /readyz, then three POST /v1/generate: A greedy, B
+   sampled, C = A again (token-identical).  The kernels' launch counts
+   are set to 0 just before A and read just after it; each must equal
+   what the path launches.
 6. profile: request A's device time by kernel class (torch.profiler).
+6b. schedule: the same model behind the continuous-batching scheduler
+   (8 slots of 1024 positions, quantum 8): 12 rows in 6 requests over
+   HTTP at once, so rows wait for slots and refill them mid-flight.
+   Each request's tokens equal the request sent alone; greedy tokens
+   agree with the lock path under a teacher-forced prefill; pipelined and
+   synchronous loops give equal tokens; launches are exact for a run
+   queued before its loop starts; the counters balance.
 7. train-kernels: the training kernels (K1 forward and backward, K2-lse
    forward, K3 dq, K4 dk/dv) against their plain versions in f32 on the
    same bf16 inputs, K1 at llama_1b4's rows ([8192, 2048]), attention at
@@ -50,6 +61,13 @@ Phases, each of which raises on failure (exit code 1):
    0 just before and read just after (exact launches per step), then one
    profiled step; then 2 packed steps (b4 s2048, segment ids through all
    three training kernels).
+12. checkpoint: ``llama_1b4`` at full width, 2 layers: 4 unbroken steps
+   against 2 steps, a stop and a resume for 2 more (restored state
+   bit-equal to the saved one, also while training goes on during the
+   write); then all 24 layers train 3 steps through ``train.run`` with
+   ``--checkpoint-dir``, ``load_service`` restores them in bf16, and a
+   request served through the scheduler equals ``generate()`` on the
+   restored model.
 
 Every line of standard output is one JSON object; the line before the
 last lists every kernel with its launches, error and times, and the last
@@ -62,12 +80,16 @@ import gc
 import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 0
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -139,6 +161,30 @@ K5_SLICE, K5_CLUSTER, K5_CHUNK, K5_STAGES = 64, 8, 64, 4
 # Serving phase: 4 right-padded rows, max_new_tokens 32.
 PROMPT_LENS = (17, 128, 300, 512)
 NEW_TOKENS = 32
+
+# Schedule phase: the scheduler's pool (KFT_SERVE_SLOTS, _SLOT_LEN,
+# _DECODE_QUANTUM).  llama3_8b's default slot length is its max_seq_len,
+# 8192, a pool of 8.6 GB that K5 reads whole each step; 1024 holds the
+# longest request here (900 + 64).  The K5 row at the pool shape takes its
+# rows' visible lengths from POOL_LENS, plus one free row.
+POOL_SLOTS, POOL_SLOT_LEN, POOL_QUANTUM = 8, 1024, 8
+POOL_LENS = (1, 17, 300, 512, 544, 1023, 1024)
+# name -> (prompt lengths, max_new_tokens, sampling): request A, four
+# single rows, one seeded sampled request; 12 rows for 8 slots.
+SCHEDULE_REQUESTS = {
+    "A": (PROMPT_LENS, NEW_TOKENS, {}),
+    "B8": ((33,), 8, {}),
+    "B16": ((250,), 16, {}),
+    "B48": ((64,), 48, {}),
+    "B64": ((900,), 64, {}),
+    "T": ((5, 60, 100, 400), 24, {"temperature": 0.8, "top_k": 40,
+                                  "seed": 7}),
+}
+# Agreement with the lock path: every greedy token the pool emitted is
+# within this of its row's largest logit under a teacher-forced prefill,
+# unless twice the largest logit difference measured between the lock
+# path's and the pool's decode (the two widths) is larger.
+AGREE_GAP = 0.1
 
 # Training phase: the repo's training configuration at full width and
 # depth, as the reference's bench trains it (b1 s8192, bf16 gradients).
@@ -373,7 +419,57 @@ def phase_kernels(torch, dev, timer):
         emit(add_rates(row, flops))
         if S == 512 + NEW_TOKENS:
             rows["flash_decode"] = row
+    emit(add_rates(*pool_decode_row(torch, dev, gen, timer)))
     return rows
+
+
+def pool_decode_row(torch, dev, gen, timer):
+    """K5 at the scheduler's pool shape: q [8, 1, 32, 128] over a cache
+    [8, 1024, 8, 128] whose rows see POOL_LENS slots (causal bias, as a
+    pool step builds it) and one free row fully masked as the pool masks
+    it (pad -1e30 on every slot, written at slot 0).  Behind every mask
+    lies finite garbage 50x the live values.  The bound counts the slots
+    this data needs: each row's slots at its largest bias."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.cuda import flash_decode as k5
+
+    bf = torch.bfloat16
+    b, S, h, kvh, hd = POOL_SLOTS, POOL_SLOT_LEN, 32, 8, 128
+    lens = torch.tensor(POOL_LENS + (1,), device=dev)
+    live = torch.arange(S, device=dev)[None] < lens[:, None]
+    live[-1] = False
+    scale = torch.where(live, 1.0, 50.0)[:, :, None, None]
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(bf)
+    k = (torch.randn(b, S, kvh, hd, generator=gen, device=dev)
+         * scale).to(bf)
+    v = (torch.randn(b, S, kvh, hd, generator=gen, device=dev)
+         * scale).to(bf)
+    causal = torch.where(torch.arange(S, device=dev)[None] < lens[:, None],
+                         0.0, -1e30)
+    pad = torch.zeros(b, S, device=dev)
+    pad[-1] = -1e30
+    bias = (causal + pad).float().contiguous()
+    got = k5.flash_decode(q, k, v, bias)
+    want = k5.plain_decode(q.float(), k.float(), v.float(), bias)
+    tol = KERNEL_TOL["flash_decode"]
+    err, share = check_close("flash_decode pool", got, want, tol)
+    needed = (bias == bias.amax(dim=1, keepdim=True)).sum().item()
+    nbytes = 2 * needed * kvh * hd * 2 + b * S * 4 + 2 * b * h * hd * 2
+    flops = 4 * h * hd * needed
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = bias[:, None, None, :].to(bf)
+    row = {"kernel": "flash_decode", "shape": [b, S, h, kvh, hd],
+           "path": "schedule pool", "visible_lens": list(POOL_LENS),
+           "free_rows": 1, "needed_slots": needed, "max_abs_err": err,
+           "tol": tol, "tol_share": share,
+           "kernel_ms": timer(lambda: k5.flash_decode(q, k, v, bias)),
+           "plain_ms": timer(lambda: k5.plain_decode(q, k, v, bias)),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+           "bound_ms": bms, "bound_by": by}
+    return row, flops
 
 
 def edge_segments(torch, dev, gen, kind, b, s):
@@ -608,7 +704,10 @@ def phase_serve(torch, dev):
     from kubeflow_tpu_torch.ops import cuda as kernels
 
     t0 = time.perf_counter()
-    service = load_service("llama3_8b", device="cuda", seed=SEED)
+    # The lock path, whose one request at a time the counts below hold;
+    # phase_schedule serves the same model through the scheduler.
+    service = load_service("llama3_8b", device="cuda", seed=SEED,
+                           use_scheduler=False)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     cfg = service.model.cfg
@@ -660,7 +759,9 @@ def phase_serve(torch, dev):
         _, metrics = http(base, "/metrics")
         if "serve_output_tokens_total" not in metrics:
             raise AssertionError("/metrics lacks the token counter")
-        emit({"phase": "serve", "model": "llama3_8b",
+        if service._scheduler is not None:
+            raise AssertionError("the pinned lock path started a scheduler")
+        emit({"phase": "serve", "model": "llama3_8b", "engine": "lock",
               "load_seconds": load_s, "prompt_lens": list(PROMPT_LENS),
               "max_new_tokens": NEW_TOKENS, "request_a_seconds": t_a,
               "ttft_seconds": ttft_s,
@@ -733,6 +834,382 @@ def phase_profile(torch, dev, model):
           "device_ms_by_class": {k: v / 1e3 for k, v in classes.items()},
           "top_kernels": [{"name": name[:90], "ms": t / 1e3, "count": c}
                           for name, (t, c) in top]})
+
+
+def schedule_bodies(torch, dev, vocab):
+    """The schedule phase's requests: name -> POST /v1/generate body.
+    Request A is the serve phase's; the others draw from seed SEED + 10."""
+    import numpy as np
+
+    rs = np.random.RandomState(SEED + 10)
+    bodies = {}
+    for name, (lens, n, kw) in SCHEDULE_REQUESTS.items():
+        if name == "A":
+            rows = ragged_batch(torch, dev, vocab, lens)[0]
+        else:
+            rows = [rs.randint(0, vocab, size=m).tolist() for m in lens]
+        bodies[name] = {"tokens": rows, "max_new_tokens": n,
+                        "temperature": 0.0, **kw}
+    return bodies
+
+
+def schedule_launches(cfg, prefills, steps):
+    """Launches of the scheduler's path: each admission prefill and each
+    pool step is one forward (two norms a layer and the final one); a
+    prefill runs K2 once a layer, a pool step K5 once a layer."""
+    n = cfg.n_layers
+    return {"rms_norm": (2 * n + 1) * (prefills + steps), "rms_norm_bwd": 0,
+            "flash_attention_fwd": n * prefills,
+            "flash_attention_fwd_lse": 0, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0, "flash_decode": n * steps}
+
+
+def wait_drained(sched, timeout=60.0):
+    """Until the scheduler holds no row and no unharvested quantum."""
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        st = sched.stats()
+        if (sched._inflight is None and st["active_rows"] == 0
+                and st["queued_rows"] == 0):
+            return st
+        time.sleep(0.01)
+    raise AssertionError(f"scheduler did not drain: {sched.stats()}")
+
+
+def width_logit_diff(torch, dev, model, rows, gen):
+    """The largest |logit| difference between the lock path's decode (the
+    request's width, a cache of prompt + budget) and the pool's (width
+    POOL_SLOTS, POOL_SLOT_LEN positions, the other slots free), both fed
+    the same tokens ``gen`` [b][n] from the same prefill."""
+    from kubeflow_tpu_torch.models.generate import NEG_INF, generate_prefill
+
+    b, n = len(rows), len(gen[0])
+    longest = max(len(r) for r in rows)
+    prompt = torch.tensor([r + [0] * (longest - len(r)) for r in rows],
+                          device=dev)
+    mask = torch.arange(longest, device=dev)[None] < torch.tensor(
+        [len(r) for r in rows], device=dev)[:, None]
+    toks = torch.tensor(gen, device=dev)
+    worst = 0.0
+    with torch.inference_mode():
+        _, st = generate_prefill(model, prompt, prompt_mask=mask,
+                                 max_new_tokens=n)
+        pool = model.new_cache(POOL_SLOTS, POOL_SLOT_LEN)
+        length = st.cache.length
+        for layer in range(len(pool.k)):
+            pool.k[layer][:b, :length] = st.cache.k[layer]
+            pool.v[layer][:b, :length] = st.cache.v[layer]
+        pads = torch.full((POOL_SLOTS, POOL_SLOT_LEN), NEG_INF, device=dev)
+        pads[:b] = 0.0
+        pads[:b, :length] = st.pad_bias
+        write = torch.zeros(POOL_SLOTS, dtype=torch.long, device=dev)
+        write[:b] = longest
+        pos = torch.zeros(POOL_SLOTS, dtype=torch.long, device=dev)
+        pos[:b] = st.pos
+        tok = torch.zeros(POOL_SLOTS, dtype=torch.long, device=dev)
+        for t in range(n - 1):
+            lock = model(toks[:, t:t + 1], positions=st.pos[:, None],
+                         cache=st.cache, pad_bias=st.pad_bias)[:, 0]
+            tok[:b] = toks[:, t]
+            pooled = model(tok[:, None], positions=pos[:, None], cache=pool,
+                           pad_bias=pads,
+                           cache_slots=write.clamp_max(POOL_SLOT_LEN - 1))
+            worst = max(worst, (lock - pooled[:b, 0]).abs().max().item())
+            st.pos += 1
+            pos += 1
+            write += 1
+    return worst
+
+
+def teacher_forced_gaps(torch, dev, model, row, gen):
+    """Each emitted token's gap to its position's largest logit under one
+    prefill of the prompt and the tokens before it (no cache)."""
+    seq = torch.tensor([row + gen[:-1]], device=dev)
+    with torch.inference_mode():
+        logits = model(seq)[0, len(row) - 1:]
+    tok = torch.tensor(gen, device=dev)
+    return (logits.amax(-1) - logits.gather(-1, tok[:, None])[:, 0]).tolist()
+
+
+def metric_value(text, name):
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith(name + " "))
+
+
+def pool_quantum_checks(torch, dev, model):
+    """One quantum of the scheduler's ``pool_steps`` over a full pool (8
+    live rows at depth 512), greedy and sampled, each enqueued under
+    ``torch.cuda.set_sync_debug_mode("error")``, where any host read or
+    sync inside the quantum raises; then each timed (host clock to a
+    synchronize), and the greedy one profiled: kernels a step and the
+    device's busy share of the quantum.  Last, the same 8 greedy steps on
+    the lock path (request A's 4 rows over their 544-slot cache) and in
+    the pool, in turns (lock, pool, pool, lock), seconds a step each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models.generate import (
+        DecodeState,
+        SamplingRows,
+        decode_step,
+        generate_prefill,
+    )
+    from kubeflow_tpu_torch.models.scheduler import pool_steps
+
+    b, depth = POOL_SLOTS, 512
+    out = {}
+    with torch.inference_mode():
+        st = DecodeState(
+            cache=model.new_cache(b, POOL_SLOT_LEN),
+            token=torch.zeros(b, dtype=torch.long, device=dev),
+            pos=torch.full((b,), depth, dtype=torch.long, device=dev),
+            done=torch.zeros(b, dtype=torch.bool, device=dev),
+            pad_bias=torch.zeros(b, POOL_SLOT_LEN, device=dev),
+            generators=[torch.Generator(device=dev).manual_seed(i)
+                        for i in range(b)], budget=0)
+        for kind, temp, top_k in (("greedy", 0.0, None),
+                                  ("sampled", 0.8, 40)):
+            rows = SamplingRows.make(b, dev, temp, top_k, None)
+            write = torch.full((b,), depth, dtype=torch.long, device=dev)
+            pool_steps(model, st, rows, write, 1)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pool_steps(model, st, rows, write, POOL_QUANTUM)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool_steps(model, st, rows, write, POOL_QUANTUM)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            out[kind] = {"no_host_sync": True,
+                         "enqueue_seconds": t1 - t0,
+                         "wall_seconds": time.perf_counter() - t0}
+        rows = SamplingRows.make(b, dev, 0.0, None, None)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pool_steps(model, st, rows, write, POOL_QUANTUM)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    out["profiled_greedy"] = {"wall_seconds": wall_s,
+                              "device_busy_seconds": busy_us / 1e6,
+                              "device_busy_share": busy_us / 1e6 / wall_s,
+                              "kernels_per_step": len(spans) / POOL_QUANTUM}
+    _, prompt, mask = ragged_batch(torch, dev, model.cfg.vocab_size,
+                                   PROMPT_LENS)
+    _, lock = generate_prefill(model, prompt, prompt_mask=mask,
+                               max_new_tokens=NEW_TOKENS)
+    lock_rows = SamplingRows.make(len(PROMPT_LENS), dev, 0.0, None, None)
+
+    def lock_quantum():
+        for _ in range(POOL_QUANTUM):
+            decode_step(model, lock, lock_rows)
+
+    def pool_quantum():
+        pool_steps(model, st, rows, write, POOL_QUANTUM)
+
+    per_step = {"lock": [], "pool": []}
+    with torch.inference_mode():
+        for name, fn in (("lock", lock_quantum), ("pool", pool_quantum),
+                         ("pool", pool_quantum), ("lock", lock_quantum)):
+            lock.cache.index = prompt.shape[1]   # rewrite the same slots
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            per_step[name].append((time.perf_counter() - t0) / POOL_QUANTUM)
+    out["seconds_per_step_in_turns"] = per_step
+    return out
+
+
+def phase_schedule(torch, dev, model):
+    """The serve phase's llama3_8b behind the continuous-batching
+    scheduler.  Returns the launch counts of the pooled HTTP run."""
+    from kubeflow_tpu_torch.models.scheduler import DecodeScheduler
+    from kubeflow_tpu_torch.models.serve import GenerationService, create_app
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    cfg = model.cfg
+    knobs = {"KFT_SERVE_SLOTS": str(POOL_SLOTS),
+             "KFT_SERVE_SLOT_LEN": str(POOL_SLOT_LEN),
+             "KFT_SERVE_DECODE_QUANTUM": str(POOL_QUANTUM)}
+    saved_env = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    service = GenerationService(model, use_scheduler=True)
+    server = create_app(service, model_name="llama3_8b").make_server(
+        "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    bodies = schedule_bodies(torch, dev, cfg.vocab_size)
+    row = {"phase": "schedule", "model": "llama3_8b", "slots": POOL_SLOTS,
+           "slot_len": POOL_SLOT_LEN, "quantum": POOL_QUANTUM,
+           "slot_len_note": f"KFT_SERVE_SLOT_LEN={POOL_SLOT_LEN} set by "
+                            "this phase; the default is max_seq_len "
+                            f"{cfg.max_seq_len}",
+           "requests": {k: {"prompt_lens": list(v[0]), "max_new_tokens": v[1],
+                            **v[2]} for k, v in SCHEDULE_REQUESTS.items()},
+           "pool_bytes": 2 * cfg.n_layers * POOL_SLOTS * POOL_SLOT_LEN
+           * cfg.n_kv_heads * cfg.head_dim * 2}
+    try:
+        status, ready = http(base, "/readyz")
+        sched = service._scheduler
+        if status != 200 or sched is None or not sched.pipeline:
+            raise AssertionError(f"/readyz {status} {ready}: no pipelined "
+                                 "scheduler behind the app")
+        if (sched.slots, sched.slot_len, sched.quantum) != (
+                POOL_SLOTS, POOL_SLOT_LEN, POOL_QUANTUM):
+            raise AssertionError(f"scheduler knobs {sched.stats()}")
+        before = wait_drained(sched)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            futs = {name: pool.submit(http, base, "/v1/generate", body)
+                    for name, body in bodies.items()}
+            pooled = {name: f.result()[1]["tokens"]
+                      for name, f in futs.items()}
+        wall_s = time.perf_counter() - t0
+        after = wait_drained(sched)
+        counts = kernels.launch_counts()
+        row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        prefills = after["prefills_total"] - before["prefills_total"]
+        steps = after["steps_total"] - before["steps_total"]
+        want = schedule_launches(cfg, prefills, steps)
+        slack = schedule_launches(cfg, 0, POOL_QUANTUM)
+        if any(abs(counts[k] - want[k]) > slack[k] for k in want) or not (
+                counts["rms_norm"] and counts["flash_attention_fwd"]
+                and counts["flash_decode"]):
+            raise AssertionError(f"schedule launches {counts}, expected "
+                                 f"{want} within one quantum")
+        for name, body in bodies.items():
+            out, n = pooled[name], body["max_new_tokens"]
+            if len(out) != len(body["tokens"]) or any(
+                    len(r) != n or not all(0 <= t < cfg.vocab_size
+                                           for t in r) for r in out):
+                raise AssertionError(f"request {name}: malformed {out}")
+        _, traces = http(base, f"/debug/traces?n={len(bodies)}")
+        ttft = {}
+        for tr in traces["traces"]:
+            spans = {sp["name"]: sp for sp in tr["spans"]}
+            ttft[spans["decode"]["tokens"]] = (
+                spans["prefill"]["offset_ms"]
+                + spans["prefill"]["duration_ms"]) / 1e3
+        decode_tokens = sum(len(b["tokens"]) * (b["max_new_tokens"] - 1)
+                            for b in bodies.values())
+        row.update({
+            "wall_seconds": wall_s, "decode_tokens": decode_tokens,
+            "decode_tokens_per_s": decode_tokens / wall_s,
+            "ttft_seconds": {name: ttft.get(b["max_new_tokens"])
+                             for name, b in bodies.items()},
+            "launches": counts, "launches_expected": want,
+            "prefills": prefills, "pool_steps": steps,
+            "dispatch_overlap_ratio": after["dispatch_overlap_ratio"]})
+
+        # Row independence: each request alone through the same pool.
+        alone_s = {}
+        for name, body in bodies.items():
+            t1 = time.perf_counter()
+            _, out = http(base, "/v1/generate", body)
+            alone_s[name] = time.perf_counter() - t1
+            if out["tokens"] != pooled[name]:
+                raise AssertionError(f"request {name}: alone {out['tokens']} "
+                                     f"differs from pooled {pooled[name]}")
+        row["alone_seconds"] = alone_s
+        wait_drained(sched)
+        _, metrics = http(base, "/metrics")
+        counters = {k: metric_value(metrics, k) for k in (
+            "serve_scheduler_admitted_rows_total",
+            "serve_scheduler_evicted_rows_total",
+            "serve_decode_slots_active", "serve_queue_depth",
+            "serve_decode_slots")}
+        _, debug = http(base, "/debug/serve")
+        row["counters"] = counters
+        if (counters["serve_scheduler_admitted_rows_total"]
+                != counters["serve_scheduler_evicted_rows_total"]
+                or counters["serve_decode_slots_active"] != 0
+                or counters["serve_queue_depth"] != 0
+                or counters["serve_decode_slots"] != POOL_SLOTS
+                or not sched.alive
+                or service._scheduler_or_none() is not sched
+                or debug["engine"] != "DecodeScheduler"):
+            raise AssertionError(f"scheduler counters or state: {counters} "
+                                 f"{debug}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if service._scheduler is not None:
+        service._scheduler.stop()
+
+    # Pipeline off, every request queued before the loop starts: the
+    # launches are exact, and the tokens equal the pipelined run's.
+    det = DecodeScheduler(model, slots=POOL_SLOTS, slot_len=POOL_SLOT_LEN,
+                          quantum=POOL_QUANTUM, pipeline=False)
+    start, det.start = det.start, lambda: None   # hold the loop
+    kernels.reset_launch_counts()
+    pend = {name: det.submit(
+        b["tokens"], max_new_tokens=b["max_new_tokens"],
+        temperature=b["temperature"], top_k=b.get("top_k"),
+        seed=b.get("seed", 0)) for name, b in bodies.items()}
+    t0 = time.perf_counter()
+    det.start = start
+    det.start()
+    sync = {name: p.result() for name, p in pend.items()}
+    det_s = time.perf_counter() - t0
+    det_counts = kernels.launch_counts()
+    st = det.stats()
+    det.stop()
+    want = schedule_launches(cfg, st["prefills_total"], st["steps_total"])
+    if det_counts != want:
+        raise AssertionError(f"schedule launches (pipeline off) {det_counts},"
+                             f" expected {want}")
+    if sync != pooled:
+        raise AssertionError("pipeline off gave other tokens than on")
+    row["pipeline_off"] = {"launches": det_counts, "prefills":
+                           st["prefills_total"], "pool_steps":
+                           st["steps_total"], "wall_seconds": det_s,
+                           "tokens_equal": True}
+
+    row["quantum"] = pool_quantum_checks(torch, dev, model)
+
+    # Agreement with the lock path, teacher-forced.
+    width = width_logit_diff(torch, dev, model, bodies["A"]["tokens"],
+                             pooled["A"])
+    tol = max(AGREE_GAP, 2 * width)
+    gaps = []
+    for name, body in bodies.items():
+        if body["temperature"] != 0.0:
+            continue
+        for prompt, gen in zip(body["tokens"], pooled[name]):
+            gaps += teacher_forced_gaps(torch, dev, model, prompt, gen)
+    row["agreement"] = {"tokens": len(gaps),
+                        "exact_argmax": sum(g <= 0.0 for g in gaps),
+                        "worst_gap": max(gaps), "tolerance": tol,
+                        "width_logit_diff": width}
+    emit(row)
+    if max(gaps) > tol:
+        raise AssertionError(f"a pooled greedy token is {max(gaps)} below "
+                             f"its position's largest logit (limit {tol})")
+    del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def check_rel_l2(name, got, want, tol):
@@ -1445,6 +1922,252 @@ def phase_train(torch):
     return counts
 
 
+def ckpt_state(torch, dev, n_layers):
+    """A fresh ``llama_1b4`` train state as the trainer builds it (f32
+    masters from seed SEED, AdamW at its default lr)."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.train.steps import TrainState, adamw
+
+    model = create_model(TRAIN_MODEL, device=dev, n_layers=n_layers,
+                         max_seq_len=TRAIN_SEQ, param_dtype=torch.float32)
+    with torch.no_grad():
+        model.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    model.requires_grad_(True)
+    return TrainState(model, adamw(model.parameters(), 3e-4))
+
+
+def ckpt_batches(dev):
+    """The trainer's step-indexed stream (b1 TRAIN_SEQ), from a step."""
+    from kubeflow_tpu_torch.data.loader import DeviceLoader, synthetic_lm_batches
+    from kubeflow_tpu_torch.models.llama import CONFIGS
+
+    return lambda start=0: DeviceLoader(synthetic_lm_batches(
+        global_batch=1, seq_len=TRAIN_SEQ,
+        vocab_size=CONFIGS[TRAIN_MODEL].vocab_size, seed=SEED,
+        start=start), dev)
+
+
+def ckpt_run(torch, dev, state, total, ckpt=None, stop=None, at_log=None):
+    """``train_loop`` for ``total`` steps (bf16 gradients, a log line and
+    with ``ckpt`` a save every 2 steps); returns (state, losses)."""
+    from kubeflow_tpu_torch.train.loop import LoopConfig, train_loop
+    from kubeflow_tpu_torch.train.steps import make_lm_train_step
+
+    losses = []
+
+    def on_log(step, vals):
+        losses.append(vals["loss"])
+        if at_log is not None:
+            at_log(step)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        state, _ = train_loop(
+            state, make_lm_train_step(grad_dtype=torch.bfloat16),
+            ckpt_batches(dev),
+            LoopConfig(total_steps=total, log_every=1, checkpoint_dir=ckpt,
+                       checkpoint_every=2),
+            stop=stop, on_log=on_log)
+    return state, losses
+
+
+def state_copy(state):
+    """(parameters, optimizer state by index, step), cloned."""
+    return ({n: p.detach().clone() for n, p in
+             state.module.named_parameters()},
+            {i: {k: v.clone() for k, v in per.items()}
+             for i, per in state.optimizer.state_dict()["state"].items()},
+            state.step)
+
+
+def state_diff(a, b):
+    """Largest |difference| over parameters and AdamW moments (and the
+    step counts, which must match)."""
+    if a[2] != b[2] or set(a[0]) != set(b[0]) or set(a[1]) != set(b[1]):
+        return math.inf
+    worst = 0.0
+    for name in a[0]:
+        worst = max(worst, (a[0][name] - b[0][name]).abs().max().item())
+    for i in a[1]:
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            worst = max(worst, (a[1][i][k].float()
+                                - b[1][i][k].float()).abs().max().item())
+    return worst
+
+
+def checkpoint_root():
+    """Where checkpoints go: a git-ignored directory of this checkout."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "checkpoints")
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
+def phase_checkpoint(torch, dev):
+    """(a) ``llama_1b4`` at full width, 2 layers: save, stop, resume
+    against unbroken runs; (b) all 24 layers through ``train.run`` with
+    ``--checkpoint-dir``, restored by ``load_service`` and served through
+    the scheduler."""
+    from kubeflow_tpu_torch.models.generate import generate, row_generators
+    from kubeflow_tpu_torch.models.serve import create_app, load_service
+    from kubeflow_tpu_torch.train import run
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.train.steps import make_lm_train_step
+
+    root = checkpoint_root()
+    usage = shutil.disk_usage(root)
+    emit({"phase": "checkpoint-disk", "path": root, "free_bytes": usage.free,
+          "total_bytes": usage.total})
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-", dir=root)
+    try:
+        # (a) 4 unbroken steps, twice; 2 steps, a stop, a resume for 2.
+        runs = []
+        for _ in range(2):
+            state, losses = ckpt_run(torch, dev, ckpt_state(torch, dev, 2), 4)
+            runs.append((state_copy(state), losses))
+            del state
+        unbroken_diff = state_diff(runs[0][0], runs[1][0])
+        stop = threading.Event()
+        run_dir = os.path.join(tmp, "run")
+        state, losses_b = ckpt_run(
+            torch, dev, ckpt_state(torch, dev, 2), 4, ckpt=run_dir,
+            stop=stop, at_log=lambda step: step == 2 and stop.set())
+        if state.step != 2 or CheckpointManager(run_dir).all_steps() != [2]:
+            raise AssertionError(f"stop at step {state.step}, saved "
+                                 f"{CheckpointManager(run_dir).all_steps()}")
+        saved = state_copy(state)
+        fresh = ckpt_state(torch, dev, 2)
+        CheckpointManager(run_dir).restore(fresh)
+        restored_diff = state_diff(state_copy(fresh), saved)
+        del fresh
+        # The snapshot rule: training goes on in place while the write
+        # runs, and the restored state is still the saved one.
+        snap = CheckpointManager(os.path.join(tmp, "snap"))
+        t0 = time.perf_counter()
+        snap.save(2, state)
+        save_return_s = time.perf_counter() - t0
+        batch = next(iter(ckpt_batches(dev)(2)))
+        state, _ = make_lm_train_step(grad_dtype=torch.bfloat16)(state, batch)
+        torch.cuda.synchronize()
+        snap.wait()
+        fresh = ckpt_state(torch, dev, 2)
+        snap.restore(fresh)
+        snapshot_diff = state_diff(state_copy(fresh), saved)
+        moved = max((p.detach() - saved[0][n]).abs().max().item()
+                    for n, p in state.module.named_parameters())
+        del state, fresh, saved
+        resumed, losses_c = ckpt_run(torch, dev, ckpt_state(torch, dev, 2), 4,
+                                     ckpt=run_dir)
+        resumed_diff = state_diff(state_copy(resumed), runs[0][0])
+        del resumed
+        loss_diff_unbroken = max(abs(x - y) for x, y in zip(runs[0][1],
+                                                            runs[1][1]))
+        loss_diff_resumed = max(abs(x - y) for x, y in zip(
+            losses_b + losses_c, runs[0][1]))
+        row = {"phase": "checkpoint-resume", "model": TRAIN_MODEL,
+               "n_layers": 2, "seq": TRAIN_SEQ,
+               "losses_unbroken": runs[0][1],
+               "losses_stopped_then_resumed": losses_b + losses_c,
+               "restored_vs_saved_max_diff": restored_diff,
+               "restored_while_training_went_on_max_diff": snapshot_diff,
+               "params_moved_after_save": moved,
+               "save_returned_seconds": save_return_s,
+               "last_save": snap.last_save,
+               "unbroken_vs_unbroken_max_diff": unbroken_diff,
+               "resumed_vs_unbroken_max_diff": resumed_diff,
+               "loss_diff_unbroken_vs_unbroken": loss_diff_unbroken,
+               "loss_diff_resumed_vs_unbroken": loss_diff_resumed}
+        emit(row)
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        if restored_diff != 0.0 or snapshot_diff != 0.0 or moved == 0.0:
+            raise AssertionError("a restored state differs from the saved "
+                                 "one (or training did not go on)")
+        if resumed_diff > unbroken_diff or \
+                loss_diff_resumed > loss_diff_unbroken:
+            raise AssertionError(
+                f"resumed run off by {resumed_diff} (loss {loss_diff_resumed})"
+                f", two unbroken runs by {unbroken_diff} "
+                f"(loss {loss_diff_unbroken})")
+
+        # (b) the whole model through the trainer, then served.
+        full_dir = os.path.join(tmp, "full")
+        argv = TRAIN_ARGS[:TRAIN_ARGS.index("--steps")] + [
+            "--steps", "3", "--log-every", "1", "--checkpoint-dir", full_dir]
+        _, args = run.parse_args(argv)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            state, _ = run.train(args, dev)
+        train_s = time.perf_counter() - t0
+        saves = [dict(kv.split("=", 1) for kv in line.split()[1:])
+                 for line in buf.getvalue().splitlines()
+                 if line.startswith("checkpoint ")]
+        steps_on_disk = CheckpointManager(full_dir).all_steps()
+        disk_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(full_dir) for f in fs)
+        if steps_on_disk != [3] or len(saves) != 1:
+            raise AssertionError(f"trainer saved {steps_on_disk}: {saves}")
+        t0 = time.perf_counter()
+        service = load_service(TRAIN_MODEL, checkpoint_dir=full_dir,
+                               use_scheduler=True)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        served = service.model.state_dict()
+        trained = dict(state.module.named_parameters())
+        unequal = [n for n, p in trained.items()
+                   if not torch.equal(served[n], p.detach().to(
+                       served[n].dtype))]
+        del state, trained
+        gc.collect()
+        torch.cuda.empty_cache()
+        if unequal or set(served) != set(
+                dict(service.model.named_parameters())):
+            raise AssertionError(f"restored parameters differ: {unequal}")
+        # One request through the scheduler, at the width and cache
+        # length generate() runs it at, so the two match to the bit.
+        import numpy as np
+
+        prompt = np.random.RandomState(SEED + 20).randint(
+            0, service.model.cfg.vocab_size, size=100).tolist()
+        n = 32
+        knobs = {"KFT_SERVE_SLOTS": "1",
+                 "KFT_SERVE_SLOT_LEN": str(len(prompt) + n)}
+        saved_env = {k: os.environ.get(k) for k in knobs}
+        os.environ.update(knobs)
+        try:
+            create_app(service, model_name=TRAIN_MODEL)
+            got = service.generate([prompt], max_new_tokens=n)
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        sched = service._scheduler
+        st = sched.stats() if sched is not None else None
+        if sched is not None:
+            sched.stop()
+        want = generate(service.model, torch.tensor([prompt], device=dev),
+                        max_new_tokens=n,
+                        generators=row_generators(0, 1, dev)).tolist()
+        emit({"phase": "checkpoint-serve", "model": TRAIN_MODEL,
+              "n_layers": service.model.cfg.n_layers, "args": argv,
+              "train_seconds_with_save": train_s, "save": saves[0],
+              "bytes_on_disk": disk_bytes, "restore_seconds": restore_s,
+              "restored_params_equal": True, "scheduler": st,
+              "tokens_equal_generate": got == want,
+              "row0_head": got[0][:8]})
+        if st is None or st["evicted_total"] != 1 or got != want:
+            raise AssertionError(f"served {got} through {st}, generate() "
+                                 f"gives {want}")
+        del service, served
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 SOURCES = {
     "rms_norm": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
                  "kubeflow_tpu/ops/pallas/rms_norm.py:53"),
@@ -1489,18 +2212,21 @@ def main() -> int:
     phase_compose(torch, dev)
     serve_counts, model = phase_serve(torch, dev)
     phase_profile(torch, dev, model)
+    schedule_counts = phase_schedule(torch, dev, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_compose(torch, dev)
     phase_train_variants(torch, dev)
     train_counts = phase_train(torch)
+    phase_checkpoint(torch, dev)
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1],
         "launches": (train_counts if name in TRAIN_KERNELS
                      else serve_counts)[name],
         "launches_by_path": {"serve": serve_counts[name],
+                             "schedule": schedule_counts[name],
                              "train": train_counts[name]},
         "shape": rows[name]["shape"], "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["kernel_ms"], "plain_ms": rows[name]["plain_ms"],

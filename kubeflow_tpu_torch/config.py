@@ -31,3 +31,21 @@ def env_int(name: str, default: int) -> int:
 
 def env_float(name: str, default: float) -> float:
     return _env(name, default, float)
+
+
+# The checkpoint directory a job controller injects into a trainer's
+# environment (the reference's ``parallel/envspec.py``
+# ``ENV_KFT_CHECKPOINT_DIR``): ``train/run.py``'s ``--checkpoint-dir``
+# defaults to it.
+ENV_KFT_CHECKPOINT_DIR = "KFT_CHECKPOINT_DIR"
+
+# The continuous-batching scheduler's knobs (``models/scheduler.py``):
+# pool rows, cache positions per row (0: the model's max_seq_len), decode
+# steps per dispatch, pipelined dispatch on or off.  ``KFT_SERVE_SCHEDULER``
+# (``models/serve.py``) set to 0 pins an instrumented service to the
+# lock-serialized path.
+SERVE_SLOTS = ("KFT_SERVE_SLOTS", 8)
+SERVE_SLOT_LEN = ("KFT_SERVE_SLOT_LEN", 0)
+SERVE_DECODE_QUANTUM = ("KFT_SERVE_DECODE_QUANTUM", 8)
+SERVE_PIPELINE = ("KFT_SERVE_PIPELINE", True)
+SERVE_SCHEDULER = ("KFT_SERVE_SCHEDULER", True)

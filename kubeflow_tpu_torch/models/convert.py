@@ -3,8 +3,11 @@
 ``params_from_jax`` takes the reference's flax param tree as nested dicts
 of numpy arrays (the caller fetches it from JAX, e.g. with
 ``jax.device_get``; nothing here imports JAX) and returns a state dict for
-``kubeflow_tpu_torch.models.llama.Llama``.  The unrolled layout only
-(``layer_i``); the ``layers_scan`` layout is still to be ported.
+``kubeflow_tpu_torch.models.llama.Llama``.  It takes either layout of
+the reference's blocks: unrolled (``layer_i``, one subtree a layer) or
+stacked (``layers_scan/block``, every leaf with a leading layer axis, the
+tree of ``scan_layers=True``), whose layer axis it unstacks into the
+port's per-layer modules.
 """
 from __future__ import annotations
 
@@ -25,26 +28,55 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def expected_leaves(cfg) -> Dict[str, tuple]:
-    """Reference leaf path -> shape, for a dense Llama config."""
+SCAN_PREFIX = "layers_scan/block/"
+
+
+def _block_leaves(cfg) -> Dict[str, tuple]:
+    """One block's leaf path (below the block) -> shape."""
     d, hd = cfg.dim, cfg.head_dim
-    leaves = {"embed/embedding": (cfg.vocab_size, d),
-              "final_norm/scale": (d,),
-              "lm_head/kernel": (d, cfg.vocab_size)}
+    return {
+        "attn_norm/scale": (d,),
+        "mlp_norm/scale": (d,),
+        "attn/q_proj/kernel": (d, cfg.n_heads, hd),
+        "attn/k_proj/kernel": (d, cfg.n_kv_heads, hd),
+        "attn/v_proj/kernel": (d, cfg.n_kv_heads, hd),
+        "attn/o_proj/kernel": (cfg.n_heads, hd, d),
+        "mlp/gate_proj/kernel": (d, cfg.ffn_dim),
+        "mlp/up_proj/kernel": (d, cfg.ffn_dim),
+        "mlp/down_proj/kernel": (cfg.ffn_dim, d),
+    }
+
+
+def expected_leaves(cfg, *, scan_layers: bool = False) -> Dict[str, tuple]:
+    """Reference leaf path -> shape, for a dense Llama config, in the
+    unrolled layout or (``scan_layers``) the stacked one."""
+    leaves = {"embed/embedding": (cfg.vocab_size, cfg.dim),
+              "final_norm/scale": (cfg.dim,),
+              "lm_head/kernel": (cfg.dim, cfg.vocab_size)}
+    block = _block_leaves(cfg)
+    if scan_layers:
+        leaves.update({SCAN_PREFIX + k: (cfg.n_layers,) + shape
+                       for k, shape in block.items()})
+        return leaves
     for i in range(cfg.n_layers):
-        p = f"layer_{i}"
-        leaves.update({
-            f"{p}/attn_norm/scale": (d,),
-            f"{p}/mlp_norm/scale": (d,),
-            f"{p}/attn/q_proj/kernel": (d, cfg.n_heads, hd),
-            f"{p}/attn/k_proj/kernel": (d, cfg.n_kv_heads, hd),
-            f"{p}/attn/v_proj/kernel": (d, cfg.n_kv_heads, hd),
-            f"{p}/attn/o_proj/kernel": (cfg.n_heads, hd, d),
-            f"{p}/mlp/gate_proj/kernel": (d, cfg.ffn_dim),
-            f"{p}/mlp/up_proj/kernel": (d, cfg.ffn_dim),
-            f"{p}/mlp/down_proj/kernel": (cfg.ffn_dim, d),
-        })
+        leaves.update({f"layer_{i}/{k}": shape for k, shape in block.items()})
     return leaves
+
+
+def _unstack(flat: Dict[str, np.ndarray], n_layers: int
+             ) -> Dict[str, np.ndarray]:
+    """The stacked layout's leaves as the unrolled layout's: leaf
+    ``layers_scan/block/<path>`` [n_layers, ...] becomes ``layer_i/<path>``
+    for each i (the other leaves pass through)."""
+    out = {}
+    for path, arr in flat.items():
+        if not path.startswith(SCAN_PREFIX):
+            out[path] = arr
+            continue
+        rest = path[len(SCAN_PREFIX):]
+        for i in range(n_layers):
+            out[f"layer_{i}/{rest}"] = arr[i]
+    return out
 
 
 def _target(path: str) -> str:
@@ -79,21 +111,29 @@ def params_from_jax(tree: Mapping, cfg,
     Dense and embedding weights are stored in ``param_dtype`` (default
     ``cfg.param_dtype``, else ``cfg.dtype``: the reference casts them at
     use); norm scales and ``lm_head`` stay f32.  With f32 every leaf is
-    the reference's master weight exactly.  Raises ``KeyError`` on a
-    missing or extra leaf and ``ValueError`` on a shape mismatch."""
+    the reference's master weight exactly.  The tree may be in either
+    layout (``layers_scan`` is told by its top-level key).  Raises
+    ``KeyError`` on a missing or extra leaf and ``ValueError`` on a shape
+    mismatch."""
     dense_dtype = param_dtype or cfg.param_dtype or cfg.dtype
     flat = _flatten(tree)
-    want = expected_leaves(cfg)
+    scan_layers = "layers_scan" in tree
+    want = expected_leaves(cfg, scan_layers=scan_layers)
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
         raise KeyError(f"param tree mismatch: missing {missing}, "
                        f"extra {extra}")
-    state = {}
     for path, shape in want.items():
+        if tuple(flat[path].shape) != shape:
+            raise ValueError(
+                f"{path}: shape {flat[path].shape}, expected {shape}")
+    if scan_layers:
+        flat = _unstack(flat, cfg.n_layers)
+        want = expected_leaves(cfg)
+    state = {}
+    for path in want:
         arr = flat[path]
-        if tuple(arr.shape) != shape:
-            raise ValueError(f"{path}: shape {arr.shape}, expected {shape}")
         dtype = (torch.float32 if path.endswith("/scale")
                  or path == "lm_head/kernel" else dense_dtype)
         t = torch.from_numpy(np.ascontiguousarray(

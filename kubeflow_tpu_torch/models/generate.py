@@ -5,7 +5,9 @@
   cache at index 0 (causal flash attention over the fresh tokens).
 * **Decode** is a Python loop of single-token steps; every step writes
   its K/V at the shared scalar cache index and attends over the whole
-  cache with one bias row per batch row (``Llama.forward``).
+  cache with one bias row per batch row (``Llama.forward``).  The same
+  step body (``decode_step``) drives the continuous-batching slot pool
+  (``models/scheduler.py``), with a per-row write slot instead.
 * Sampling is per row: row i draws its Gumbel noise from its own
   ``torch.Generator``, so a row's stream depends on its generator only.
   A caller (a parity test) may inject the noise instead.
@@ -157,12 +159,19 @@ def _prefill_parts(model, prompt, prompt_mask, cache_len, rows: SamplingRows,
                        budget=cache_len - prompt_len)
 
 
-def decode_step(model, state: DecodeState, rows: SamplingRows) -> torch.Tensor:
+def decode_step(model, state: DecodeState, rows: SamplingRows, *,
+                cache_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step over every row: apply the model on the current
     token, sample per row, freeze rows past their EOS.  Advances
-    ``state`` in place and returns the new token [b]."""
+    ``state`` in place and returns the new token [b].
+
+    ``cache_slots`` [b] is the slot pool's form: row r writes its K/V at
+    slot ``cache_slots[r]`` and sees slots <= it (plus its ``pad_bias``
+    row) instead of the shared ``cache.index``.  Every op is
+    row-independent, so a row steps alike in either form."""
     logits = model(state.token[:, None], positions=state.pos[:, None],
-                   cache=state.cache, pad_bias=state.pad_bias)
+                   cache=state.cache, pad_bias=state.pad_bias,
+                   cache_slots=cache_slots)
     nxt = sample_logits_rows(logits[:, -1], temps=rows.temps,
                              top_ks=rows.top_ks, sampled=rows.sampled,
                              generators=state.generators)

@@ -167,7 +167,11 @@ class Attention(nn.Module):
     new K/V are written at ``cache.index``; a multi-token call at index 0
     (prefill) attends causally over the fresh q/k/v only, and a
     single-token call (decode) attends over the whole cache with the
-    caller's bias row [b, length] (causal + padding)."""
+    caller's bias row [b, length] (causal + padding).  With
+    ``cache_slots`` [b] (per-row mode, single-token only): row r writes
+    its K/V at slot ``cache_slots[r]`` and the caller's bias rows carry
+    the whole per-row visibility (the continuous-batching slot pool,
+    whose rows sit at different depths)."""
 
     def __init__(self, dim: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, *, rope_theta: float, dtype: torch.dtype,
@@ -189,7 +193,8 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None, layer: int = 0,
-                bias_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias_rows: Optional[torch.Tensor] = None,
+                cache_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
@@ -205,12 +210,26 @@ class Attention(nn.Module):
                 raise ValueError(
                     "the KV cache holds one sequence per batch row; "
                     "segment_ids (packed sequences) are not supported")
+            k_buf, v_buf = cache.k[layer], cache.v[layer]
+            if cache_slots is not None:
+                if s != 1:
+                    raise ValueError(
+                        "per-row cache_slots require single-token decode, "
+                        f"got s={s}")
+                if bias_rows is None:
+                    raise ValueError("per-row cache_slots need bias_rows")
+                rows = torch.arange(b, device=x.device)
+                k_buf[rows, cache_slots] = k[:, 0]
+                v_buf[rows, cache_slots] = v[:, 0]
+                out = ops.decode_attention(q, k_buf, v_buf, bias_rows,
+                                           impl=self.impl)
+                return self.o_proj(
+                    out.reshape(b, s, self.num_heads * self.head_dim))
             idx = cache.index
             if idx + s > cache.length:
                 raise ValueError(
                     f"cache of {cache.length} slots cannot take {s} tokens "
                     f"at index {idx}")
-            k_buf, v_buf = cache.k[layer], cache.v[layer]
             k_buf[:, idx:idx + s] = k
             v_buf[:, idx:idx + s] = v
             if s == 1:

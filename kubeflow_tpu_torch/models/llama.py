@@ -126,9 +126,10 @@ class LlamaBlock(nn.Module):
         self.remat_mlp = cfg.remat and cfg.remat_mode == "mlp"
 
     def forward(self, x, positions, *, segment_ids=None, cache=None,
-                layer=0, bias_rows=None):
+                layer=0, bias_rows=None, cache_slots=None):
         h = self.attn(self.attn_norm(x), positions, segment_ids=segment_ids,
-                      cache=cache, layer=layer, bias_rows=bias_rows)
+                      cache=cache, layer=layer, bias_rows=bias_rows,
+                      cache_slots=cache_slots)
         x = x + h
         h = self.mlp_norm(x)
         if self.remat_mlp and torch.is_grad_enabled():
@@ -182,6 +183,7 @@ class Llama(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
                 pad_bias: Optional[torch.Tensor] = None,
+                cache_slots: Optional[torch.Tensor] = None,
                 logits_at: Optional[torch.Tensor] = None,
                 return_hidden: bool = False) -> torch.Tensor:
         """Logits [b, s, vocab] f32, or [b, vocab] at the per-row
@@ -194,15 +196,24 @@ class Llama(nn.Module):
         advances it.  A single-token call attends over the whole cache
         with one bias row per batch row, built here once per step (not
         once per layer): slot j is visible iff j <= cache.index, plus
-        ``pad_bias`` [b, length] (0 or -1e30) hiding prompt padding."""
+        ``pad_bias`` [b, length] (0 or -1e30) hiding prompt padding.
+        With ``cache_slots`` [b] (a single-token call; the slot pool of
+        ``models/scheduler.py``) row r writes at slot ``cache_slots[r]``
+        and sees slot j iff j <= cache_slots[r], plus its ``pad_bias``
+        row; ``cache.index`` does not move."""
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        if cache_slots is not None and (cache is None or s != 1):
+            raise ValueError("cache_slots need a cache and one token a row")
         bias_rows = None
         if cache is not None and s == 1:
             slots = torch.arange(cache.length, device=tokens.device)
-            bias_rows = torch.where(slots <= cache.index, 0.0, NEG_INF)
-            bias_rows = bias_rows[None].expand(b, -1).float()
+            if cache_slots is not None:
+                visible = slots[None, :] <= cache_slots[:, None]
+            else:
+                visible = (slots <= cache.index)[None].expand(b, -1)
+            bias_rows = torch.where(visible, 0.0, NEG_INF).float()
             if pad_bias is not None:
                 bias_rows = bias_rows + pad_bias
             bias_rows = bias_rows.contiguous()
@@ -214,8 +225,9 @@ class Llama(nn.Module):
                 x = _remat(block, x, positions, segment_ids=segment_ids)
             else:
                 x = block(x, positions, segment_ids=segment_ids, cache=cache,
-                          layer=i, bias_rows=bias_rows)
-        if cache is not None:
+                          layer=i, bias_rows=bias_rows,
+                          cache_slots=cache_slots)
+        if cache is not None and cache_slots is None:
             cache.index += s
         if return_hidden:
             return self.final_norm(x)

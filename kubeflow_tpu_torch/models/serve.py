@@ -3,11 +3,19 @@ PyTorch on the card.
 
     python -m kubeflow_tpu_torch.models.serve --model llama3_8b --port 8080
 
-Counterpart of ``kubeflow_tpu/models/serve.py`` on its lock-serialized
-path (the continuous-batching and paged engines are still to be ported).
-The server is the standard library's ``ThreadingHTTPServer``; weights
-are random, drawn from ``--seed`` on the device (checkpoint loading is
-still to be ported).
+Counterpart of ``kubeflow_tpu/models/serve.py``.  An instrumented
+service (the app of ``create_app``) routes every request through the
+fixed-slot continuous-batching ``DecodeScheduler``
+(``models/scheduler.py``) unless ``KFT_SERVE_SCHEDULER=0`` (or
+``use_scheduler=False``) pins the lock-serialized path; library use of a
+bare ``GenerationService`` takes the lock path.  The paged engine is not
+ported yet, so the port serves as the reference does under
+``KFT_SERVE_PAGED=0``.  A scheduler whose loop crashed fails over to the
+lock path.  The server is the standard library's ``ThreadingHTTPServer``;
+weights are random, drawn from ``--seed`` on the device, unless
+``--checkpoint-dir`` names a trainer's checkpoints
+(``train/checkpoint.py``), whose latest parameters are restored in the
+serving dtype.
 
 Endpoints:
   GET  /healthz             liveness
@@ -22,6 +30,7 @@ Endpoints:
                             batch) and X-KFT-Deadline-Seconds
   GET  /metrics             Prometheus text
   GET  /debug/traces        recent request span trees (?n=, ?trace_id=)
+  GET  /debug/serve         the engine that serves and its scheduler's stats
 """
 from __future__ import annotations
 
@@ -39,6 +48,12 @@ from urllib.parse import parse_qs, urlsplit
 import torch
 
 from kubeflow_tpu_torch import config
+from kubeflow_tpu_torch.models.scheduler import (
+    DEFAULT_PRIORITY,
+    PRIORITY_CLASSES,
+    DeadlineExceeded,
+    DecodeScheduler,
+)
 from kubeflow_tpu_torch.telemetry.metrics import Counter, Gauge, Histogram, Registry
 from kubeflow_tpu_torch.telemetry.serve import (
     ServeTelemetry,
@@ -47,17 +62,6 @@ from kubeflow_tpu_torch.telemetry.serve import (
 )
 
 log = logging.getLogger("kubeflow_tpu_torch.serve")
-
-# Request priority classes (the X-KFT-Priority wire vocabulary), lowest
-# value admitted first.  The lock path serializes in arrival order; the
-# classes are validated here and honoured by the scheduler when ported.
-PRIORITY_CLASSES = {"interactive": 0, "standard": 1, "batch": 2}
-DEFAULT_PRIORITY = PRIORITY_CLASSES["standard"]
-
-
-class DeadlineExceeded(RuntimeError):
-    """The request's deadline (X-KFT-Deadline-Seconds) ran out while it
-    was still queued; the app maps this to a 504."""
 
 
 def _validate_and_pad(rows, vocab: int, *, max_new_tokens, default_max,
@@ -121,54 +125,129 @@ def _check_deadline(deadline) -> None:
 
 
 class GenerationService:
-    """Serves one decoder: requests are validated, right-padded and run
-    one at a time under a lock (prefill, then the decode loop)."""
+    """Serves one decoder.  Requests are validated and right-padded, then
+    either submitted to the continuous-batching scheduler (an
+    instrumented service, unless pinned off) or run one at a time under
+    a lock (prefill, then the decode loop)."""
 
     default_eos_token: Optional[int] = None
     # ServeTelemetry, attached by create_app; None = library use.
     telemetry: Optional[ServeTelemetry] = None
 
     def __init__(self, model, *, default_max_new_tokens: int = 32,
-                 max_batch_rows: int = 64):
+                 max_batch_rows: int = 64,
+                 use_scheduler: Optional[bool] = None):
         self.model = model
         self.default_max_new_tokens = default_max_new_tokens
         self.max_batch_rows = max_batch_rows
-        self._lock = threading.Lock()
+        # None: KFT_SERVE_SCHEDULER decides (default on), per request.
+        self.use_scheduler = use_scheduler
+        self._scheduler: Optional[DecodeScheduler] = None
+        self._scheduler_lock = threading.Lock()
+        self._lock = threading.Lock()     # the lock path's
+
+    def _scheduler_or_none(self) -> Optional[DecodeScheduler]:
+        """The scheduler to route through, or None for the lock path: an
+        un-instrumented service, a pinned one, or one whose scheduler
+        died (failover instead of hanging clients)."""
+        if self.telemetry is None:
+            return None
+        use = self.use_scheduler
+        if use is None:
+            use = config.env_bool(*config.SERVE_SCHEDULER)
+        if not use:
+            return None
+        with self._scheduler_lock:
+            if self._scheduler is None:
+                self._scheduler = DecodeScheduler(
+                    self.model, telemetry=lambda: self.telemetry)
+            sched = self._scheduler
+        return sched if sched.alive else None
+
+    def _generate_scheduled(self, sched: DecodeScheduler, rows, validate, *,
+                            temperature, top_k, eos_token, seed, priority,
+                            deadline):
+        """Submit to the scheduler and wait, mapping its admission,
+        first-token and finish events onto the lock path's spans (admit,
+        queue, prefill, decode), so traces and the TTFT and per-token
+        series read alike under either engine."""
+        tel = self.telemetry
+        t_arrival = time.perf_counter()
+        tel.begin_request()
+        try:
+            with tel.span("admit"):
+                prompt, mask, n = validate()
+                tel.batch_rows.observe(len(rows))
+                tel.input_tokens.inc(sum(len(r) for r in rows))
+            tel.slots_total.set(sched.slots)
+            pending = sched.submit(
+                rows, max_new_tokens=n, temperature=temperature,
+                top_k=top_k, eos_token=eos_token, seed=seed,
+                tokens=prompt, prompt_mask=mask, priority=priority,
+                deadline=deadline)
+            with tel.span("queue"):
+                pending.wait_admitted()
+            with tel.span("prefill", rows=len(rows)):
+                pending.wait_first_token()
+            tel.ttft.observe(pending.t_first - t_arrival)
+            with tel.span("decode", tokens=n):
+                result = pending.result()
+            if n > 1:
+                tel.per_token.observe(
+                    (pending.t_done - pending.t_first) / (n - 1))
+            tel.output_tokens.inc(_generated_token_count(result, eos_token))
+            tel.finish_request("ok")
+            return result
+        except BaseException:
+            tel.finish_request("error")
+            raise
 
     def generate(self, rows, *, max_new_tokens: Optional[int] = None,
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  eos_token=_UNSET, seed: int = 0,
                  priority: Optional[int] = None,
                  deadline: Optional[float] = None):
-        """``deadline`` is an absolute ``time.monotonic()`` cutoff: a
-        request still queued past it raises ``DeadlineExceeded``.
-        ``priority`` is accepted for wire uniformity; the lock serializes
-        in arrival order."""
+        """``priority`` is a ``PRIORITY_CLASSES`` value (the scheduler's
+        admission order; the lock serializes in arrival order);
+        ``deadline`` is an absolute ``time.monotonic()`` cutoff: a request
+        still queued past it raises ``DeadlineExceeded``."""
         from kubeflow_tpu_torch.models.generate import (
             generate_decode,
             generate_prefill,
             row_generators,
         )
 
-        del priority
+        if priority is None:
+            priority = DEFAULT_PRIORITY
         if eos_token is _UNSET:
             eos_token = self.default_eos_token
         cfg = self.model.cfg
         device = self.model.device
+
+        def validate():
+            # prompt + new > max_seq_len also 400s via generate's own
+            # cache-length check (a ValueError), and past the slot length
+            # via the scheduler's.
+            return _validate_and_pad(
+                rows, cfg.vocab_size, max_new_tokens=max_new_tokens,
+                default_max=self.default_max_new_tokens,
+                limit_new=cfg.max_seq_len, limit_source=cfg.max_seq_len,
+                top_k=top_k, eos_token=eos_token,
+                limit_rows=self.max_batch_rows, device=device)
+
+        sched = self._scheduler_or_none()
+        if sched is not None:
+            return self._generate_scheduled(
+                sched, rows, validate, temperature=temperature, top_k=top_k,
+                eos_token=eos_token, seed=seed, priority=priority,
+                deadline=deadline)
         tel = self.telemetry
         t_arrival = time.perf_counter()
         if tel is not None:
             tel.begin_request()
         try:
             with span_or_null(tel, "admit"):
-                # prompt + new > max_seq_len also 400s via generate's own
-                # cache-length check (a ValueError).
-                prompt, mask, n = _validate_and_pad(
-                    rows, cfg.vocab_size, max_new_tokens=max_new_tokens,
-                    default_max=self.default_max_new_tokens,
-                    limit_new=cfg.max_seq_len, limit_source=cfg.max_seq_len,
-                    top_k=top_k, eos_token=eos_token,
-                    limit_rows=self.max_batch_rows, device=device)
+                prompt, mask, n = validate()
                 if tel is not None:
                     tel.batch_rows.observe(len(rows))
                     tel.batch_fill_ratio.observe(
@@ -393,6 +472,19 @@ def create_app(service: GenerationService, *, model_name: str = "model",
             tel.tracer.recent(), n=n,
             trace_id=request.args.get("trace_id"))})
 
+    @app.route("/debug/serve")
+    def debug_serve(request):
+        # Which engine serves (None until the scheduler's first request,
+        # and on the lock path) and its live stats.
+        if not debug_traces_enabled:
+            raise HttpError(404, "debug traces disabled")
+        sched = service._scheduler
+        return success({
+            "engine": type(sched).__name__ if sched is not None else None,
+            "scheduler": sched.stats() if sched is not None else None,
+            "paged": "not ported: the fixed-slot pool serves",
+        })
+
     @app.route("/metrics")
     def metrics(request):
         return 200, {"Content-Type": "text/plain; version=0.0.4"}, \
@@ -488,15 +580,18 @@ def load_service(model_name: str, *, device="cuda",
                  checkpoint_dir: Optional[str] = None,
                  quantize: Optional[str] = None,
                  mesh_spec: Optional[str] = None,
-                 draft_model_name: Optional[str] = None) -> GenerationService:
+                 draft_model_name: Optional[str] = None,
+                 use_scheduler: Optional[bool] = None) -> GenerationService:
     """Build the model on ``device`` (default the card; raises without
-    one) with random weights drawn from ``seed`` directly on the device
-    (an 8B init on the host would take minutes)."""
+    one).  Its weights are the latest checkpoint's parameters under
+    ``checkpoint_dir`` (read without the optimizer state, cast to the
+    serving dtype; raises ``FileNotFoundError`` when there is none), else
+    random, drawn from ``seed`` directly on the device (an 8B init on the
+    host would take minutes)."""
     from kubeflow_tpu_torch import resolve_device
     from kubeflow_tpu_torch.models import create_model
 
-    for flag, value in (("--checkpoint-dir", checkpoint_dir),
-                        ("--quantize", quantize), ("--mesh", mesh_spec),
+    for flag, value in (("--quantize", quantize), ("--mesh", mesh_spec),
                         ("--draft-model", draft_model_name)):
         if value:
             raise NotImplementedError(
@@ -505,10 +600,18 @@ def load_service(model_name: str, *, device="cuda",
     dev = resolve_device(device)
     overrides = {"max_seq_len": max_seq_len} if max_seq_len else {}
     model = create_model(model_name, device=dev, **overrides)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    with torch.no_grad():
-        model.reset_parameters(gen)
-    return GenerationService(model.eval())
+    if checkpoint_dir:
+        from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+
+        with CheckpointManager(checkpoint_dir) as mgr:
+            if mgr.restore_params(template=model) is None:
+                raise FileNotFoundError(
+                    f"no checkpoint found under {checkpoint_dir}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            model.reset_parameters(gen)
+    return GenerationService(model.eval(), use_scheduler=use_scheduler)
 
 
 def main(argv=None) -> int:
@@ -521,7 +624,9 @@ def main(argv=None) -> int:
     ap.add_argument("--max-seq-len", type=int, default=None)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8080)
-    ap.add_argument("--checkpoint-dir", default=None, help="not yet ported")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="serve the latest checkpoint's parameters here "
+                         "(train.run --checkpoint-dir)")
     ap.add_argument("--quantize", choices=["int8"], default=None,
                     help="not yet ported")
     ap.add_argument("--mesh", default=None, help="not yet ported")
@@ -533,7 +638,8 @@ def main(argv=None) -> int:
             seed=args.seed, checkpoint_dir=args.checkpoint_dir,
             quantize=args.quantize, mesh_spec=args.mesh,
             draft_model_name=args.draft_model)
-    except (ValueError, KeyError, NotImplementedError, RuntimeError) as e:
+    except (ValueError, KeyError, NotImplementedError, RuntimeError,
+            FileNotFoundError) as e:
         ap.error(str(e))
     server = create_app(service, model_name=args.model).make_server(
         args.host, args.port)

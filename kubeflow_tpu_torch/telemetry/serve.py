@@ -10,9 +10,13 @@ The request lifecycle maps to spans
 kept in a bounded ring buffer that ``/debug/traces`` serves.  TTFT is
 observed when the prefill span closes (arrival -> first token on the
 host); per-token latency is decode seconds per token past the first.
-The series keep the reference's names (``kubeflow_tpu/telemetry/
-serve.py``) for the lock-serialized path: queue depth counts lock
-waiters, the fill ratio is request rows over ``max_batch_rows``.
+The series keep the reference's names and help text
+(``kubeflow_tpu/telemetry/serve.py``).  Under the continuous-batching
+scheduler (``models/scheduler.py``) queue depth counts prompt rows not
+yet holding a decode slot, the fill ratio is occupied slots over the
+pool once a quantum, and admitted == evicted + active slots at every
+instant; on the lock path queue depth counts lock waiters and the fill
+ratio is request rows over ``max_batch_rows``.
 """
 from __future__ import annotations
 
@@ -149,14 +153,36 @@ class ServeTelemetry:
             buffer_size=config.env_int("SERVE_TRACE_BUFFER_SIZE", 64))
         self.queue_depth = Gauge(
             "serve_queue_depth",
-            "Requests waiting on the generation lock", registry=registry)
+            "Prompt rows pending in the continuous-batching scheduler "
+            "queue (not yet holding a decode slot); on the lock-"
+            "serialized fallback path, requests waiting on the "
+            "generation lock", registry=registry)
         self.batch_rows = Histogram(
             "serve_batch_rows", "Rows admitted per generation request",
             registry=registry, buckets=(1, 2, 4, 8, 16, 32, 64, 128))
         self.batch_fill_ratio = Histogram(
             "serve_batch_fill_ratio",
-            "Request rows over max_batch_rows", registry=registry,
+            "Per-decode-step slot occupancy under the scheduler (active "
+            "slots over the pool size, observed once per decode "
+            "quantum); on the lock path, request rows over "
+            "max_batch_rows", registry=registry,
             buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0))
+        self.scheduler_admitted = Counter(
+            "serve_scheduler_admitted_rows_total",
+            "Prompt rows admitted into the decode slot pool (prefilled "
+            "and scheduled for decoding)", registry=registry)
+        self.scheduler_evicted = Counter(
+            "serve_scheduler_evicted_rows_total",
+            "Rows evicted from the slot pool (EOS or budget exhausted); "
+            "admitted == evicted + serve_decode_slots_active at all "
+            "times", registry=registry)
+        self.slots_active = Gauge(
+            "serve_decode_slots_active",
+            "Decode slots currently occupied by in-flight rows",
+            registry=registry)
+        self.slots_total = Gauge(
+            "serve_decode_slots", "Decode slot pool size (KFT_SERVE_SLOTS)",
+            registry=registry)
         self.ttft = Histogram(
             "serve_time_to_first_token_seconds",
             "Request arrival to the first generated token host-visible "

@@ -9,19 +9,25 @@ the device, AdamW as ``optax.adamw``, the LM step of ``train/steps.py``
 (attention and RMSNorm on the port's CUDA kernels), the loop of
 ``train/loop.py``.  Runs on the
 card unless ``--device cpu`` is given; without a card it stops with an
-error.  ``--task image``, a ``--mesh`` other than ``auto``,
-``--checkpoint-dir`` and ``--distributed`` are not yet ported and stop
-with an error.
+error.  ``--checkpoint-dir`` (default ``$KFT_CHECKPOINT_DIR``) resumes
+from the latest step there, saves every ``--checkpoint-every`` steps and
+on SIGTERM; serve what it wrote with ``python -m
+kubeflow_tpu_torch.models.serve --checkpoint-dir``.  ``--task image``, a
+``--mesh`` other than ``auto`` and ``--distributed`` are not yet ported
+and stop with an error.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import threading
 from typing import Optional
 
 import torch
+
+from kubeflow_tpu_torch import config
 
 
 def install_preemption_handler(stop: threading.Event,
@@ -78,7 +84,8 @@ def build_lm(args, device: torch.device):
         if args.packed:
             # Packed documents: padding-free rows with segment ids (the
             # packer's window is stateful, so this stream is not
-            # step-indexed).
+            # step-indexed: a resumed run restarts it, as the reference's
+            # does).
             max_len = min(256, args.seq)
             return DeviceLoader(packed_lm_batches(
                 synthetic_lm_documents(vocab_size=vocab, seed=args.seed,
@@ -118,7 +125,14 @@ def parse_args(argv: Optional[list] = None):
     ap.add_argument("--mesh", default="auto",
                     help="only 'auto' (one device); others are not yet "
                          "ported")
-    ap.add_argument("--checkpoint-dir", default=None, help="not yet ported")
+    # KFT_CHECKPOINT_DIR is what a job controller injects: a restarted
+    # worker resumes without its command line naming the directory.
+    ap.add_argument("--checkpoint-dir",
+                    default=os.environ.get(config.ENV_KFT_CHECKPOINT_DIR)
+                    or None,
+                    help="resume from and save checkpoints in this "
+                         f"directory (default ${config.ENV_KFT_CHECKPOINT_DIR})")
+    ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--distributed", action="store_true",
                     help="not yet ported")
@@ -126,7 +140,6 @@ def parse_args(argv: Optional[list] = None):
     args = ap.parse_args(argv)
     unported = {"--task image": args.task == "image",
                 "--mesh": args.mesh != "auto",
-                "--checkpoint-dir": bool(args.checkpoint_dir),
                 "--distributed": args.distributed}
     for flag, given in unported.items():
         if given:
@@ -135,10 +148,26 @@ def parse_args(argv: Optional[list] = None):
     return ap, args
 
 
-def main(argv: Optional[list] = None) -> int:
-    from kubeflow_tpu_torch import resolve_device
+def train(args, device: torch.device, stop=None):
+    """Build the LM task from parsed ``args`` and run the loop on
+    ``device``.  Returns ``(state, history)``."""
     from kubeflow_tpu_torch.telemetry import compute as ctel
     from kubeflow_tpu_torch.train.loop import LoopConfig, train_loop
+
+    state, step, batches = build_lm(args, device)
+    return train_loop(
+        state, step, batches,
+        LoopConfig(total_steps=args.steps, log_every=args.log_every,
+                   checkpoint_dir=args.checkpoint_dir,
+                   checkpoint_every=args.checkpoint_every,
+                   tokens_per_step=args.batch * args.seq,
+                   flops_per_token=ctel.lm_train_flops_per_token(
+                       state.module.cfg, args.seq)),
+        stop=stop)
+
+
+def main(argv: Optional[list] = None) -> int:
+    from kubeflow_tpu_torch import resolve_device
 
     ap, args = parse_args(argv)
     try:
@@ -149,19 +178,14 @@ def main(argv: Optional[list] = None) -> int:
     stop = threading.Event()
     replaced = install_preemption_handler(stop)
     try:
-        state, step, batches = build_lm(args, device)
-        state, history = train_loop(
-            state, step, batches,
-            LoopConfig(total_steps=args.steps, log_every=args.log_every,
-                       tokens_per_step=args.batch * args.seq,
-                       flops_per_token=ctel.lm_train_flops_per_token(
-                           state.module.cfg, args.seq)),
-            stop=stop)
+        state, history = train(args, device, stop)
     finally:
         for sig, handler in replaced.items():
             signal.signal(sig, handler)
     if stop.is_set():
-        print(f"preempted at step {state.step} (no checkpoint dir)",
+        print(f"preempted at step {state.step}: checkpoint saved"
+              if args.checkpoint_dir else
+              f"preempted at step {state.step} (no checkpoint dir)",
               flush=True)
     if history:
         last = history[-1]

@@ -14,7 +14,9 @@ from kubeflow_tpu.telemetry import compute as jcompute
 from kubeflow_tpu_torch.data import loader, packing
 from kubeflow_tpu_torch.models.llama import CONFIGS
 from kubeflow_tpu_torch.telemetry import compute
+from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.train.loop import LoopConfig, train_loop
+from kubeflow_tpu_torch.train.steps import TrainState
 
 
 @pytest.mark.parametrize("seed,start", [(0, 0), (7, 3)])
@@ -99,7 +101,7 @@ def test_mfu_is_against_the_h100_peak():
     assert "train_mfu" in compute.registry.render()
 
 
-def test_train_loop_logs_windows_and_refuses_checkpoints():
+def test_train_loop_logs_windows_and_refuses_checkpoints(tmp_path):
     seen = []
 
     def step(state, batch):
@@ -115,9 +117,25 @@ def test_train_loop_logs_windows_and_refuses_checkpoints():
     assert history[1]["loss"] == 3 * 8.0
     assert history[0]["step_seconds"] > 0
     assert {"tokens_per_sec", "mfu", "steps_per_sec"} <= set(history[0])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train_loop(0, step, batches, LoopConfig(total_steps=1,
-                                                checkpoint_dir="ckpt"))
+    # Checkpoints are ported (tests/test_torch_checkpoint.py): with a
+    # directory the loop saves the state's step, and a rerun resumes
+    # there and counts its steps from it.
+    def train_state():
+        return TrainState(torch.nn.Linear(2, 2), None)
+
+    def count(state, batch):
+        state.step += 1
+        return state, {"loss": torch.tensor(float(batch.sum()))}
+
+    ckpt = str(tmp_path / "ckpt")
+    first, _ = train_loop(train_state(), count, batches,
+                          LoopConfig(total_steps=2, checkpoint_dir=ckpt))
+    assert first.step == 2 and CheckpointManager(ckpt).all_steps() == [2]
+    resumed, hist = train_loop(
+        train_state(), count, lambda start: batches[start:],
+        LoopConfig(total_steps=3, log_every=1, checkpoint_dir=ckpt))
+    assert resumed.step == 3 and [h["step"] for h in hist] == [3]
+    assert hist[0]["loss"] == 2 * 8.0
     # A stopped loop runs no step; an exhausted stream ends the loop.
     stop = type("Stop", (), {"is_set": lambda self: True})()
     assert train_loop(0, step, batches, cfg, stop=stop) == (0, [])

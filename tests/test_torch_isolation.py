@@ -37,6 +37,30 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert int(out.stdout.strip()) >= 15
 
 
+@pytest.mark.parametrize("module", [
+    "kubeflow_tpu_torch.train.checkpoint",
+    "kubeflow_tpu_torch.models.scheduler",
+])
+def test_checkpoint_and_scheduler_stand_alone(module):
+    """The modules that save and serve a trained model import with JAX,
+    the JAX package and the serving libraries blocked, and pull none of
+    them in."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    code = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import {module}
+        loaded = [m for m in sys.modules if sys.modules[m] is not None
+                  and m.split(".")[0] in {BLOCKED!r}]
+        assert not loaded, loaded
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_nothing_of_jax_or_the_reference(path):

@@ -37,7 +37,10 @@ def server(jax_service):
     model = create_model("llama_debug", device="cpu")
     model.load_state_dict(params_from_jax(
         jax.device_get(jax_service.params), model.cfg))
-    service = GenerationService(model)
+    # Pinned to the lock path: these tests hold its behaviour (one request
+    # at a time behind the lock); tests/test_torch_scheduler.py holds the
+    # scheduler that an instrumented service uses by default.
+    service = GenerationService(model, use_scheduler=False)
     srv = create_app(service, model_name="llama_debug").make_server(
         "127.0.0.1", 0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -134,7 +137,7 @@ def test_concurrent_requests_serialize_and_balance_counters(server):
     import sys
     from concurrent.futures import ThreadPoolExecutor
 
-    base, _ = server
+    base, service = server
     bodies = [{"tokens": [ROWS[i % 3]], "max_new_tokens": 3, "seed": i}
               for i in range(16)]
     want = [_call(base, "/v1/generate", b) for b in bodies[:3]]
@@ -161,6 +164,7 @@ def test_concurrent_requests_serialize_and_balance_counters(server):
     assert metric(after, "serve_queue_depth ") == 0
     assert (metric(after, "serve_output_tokens_total ")
             - metric(before, "serve_output_tokens_total ")) == 16 * 3
+    assert service._scheduler is None        # the lock path served them
 
 
 def test_load_service_needs_a_card_unless_cpu_is_asked():

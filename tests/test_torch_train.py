@@ -427,7 +427,7 @@ def test_train_run_without_a_card_or_with_unported_flags_stops(capsys):
         trainer.main(["--steps", "1"])
     assert "torch.cuda.is_available() is False" in capsys.readouterr().err
     for flags in (["--task", "image"], ["--mesh", "dp=2"],
-                  ["--checkpoint-dir", "ckpt"], ["--distributed"]):
+                  ["--distributed"]):
         with pytest.raises(SystemExit):
             trainer.main(flags + ["--device", "cpu"])
         assert "not yet ported" in capsys.readouterr().err
