@@ -34,7 +34,21 @@ Phases, each of which raises on failure (exit code 1):
    Each request's tokens equal the request sent alone; greedy tokens
    agree with the lock path under a teacher-forced prefill; pipelined and
    synchronous loops give equal tokens; launches are exact for a run
-   queued before its loop starts; the counters balance.
+   queued before its loop starts; the counters balance.  This phase pins
+   the fixed-slot pool (``KFT_SERVE_PAGED=0``).
+6c. paged: the same model and requests through the paged engine, the
+   service's default (8 lanes of 1024 slots, 64-token pages, 129 pages,
+   512-token prefill chunks): exact launches over HTTP (K5 a pool step,
+   K2 a prefill chunk, a layer each); a shared-prefix set whose later
+   requests hit the trie; pipeline off = on and alone = pooled, bit for
+   bit; the fixed pool's tokens, the cache-off run's and the
+   non-speculative stream's held by token equality or the teacher-forced
+   gap; a pool too small for the mix (admissions wait, tokens equal);
+   speculative decoding with the target and a 2-layer draft (exact K5,
+   K2 and verify-attention counts); a quantum at 1024 and 8192 slots
+   with no host sync inside, its device time by class; the gather, K2 at
+   a chunk's shape and K5 over null-page rows, timed.  Pages balance
+   after every drain.
 7. train-kernels: the training kernels (K1 forward and backward, K2-lse
    forward, K3 dq, K4 dk/dv) against their plain versions in f32 on the
    same bf16 inputs, K1 at llama_1b4's rows ([8192, 2048]), attention at
@@ -185,6 +199,41 @@ SCHEDULE_REQUESTS = {
 # unless twice the largest logit difference measured between the lock
 # path's and the pool's decode (the two widths) is larger.
 AGREE_GAP = 0.1
+
+# Paged phase: the paged engine at the fixed pool's geometry (POOL_SLOTS
+# lanes of POOL_SLOT_LEN slots, quantum POOL_QUANTUM) with its knobs'
+# defaults: 64-token pages, 8 x 16 + 1 = 129 pages (the fixed pool's
+# capacity and the null page, 1.08 GB) and 512-token prefill chunks, so
+# the 900-token row prefills in two.  tests/test_torch_paged_smoke.py
+# holds these against the knobs' defaults and checks.
+PAGED_PAGE_LEN = 64
+PAGED_PAGES = POOL_SLOTS * POOL_SLOT_LEN // PAGED_PAGE_LEN + 1
+PAGED_CHUNK = 512
+# Shared prefixes: a 320-token prefix (5 pages), suffixes of these
+# lengths, sent one after another so the later ones hit the trie.
+PREFIX_LEN = 320
+PREFIX_SUFFIXES = (40, 90, 150, 200)
+PREFIX_NEW_TOKENS = 24
+# Page pressure: 40 pages (39 usable) for the schedule requests' 88:
+# request A's 36 fit, all of them do not, so admissions wait for
+# evictions to free pages.
+PRESSURE_PAGES = 40
+# Page pressure with the prefix cache on: the first shared-prefix request
+# leaves its 5 prefix pages cached (34 free), a holder of these rows,
+# prompt length and new tokens then takes 33, so the next shared-prefix
+# request's lookup hits the chain while its own 2 pages are short and
+# the chain is the only evictable leaf: it must wait, not evict its hit.
+PRESSURE_HOLDER = (3, 640, 64)
+# Speculative decoding: KFT_SERVE_SPEC_TOKENS's default; the drafts are
+# the target itself and llama3_8b's width at DRAFT_LAYERS layers drawn
+# from DRAFT_SEED.
+SPEC_TOKENS = 4
+DRAFT_LAYERS, DRAFT_SEED = 2, 1
+# The depth a deployment runs: llama3_8b's max_seq_len, whose default
+# pool is 8 x 128 + 1 = 1025 pages (8.6 GB).
+DEEP_SLOT_LEN = 8192
+# K2 at a prefill chunk's shape: the 900-token row's second chunk.
+CHUNK_B, CHUNK_SQ, CHUNK_SK = 1, 388, 900
 
 # Training phase: the repo's training configuration at full width and
 # depth, as the reference's bench trains it (b1 s8192, bf16 gradients).
@@ -1039,121 +1088,119 @@ def phase_schedule(torch, dev, model):
     from kubeflow_tpu_torch.ops import cuda as kernels
 
     cfg = model.cfg
+    # KFT_SERVE_PAGED=0: this phase measures the fixed-slot pool;
+    # phase_paged serves the same requests through the paged engine.
     knobs = {"KFT_SERVE_SLOTS": str(POOL_SLOTS),
              "KFT_SERVE_SLOT_LEN": str(POOL_SLOT_LEN),
-             "KFT_SERVE_DECODE_QUANTUM": str(POOL_QUANTUM)}
-    saved_env = {k: os.environ.get(k) for k in knobs}
-    os.environ.update(knobs)
-    service = GenerationService(model, use_scheduler=True)
-    server = create_app(service, model_name="llama3_8b").make_server(
-        "127.0.0.1", 0)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
-    bodies = schedule_bodies(torch, dev, cfg.vocab_size)
-    row = {"phase": "schedule", "model": "llama3_8b", "slots": POOL_SLOTS,
-           "slot_len": POOL_SLOT_LEN, "quantum": POOL_QUANTUM,
-           "slot_len_note": f"KFT_SERVE_SLOT_LEN={POOL_SLOT_LEN} set by "
-                            "this phase; the default is max_seq_len "
-                            f"{cfg.max_seq_len}",
-           "requests": {k: {"prompt_lens": list(v[0]), "max_new_tokens": v[1],
-                            **v[2]} for k, v in SCHEDULE_REQUESTS.items()},
-           "pool_bytes": 2 * cfg.n_layers * POOL_SLOTS * POOL_SLOT_LEN
-           * cfg.n_kv_heads * cfg.head_dim * 2}
-    try:
-        status, ready = http(base, "/readyz")
-        sched = service._scheduler
-        if status != 200 or sched is None or not sched.pipeline:
-            raise AssertionError(f"/readyz {status} {ready}: no pipelined "
-                                 "scheduler behind the app")
-        if (sched.slots, sched.slot_len, sched.quantum) != (
-                POOL_SLOTS, POOL_SLOT_LEN, POOL_QUANTUM):
-            raise AssertionError(f"scheduler knobs {sched.stats()}")
-        before = wait_drained(sched)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(bodies)) as pool:
-            futs = {name: pool.submit(http, base, "/v1/generate", body)
-                    for name, body in bodies.items()}
-            pooled = {name: f.result()[1]["tokens"]
-                      for name, f in futs.items()}
-        wall_s = time.perf_counter() - t0
-        after = wait_drained(sched)
-        counts = kernels.launch_counts()
-        row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-        prefills = after["prefills_total"] - before["prefills_total"]
-        steps = after["steps_total"] - before["steps_total"]
-        want = schedule_launches(cfg, prefills, steps)
-        slack = schedule_launches(cfg, 0, POOL_QUANTUM)
-        if any(abs(counts[k] - want[k]) > slack[k] for k in want) or not (
-                counts["rms_norm"] and counts["flash_attention_fwd"]
-                and counts["flash_decode"]):
-            raise AssertionError(f"schedule launches {counts}, expected "
-                                 f"{want} within one quantum")
-        for name, body in bodies.items():
-            out, n = pooled[name], body["max_new_tokens"]
-            if len(out) != len(body["tokens"]) or any(
-                    len(r) != n or not all(0 <= t < cfg.vocab_size
-                                           for t in r) for r in out):
-                raise AssertionError(f"request {name}: malformed {out}")
-        _, traces = http(base, f"/debug/traces?n={len(bodies)}")
-        ttft = {}
-        for tr in traces["traces"]:
-            spans = {sp["name"]: sp for sp in tr["spans"]}
-            ttft[spans["decode"]["tokens"]] = (
-                spans["prefill"]["offset_ms"]
-                + spans["prefill"]["duration_ms"]) / 1e3
-        decode_tokens = sum(len(b["tokens"]) * (b["max_new_tokens"] - 1)
-                            for b in bodies.values())
-        row.update({
-            "wall_seconds": wall_s, "decode_tokens": decode_tokens,
-            "decode_tokens_per_s": decode_tokens / wall_s,
-            "ttft_seconds": {name: ttft.get(b["max_new_tokens"])
-                             for name, b in bodies.items()},
-            "launches": counts, "launches_expected": want,
-            "prefills": prefills, "pool_steps": steps,
-            "dispatch_overlap_ratio": after["dispatch_overlap_ratio"]})
+             "KFT_SERVE_DECODE_QUANTUM": str(POOL_QUANTUM),
+             "KFT_SERVE_PAGED": "0"}
+    with env_set(knobs):
+        service = GenerationService(model, use_scheduler=True)
+        server = create_app(service, model_name="llama3_8b").make_server(
+            "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        bodies = schedule_bodies(torch, dev, cfg.vocab_size)
+        row = {"phase": "schedule", "model": "llama3_8b", "slots": POOL_SLOTS,
+               "slot_len": POOL_SLOT_LEN, "quantum": POOL_QUANTUM,
+               "slot_len_note": f"KFT_SERVE_SLOT_LEN={POOL_SLOT_LEN} set by "
+                                "this phase; the default is max_seq_len "
+                                f"{cfg.max_seq_len}",
+               "requests": {k: {"prompt_lens": list(v[0]), "max_new_tokens": v[1],
+                                **v[2]} for k, v in SCHEDULE_REQUESTS.items()},
+               "pool_bytes": 2 * cfg.n_layers * POOL_SLOTS * POOL_SLOT_LEN
+               * cfg.n_kv_heads * cfg.head_dim * 2}
+        try:
+            status, ready = http(base, "/readyz")
+            sched = service._scheduler
+            if status != 200 or sched is None or not sched.pipeline:
+                raise AssertionError(f"/readyz {status} {ready}: no pipelined "
+                                     "scheduler behind the app")
+            if (sched.slots, sched.slot_len, sched.quantum) != (
+                    POOL_SLOTS, POOL_SLOT_LEN, POOL_QUANTUM):
+                raise AssertionError(f"scheduler knobs {sched.stats()}")
+            before = wait_drained(sched)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                futs = {name: pool.submit(http, base, "/v1/generate", body)
+                        for name, body in bodies.items()}
+                pooled = {name: f.result()[1]["tokens"]
+                          for name, f in futs.items()}
+            wall_s = time.perf_counter() - t0
+            after = wait_drained(sched)
+            counts = kernels.launch_counts()
+            row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+            prefills = after["prefills_total"] - before["prefills_total"]
+            steps = after["steps_total"] - before["steps_total"]
+            want = schedule_launches(cfg, prefills, steps)
+            slack = schedule_launches(cfg, 0, POOL_QUANTUM)
+            if any(abs(counts[k] - want[k]) > slack[k] for k in want) or not (
+                    counts["rms_norm"] and counts["flash_attention_fwd"]
+                    and counts["flash_decode"]):
+                raise AssertionError(f"schedule launches {counts}, expected "
+                                     f"{want} within one quantum")
+            for name, body in bodies.items():
+                out, n = pooled[name], body["max_new_tokens"]
+                if len(out) != len(body["tokens"]) or any(
+                        len(r) != n or not all(0 <= t < cfg.vocab_size
+                                               for t in r) for r in out):
+                    raise AssertionError(f"request {name}: malformed {out}")
+            _, traces = http(base, f"/debug/traces?n={len(bodies)}")
+            ttft = {}
+            for tr in traces["traces"]:
+                spans = {sp["name"]: sp for sp in tr["spans"]}
+                ttft[spans["decode"]["tokens"]] = (
+                    spans["prefill"]["offset_ms"]
+                    + spans["prefill"]["duration_ms"]) / 1e3
+            decode_tokens = sum(len(b["tokens"]) * (b["max_new_tokens"] - 1)
+                                for b in bodies.values())
+            row.update({
+                "wall_seconds": wall_s, "decode_tokens": decode_tokens,
+                "decode_tokens_per_s": decode_tokens / wall_s,
+                "ttft_seconds": {name: ttft.get(b["max_new_tokens"])
+                                 for name, b in bodies.items()},
+                "launches": counts, "launches_expected": want,
+                "prefills": prefills, "pool_steps": steps,
+                "dispatch_overlap_ratio": after["dispatch_overlap_ratio"]})
 
-        # Row independence: each request alone through the same pool.
-        alone_s = {}
-        for name, body in bodies.items():
-            t1 = time.perf_counter()
-            _, out = http(base, "/v1/generate", body)
-            alone_s[name] = time.perf_counter() - t1
-            if out["tokens"] != pooled[name]:
-                raise AssertionError(f"request {name}: alone {out['tokens']} "
-                                     f"differs from pooled {pooled[name]}")
-        row["alone_seconds"] = alone_s
-        wait_drained(sched)
-        _, metrics = http(base, "/metrics")
-        counters = {k: metric_value(metrics, k) for k in (
-            "serve_scheduler_admitted_rows_total",
-            "serve_scheduler_evicted_rows_total",
-            "serve_decode_slots_active", "serve_queue_depth",
-            "serve_decode_slots")}
-        _, debug = http(base, "/debug/serve")
-        row["counters"] = counters
-        if (counters["serve_scheduler_admitted_rows_total"]
-                != counters["serve_scheduler_evicted_rows_total"]
-                or counters["serve_decode_slots_active"] != 0
-                or counters["serve_queue_depth"] != 0
-                or counters["serve_decode_slots"] != POOL_SLOTS
-                or not sched.alive
-                or service._scheduler_or_none() is not sched
-                or debug["engine"] != "DecodeScheduler"):
-            raise AssertionError(f"scheduler counters or state: {counters} "
-                                 f"{debug}")
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-        for k, v in saved_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+            # Row independence: each request alone through the same pool.
+            alone_s = {}
+            for name, body in bodies.items():
+                t1 = time.perf_counter()
+                _, out = http(base, "/v1/generate", body)
+                alone_s[name] = time.perf_counter() - t1
+                if out["tokens"] != pooled[name]:
+                    raise AssertionError(f"request {name}: alone {out['tokens']} "
+                                         f"differs from pooled {pooled[name]}")
+            row["alone_seconds"] = alone_s
+            wait_drained(sched)
+            _, metrics = http(base, "/metrics")
+            counters = {k: metric_value(metrics, k) for k in (
+                "serve_scheduler_admitted_rows_total",
+                "serve_scheduler_evicted_rows_total",
+                "serve_decode_slots_active", "serve_queue_depth",
+                "serve_decode_slots")}
+            _, debug = http(base, "/debug/serve")
+            row["counters"] = counters
+            if (counters["serve_scheduler_admitted_rows_total"]
+                    != counters["serve_scheduler_evicted_rows_total"]
+                    or counters["serve_decode_slots_active"] != 0
+                    or counters["serve_queue_depth"] != 0
+                    or counters["serve_decode_slots"] != POOL_SLOTS
+                    or not sched.alive
+                    or service._scheduler_or_none() is not sched
+                    or debug["engine"] != "DecodeScheduler"
+                    or debug["paged_fallback"]["reason"] != "env-disabled"):
+                raise AssertionError(f"scheduler counters or state: {counters} "
+                                     f"{debug}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
     if service._scheduler is not None:
         service._scheduler.stop()
 
@@ -1207,6 +1254,661 @@ def phase_schedule(torch, dev, model):
         raise AssertionError(f"a pooled greedy token is {max(gaps)} below "
                              f"its position's largest logit (limit {tol})")
     del det
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, pooled, tol, row["quantum"]
+
+
+@contextlib.contextmanager
+def env_set(knobs):
+    """The environment with ``knobs`` set, restored on exit."""
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pages_needed(lens, new_tokens, page_len, spec_tokens=0):
+    """Pages a request takes at admission without prefix reuse: each row
+    ceil((longest + new - 1 + spec slack) / page_len), the engine's
+    ``_pages_per_row``."""
+    slack = spec_tokens + 1 if spec_tokens else 0
+    per_row = -(-(max(lens) + new_tokens - 1 + slack) // page_len)
+    return per_row * len(lens)
+
+
+def paged_pool_bytes(cfg, pages):
+    return (2 * cfg.n_layers * pages * PAGED_PAGE_LEN * cfg.n_kv_heads
+            * cfg.head_dim * 2)
+
+
+def stats_delta(after, before):
+    return {k: v - before[k] for k, v in after.items()
+            if isinstance(v, int) and not isinstance(v, bool)}
+
+
+def paged_launches(cfg, st, draft_cfg=None, k=0):
+    """(kernel launches, verify_attention calls) of the paged engine's
+    work in stats ``st``: a prefill chunk and a pool step are one target
+    forward each (K2 or K5 once a layer), a speculative step one target
+    verify pass (the plain verify attention once a layer) and k + 1 draft
+    steps (K5 once a draft layer), a draft prefill one draft forward (K2
+    once a draft layer); every forward runs two norms a layer and the
+    final one."""
+    n = cfg.n_layers
+    d = draft_cfg.n_layers if draft_cfg is not None else 0
+    spec = st["spec_steps_total"]
+    pool = st["steps_total"] - spec
+    chunks = st["prefill_chunks_total"]
+    draft_steps = (k + 1) * spec
+    draft_pre = st["draft_prefills_total"]
+    return ({"rms_norm": (2 * n + 1) * (chunks + pool + spec)
+             + (2 * d + 1) * (draft_steps + draft_pre),
+             "rms_norm_bwd": 0,
+             "flash_attention_fwd": n * chunks + d * draft_pre,
+             "flash_attention_fwd_lse": 0, "flash_attention_dq": 0,
+             "flash_attention_dkv": 0,
+             "flash_decode": n * pool + d * draft_steps}, n * spec)
+
+
+def check_pages_balanced(what, st):
+    if st["pages_active"] != 0 or (st["pages_free"] + st["pages_shared"]
+                                   != st["pages_total"] - 1):
+        raise AssertionError(f"{what}: pages unbalanced after the drain "
+                             f"{st}")
+
+
+def agreement(torch, dev, model, body, got, want, tol, what):
+    """Token equality, or for a greedy request the teacher-forced gap of
+    each of ``got``'s tokens to its position's largest logit, within
+    ``tol`` (the schedule phase's contract where a batch shape changes
+    the last bits)."""
+    if got == want:
+        return {"equal": True}
+    if body["temperature"] != 0.0:
+        raise AssertionError(f"{what}: a sampled request differs: {got} "
+                             f"against {want}")
+    gaps = []
+    for prompt, gen in zip(body["tokens"], got):
+        gaps += teacher_forced_gaps(torch, dev, model, prompt, gen)
+    if max(gaps) > tol:
+        raise AssertionError(f"{what}: a greedy token is {max(gaps)} below "
+                             f"its position's largest logit (limit {tol})")
+    return {"equal": False, "worst_gap": max(gaps), "tokens": len(gaps),
+            "equal_tokens": sum(a == b for g, w in zip(got, want)
+                                for a, b in zip(g, w))}
+
+
+def prefix_bodies(vocab):
+    """The shared-prefix set: one 320-token prefix, distinct suffixes."""
+    import numpy as np
+
+    rs = np.random.RandomState(SEED + 30)
+    prefix = rs.randint(0, vocab, size=PREFIX_LEN).tolist()
+    return [{"tokens": [prefix + rs.randint(0, vocab, size=m).tolist()],
+             "max_new_tokens": PREFIX_NEW_TOKENS, "temperature": 0.0}
+            for m in PREFIX_SUFFIXES]
+
+
+def submit_body(sched, body):
+    return sched.submit(body["tokens"], max_new_tokens=body["max_new_tokens"],
+                        temperature=body["temperature"],
+                        top_k=body.get("top_k"), seed=body.get("seed", 0))
+
+
+def run_held(sched, bodies):
+    """Every body queued before the loop starts, then run: launches that
+    the stats account for exactly.  Returns (outputs by name, seconds)."""
+    start, sched.start = sched.start, lambda: None
+    pend = {name: submit_body(sched, b) for name, b in bodies.items()}
+    t0 = time.perf_counter()
+    sched.start = start
+    sched.start()
+    out = {name: p.result() for name, p in pend.items()}
+    return out, time.perf_counter() - t0
+
+
+def paged_quantum(torch, dev, model, slot_len, fixed=False):
+    """One greedy quantum over POOL_SLOTS live lanes at depth slot_len / 2,
+    through the paged engine's ``paged_pool_steps`` over the default page
+    count (or, ``fixed``, the fixed pool's ``pool_steps``): enqueued under
+    ``torch.cuda.set_sync_debug_mode("error")``, timed, profiled (kernels a
+    step, the card's busy share).  Returns the row and a callable that
+    runs one more quantum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models.generate import DecodeState, SamplingRows
+    from kubeflow_tpu_torch.models.paged import paged_pool_steps
+    from kubeflow_tpu_torch.models.scheduler import pool_steps
+
+    b, depth = POOL_SLOTS, slot_len // 2
+    per_row = slot_len // PAGED_PAGE_LEN
+    pages = b * per_row + 1
+    with torch.inference_mode():
+        cache = (model.new_cache(b, slot_len) if fixed
+                 else model.new_paged_cache(pages * PAGED_PAGE_LEN))
+        st = DecodeState(
+            cache=cache, token=torch.zeros(b, dtype=torch.long, device=dev),
+            pos=torch.full((b,), depth, dtype=torch.long, device=dev),
+            done=torch.zeros(b, dtype=torch.bool, device=dev),
+            pad_bias=torch.zeros(b, slot_len, device=dev),
+            generators=[torch.Generator(device=dev).manual_seed(i)
+                        for i in range(b)], budget=0)
+    rows = SamplingRows.make(b, dev, 0.0, None, None)
+    write = torch.full((b,), depth, dtype=torch.long, device=dev)
+    page_rows = torch.arange(1, pages, device=dev).view(b, per_row)
+
+    def run(n=POOL_QUANTUM):
+        with torch.inference_mode():
+            if fixed:
+                return pool_steps(model, st, rows, write, n)
+            return paged_pool_steps(model, st, rows, write, page_rows,
+                                    page_len=PAGED_PAGE_LEN, quantum=n)
+
+    run(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    out = {"slot_len": slot_len, "depth": depth, "no_host_sync": True,
+           "enqueue_seconds": t1 - t0,
+           "wall_seconds": time.perf_counter() - t0,
+           "cache_bytes": sum(t.numel() * t.element_size()
+                              for t in cache.k + cache.v)}
+    if not fixed:
+        out["pages"] = pages
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    spans, by_class = [], {"gather": 0.0, "flash_decode": 0.0,
+                           "matmul": 0.0, "other": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        name, us = e.name.lower(), e.time_range.elapsed_us()
+        if "index" in name or "gather" in name or "scatter" in name:
+            by_class["gather"] += us
+        elif "flash_decode_kernel" in name:
+            by_class["flash_decode"] += us
+        elif any(t in name for t in ("gemm", "gemv", "cutlass", "xmma",
+                                     "cublas", "nvjet")):
+            by_class["matmul"] += us
+        else:
+            by_class["other"] += us
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    out.update({"profiled_wall_seconds": wall_s,
+                "device_busy_share": busy_us / 1e6 / wall_s,
+                "kernels_per_step": len(spans) / POOL_QUANTUM,
+                "device_ms_per_step_by_class": {
+                    k: v / 1e3 / POOL_QUANTUM for k, v in by_class.items()}})
+    return out, run
+
+
+def gather_row(torch, dev, timer, L):
+    """The paged decode's gather, not a kernel: ``index_select`` of the
+    POOL_SLOTS rows' L positions each from the pool, K and V, at one
+    layer (the counterpart of the reference's XLA gather,
+    ``kubeflow_tpu/models/layers.py:306``).  Its bound moves each
+    gathered byte once in and once out, and the indices once."""
+    b, kvh, hd = POOL_SLOTS, 8, 128
+    per_row = L // PAGED_PAGE_LEN
+    pages = b * per_row + 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    k = torch.randn(pages * PAGED_PAGE_LEN, kvh, hd, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn_like(k)
+    table = 1 + torch.randperm(pages - 1, generator=gen, device=dev)
+    table = table.view(b, per_row)
+    from kubeflow_tpu_torch.models.paged import read_indices
+
+    read = read_indices(table, PAGED_PAGE_LEN).reshape(-1)
+    got = k.index_select(0, read).view(b, L, kvh, hd)
+    rows_ok = torch.equal(got[1, :PAGED_PAGE_LEN],
+                          k[table[1, 0] * PAGED_PAGE_LEN:
+                            (table[1, 0] + 1) * PAGED_PAGE_LEN])
+    if not rows_ok:
+        raise AssertionError("gather: a row's first page is not its table's")
+    nbytes = 2 * (2 * b * L * kvh * hd * 2) + b * L * 8
+    ms = timer(lambda: (k.index_select(0, read), v.index_select(0, read)))
+    bms, by = bound_ms(nbytes, 0, PEAK_BF16_FLOPS)
+    return {"op": "paged_gather", "shape": [b, L, kvh, hd],
+            "bytes": nbytes, "ms": ms, "bound_ms": bms, "bound_by": by,
+            "bound_share": bms / ms,
+            "per_step_ms_32_layers": 32 * ms}
+
+
+def chunk_k2_row(torch, dev, timer):
+    """K2 at a prefill chunk's shape: q [1, 388] over k/v [1, 900] (the
+    900-token row's second chunk, end-aligned causal), h32/8 d128."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as k2
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    b, sq, sk, h, kvh, hd = CHUNK_B, CHUNK_SQ, CHUNK_SK, 32, 8, 128
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v = rnd(b, sq, h, hd), rnd(b, sk, kvh, hd), rnd(b, sk, kvh, hd)
+    got = k2.flash_attention(q, k, v, causal=True)
+    want = k2.plain_attention(q.float(), k.float(), v.float(), causal=True)
+    tol = KERNEL_TOL["flash_attention_fwd"]
+    err, share = check_close("flash_attention_fwd chunk", got, want, tol)
+    vis = (torch.arange(sq, device=dev)[:, None] + (sk - sq)
+           >= torch.arange(sk, device=dev)[None, :])
+    pairs = vis.sum().item() * h * b
+    nbytes = 2 * (2 * b * sq * h * hd + 2 * b * sk * kvh * hd)
+    flops = 4 * pairs * hd
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    row = {"kernel": "flash_attention_fwd", "shape": [b, sq, sk, h, kvh, hd],
+           "path": "paged prefill chunk (end-aligned causal)",
+           "max_abs_err": err, "tol": tol, "tol_share": share,
+           "kernel_ms": timer(lambda: k2.flash_attention(q, k, v,
+                                                         causal=True)),
+           "plain_ms": timer(lambda: k2.plain_attention(q, k, v,
+                                                        causal=True)),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=vis, enable_gqa=True)),
+           "bound_ms": bms, "bound_by": by}
+    return add_rates(row, flops)
+
+
+def null_page_k5_row(torch, dev, timer):
+    """K5 at [8, 1024] over a view gathered from a paged pool: rows see
+    POOL_LENS slots (plus one free lane whose table is all null page),
+    the pages past each row's length are the null page, which holds
+    finite garbage 50x the live values, as does every masked slot."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.models.paged import read_indices
+    from kubeflow_tpu_torch.ops.cuda import flash_decode as k5
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    b, S, h, kvh, hd = POOL_SLOTS, POOL_SLOT_LEN, 32, 8, 128
+    per_row = S // PAGED_PAGE_LEN
+    pages = b * per_row + 1
+    lens = torch.tensor(POOL_LENS + (0,), device=dev)
+    used = -(-lens // PAGED_PAGE_LEN)
+    table = torch.arange(1, pages, device=dev).view(b, per_row)
+    table = torch.where(torch.arange(per_row, device=dev)[None]
+                        < used[:, None], table, 0)
+    pool_k = torch.randn(pages * PAGED_PAGE_LEN, kvh, hd, generator=gen,
+                         device=dev)
+    pool_v = torch.randn(pages * PAGED_PAGE_LEN, kvh, hd, generator=gen,
+                         device=dev)
+    pool_k[:PAGED_PAGE_LEN] *= 50.0
+    pool_v[:PAGED_PAGE_LEN] *= 50.0
+    pool_k, pool_v = pool_k.to(torch.bfloat16), pool_v.to(torch.bfloat16)
+    read = read_indices(table, PAGED_PAGE_LEN).reshape(-1)
+    k = pool_k.index_select(0, read).view(b, S, kvh, hd)
+    v = pool_v.index_select(0, read).view(b, S, kvh, hd)
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(
+        torch.bfloat16)
+    live = torch.arange(S, device=dev)[None] < lens[:, None]
+    bias = torch.where(live, 0.0, -1e30).float().contiguous()
+    got = k5.flash_decode(q, k, v, bias)
+    want = k5.plain_decode(q.float(), k.float(), v.float(), bias)
+    tol = KERNEL_TOL["flash_decode"]
+    err, share = check_close("flash_decode null page", got, want, tol)
+    needed = int(lens.sum().item()) + S     # the free lane: every slot
+    nbytes = 2 * needed * kvh * hd * 2 + b * S * 4 + 2 * b * h * hd * 2
+    flops = 4 * h * hd * needed
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = bias[:, None, None, :].to(torch.bfloat16)
+    row = {"kernel": "flash_decode", "shape": [b, S, h, kvh, hd],
+           "path": "paged decode (gathered view, null-page rows)",
+           "visible_lens": list(POOL_LENS), "free_rows": 1,
+           "null_page_slots": int((table == 0).sum().item())
+           * PAGED_PAGE_LEN, "needed_slots": needed, "max_abs_err": err,
+           "tol": tol, "tol_share": share,
+           "kernel_ms": timer(lambda: k5.flash_decode(q, k, v, bias)),
+           "plain_ms": timer(lambda: k5.plain_decode(q, k, v, bias)),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+           "bound_ms": bms, "bound_by": by}
+    return add_rates(row, flops)
+
+
+def phase_paged(torch, dev, model, fixed, tol, fixed_quantum):
+    """The serve phase's llama3_8b through the paged engine: the schedule
+    phase's requests over HTTP, shared prefixes, page pressure,
+    speculative decoding with two drafts, quanta at 1024 and 8192 slots,
+    and the timed rows of the paged path.  ``fixed`` is the schedule
+    phase's pooled tokens by request and ``tol`` its agreement tolerance.
+    Returns the launch counts of the HTTP run."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import create_model, layers
+    from kubeflow_tpu_torch.models.paged import PagedDecodeScheduler
+    from kubeflow_tpu_torch.models.serve import GenerationService, create_app
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    cfg = model.cfg
+    bodies = schedule_bodies(torch, dev, cfg.vocab_size)
+    shared = prefix_bodies(cfg.vocab_size)
+    geometry = dict(slots=POOL_SLOTS, slot_len=POOL_SLOT_LEN,
+                    quantum=POOL_QUANTUM)
+    row = {"phase": "paged", "model": "llama3_8b", "lanes": POOL_SLOTS,
+           "slot_len": POOL_SLOT_LEN, "quantum": POOL_QUANTUM,
+           "page_len": PAGED_PAGE_LEN, "pages": PAGED_PAGES,
+           "prefill_chunk": PAGED_CHUNK,
+           "pool_bytes": paged_pool_bytes(cfg, PAGED_PAGES)}
+    knobs = {"KFT_SERVE_SLOTS": str(POOL_SLOTS),
+             "KFT_SERVE_SLOT_LEN": str(POOL_SLOT_LEN),
+             "KFT_SERVE_DECODE_QUANTUM": str(POOL_QUANTUM)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with env_set(knobs):
+        service = GenerationService(model, use_scheduler=True)
+        server = create_app(service, model_name="llama3_8b").make_server(
+            "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            status, ready = http(base, "/readyz")
+            sched = service._scheduler
+            if status != 200 or not isinstance(sched, PagedDecodeScheduler):
+                raise AssertionError(f"/readyz {status} {ready}: the paged "
+                                     "engine does not serve")
+            if (sched.page_len, sched.num_pages, sched.prefill_chunk,
+                    sched.slots, sched.slot_len) != (
+                    PAGED_PAGE_LEN, PAGED_PAGES, PAGED_CHUNK, POOL_SLOTS,
+                    POOL_SLOT_LEN):
+                raise AssertionError(f"paged engine geometry {sched.stats()}")
+            # (1) The schedule phase's requests, all at once.
+            before = wait_drained(sched)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            layers.verify_attention.calls = 0
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                futs = {name: pool.submit(http, base, "/v1/generate", body)
+                        for name, body in bodies.items()}
+                pooled = {name: f.result()[1]["tokens"]
+                          for name, f in futs.items()}
+            wall_s = time.perf_counter() - t0
+            after = wait_drained(sched)
+            counts = kernels.launch_counts()
+            delta = stats_delta(after, before)
+            want, verify = paged_launches(cfg, delta)
+            if counts != want or layers.verify_attention.calls != verify:
+                raise AssertionError(f"paged launches {counts}, expected "
+                                     f"{want} ({delta})")
+            check_pages_balanced("paged mix", after)
+            for name, body in bodies.items():
+                out, n = pooled[name], body["max_new_tokens"]
+                if len(out) != len(body["tokens"]) or any(
+                        len(r) != n or not all(0 <= t < cfg.vocab_size
+                                               for t in r) for r in out):
+                    raise AssertionError(f"request {name}: malformed {out}")
+            _, traces = http(base, f"/debug/traces?n={len(bodies)}")
+            ttft = {}
+            for tr in traces["traces"]:
+                spans = {sp["name"]: sp for sp in tr["spans"]}
+                ttft[spans["decode"]["tokens"]] = (
+                    spans["prefill"]["offset_ms"]
+                    + spans["prefill"]["duration_ms"]) / 1e3
+            decode_tokens = sum(len(b["tokens"]) * (b["max_new_tokens"] - 1)
+                                for b in bodies.values())
+            row["http"] = {
+                "wall_seconds": wall_s, "decode_tokens": decode_tokens,
+                "decode_tokens_per_s": decode_tokens / wall_s,
+                "ttft_seconds": {name: ttft.get(b["max_new_tokens"])
+                                 for name, b in bodies.items()},
+                "pool_steps": delta["steps_total"],
+                "prefill_chunks": delta["prefill_chunks_total"],
+                "launches": counts, "launches_expected": want,
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated(),
+                "dispatch_overlap_ratio": after["dispatch_overlap_ratio"]}
+            # (2) The shared-prefix set, one request after another.
+            hits0 = sched.stats()["prefix_hits"]
+            hit_outs = []
+            for body in shared:
+                hit_outs.append(http(base, "/v1/generate", body)[1]["tokens"])
+            st = wait_drained(sched)
+            hits = st["prefix_hits"] - hits0
+            expect_hits = (len(shared) - 1) * (PREFIX_LEN // PAGED_PAGE_LEN)
+            if hits != expect_hits:
+                raise AssertionError(f"prefix hits {hits}, expected "
+                                     f"{expect_hits}: {st}")
+            check_pages_balanced("shared prefixes", st)
+            _, metrics = http(base, "/metrics")
+            _, debug = http(base, "/debug/serve")
+            gauges = {s: metric_value(metrics, f'serve_kv_pages{{state="{s}"}}')
+                      for s in ("free", "active", "shared")}
+            if (gauges["active"] != 0 or sum(gauges.values())
+                    != PAGED_PAGES - 1
+                    or metric_value(metrics, "serve_prefix_cache_hits_total")
+                    != st["prefix_hits"]
+                    or metric_value(metrics,
+                                    "serve_scheduler_admitted_rows_total")
+                    != metric_value(metrics,
+                                    "serve_scheduler_evicted_rows_total")
+                    or debug["engine"] != "PagedDecodeScheduler"
+                    or debug["paged_fallback"] is not None):
+                raise AssertionError(f"paged counters {gauges} {debug}")
+            row["prefix"] = {"prefix_len": PREFIX_LEN,
+                             "suffixes": list(PREFIX_SUFFIXES),
+                             "prefix_hits": hits,
+                             "pages_saved": hits,
+                             "prefix_misses": st["prefix_misses"],
+                             "pages_shared": st["pages_shared"],
+                             "kv_pages": gauges}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            if service._scheduler is not None:
+                service._scheduler.stop()
+    del service, sched
+    gc.collect()
+
+    # (3) Pipeline off, prefix cache off, every request queued before the
+    # loop starts: exact launches, the HTTP run's tokens; then each
+    # request alone, bit for bit; then the shared-prefix set with the
+    # cache off against the hits.
+    det = PagedDecodeScheduler(model, pipeline=False, prefix_cache=False,
+                               **geometry)
+    kernels.reset_launch_counts()
+    sync, det_s = run_held(det, bodies)
+    det_counts = kernels.launch_counts()
+    want, _ = paged_launches(cfg, det.stats())
+    if det_counts != want:
+        raise AssertionError(f"paged launches (pipeline off) {det_counts}, "
+                             f"expected {want}")
+    if sync != pooled:
+        raise AssertionError("paged: pipeline off gave other tokens than on")
+    for name, body in bodies.items():
+        if submit_body(det, body).result() != pooled[name]:
+            raise AssertionError(f"paged: request {name} alone differs from "
+                                 "pooled")
+    row["pipeline_off"] = {"launches": det_counts, "wall_seconds": det_s,
+                           "tokens_equal_pipelined": True,
+                           "alone_equal_pooled": True}
+    off_outs = [submit_body(det, body).result() for body in shared]
+    row["prefix"]["against_cache_off"] = [
+        agreement(torch, dev, model, body, got, off, tol,
+                  f"prefix-hit request {i}")
+        for i, (body, got, off) in enumerate(zip(shared, hit_outs, off_outs))
+        if i]
+    check_pages_balanced("pipeline off", det.stats())
+    det.stop()
+    del det
+    # (4) Against the fixed pool (the schedule phase's tokens).
+    row["against_fixed_pool"] = {
+        name: agreement(torch, dev, model, body, pooled[name], fixed[name],
+                        tol, f"paged against fixed, request {name}")
+        for name, body in bodies.items()}
+
+    # (5) Page pressure (KFT_SERVE_PAGES): admissions wait for evictions.
+    with env_set({"KFT_SERVE_PAGES": str(PRESSURE_PAGES)}):
+        pres = PagedDecodeScheduler(model, prefix_cache=False, **geometry)
+    if pres.num_pages != PRESSURE_PAGES:
+        raise AssertionError(f"KFT_SERVE_PAGES gave {pres.num_pages} pages")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        futs = {name: pool.submit(lambda b: submit_body(pres, b).result(),
+                                  body) for name, body in bodies.items()}
+        tight = {name: f.result() for name, f in futs.items()}
+    st = wait_drained(pres)
+    pres.stop()
+    if tight != pooled or st["page_waits_total"] < 1:
+        raise AssertionError(f"page pressure: tokens equal {tight == pooled},"
+                             f" {st}")
+    check_pages_balanced("page pressure", st)
+    row["pressure"] = {"pages": PRESSURE_PAGES,
+                       "pages_needed": {n: pages_needed(
+                           [len(r) for r in b["tokens"]],
+                           b["max_new_tokens"], PAGED_PAGE_LEN)
+                           for n, b in bodies.items()},
+                       "page_waits": st["page_waits_total"],
+                       "wall_seconds": time.perf_counter() - t0,
+                       "tokens_equal": True}
+    del pres
+    # (5b) Page pressure with the prefix cache on: a prefix hit meets a
+    # short pool (PRESSURE_HOLDER) and waits with its chain pinned.
+    with env_set({"KFT_SERVE_PAGES": str(PRESSURE_PAGES)}):
+        pres = PagedDecodeScheduler(model, prefix_cache=True, **geometry)
+    rs = np.random.RandomState(SEED + 40)
+    n_rows, holder_len, holder_new = PRESSURE_HOLDER
+    holder = {"tokens": [rs.randint(0, cfg.vocab_size,
+                                    size=holder_len).tolist()
+                         for _ in range(n_rows)],
+              "max_new_tokens": holder_new, "temperature": 0.0}
+    t0 = time.perf_counter()
+    submit_body(pres, shared[0]).result()
+    wait_drained(pres)
+    futs = [submit_body(pres, b) for b in [holder] + shared[1:]]
+    held_out, *hit_tight = [f.result() for f in futs]
+    st = wait_drained(pres)
+    pres.stop()
+    expect_hits = (len(shared) - 1) * (PREFIX_LEN // PAGED_PAGE_LEN)
+    if (st["page_waits_total"] < 1 or st["prefix_hits"] != expect_hits
+            or [len(r) for r in held_out] != [holder_new] * n_rows):
+        raise AssertionError(f"page pressure with prefix hits: {st}")
+    check_pages_balanced("page pressure with prefix hits", st)
+    row["pressure"]["prefix_hits"] = {
+        "holder_pages": pages_needed([holder_len] * n_rows, holder_new,
+                                     PAGED_PAGE_LEN),
+        "page_waits": st["page_waits_total"],
+        "prefix_hits": st["prefix_hits"],
+        "wall_seconds": time.perf_counter() - t0,
+        "equal_unpressed_hits": hit_tight == hit_outs[1:],
+        "against_cache_off": [
+            agreement(torch, dev, model, body, got, off, tol,
+                      f"pressed prefix-hit request {i + 1}")
+            for i, (body, got, off) in enumerate(
+                zip(shared[1:], hit_tight, off_outs[1:]))]}
+    del pres
+
+    # (6) Speculative decoding on the greedy requests, two drafts.
+    greedy = {n: b for n, b in bodies.items() if b["temperature"] == 0.0}
+    small = create_model("llama3_8b", device=dev, n_layers=DRAFT_LAYERS)
+    with torch.no_grad():
+        small.reset_parameters(
+            torch.Generator(device=dev).manual_seed(DRAFT_SEED))
+    small.eval()
+    row["spec"] = {}
+    for label, draft in (("target", model), (f"{DRAFT_LAYERS}-layer", small)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp = PagedDecodeScheduler(model, draft_model=draft,
+                                  spec_tokens=SPEC_TOKENS,
+                                  prefix_cache=False, **geometry)
+        kernels.reset_launch_counts()
+        layers.verify_attention.calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        outs, spec_s = run_held(sp, greedy)
+        st = sp.stats()
+        sp.stop()
+        counts_sp = kernels.launch_counts()
+        want, verify = paged_launches(cfg, st, draft.cfg, SPEC_TOKENS)
+        if counts_sp != want or layers.verify_attention.calls != verify:
+            raise AssertionError(
+                f"spec ({label}) launches {counts_sp} and verify calls "
+                f"{layers.verify_attention.calls}, expected {want} and "
+                f"{verify} ({st})")
+        check_pages_balanced(f"spec ({label})", st)
+        tokens = sum(len(b["tokens"]) * (b["max_new_tokens"] - 1)
+                     for b in greedy.values())
+        row["spec"][label] = {
+            "spec_tokens": SPEC_TOKENS, "draft_layers": draft.cfg.n_layers,
+            "spec_steps": st["spec_steps_total"],
+            "pool_steps": st["steps_total"] - st["spec_steps_total"],
+            "proposed": st["spec_proposed"], "accepted": st["spec_accepted"],
+            "acceptance": st["spec_accepted"] / max(st["spec_proposed"], 1),
+            "wall_seconds": spec_s, "decode_tokens": tokens,
+            "decode_tokens_per_s": tokens / spec_s,
+            "launches": counts_sp, "verify_attention_calls": verify,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "against_paged_greedy": {
+                name: agreement(torch, dev, model, body, outs[name],
+                                pooled[name], tol,
+                                f"spec ({label}) request {name}")
+                for name, body in greedy.items()}}
+        del sp
+    del small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (7) One quantum at 1024 and at 8192 slots (no host sync inside),
+    # and the fixed pool's and the paged pool's steps in turns.
+    q1024, paged_run = paged_quantum(torch, dev, model, POOL_SLOT_LEN)
+    _, fixed_run = paged_quantum(torch, dev, model, POOL_SLOT_LEN,
+                                 fixed=True)
+    per_step = {"fixed": [], "paged": []}
+    for name, fn in (("fixed", fixed_run), ("paged", paged_run),
+                     ("paged", paged_run), ("fixed", fixed_run)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        per_step[name].append((time.perf_counter() - t0) / POOL_QUANTUM)
+    del paged_run, fixed_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    q8192, deep_run = paged_quantum(torch, dev, model, DEEP_SLOT_LEN)
+    del deep_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["quantum"] = {str(POOL_SLOT_LEN): q1024, str(DEEP_SLOT_LEN): q8192,
+                      "fixed_pool_schedule_phase": fixed_quantum,
+                      "seconds_per_step_in_turns": per_step}
+
+    # (8) The paged path's timed rows.
+    timer = Timer(torch, dev)
+    row["timed"] = [gather_row(torch, dev, timer, POOL_SLOT_LEN),
+                    gather_row(torch, dev, timer, DEEP_SLOT_LEN)]
+    emit(chunk_k2_row(torch, dev, timer))
+    emit(null_page_k5_row(torch, dev, timer))
+    del timer
+    emit(row)
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -2132,18 +2834,11 @@ def phase_checkpoint(torch, dev):
             0, service.model.cfg.vocab_size, size=100).tolist()
         n = 32
         knobs = {"KFT_SERVE_SLOTS": "1",
-                 "KFT_SERVE_SLOT_LEN": str(len(prompt) + n)}
-        saved_env = {k: os.environ.get(k) for k in knobs}
-        os.environ.update(knobs)
-        try:
+                 "KFT_SERVE_SLOT_LEN": str(len(prompt) + n),
+                 "KFT_SERVE_PAGED": "0"}
+        with env_set(knobs):
             create_app(service, model_name=TRAIN_MODEL)
             got = service.generate([prompt], max_new_tokens=n)
-        finally:
-            for k, v in saved_env.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
         sched = service._scheduler
         st = sched.stats() if sched is not None else None
         if sched is not None:
@@ -2212,8 +2907,10 @@ def main() -> int:
     phase_compose(torch, dev)
     serve_counts, model = phase_serve(torch, dev)
     phase_profile(torch, dev, model)
-    schedule_counts = phase_schedule(torch, dev, model)
-    del model
+    schedule_counts, fixed, tol, fixed_quantum = phase_schedule(
+        torch, dev, model)
+    paged_counts = phase_paged(torch, dev, model, fixed, tol, fixed_quantum)
+    del model, fixed
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_compose(torch, dev)
@@ -2227,6 +2924,7 @@ def main() -> int:
                      else serve_counts)[name],
         "launches_by_path": {"serve": serve_counts[name],
                              "schedule": schedule_counts[name],
+                             "paged": paged_counts[name],
                              "train": train_counts[name]},
         "shape": rows[name]["shape"], "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["kernel_ms"], "plain_ms": rows[name]["plain_ms"],

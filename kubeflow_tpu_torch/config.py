@@ -49,3 +49,42 @@ SERVE_SLOT_LEN = ("KFT_SERVE_SLOT_LEN", 0)
 SERVE_DECODE_QUANTUM = ("KFT_SERVE_DECODE_QUANTUM", 8)
 SERVE_PIPELINE = ("KFT_SERVE_PIPELINE", True)
 SERVE_SCHEDULER = ("KFT_SERVE_SCHEDULER", True)
+
+
+def env_int_strict(name: str, default: int,
+                   validate: Callable[[int], Any]) -> int:
+    """An integer knob that refuses a bad value: unset resolves to
+    ``default``; an unparseable value, or one ``validate`` (value ->
+    error message or None) rejects, raises ``ValueError`` naming the
+    knob, where ``env_int`` would quietly serve the default."""
+    raw = os.environ.get(name)
+    if raw is None or raw.strip() == "":
+        return default
+    try:
+        value = int(raw.strip())
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: not a valid int") from None
+    problem = validate(value)
+    if problem:
+        raise ValueError(f"{name}={raw!r}: {problem}")
+    return value
+
+
+# The paged engine's knobs (``models/paged.py``), with the reference's
+# defaults, ranges and messages (``kubeflow_tpu/models/paged.py``).
+# ``KFT_SERVE_PAGED`` set to 0 pins an instrumented service to the
+# fixed-slot pool.  The integer knobs are strict (``env_int_strict``).
+SERVE_PAGED = ("KFT_SERVE_PAGED", True)
+SERVE_PAGE_LEN = ("KFT_SERVE_PAGE_LEN", 64,
+                  lambda v: None if 1 <= v <= 4096
+                  else "must be in [1, 4096]")
+# 0: the fixed pool's capacity (slots x slot_len / page_len) + 1.
+SERVE_PAGES = ("KFT_SERVE_PAGES", 0,
+               lambda v: None if v >= 0 else "must be >= 0")
+# 0: the whole prompt suffix in one pass.
+SERVE_PREFILL_CHUNK = ("KFT_SERVE_PREFILL_CHUNK", 512,
+                       lambda v: None if v >= 0 else "must be >= 0")
+SERVE_SPEC_TOKENS = ("KFT_SERVE_SPEC_TOKENS", 4,
+                     lambda v: None if 0 <= v <= 64
+                     else "must be in [0, 64]")
+SERVE_PREFIX_CACHE = ("KFT_SERVE_PREFIX_CACHE", True)

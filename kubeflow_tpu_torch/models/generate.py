@@ -7,7 +7,8 @@
   its K/V at the shared scalar cache index and attends over the whole
   cache with one bias row per batch row (``Llama.forward``).  The same
   step body (``decode_step``) drives the continuous-batching slot pool
-  (``models/scheduler.py``), with a per-row write slot instead.
+  (``models/scheduler.py``), with a per-row write slot instead, and the
+  paged engine's (``models/paged.py``), through page tables.
 * Sampling is per row: row i draws its Gumbel noise from its own
   ``torch.Generator``, so a row's stream depends on its generator only.
   A caller (a parity test) may inject the noise instead.
@@ -136,6 +137,20 @@ def pad_bias_rows(prompt_mask: torch.Tensor, cache_len: int) -> torch.Tensor:
     return torch.where(slot_valid, 0.0, NEG_INF).float()
 
 
+def sample_first(last_logits: torch.Tensor, rows: SamplingRows,
+                 generators: Sequence[torch.Generator]):
+    """``(first [b], done [b])``: each row's first token from the logits of
+    its last valid prompt token [b, vocab], drawn from the row's generator,
+    and whether it is the row's EOS.  The one recipe of every prefill: the
+    lock path's, and the paged engine's, whose chunks accumulate the
+    logits (``models/paged.py``), so a seeded request draws the same
+    tokens on both."""
+    first = sample_logits_rows(last_logits, temps=rows.temps,
+                               top_ks=rows.top_ks, sampled=rows.sampled,
+                               generators=generators)
+    return first, rows.has_eos & (first == rows.eos_ids)
+
+
 def _prefill_parts(model, prompt, prompt_mask, cache_len, rows: SamplingRows,
                    generators) -> DecodeState:
     """Prefill over the padded prompt: fill the cache, sample each row's
@@ -150,25 +165,24 @@ def _prefill_parts(model, prompt, prompt_mask, cache_len, rows: SamplingRows,
     cache = model.new_cache(b, cache_len)
     last_logits = model(prompt, positions=positions, cache=cache,
                         pad_bias=pad_bias, logits_at=lengths - 1)
-    first = sample_logits_rows(last_logits, temps=rows.temps,
-                               top_ks=rows.top_ks, sampled=rows.sampled,
-                               generators=generators)
-    done = rows.has_eos & (first == rows.eos_ids)
+    first, done = sample_first(last_logits, rows, generators)
     return DecodeState(cache=cache, token=first, pos=lengths, done=done,
                        pad_bias=pad_bias, generators=generators,
                        budget=cache_len - prompt_len)
 
 
 def decode_step(model, state: DecodeState, rows: SamplingRows, *,
-                cache_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cache_slots=None) -> torch.Tensor:
     """One decode step over every row: apply the model on the current
     token, sample per row, freeze rows past their EOS.  Advances
     ``state`` in place and returns the new token [b].
 
     ``cache_slots`` [b] is the slot pool's form: row r writes its K/V at
     slot ``cache_slots[r]`` and sees slots <= it (plus its ``pad_bias``
-    row) instead of the shared ``cache.index``.  Every op is
-    row-independent, so a row steps alike in either form."""
+    row) instead of the shared ``cache.index``; a ``PagedSlots`` is the
+    paged engine's form (``state.cache`` a ``PagedKVCache``), with the
+    write and read positions resolved through the page tables.  Every op
+    is row-independent, so a row steps alike in each form."""
     logits = model(state.token[:, None], positions=state.pos[:, None],
                    cache=state.cache, pad_bias=state.pad_bias,
                    cache_slots=cache_slots)

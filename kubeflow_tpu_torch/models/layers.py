@@ -159,6 +159,90 @@ class KVCache:
         return self.k[0].shape[1]
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """The paged engine's pool (``models/paged.py``): per layer, K and V of
+    every row in one flat tensor [pool_positions, kv_h, d], pool_positions
+    = num_pages x page_len.  A row's logical slots map to pool positions
+    through its page table; page 0 is the null page, where unallocated
+    logical pages point and idle lanes write, always behind the mask.
+    Counterpart of the reference's ``paged_key``/``paged_value`` cache
+    variables (``kubeflow_tpu/models/layers.py:274-306``)."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+
+    @classmethod
+    def empty(cls, n_layers: int, pool_positions: int, kv_heads: int,
+              head_dim: int, *, dtype: torch.dtype,
+              device) -> "PagedKVCache":
+        shape = (pool_positions, kv_heads, head_dim)
+        return cls(
+            k=[torch.zeros(shape, dtype=dtype, device=device)
+               for _ in range(n_layers)],
+            v=[torch.zeros(shape, dtype=dtype, device=device)
+               for _ in range(n_layers)],
+        )
+
+    @property
+    def pool_positions(self) -> int:
+        return self.k[0].shape[0]
+
+
+@dataclasses.dataclass
+class PagedSlots:
+    """One paged call's addressing, resolved by the caller through the
+    page tables into flat pool positions (the reference's ``PagedSlots``,
+    ``kubeflow_tpu/models/layers.py:16-42``):
+
+      write   [b, s] long  pool position of each incoming token
+      read    [b, L] long  pool position of each of the row's L logical
+                           slots (unallocated pages: the null page)
+      slots   [b, s] long  logical slot of each incoming token: a token
+                           sees the slots up to its own (plus the caller's
+                           pad row); unused when ``prefix_len`` is set
+      pool_positions       the pool's leading dimension
+
+    ``prefix_len`` marks a prefill chunk: every row's chunk starts at
+    logical slot ``prefix_len``, and the chunk attends causally,
+    end-aligned, over the first ``prefix_len + s`` slots of the rows."""
+
+    write: torch.Tensor
+    read: torch.Tensor
+    slots: Optional[torch.Tensor]
+    pool_positions: int
+    prefix_len: Optional[int] = None
+
+
+@dataclasses.dataclass
+class PagedView:
+    """A paged step's addressing as every layer takes it, flattened once a
+    step by ``Llama.forward``: ``write`` [b * s], ``read`` [b * length]
+    (index_select over the pool gives the rows' [b, length] view), and
+    whether the call is a prefill chunk (``causal``)."""
+
+    write: torch.Tensor
+    read: torch.Tensor
+    length: int
+    causal: bool
+
+
+def verify_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """The speculative verify pass's attention: k + 1 queries a row at
+    per-row offsets over the row's gathered view, with the caller's bias
+    [b, 1, s, L].  The reference computes this pass as XLA attention with
+    a bias, outside any Pallas kernel (``kubeflow_tpu/models/layers.py``
+    ``:228-232``), so no kernel is ported for it: it runs the plain torch
+    ops on every device (a kernel for it is queued as speed work).
+    ``verify_attention.calls`` counts its calls."""
+    verify_attention.calls += 1
+    return ops.dot_product_attention(q, k, v, bias=bias, impl="plain")
+
+
+verify_attention.calls = 0
+
+
 class Attention(nn.Module):
     """Grouped-query self-attention with RoPE over ``ops``.
 
@@ -171,7 +255,14 @@ class Attention(nn.Module):
     ``cache_slots`` [b] (per-row mode, single-token only): row r writes
     its K/V at slot ``cache_slots[r]`` and the caller's bias rows carry
     the whole per-row visibility (the continuous-batching slot pool,
-    whose rows sit at different depths)."""
+    whose rows sit at different depths).  With a ``PagedKVCache`` and the
+    step's ``PagedView`` (paged mode): the new K/V scatter to their pool
+    positions and the rows' views are gathered from the pool; a
+    single-token call runs K5 over the view with the caller's bias rows, a
+    prefill chunk K2 causal and end-aligned (sq < sk), and the
+    speculative verify pass ``verify_attention`` with the caller's bias
+    [b, 1, s, L].  Pool positions that several rows write at once lie on
+    the null page, which every mask hides."""
 
     def __init__(self, dim: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, *, rope_theta: float, dtype: torch.dtype,
@@ -201,7 +292,9 @@ class Attention(nn.Module):
         v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
         q = apply_rope(q, positions, theta=self.rope_theta)
         k = apply_rope(k, positions, theta=self.rope_theta)
-        if cache is None:
+        if isinstance(cache, PagedKVCache):
+            out = self._paged(q, k, v, cache, layer, cache_slots, bias_rows)
+        elif cache is None:
             out = ops.dot_product_attention(
                 q, k, v, causal=True, segment_ids=segment_ids,
                 impl=self.impl)
@@ -249,6 +342,36 @@ class Attention(nn.Module):
                     "multi-token steps at a cache index > 0 (chunked "
                     "prefill) are not ported yet; see ROADMAP.md")
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
+    def _paged(self, q, k, v, cache: PagedKVCache, layer: int,
+               view: Optional[PagedView], bias_rows) -> torch.Tensor:
+        if not isinstance(view, PagedView):
+            raise ValueError("a paged cache needs the step's PagedView "
+                             "(Llama.forward builds it from PagedSlots)")
+        b, s = q.shape[:2]
+        kvh, d = self.num_kv_heads, self.head_dim
+        k_pool, v_pool = cache.k[layer], cache.v[layer]
+        k_pool.index_copy_(0, view.write, k.reshape(b * s, kvh, d))
+        v_pool.index_copy_(0, view.write, v.reshape(b * s, kvh, d))
+        # The gather keeps logical order, so a row's view is the layout
+        # the contiguous cache would hold; the null page's slots lie
+        # behind the mask (bias rows, or the causal bound of a chunk).
+        k_rows = k_pool.index_select(0, view.read).view(b, view.length, kvh, d)
+        v_rows = v_pool.index_select(0, view.read).view(b, view.length, kvh, d)
+        if view.causal:
+            # A prefill chunk: every row's chunk starts at the same logical
+            # slot, so end-aligned causal attention over the first
+            # prefix + s slots is the reference's causal + pad bias on
+            # every valid query (as in the prefill above: a valid query of
+            # a right-padded row never sees a pad or an unwritten slot).
+            return ops.dot_product_attention(q, k_rows, v_rows, causal=True,
+                                             impl=self.impl)
+        if bias_rows is None:
+            raise ValueError("a paged decode or verify step needs bias rows")
+        if s == 1:
+            return ops.decode_attention(q, k_rows, v_rows, bias_rows,
+                                        impl=self.impl)
+        return verify_attention(q, k_rows, v_rows, bias_rows)
 
 
 class SwiGLU(nn.Module):

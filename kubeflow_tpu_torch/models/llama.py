@@ -13,7 +13,7 @@ Training stores f32 parameters (``param_dtype``) and computes in
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -24,6 +24,9 @@ from kubeflow_tpu_torch.models.layers import (
     Embed,
     KVCache,
     Linear,
+    PagedKVCache,
+    PagedSlots,
+    PagedView,
     RMSNorm,
     SwiGLU,
 )
@@ -178,12 +181,20 @@ class Llama(nn.Module):
                              cfg.head_dim, dtype=cfg.dtype,
                              device=self.device)
 
+    def new_paged_cache(self, pool_positions: int) -> PagedKVCache:
+        """The paged engine's pool: zeros, [pool_positions, kv_h, d] a
+        layer in the model's dtype."""
+        cfg = self.cfg
+        return PagedKVCache.empty(cfg.n_layers, pool_positions,
+                                  cfg.n_kv_heads, cfg.head_dim,
+                                  dtype=cfg.dtype, device=self.device)
+
     def forward(self, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                cache: Optional[KVCache] = None,
+                cache: Optional[Union[KVCache, PagedKVCache]] = None,
                 pad_bias: Optional[torch.Tensor] = None,
-                cache_slots: Optional[torch.Tensor] = None,
+                cache_slots=None,
                 logits_at: Optional[torch.Tensor] = None,
                 return_hidden: bool = False) -> torch.Tensor:
         """Logits [b, s, vocab] f32, or [b, vocab] at the per-row
@@ -200,14 +211,26 @@ class Llama(nn.Module):
         With ``cache_slots`` [b] (a single-token call; the slot pool of
         ``models/scheduler.py``) row r writes at slot ``cache_slots[r]``
         and sees slot j iff j <= cache_slots[r], plus its ``pad_bias``
-        row; ``cache.index`` does not move."""
+        row; ``cache.index`` does not move.
+
+        With a ``PagedKVCache`` and ``cache_slots`` a ``PagedSlots`` (the
+        paged engine, ``models/paged.py``), the pool positions to write and
+        read come resolved through the page tables.  Token t of row r sees
+        logical slot j iff j <= ``slots[r, t]``, plus its ``pad_bias`` row
+        [b, L]; a prefill chunk (``prefix_len`` set) is causal over the
+        first prefix_len + s slots instead.  The bias and the flat read
+        indices are built here once a step."""
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        if cache_slots is not None and (cache is None or s != 1):
-            raise ValueError("cache_slots need a cache and one token a row")
         bias_rows = None
-        if cache is not None and s == 1:
+        if isinstance(cache_slots, PagedSlots) or isinstance(
+                cache, PagedKVCache):
+            bias_rows, cache_slots = self._paged_view(
+                cache, cache_slots, pad_bias, b, s)
+        elif cache_slots is not None and (cache is None or s != 1):
+            raise ValueError("cache_slots need a cache and one token a row")
+        elif cache is not None and s == 1:
             slots = torch.arange(cache.length, device=tokens.device)
             if cache_slots is not None:
                 visible = slots[None, :] <= cache_slots[:, None]
@@ -235,6 +258,38 @@ class Llama(nn.Module):
             x = x[torch.arange(b, device=x.device), logits_at][:, None]
         logits = self.lm_head(self.final_norm(x))
         return logits[:, 0] if logits_at is not None else logits
+
+    @staticmethod
+    def _paged_view(cache, ps, pad_bias, b: int, s: int):
+        """(bias, PagedView) of a paged step: bias rows [b, L] for a
+        single-token step, [b, 1, s, L] for a verify pass, None for a
+        prefill chunk."""
+        if not (isinstance(cache, PagedKVCache)
+                and isinstance(ps, PagedSlots)):
+            raise ValueError("a paged call needs a PagedKVCache and "
+                             "PagedSlots together")
+        if ps.pool_positions != cache.pool_positions or tuple(
+                ps.write.shape) != (b, s):
+            raise ValueError(
+                f"PagedSlots write {tuple(ps.write.shape)} over a pool of "
+                f"{ps.pool_positions} positions does not fit the call "
+                f"({b}, {s}) or the cache ({cache.pool_positions})")
+        if ps.prefix_len is not None:
+            length = ps.prefix_len + s
+            if length > ps.read.shape[1]:
+                raise ValueError(f"prefill chunk ends at slot {length}, past "
+                                 f"the rows' {ps.read.shape[1]} slots")
+            read = ps.read[:, :length].reshape(-1)
+            return None, PagedView(ps.write.reshape(-1), read, length, True)
+        length = ps.read.shape[1]
+        slots = torch.arange(length, device=ps.read.device)
+        visible = slots[None, None, :] <= ps.slots[:, :, None]
+        bias = torch.where(visible, 0.0, NEG_INF).float()
+        if pad_bias is not None:
+            bias = bias + pad_bias[:, None, :]
+        bias = bias[:, 0].contiguous() if s == 1 else bias[:, None]
+        return bias, PagedView(ps.write.reshape(-1), ps.read.reshape(-1),
+                               length, False)
 
 
 def _factory(name):

@@ -588,8 +588,7 @@ class DecodeScheduler:
             write = t([s.write if s else 0 for s in state], torch.long)
             self._carry = (dstate, rows, write)
         dstate, rows, write = self._carry
-        write, toks, dones = pool_steps(self.model, dstate, rows, write,
-                                        self.quantum)
+        write, toks, dones = self._pool_steps(dstate, rows, write)
         self._carry = (dstate, rows, write)
         toks_h, dones_h = _to_host(toks), _to_host(dones)
         event = None
@@ -599,6 +598,9 @@ class DecodeScheduler:
         if self._t_cycle_mark is None:
             self._t_cycle_mark = time.perf_counter()
         return _Inflight(toks_h, dones_h, event, list(state), self.quantum)
+
+    def _pool_steps(self, dstate, rows, write):
+        return pool_steps(self.model, dstate, rows, write, self.quantum)
 
     def _harvest(self):
         if self._inflight is not None:

@@ -5,13 +5,15 @@ PyTorch on the card.
 
 Counterpart of ``kubeflow_tpu/models/serve.py``.  An instrumented
 service (the app of ``create_app``) routes every request through the
-fixed-slot continuous-batching ``DecodeScheduler``
-(``models/scheduler.py``) unless ``KFT_SERVE_SCHEDULER=0`` (or
-``use_scheduler=False``) pins the lock-serialized path; library use of a
-bare ``GenerationService`` takes the lock path.  The paged engine is not
-ported yet, so the port serves as the reference does under
-``KFT_SERVE_PAGED=0``.  A scheduler whose loop crashed fails over to the
-lock path.  The server is the standard library's ``ThreadingHTTPServer``;
+paged engine, ``PagedDecodeScheduler`` (``models/paged.py``: page
+tables, the prefix cache, chunked prefill and, with ``--draft-model``,
+speculative decoding), unless ``KFT_SERVE_PAGED=0`` pins the fixed-slot
+``DecodeScheduler`` (``models/scheduler.py``; the pin is recorded in
+``/debug/serve`` and counted in ``serve_paged_fallback_total``), or
+``KFT_SERVE_SCHEDULER=0`` (or ``use_scheduler=False``) the
+lock-serialized path; library use of a bare ``GenerationService`` takes
+the lock path.  A scheduler whose loop crashed fails over to the lock
+path.  The server is the standard library's ``ThreadingHTTPServer``;
 weights are random, drawn from ``--seed`` on the device, unless
 ``--checkpoint-dir`` names a trainer's checkpoints
 (``train/checkpoint.py``), whose latest parameters are restored in the
@@ -48,6 +50,7 @@ from urllib.parse import parse_qs, urlsplit
 import torch
 
 from kubeflow_tpu_torch import config
+from kubeflow_tpu_torch.models.paged import PagedDecodeScheduler
 from kubeflow_tpu_torch.models.scheduler import (
     DEFAULT_PRIORITY,
     PRIORITY_CLASSES,
@@ -136,8 +139,14 @@ class GenerationService:
 
     def __init__(self, model, *, default_max_new_tokens: int = 32,
                  max_batch_rows: int = 64,
-                 use_scheduler: Optional[bool] = None):
+                 use_scheduler: Optional[bool] = None, draft_model=None):
         self.model = model
+        # The paged engine's speculative-decoding draft (same vocabulary).
+        self.draft_model = draft_model
+        # Why the fixed-slot pool serves instead of the paged engine
+        # ({reason, detail}), or None: /debug/serve reports it and
+        # serve_paged_fallback_total{reason} counts it.
+        self.scheduler_fallback: Optional[dict] = None
         self.default_max_new_tokens = default_max_new_tokens
         self.max_batch_rows = max_batch_rows
         # None: KFT_SERVE_SCHEDULER decides (default on), per request.
@@ -159,10 +168,25 @@ class GenerationService:
             return None
         with self._scheduler_lock:
             if self._scheduler is None:
-                self._scheduler = DecodeScheduler(
-                    self.model, telemetry=lambda: self.telemetry)
+                self._scheduler = self._new_scheduler()
             sched = self._scheduler
         return sched if sched.alive else None
+
+    def _new_scheduler(self) -> DecodeScheduler:
+        """The paged engine, unless ``KFT_SERVE_PAGED=0`` pins the
+        fixed-slot pool: a pin the user asks for, recorded and counted.
+        (The reference's other reason, a draft model under a mesh, cannot
+        arise: the port has no mesh.)"""
+        telemetry = lambda: self.telemetry
+        if config.env_bool(*config.SERVE_PAGED):
+            return PagedDecodeScheduler(self.model, telemetry=telemetry,
+                                        draft_model=self.draft_model)
+        reason = "env-disabled"
+        self.scheduler_fallback = {
+            "reason": reason,
+            "detail": "KFT_SERVE_PAGED=0 pins the fixed-slot pool"}
+        self.telemetry.paged_fallback.labels(reason=reason).inc()
+        return DecodeScheduler(self.model, telemetry=telemetry)
 
     def _generate_scheduled(self, sched: DecodeScheduler, rows, validate, *,
                             temperature, top_k, eos_token, seed, priority,
@@ -475,14 +499,16 @@ def create_app(service: GenerationService, *, model_name: str = "model",
     @app.route("/debug/serve")
     def debug_serve(request):
         # Which engine serves (None until the scheduler's first request,
-        # and on the lock path) and its live stats.
+        # and on the lock path), its live stats (pages, prefix cache,
+        # speculative counts under the paged engine), and why the
+        # fixed-slot pool serves when it does.
         if not debug_traces_enabled:
             raise HttpError(404, "debug traces disabled")
         sched = service._scheduler
         return success({
             "engine": type(sched).__name__ if sched is not None else None,
             "scheduler": sched.stats() if sched is not None else None,
-            "paged": "not ported: the fixed-slot pool serves",
+            "paged_fallback": service.scheduler_fallback,
         })
 
     @app.route("/metrics")
@@ -581,25 +607,47 @@ def load_service(model_name: str, *, device="cuda",
                  quantize: Optional[str] = None,
                  mesh_spec: Optional[str] = None,
                  draft_model_name: Optional[str] = None,
+                 draft_checkpoint_dir: Optional[str] = None,
                  use_scheduler: Optional[bool] = None) -> GenerationService:
     """Build the model on ``device`` (default the card; raises without
     one).  Its weights are the latest checkpoint's parameters under
     ``checkpoint_dir`` (read without the optimizer state, cast to the
     serving dtype; raises ``FileNotFoundError`` when there is none), else
     random, drawn from ``seed`` directly on the device (an 8B init on the
-    host would take minutes)."""
+    host would take minutes).
+
+    ``draft_model_name`` builds a second, smaller decoder of the same
+    vocabulary for speculative decoding under the paged engine, restored
+    from ``draft_checkpoint_dir`` or drawn from ``seed`` the same way; a
+    vocabulary mismatch fails here, at startup."""
     from kubeflow_tpu_torch import resolve_device
     from kubeflow_tpu_torch.models import create_model
 
-    for flag, value in (("--quantize", quantize), ("--mesh", mesh_spec),
-                        ("--draft-model", draft_model_name)):
+    for flag, value in (("--quantize", quantize), ("--mesh", mesh_spec)):
         if value:
             raise NotImplementedError(
                 f"{flag} is not yet ported to kubeflow_tpu_torch; see "
                 "ROADMAP.md")
     dev = resolve_device(device)
     overrides = {"max_seq_len": max_seq_len} if max_seq_len else {}
-    model = create_model(model_name, device=dev, **overrides)
+    model = _load_model(create_model(model_name, device=dev, **overrides),
+                        checkpoint_dir, seed)
+    draft = None
+    if draft_model_name:
+        draft = create_model(draft_model_name, device=dev)
+        if draft.cfg.vocab_size != model.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft.cfg.vocab_size} != target vocab "
+                f"{model.cfg.vocab_size}: the draft's proposals must index "
+                f"the target's token space")
+        draft = _load_model(draft, draft_checkpoint_dir, seed)
+    return GenerationService(model, use_scheduler=use_scheduler,
+                             draft_model=draft)
+
+
+def _load_model(model, checkpoint_dir: Optional[str], seed: int):
+    """``model`` in eval mode with the latest checkpoint's parameters
+    under ``checkpoint_dir``, else random ones drawn from ``seed``."""
     if checkpoint_dir:
         from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
 
@@ -608,10 +656,10 @@ def load_service(model_name: str, *, device="cuda",
                 raise FileNotFoundError(
                     f"no checkpoint found under {checkpoint_dir}")
     else:
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = torch.Generator(device=model.device).manual_seed(seed)
         with torch.no_grad():
             model.reset_parameters(gen)
-    return GenerationService(model.eval(), use_scheduler=use_scheduler)
+    return model.eval()
 
 
 def main(argv=None) -> int:
@@ -630,14 +678,21 @@ def main(argv=None) -> int:
     ap.add_argument("--quantize", choices=["int8"], default=None,
                     help="not yet ported")
     ap.add_argument("--mesh", default=None, help="not yet ported")
-    ap.add_argument("--draft-model", default=None, help="not yet ported")
+    ap.add_argument("--draft-model", default=None,
+                    help="small same-vocab decoder for speculative "
+                         "decoding under the paged engine "
+                         "(KFT_SERVE_SPEC_TOKENS proposals a step)")
+    ap.add_argument("--draft-checkpoint-dir", default=None,
+                    help="checkpoint for --draft-model (random weights "
+                         "from --seed when omitted)")
     args = ap.parse_args(argv)
     try:
         service = load_service(
             args.model, device=args.device, max_seq_len=args.max_seq_len,
             seed=args.seed, checkpoint_dir=args.checkpoint_dir,
             quantize=args.quantize, mesh_spec=args.mesh,
-            draft_model_name=args.draft_model)
+            draft_model_name=args.draft_model,
+            draft_checkpoint_dir=args.draft_checkpoint_dir)
     except (ValueError, KeyError, NotImplementedError, RuntimeError,
             FileNotFoundError) as e:
         ap.error(str(e))

@@ -16,7 +16,10 @@ scheduler (``models/scheduler.py``) queue depth counts prompt rows not
 yet holding a decode slot, the fill ratio is occupied slots over the
 pool once a quantum, and admitted == evicted + active slots at every
 instant; on the lock path queue depth counts lock waiters and the fill
-ratio is request rows over ``max_batch_rows``.
+ratio is request rows over ``max_batch_rows``.  Under the paged engine
+(``models/paged.py``) pages are counted by state, and the prefix cache's
+hits and misses and the speculative proposals and acceptances are
+counted too.
 """
 from __future__ import annotations
 
@@ -200,6 +203,51 @@ class ServeTelemetry:
             "serve_output_tokens_total",
             "Tokens generated (counted through the first EOS per row, "
             "excluding post-EOS padding)", registry=registry)
+        # The paged engine (models/paged.py).  Balance: free + active +
+        # shared == pages_total - 1 (the null page is in no state) at all
+        # times, active returns to 0 when the pool drains, and accepted
+        # <= proposed.
+        self.kv_pages = Gauge(
+            "serve_kv_pages",
+            "Physical KV pages by state under the paged pool: free (in "
+            "the allocator), active (held by live/pending rows only), "
+            "shared (resident in the prefix cache); the reserved null "
+            "page is counted in none of them", ["state"], registry=registry)
+        self.kv_page_fragmentation = Gauge(
+            "serve_kv_page_fragmentation_ratio",
+            "Reserved-but-unwritten fraction of live rows' paged-KV "
+            "capacity (0 = every reserved page position holds a real "
+            "token; the fixed-slot pool's longest-bucket tax made "
+            "visible)", registry=registry)
+        self.prefix_cache_hits = Counter(
+            "serve_prefix_cache_hits_total",
+            "Prompt pages served read-only from the prefix cache "
+            "instead of prefilling", registry=registry)
+        self.prefix_cache_misses = Counter(
+            "serve_prefix_cache_misses_total",
+            "Lookup-eligible prompt pages that had to prefill (no "
+            "cached prefix page matched)", registry=registry)
+        self.spec_proposed = Counter(
+            "serve_spec_decode_proposed_tokens_total",
+            "Draft-model tokens proposed across speculative-decoding "
+            "steps", registry=registry)
+        self.spec_accepted = Counter(
+            "serve_spec_decode_accepted_tokens_total",
+            "Proposed draft tokens accepted by target-model "
+            "verification (accepted <= proposed; the bonus token per "
+            "step is not counted)", registry=registry)
+        self.page_pool_shards = Gauge(
+            "serve_page_pool_shards",
+            "Shards the paged-KV pool axis splits into over the serving "
+            "mesh's data axes (1 = unsharded/replicated pool; set when "
+            "the pool is built)", registry=registry)
+        self.paged_fallback = Counter(
+            "serve_paged_fallback_total",
+            "Times the service routed to the fixed-slot scheduler "
+            "instead of the paged engine, by structured reason "
+            "(env-disabled = KFT_SERVE_PAGED=0, spec-decode-mesh = "
+            "draft model under a mesh); /debug/serve carries the "
+            "human-readable detail", ["reason"], registry=registry)
 
     def begin_request(self) -> Trace:
         return self.tracer.begin(f"req-{next(_request_ids)}")

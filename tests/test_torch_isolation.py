@@ -40,6 +40,7 @@ def test_every_module_imports_with_jax_and_reference_blocked():
 @pytest.mark.parametrize("module", [
     "kubeflow_tpu_torch.train.checkpoint",
     "kubeflow_tpu_torch.models.scheduler",
+    "kubeflow_tpu_torch.models.paged",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
     """The modules that save and serve a trained model import with JAX,

@@ -466,6 +466,7 @@ def test_scheduler_crash_fails_requests_then_service_falls_back(
         model, monkeypatch):
     """A loop crash fails the in-flight request with the error and marks
     the scheduler dead; the service then serves on the lock path."""
+    monkeypatch.setenv("KFT_SERVE_PAGED", "0")    # the fixed-slot pool
     service = GenerationService(model)
     create_app(service, model_name="llama_debug")  # attaches telemetry
     sched = service._scheduler_or_none()
@@ -487,9 +488,10 @@ def test_scheduler_crash_fails_requests_then_service_falls_back(
         sched.submit([[1]], max_new_tokens=2)
 
 
-def test_serve_queue_depth_counts_pending_rows(model):
+def test_serve_queue_depth_counts_pending_rows(model, monkeypatch):
     """serve_queue_depth counts queued rows (not lock waiters) while the
     loop is held, and drains to 0; the counters then balance."""
+    monkeypatch.setenv("KFT_SERVE_PAGED", "0")    # the fixed-slot pool
     service = GenerationService(model)
     app = create_app(service, model_name="llama_debug")
     sched = service._scheduler_or_none()
@@ -531,6 +533,7 @@ def test_serve_queue_depth_counts_pending_rows(model):
 def test_http_outputs_identical_scheduler_on_vs_off(model, monkeypatch):
     """KFT_SERVE_SCHEDULER=0 pins the lock path; both engines serve the
     same HTTP responses, greedy and seeded."""
+    monkeypatch.setenv("KFT_SERVE_PAGED", "0")    # the fixed-slot pool
     body = json.dumps({"tokens": [[5, 9, 2], [7, 7]], "max_new_tokens": 5,
                        "temperature": 0.7, "top_k": 5,
                        "seed": 9}).encode()
@@ -554,7 +557,8 @@ def test_http_outputs_identical_scheduler_on_vs_off(model, monkeypatch):
     assert GenerationService(model)._scheduler_or_none() is None
 
 
-def test_scheduled_traces_debug_serve_and_ready(model):
+def test_scheduled_traces_debug_serve_and_ready(model, monkeypatch):
+    monkeypatch.setenv("KFT_SERVE_PAGED", "0")    # the fixed-slot pool
     service = GenerationService(model)
     app = create_app(service, model_name="llama_debug")
     assert json.loads(_get(app, "/debug/serve")[1])["engine"] is None
@@ -576,10 +580,12 @@ def test_scheduled_traces_debug_serve_and_ready(model):
     assert status == 400 and b"slot length" in text
 
 
-def test_concurrent_http_requests_pool_and_balance_counters(model):
+def test_concurrent_http_requests_pool_and_balance_counters(model,
+                                                           monkeypatch):
     """More request threads than cores over a real socket, with a short
     switch interval: every response equals the request's sequential run,
     and the scheduler's counters balance."""
+    monkeypatch.setenv("KFT_SERVE_PAGED", "0")    # the fixed-slot pool
     service = GenerationService(model)
     srv = create_app(service, model_name="llama_debug").make_server(
         "127.0.0.1", 0)
