@@ -83,6 +83,29 @@ Phases, each of which raises on failure (exit code 1):
    request served through the scheduler equals ``generate()`` on the
    restored model.
 
+Between 6c and 7 (llama3_8b is freed after int8):
+6d. int8:   ``load_service("llama3_8b", quantize="int8")`` from the same
+   seed: weight bytes against bf16, the service's int8 values equal to
+   the bf16 model's quantized, layer 0's dequantized weights on the card
+   bit-equal to the CPU's, the schedule requests over HTTP through the
+   paged engine (exact launches, decode rate against 6c's bf16 run), and
+   the greedy rows teacher-forced against the bf16 model (argmax
+   agreement, logits' relative difference).
+6e. moe_layer: one ``MoeMlp`` at mixtral_8x7b's width (bf16, b2 with a
+   half-padded row, s 512 and 2048): the index dispatch against the
+   reference's dense one-hot einsums (``moe.dense_dispatch``) on the same
+   weights, routing identical, output and aux within MOE_LAYER_TOL and
+   MOE_AUX_TOL; each timed, with its peak memory.
+6f. moe_serve: ``load_service("mixtral_8x7b", n_layers=8)`` (full width,
+   24.0 GB) over HTTP through the paged engine at 6c's geometry: prompts
+   of 17, 300, 512 and 900 tokens greedy and a seeded sampled one, 32
+   new each; exact K1/K2/K5 launches, TTFT, decode rate, peak; each
+   greedy row teacher-forced on the kernel route and on impl="plain"
+   (logits, argmax and routing agreement: a near-tie may flip an expert).
+6g. moe_train: mixtral_8x7b at full width, 1 layer, f32 masters, b1
+   s2048, bf16 gradients, ``aux_loss_weight`` 0.01, 3 steps on one batch:
+   the loss falling, loss and aux finite, exact launches per step.
+
 Every line of standard output is one JSON object; the line before the
 last lists every kernel with its launches, error and times, and the last
 line is the result, ``{"ok": true, "device": {...}}``.
@@ -245,6 +268,43 @@ TRAIN_ARGS = ["--model", TRAIN_MODEL, "--batch", "1", "--seq",
 PACKED_ARGS = ["--model", TRAIN_MODEL, "--batch", "4", "--seq", "2048",
                "--grad-dtype", "bf16", "--steps", "2", "--log-every", "1",
                "--packed"]
+
+# The int8 phase: llama3_8b from the same seed, weight-only int8
+# (load_service(quantize="int8")), the schedule requests through the paged
+# engine at the paged phase's geometry.
+INT8_MODEL = "llama3_8b"
+
+# The Mixtral phases: mixtral_8x7b at full width (dim 4096, ffn 14336, 8
+# experts, top 2, 32 q over 8 kv heads), depth cut.  All 32 layers are
+# 46.70 B parameters, 93.7 GB in bf16 with the f32 head, more than one
+# 80 GB card; 8 layers are 11.87 B, 24.0 GB, and 1 layer trains in f32
+# masters with AdamW's moments.
+MOE_MODEL = "mixtral_8x7b"
+MOE_SERVE_LAYERS = 8
+MOE_TRAIN_LAYERS = 1
+# The MoE layer alone: b2 (the second row half padded), at these lengths.
+MOE_LAYER_SEQS = (512, 2048)
+# The index dispatch's bf16 output against the dense one-hot einsums'
+# (the reference's, moe.dense_dispatch) on the same weights: both copy
+# the same bf16 tokens into the expert buffers and run the same expert
+# products, but round the combine in other places (an f32 sum of the two
+# gated rows rounded once, against a bf16 GEMM over the capacity axis),
+# about 2^-9 relative an element: relative L2 <= 1e-2.  The aux loss is
+# computed from the same f32 routing: within 1e-6.
+MOE_LAYER_TOL, MOE_AUX_TOL = 1e-2, 1e-6
+# Served over HTTP at the paged phase's geometry: four greedy single-row
+# requests (the 900-token one prefills in two 512-token chunks) and a
+# seeded sampled one, 32 new tokens each.
+MOE_REQUESTS = {
+    "G17": ((17,), NEW_TOKENS, {}), "G300": ((300,), NEW_TOKENS, {}),
+    "G512": ((512,), NEW_TOKENS, {}), "G900": ((900,), NEW_TOKENS, {}),
+    "T300": ((300,), NEW_TOKENS, {"temperature": 0.8, "top_k": 40,
+                                  "seed": 7}),
+}
+# Training: b1 s2048, bf16 gradients, the aux loss weighted 0.01, 3 steps
+# on one batch (so the loss must fall), AdamW at lr 1e-3.
+MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2048, 3
+MOE_AUX_WEIGHT, MOE_TRAIN_LR = 0.01, 1e-3
 
 
 def emit(obj) -> None:
@@ -1592,18 +1652,99 @@ def null_page_k5_row(torch, dev, timer):
     return add_rates(row, flops)
 
 
+def http_server(service, name):
+    """(server, thread, base URL) of ``service``'s app on a free port."""
+    from kubeflow_tpu_torch.models.serve import create_app
+
+    server = create_app(service, model_name=name).make_server(
+        "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def stop_server(service, server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=30)
+    if service._scheduler is not None:
+        service._scheduler.stop()
+
+
+def paged_http_run(torch, service, base, bodies, what):
+    """Every body over HTTP at once through the service's paged engine,
+    launches counted from a drained engine to a drained engine and held to
+    ``paged_launches``.  Returns (tokens by name, the run's row)."""
+    from kubeflow_tpu_torch.models import layers
+    from kubeflow_tpu_torch.models.paged import PagedDecodeScheduler
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    status, ready = http(base, "/readyz")
+    sched = service._scheduler
+    if status != 200 or not isinstance(sched, PagedDecodeScheduler):
+        raise AssertionError(f"{what}: /readyz {status} {ready}: the paged "
+                             "engine does not serve")
+    if (sched.page_len, sched.num_pages, sched.prefill_chunk, sched.slots,
+            sched.slot_len) != (PAGED_PAGE_LEN, PAGED_PAGES, PAGED_CHUNK,
+                                POOL_SLOTS, POOL_SLOT_LEN):
+        raise AssertionError(f"{what}: paged geometry {sched.stats()}")
+    cfg = service.model.cfg
+    before = wait_drained(sched)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    layers.verify_attention.calls = 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        futs = {name: pool.submit(http, base, "/v1/generate", body)
+                for name, body in bodies.items()}
+        out = {name: f.result()[1]["tokens"] for name, f in futs.items()}
+    wall_s = time.perf_counter() - t0
+    after = wait_drained(sched)
+    counts = kernels.launch_counts()
+    delta = stats_delta(after, before)
+    want, verify = paged_launches(cfg, delta)
+    if counts != want or layers.verify_attention.calls != verify:
+        raise AssertionError(f"{what} launches {counts}, expected {want} "
+                             f"({delta})")
+    check_pages_balanced(what, after)
+    for name, body in bodies.items():
+        rows, n = out[name], body["max_new_tokens"]
+        if len(rows) != len(body["tokens"]) or any(
+                len(r) != n or not all(0 <= t < cfg.vocab_size for t in r)
+                for r in rows):
+            raise AssertionError(f"{what} request {name}: malformed {rows}")
+    _, traces = http(base, f"/debug/traces?n={len(bodies)}")
+    ttft = []
+    for tr in traces["traces"]:
+        spans = {sp["name"]: sp for sp in tr["spans"]}
+        ttft.append((spans["prefill"]["offset_ms"]
+                     + spans["prefill"]["duration_ms"]) / 1e3)
+    tokens = sum(len(b["tokens"]) * (b["max_new_tokens"] - 1)
+                 for b in bodies.values())
+    return out, {"wall_seconds": wall_s, "decode_tokens": tokens,
+                 "decode_tokens_per_s": tokens / wall_s,
+                 "ttft_seconds": sorted(ttft),
+                 "pool_steps": delta["steps_total"],
+                 "prefill_chunks": delta["prefill_chunks_total"],
+                 "launches": counts, "launches_expected": want,
+                 "max_memory_allocated_bytes":
+                     torch.cuda.max_memory_allocated(),
+                 "dispatch_overlap_ratio": after["dispatch_overlap_ratio"]}
+
+
 def phase_paged(torch, dev, model, fixed, tol, fixed_quantum):
     """The serve phase's llama3_8b through the paged engine: the schedule
     phase's requests over HTTP, shared prefixes, page pressure,
     speculative decoding with two drafts, quanta at 1024 and 8192 slots,
     and the timed rows of the paged path.  ``fixed`` is the schedule
     phase's pooled tokens by request and ``tol`` its agreement tolerance.
-    Returns the launch counts of the HTTP run."""
+    Returns the launch counts of the HTTP run and its row."""
     import numpy as np
 
     from kubeflow_tpu_torch.models import create_model, layers
     from kubeflow_tpu_torch.models.paged import PagedDecodeScheduler
-    from kubeflow_tpu_torch.models.serve import GenerationService, create_app
+    from kubeflow_tpu_torch.models.serve import GenerationService
     from kubeflow_tpu_torch.ops import cuda as kernels
 
     cfg = model.cfg
@@ -1623,69 +1764,12 @@ def phase_paged(torch, dev, model, fixed, tol, fixed_quantum):
     torch.cuda.empty_cache()
     with env_set(knobs):
         service = GenerationService(model, use_scheduler=True)
-        server = create_app(service, model_name="llama3_8b").make_server(
-            "127.0.0.1", 0)
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        base = f"http://127.0.0.1:{server.server_address[1]}"
+        server, thread, base = http_server(service, "llama3_8b")
         try:
-            status, ready = http(base, "/readyz")
-            sched = service._scheduler
-            if status != 200 or not isinstance(sched, PagedDecodeScheduler):
-                raise AssertionError(f"/readyz {status} {ready}: the paged "
-                                     "engine does not serve")
-            if (sched.page_len, sched.num_pages, sched.prefill_chunk,
-                    sched.slots, sched.slot_len) != (
-                    PAGED_PAGE_LEN, PAGED_PAGES, PAGED_CHUNK, POOL_SLOTS,
-                    POOL_SLOT_LEN):
-                raise AssertionError(f"paged engine geometry {sched.stats()}")
             # (1) The schedule phase's requests, all at once.
-            before = wait_drained(sched)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kernels.reset_launch_counts()
-            layers.verify_attention.calls = 0
-            t0 = time.perf_counter()
-            with ThreadPoolExecutor(len(bodies)) as pool:
-                futs = {name: pool.submit(http, base, "/v1/generate", body)
-                        for name, body in bodies.items()}
-                pooled = {name: f.result()[1]["tokens"]
-                          for name, f in futs.items()}
-            wall_s = time.perf_counter() - t0
-            after = wait_drained(sched)
-            counts = kernels.launch_counts()
-            delta = stats_delta(after, before)
-            want, verify = paged_launches(cfg, delta)
-            if counts != want or layers.verify_attention.calls != verify:
-                raise AssertionError(f"paged launches {counts}, expected "
-                                     f"{want} ({delta})")
-            check_pages_balanced("paged mix", after)
-            for name, body in bodies.items():
-                out, n = pooled[name], body["max_new_tokens"]
-                if len(out) != len(body["tokens"]) or any(
-                        len(r) != n or not all(0 <= t < cfg.vocab_size
-                                               for t in r) for r in out):
-                    raise AssertionError(f"request {name}: malformed {out}")
-            _, traces = http(base, f"/debug/traces?n={len(bodies)}")
-            ttft = {}
-            for tr in traces["traces"]:
-                spans = {sp["name"]: sp for sp in tr["spans"]}
-                ttft[spans["decode"]["tokens"]] = (
-                    spans["prefill"]["offset_ms"]
-                    + spans["prefill"]["duration_ms"]) / 1e3
-            decode_tokens = sum(len(b["tokens"]) * (b["max_new_tokens"] - 1)
-                                for b in bodies.values())
-            row["http"] = {
-                "wall_seconds": wall_s, "decode_tokens": decode_tokens,
-                "decode_tokens_per_s": decode_tokens / wall_s,
-                "ttft_seconds": {name: ttft.get(b["max_new_tokens"])
-                                 for name, b in bodies.items()},
-                "pool_steps": delta["steps_total"],
-                "prefill_chunks": delta["prefill_chunks_total"],
-                "launches": counts, "launches_expected": want,
-                "max_memory_allocated_bytes":
-                    torch.cuda.max_memory_allocated(),
-                "dispatch_overlap_ratio": after["dispatch_overlap_ratio"]}
+            pooled, row["http"] = paged_http_run(torch, service, base,
+                                                 bodies, "paged mix")
+            sched = service._scheduler
             # (2) The shared-prefix set, one request after another.
             hits0 = sched.stats()["prefix_hits"]
             hit_outs = []
@@ -1721,11 +1805,7 @@ def phase_paged(torch, dev, model, fixed, tol, fixed_quantum):
                              "pages_shared": st["pages_shared"],
                              "kv_pages": gauges}
         finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=30)
-            if service._scheduler is not None:
-                service._scheduler.stop()
+            stop_server(service, server, thread)
     del service, sched
     gc.collect()
 
@@ -1911,7 +1991,7 @@ def phase_paged(torch, dev, model, fixed, tol, fixed_quantum):
     emit(row)
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return row["http"]["launches"], row["http"]
 
 
 def check_rel_l2(name, got, want, tol):
@@ -2863,6 +2943,365 @@ def phase_checkpoint(torch, dev):
     torch.cuda.empty_cache()
 
 
+def teacher_forced_logits(torch, dev, model, body, out):
+    """Logits [n, vocab] at each greedy row's emitted positions under one
+    forward of the prompt and the tokens before each (no cache)."""
+    got = []
+    with torch.inference_mode():
+        for prompt, gen in zip(body["tokens"], out):
+            seq = torch.tensor([prompt + gen[:-1]], device=dev)
+            got.append(model(seq)[0, len(prompt) - 1:].float())
+    return torch.cat(got)
+
+
+def phase_int8(torch, dev, model, bf16_http):
+    """llama3_8b from the same seed, weight-only int8, served over HTTP
+    through the paged engine: weight bytes, exact launches, decode rate
+    against the bf16 paged run of this process (``bf16_http``), the
+    greedy rows' teacher-forced argmax against the bf16 model, and one
+    layer's dequantized weights on the card against the CPU's."""
+    import copy
+
+    from kubeflow_tpu_torch.models.quantize import (
+        quantize_tensor,
+        quantized_bytes,
+    )
+    from kubeflow_tpu_torch.models.serve import load_service
+
+    cfg = model.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    service = load_service(INT8_MODEL, device="cuda", seed=SEED,
+                           quantize="int8")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    qmodel = service.model
+    row = {"phase": "int8", "model": INT8_MODEL, "load_seconds": load_s,
+           "weight_bytes_int8": quantized_bytes(qmodel),
+           "weight_bytes_bf16": quantized_bytes(model)}
+    # The same weights: layer 0's q_proj quantized from the bf16 model's
+    # equals the service's (both drawn from SEED on the card).
+    q, scale = quantize_tensor(model.layers[0].attn.q_proj.weight.view(
+        cfg.n_heads, cfg.head_dim, cfg.dim), (0, 2))
+    q_proj = qmodel.layers[0].attn.q_proj
+    if not (torch.equal(q.view(-1, cfg.dim), q_proj.qweight)
+            and torch.equal(scale, q_proj.scale)):
+        raise AssertionError("int8: the service's weights are not the bf16 "
+                             "model's quantized")
+    # Dequantization on the card, bit for bit the CPU's.
+    layer0 = qmodel.layers[0]
+    mods = {name: mod for name, mod in layer0.named_modules()
+            if getattr(mod, "qweight", None) is not None}
+    for name, mod in mods.items():
+        on_cpu = copy.deepcopy(mod).cpu()
+        if not torch.equal(mod.dense_weight().cpu(), on_cpu.dense_weight()):
+            raise AssertionError(f"int8: layer 0 {name} dequantizes "
+                                 "otherwise on the card than on the CPU")
+    row["dequantized_bit_equal_cpu"] = sorted(mods)
+    bodies = schedule_bodies(torch, dev, cfg.vocab_size)
+    knobs = {"KFT_SERVE_SLOTS": str(POOL_SLOTS),
+             "KFT_SERVE_SLOT_LEN": str(POOL_SLOT_LEN),
+             "KFT_SERVE_DECODE_QUANTUM": str(POOL_QUANTUM)}
+    with env_set(knobs):
+        server, thread, base = http_server(service, INT8_MODEL)
+        try:
+            out, run = paged_http_run(torch, service, base, bodies, "int8")
+            _, debug = http(base, "/debug/serve")
+        finally:
+            stop_server(service, server, thread)
+    if debug["quantize"] != "int8" or debug["weight_bytes"] != row[
+            "weight_bytes_int8"]:
+        raise AssertionError(f"int8: /debug/serve {debug}")
+    run["decode_tokens_per_s_bf16_paged"] = bf16_http["decode_tokens_per_s"]
+    run["decode_rate_int8_over_bf16"] = (run["decode_tokens_per_s"]
+                                         / bf16_http["decode_tokens_per_s"])
+    row["http"] = run
+    agree, n, rel = 0, 0, []
+    for name, body in bodies.items():
+        if body["temperature"] != 0.0:
+            continue
+        lq = teacher_forced_logits(torch, dev, qmodel, body, out[name])
+        lb = teacher_forced_logits(torch, dev, model, body, out[name])
+        agree += int((lq.argmax(-1) == lb.argmax(-1)).sum())
+        n += lq.shape[0]
+        rel.append(((lq - lb).norm() / lb.norm()).item())
+        if not torch.isfinite(lq).all():
+            raise AssertionError(f"int8 request {name}: non-finite logits")
+    row["teacher_forced"] = {"positions": n, "argmax_agreement": agree / n,
+                             "logits_rel_l2_by_request": rel}
+    emit(row)
+    del service, qmodel, mods
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def phase_moe_layer(torch, dev):
+    """One MoE MLP at mixtral_8x7b's width in bf16, b2 with the second row
+    half padded (token_mask), at each MOE_LAYER_SEQS length: the index
+    dispatch against the dense one-hot einsums on the same weights
+    (routing identical, output and aux within tolerance), each timed and
+    its peak memory read."""
+    from kubeflow_tpu_torch.models.llama import CONFIGS
+    from kubeflow_tpu_torch.models.moe import MoeMlp, dense_dispatch
+
+    cfg = CONFIGS[MOE_MODEL]
+    moe = MoeMlp(cfg.dim, cfg.ffn_dim, cfg.n_experts, top_k=cfg.top_k,
+                 capacity_factor=cfg.capacity_factor, dtype=torch.bfloat16,
+                 device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        moe.reset_parameters(gen)
+        moe.router.reset_parameters(gen)
+    timer = Timer(torch, dev)
+    rows = []
+    for s in MOE_LAYER_SEQS:
+        x = torch.randn(2, s, cfg.dim, generator=gen, device=dev).to(
+            torch.bfloat16)
+        mask = torch.ones(2, s, dtype=torch.bool, device=dev)
+        mask[1, s // 2:] = False
+        peaks = {}
+        with torch.no_grad():
+            for name, fn in (("index", lambda: moe(x, mask)),
+                             ("dense", lambda: dense_dispatch(moe, x, mask))):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                res = fn()
+                torch.cuda.synchronize()
+                peaks[name] = torch.cuda.max_memory_allocated() - base
+                if name == "index":
+                    y, aux = res
+                else:
+                    yd, auxd, dispatch = res
+                del res
+            routing = moe.route(x, mask)
+            same = torch.equal(routing.dispatch_mask(), dispatch)
+            if not same:
+                raise AssertionError(f"moe_layer s{s}: routing differs from "
+                                     "the dense dispatch")
+            err, share, max_abs = check_rel_l2(f"moe_layer s{s}", y, yd,
+                                               MOE_LAYER_TOL)
+            aux_err = abs(aux.item() - auxd.item())
+            if not aux_err <= MOE_AUX_TOL:
+                raise AssertionError(f"moe_layer s{s}: aux {aux.item()} "
+                                     f"against {auxd.item()}")
+            pad = ~mask
+            if routing.keep[pad].any() or y[pad].abs().max().item() != 0.0:
+                raise AssertionError(f"moe_layer s{s}: padding was routed")
+            real = int(mask.sum()) * cfg.top_k
+            kept = int(routing.keep.sum())
+            index_ms = timer(lambda: moe(x, mask))
+            dense_ms = timer(lambda: dense_dispatch(moe, x, mask))
+        c = routing.capacity
+        # The expert products the buffers run (3 matmuls of 2 d f flops a
+        # place), whether a place holds a token or zeros.
+        flops = 3 * 2 * cfg.n_experts * 2 * c * cfg.dim * cfg.ffn_dim
+        rows.append({"seq": s, "batch": 2, "capacity": c,
+                     "choices_real": real, "choices_kept": kept,
+                     "routing_identical": same, "rel_l2": err,
+                     "share_of_tol": share, "max_abs_err": max_abs,
+                     "aux": aux.item(), "aux_abs_err": aux_err,
+                     "index_ms": index_ms, "dense_ms": dense_ms,
+                     "expert_tflops_index": flops / (index_ms * 1e-3) / 1e12,
+                     "peak_bytes_index": peaks["index"],
+                     "peak_bytes_dense": peaks["dense"]})
+        del x, y, yd, dispatch, routing
+    emit({"phase": "moe_layer", "model": MOE_MODEL, "tol": MOE_LAYER_TOL,
+          "aux_tol": MOE_AUX_TOL, "rows": rows})
+    del moe, timer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def impl_route(model, impl):
+    """Every RMSNorm and attention of ``model`` on route ``impl`` inside."""
+    mods = [m for m in model.modules() if hasattr(m, "impl")]
+    saved = [m.impl for m in mods]
+    for m in mods:
+        m.impl = impl
+    try:
+        yield
+    finally:
+        for m, v in zip(mods, saved):
+            m.impl = v
+
+
+@contextlib.contextmanager
+def recorded_routing(model):
+    """Each MoE layer's (expert, keep) of every call made inside, a list a
+    layer."""
+    logs = []
+    for block in model.layers:
+        log, route = [], block.mlp.route
+
+        def record(*a, _route=route, _log=log, **kw):
+            r = _route(*a, **kw)
+            _log.append((r.expert, r.keep))
+            return r
+
+        block.mlp.route = record
+        logs.append(log)
+    try:
+        yield logs
+    finally:
+        for block in model.layers:
+            del block.mlp.route
+
+
+def phase_moe_serve(torch, dev):
+    """mixtral_8x7b at full width, MOE_SERVE_LAYERS layers, through
+    ``load_service`` and the default paged engine over HTTP at the paged
+    phase's geometry: exact K1/K2/K5 launches, TTFT, decode rate, peak;
+    then each greedy row teacher-forced on the kernel route and on
+    impl="plain" (logits and routing decisions compared).  Returns the
+    HTTP run's launch counts."""
+    from kubeflow_tpu_torch.models.quantize import quantized_bytes
+    from kubeflow_tpu_torch.models.serve import load_service
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    service = load_service(MOE_MODEL, device="cuda", seed=SEED,
+                           n_layers=MOE_SERVE_LAYERS)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model = service.model
+    cfg = model.cfg
+    import numpy as np
+
+    rs = np.random.RandomState(SEED + 50)
+    bodies = {name: {"tokens": [rs.randint(0, cfg.vocab_size,
+                                           size=m).tolist() for m in lens],
+                     "max_new_tokens": n, "temperature": 0.0, **kw}
+              for name, (lens, n, kw) in MOE_REQUESTS.items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    row = {"phase": "moe_serve", "model": MOE_MODEL,
+           "n_layers": cfg.n_layers, "reduced": "n_layers 32 -> "
+           f"{cfg.n_layers}: 32 layers do not fit one 80 GB card",
+           "parameters": n_params, "weight_bytes": quantized_bytes(model),
+           "load_seconds": load_s, "lanes": POOL_SLOTS,
+           "slot_len": POOL_SLOT_LEN, "page_len": PAGED_PAGE_LEN,
+           "pages": PAGED_PAGES, "prefill_chunk": PAGED_CHUNK,
+           "pool_bytes": paged_pool_bytes(cfg, PAGED_PAGES),
+           "requests": {k: {"prompt_lens": list(v[0]),
+                            "max_new_tokens": v[1], **v[2]}
+                        for k, v in MOE_REQUESTS.items()}}
+    knobs = {"KFT_SERVE_SLOTS": str(POOL_SLOTS),
+             "KFT_SERVE_SLOT_LEN": str(POOL_SLOT_LEN),
+             "KFT_SERVE_DECODE_QUANTUM": str(POOL_QUANTUM)}
+    with env_set(knobs):
+        server, thread, base = http_server(service, MOE_MODEL)
+        try:
+            out, run = paged_http_run(torch, service, base, bodies,
+                                      "moe_serve")
+            _, debug = http(base, "/debug/serve")
+        finally:
+            stop_server(service, server, thread)
+    if debug["engine"] != "PagedDecodeScheduler" or debug["quantize"]:
+        raise AssertionError(f"moe_serve: /debug/serve {debug}")
+    row["http"] = run
+    row["heads"] = {name: out[name][0][:8] for name in bodies}
+    # Teacher-forced: the kernel route against impl="plain" on the card.
+    tf = {}
+    for name, body in bodies.items():
+        if body["temperature"] != 0.0:
+            continue
+        with recorded_routing(model) as kern_routes:
+            lk = teacher_forced_logits(torch, dev, model, body, out[name])
+        with impl_route(model, "plain"), recorded_routing(
+                model) as plain_routes:
+            lp = teacher_forced_logits(torch, dev, model, body, out[name])
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            raise AssertionError(f"moe_serve {name}: non-finite logits")
+        same = total = 0
+        for lk_routes, lp_routes in zip(kern_routes, plain_routes):
+            for (ek, kk), (ep, kp) in zip(lk_routes, lp_routes):
+                eq = ((ek == ep) & (kk == kp)).all(-1)
+                same += int(eq.sum())
+                total += eq.numel()
+        tf[name] = {"positions": lk.shape[0],
+                    "logits_max_abs_diff": (lk - lp).abs().max().item(),
+                    "logits_rel_l2": ((lk - lp).norm() / lp.norm()).item(),
+                    "argmax_agreement": (lk.argmax(-1) == lp.argmax(-1))
+                    .float().mean().item(),
+                    "routing_agreement": same / total,
+                    "token_layer_decisions": total}
+    row["teacher_forced_kernel_vs_plain"] = tf
+    emit(row)
+    del service, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def phase_moe_train(torch, dev):
+    """mixtral_8x7b at full width, MOE_TRAIN_LAYERS layer(s), f32 masters:
+    MOE_TRAIN_STEPS steps of ``make_lm_train_step(aux_loss_weight=...)``
+    with bf16 gradients on one b1 batch: loss and aux finite, the loss
+    falling, exact launches per step, step seconds and peak memory.
+    Returns the run's launch counts."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.train.steps import (
+        TrainState,
+        adamw,
+        make_lm_train_step,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = create_model(MOE_MODEL, device=dev, n_layers=MOE_TRAIN_LAYERS,
+                         max_seq_len=MOE_TRAIN_SEQ, param_dtype=torch.float32)
+    with torch.no_grad():
+        model.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    model.requires_grad_(True)
+    cfg = model.cfg
+    state = TrainState(model, adamw(model.parameters(), MOE_TRAIN_LR))
+    step = make_lm_train_step(aux_loss_weight=MOE_AUX_WEIGHT,
+                              grad_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_TRAIN_SEQ),
+                           generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, auxes, secs = [], [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, tokens)
+        losses.append(metrics["loss"].item())
+        auxes.append(metrics["moe_aux_loss"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: n * MOE_TRAIN_STEPS
+            for k, n in train_launches_per_step(cfg).items()}
+    if counts != want:
+        raise AssertionError(f"moe_train launch counts {counts}, expected "
+                             f"{want}")
+    if not all(math.isfinite(v) for v in losses + auxes) or not (
+            losses[-1] < losses[0]):
+        raise AssertionError(f"moe_train losses {losses}, aux {auxes}")
+    emit({"phase": "moe_train", "model": MOE_MODEL, "n_layers": cfg.n_layers,
+          "reduced": f"n_layers 32 -> {cfg.n_layers}",
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "batch": 1, "seq": MOE_TRAIN_SEQ, "grad_dtype": "bf16",
+          "aux_loss_weight": MOE_AUX_WEIGHT, "lr": MOE_TRAIN_LR,
+          "losses": losses, "moe_aux_losses": auxes, "step_seconds": secs,
+          "median_step_seconds": statistics.median(secs[1:]),
+          "tokens_per_sec": MOE_TRAIN_SEQ / statistics.median(secs[1:]),
+          "max_memory_allocated_bytes": peak, "launches": counts,
+          "launches_per_step": train_launches_per_step(cfg)})
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 SOURCES = {
     "rms_norm": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
                  "kubeflow_tpu/ops/pallas/rms_norm.py:53"),
@@ -2909,10 +3348,17 @@ def main() -> int:
     phase_profile(torch, dev, model)
     schedule_counts, fixed, tol, fixed_quantum = phase_schedule(
         torch, dev, model)
-    paged_counts = phase_paged(torch, dev, model, fixed, tol, fixed_quantum)
+    paged_counts, paged_http = phase_paged(torch, dev, model, fixed, tol,
+                                           fixed_quantum)
+    int8_counts = phase_int8(torch, dev, model, paged_http)
+    # The card cannot hold llama3_8b (17.1 GB) beside the Mixtral phases'
+    # 24.0 GB and the training phases.
     del model, fixed
     gc.collect()
     torch.cuda.empty_cache()
+    phase_moe_layer(torch, dev)
+    moe_counts = phase_moe_serve(torch, dev)
+    moe_train_counts = phase_moe_train(torch, dev)
     phase_train_compose(torch, dev)
     phase_train_variants(torch, dev)
     train_counts = phase_train(torch)
@@ -2925,6 +3371,9 @@ def main() -> int:
         "launches_by_path": {"serve": serve_counts[name],
                              "schedule": schedule_counts[name],
                              "paged": paged_counts[name],
+                             "int8": int8_counts[name],
+                             "moe": moe_counts[name],
+                             "moe_train": moe_train_counts[name],
                              "train": train_counts[name]},
         "shape": rows[name]["shape"], "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["kernel_ms"], "plain_ms": rows[name]["plain_ms"],

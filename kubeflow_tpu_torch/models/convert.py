@@ -32,24 +32,33 @@ SCAN_PREFIX = "layers_scan/block/"
 
 
 def _block_leaves(cfg) -> Dict[str, tuple]:
-    """One block's leaf path (below the block) -> shape."""
-    d, hd = cfg.dim, cfg.head_dim
-    return {
+    """One block's leaf path (below the block) -> shape: the SwiGLU's
+    three kernels, or with ``n_experts`` the MoE router and the batched
+    expert tensors."""
+    d, hd, f = cfg.dim, cfg.head_dim, cfg.ffn_dim
+    leaves = {
         "attn_norm/scale": (d,),
         "mlp_norm/scale": (d,),
         "attn/q_proj/kernel": (d, cfg.n_heads, hd),
         "attn/k_proj/kernel": (d, cfg.n_kv_heads, hd),
         "attn/v_proj/kernel": (d, cfg.n_kv_heads, hd),
         "attn/o_proj/kernel": (cfg.n_heads, hd, d),
-        "mlp/gate_proj/kernel": (d, cfg.ffn_dim),
-        "mlp/up_proj/kernel": (d, cfg.ffn_dim),
-        "mlp/down_proj/kernel": (cfg.ffn_dim, d),
     }
+    e = cfg.n_experts
+    if e > 0:
+        leaves.update({"mlp/router/kernel": (d, e),
+                       "mlp/w_gate": (e, d, f), "mlp/w_up": (e, d, f),
+                       "mlp/w_down": (e, f, d)})
+    else:
+        leaves.update({"mlp/gate_proj/kernel": (d, f),
+                       "mlp/up_proj/kernel": (d, f),
+                       "mlp/down_proj/kernel": (f, d)})
+    return leaves
 
 
 def expected_leaves(cfg, *, scan_layers: bool = False) -> Dict[str, tuple]:
-    """Reference leaf path -> shape, for a dense Llama config, in the
-    unrolled layout or (``scan_layers``) the stacked one."""
+    """Reference leaf path -> shape, for a Llama config (dense or MoE),
+    in the unrolled layout or (``scan_layers``) the stacked one."""
     leaves = {"embed/embedding": (cfg.vocab_size, cfg.dim),
               "final_norm/scale": (cfg.dim,),
               "lm_head/kernel": (cfg.dim, cfg.vocab_size)}
@@ -93,6 +102,18 @@ def _target(path: str) -> str:
     return ".".join(parts)
 
 
+def reference_path(key: str) -> str:
+    """Port state-dict key -> reference leaf path (``_target`` inverted)."""
+    if key == "embed.embedding":
+        return "embed/embedding"
+    parts = key.split(".")
+    if parts[0] == "layers":
+        parts = [f"layer_{parts[1]}"] + parts[2:]
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
 def _convert(path: str, arr: np.ndarray) -> np.ndarray:
     """Reference layout -> torch layout (Linear weights are [out, in])."""
     if not path.endswith("/kernel"):
@@ -108,9 +129,10 @@ def params_from_jax(tree: Mapping, cfg,
                     param_dtype: Optional[torch.dtype] = None
                     ) -> Dict[str, torch.Tensor]:
     """State dict for ``Llama(cfg)`` from the reference's param tree.
-    Dense and embedding weights are stored in ``param_dtype`` (default
-    ``cfg.param_dtype``, else ``cfg.dtype``: the reference casts them at
-    use); norm scales and ``lm_head`` stay f32.  With f32 every leaf is
+    Dense, expert and embedding weights are stored in ``param_dtype``
+    (default ``cfg.param_dtype``, else ``cfg.dtype``: the reference casts
+    them at use); norm scales, ``lm_head`` and the MoE router (transposed,
+    as the head is) stay f32.  With f32 every leaf is
     the reference's master weight exactly.  The tree may be in either
     layout (``layers_scan`` is told by its top-level key).  Raises
     ``KeyError`` on a missing or extra leaf and ``ValueError`` on a shape
@@ -134,7 +156,7 @@ def params_from_jax(tree: Mapping, cfg,
     state = {}
     for path in want:
         arr = flat[path]
-        dtype = (torch.float32 if path.endswith("/scale")
+        dtype = (torch.float32 if path.endswith(("/scale", "/router/kernel"))
                  or path == "lm_head/kernel" else dense_dtype)
         t = torch.from_numpy(np.ascontiguousarray(
             _convert(path, arr).astype(np.float32)))

@@ -163,8 +163,10 @@ def _prefill_parts(model, prompt, prompt_mask, cache_len, rows: SamplingRows,
     positions, lengths = prompt_positions(prompt_mask)
     pad_bias = pad_bias_rows(prompt_mask, cache_len)
     cache = model.new_cache(b, cache_len)
+    # token_mask keeps padding out of an MoE model's expert routing.
     last_logits = model(prompt, positions=positions, cache=cache,
-                        pad_bias=pad_bias, logits_at=lengths - 1)
+                        pad_bias=pad_bias, logits_at=lengths - 1,
+                        token_mask=prompt_mask)
     first, done = sample_first(last_logits, rows, generators)
     return DecodeState(cache=cache, token=first, pos=lengths, done=done,
                        pad_bias=pad_bias, generators=generators,

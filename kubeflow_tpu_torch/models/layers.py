@@ -13,7 +13,8 @@ them to the compute dtype at use (flax ``param_dtype``, ``.astype`` at
 ``layers.py:74``).  Serving stores bf16, which gives the same values;
 training stores the f32 master weights.  Parameters are made frozen
 (``requires_grad=False``, what serving needs); a trainer unfreezes them
-with ``module.requires_grad_(True)``.
+with ``module.requires_grad_(True)``.  ``Linear`` and ``Embed`` can be
+quantized to int8 for serving (``models/quantize.py``).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kubeflow_tpu_torch import ops
+from kubeflow_tpu_torch.models import quantize
 
 # flax's truncated-normal initialisers divide the target std by the std
 # of a unit normal truncated to [-2, 2].
@@ -47,28 +49,62 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 class Linear(nn.Module):
     """Bias-free ``y = x @ W.T`` with W [out, in] (``nn.Linear``'s layout,
     uninitialised at construction), computed in ``dtype`` from W stored in
-    ``param_dtype``."""
+    ``param_dtype``, or, once quantized (``models/quantize.py``), from the
+    int8 buffer ``qweight`` and its f32 ``scale``, dequantized at each
+    call (``weight`` is then None).  ``out_block`` > 0 marks an output
+    axis that the reference splits as (out / out_block, out_block), q/k/v
+    by heads: its scales are then one per out_block index, not per row."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  dtype: torch.dtype, param_dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 out_block: int = 0, device=None):
         super().__init__()
         self.in_features = in_features
         self.dtype = dtype
+        self.out_block = out_block
         self.weight = nn.Parameter(torch.empty(
             out_features, in_features, dtype=param_dtype or dtype,
             device=device), requires_grad=False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        lecun_normal_(self.weight, self.in_features, generator)
+        if self.weight is not None:
+            lecun_normal_(self.weight, self.in_features, generator)
+
+    def _blocks(self, w: torch.Tensor) -> torch.Tensor:
+        """W [out, in] as the reference splits its output axis."""
+        if not self.out_block:
+            return w
+        return w.view(-1, self.out_block, self.in_features)
+
+    def quantize_(self, source: Optional[torch.Tensor] = None) -> None:
+        """Replace W by int8 values and f32 scales over the reference's
+        axes (``quantize.quantize_tensor``), from ``source`` (the same
+        weight in another dtype, e.g. a checkpoint's f32) or W itself;
+        W is freed."""
+        w = self._blocks(self.weight if source is None else source)
+        dims = (0, 2) if self.out_block else (1,)
+        q, scale = quantize.quantize_tensor(w.to(self.weight.device), dims)
+        self.weight = None
+        self.register_buffer("qweight", q.view(-1, self.in_features))
+        self.register_buffer("scale", scale)
+
+    def dense_weight(self) -> torch.Tensor:
+        """W in the compute dtype (dequantized when quantized)."""
+        if self.weight is not None:
+            return self.weight.to(self.dtype)
+        w = quantize.dequantize(self._blocks(self.qweight), self.scale,
+                                self.dtype)
+        return w.view(self.qweight.shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return F.linear(x.to(self.dtype), self.dense_weight())
 
 
 class Embed(nn.Module):
     """Token embedding; flax init variance_scaling(1, fan_in, normal,
-    out_axis=0), i.e. normal with std sqrt(1 / features)."""
+    out_axis=0), i.e. normal with std sqrt(1 / features).  Once quantized
+    the table is int8 ``qweight`` with one f32 scale a column, and the
+    looked-up rows are dequantized (``embedding`` is then None)."""
 
     def __init__(self, num_embeddings: int, features: int, *,
                  dtype: torch.dtype, param_dtype: Optional[torch.dtype] = None,
@@ -81,14 +117,30 @@ class Embed(nn.Module):
             device=device), requires_grad=False)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.embedding is None:
+            return
         w32 = torch.empty(self.embedding.shape, dtype=torch.float32,
                           device=self.embedding.device)
         w32.normal_(0.0, math.sqrt(1.0 / self.features), generator=generator)
         with torch.no_grad():
             self.embedding.copy_(w32)
 
+    def quantize_(self, source: Optional[torch.Tensor] = None) -> None:
+        """As ``Linear.quantize_``, one scale a column (the reference
+        reduces the vocabulary axis)."""
+        w = self.embedding if source is None else source
+        q, scale = quantize.quantize_tensor(w.to(self.embedding.device), (0,))
+        self.embedding = None
+        self.register_buffer("qweight", q)
+        self.register_buffer("scale", scale)
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding.to(self.dtype))
+        if self.embedding is not None:
+            return F.embedding(tokens, self.embedding.to(self.dtype))
+        # Dequantizing is elementwise, so the looked-up rows alone give
+        # the rows of the dequantized table.
+        return quantize.dequantize(self.qweight[tokens], self.scale,
+                                   self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -274,11 +326,13 @@ class Attention(nn.Module):
         self.head_dim = head_dim
         self.rope_theta = rope_theta
         self.impl = impl
-        lin = lambda i, o: Linear(i, o, dtype=dtype, param_dtype=param_dtype,
-                                  device=device)
-        self.q_proj = lin(dim, num_heads * head_dim)
-        self.k_proj = lin(dim, num_kv_heads * head_dim)
-        self.v_proj = lin(dim, num_kv_heads * head_dim)
+        lin = lambda i, o, block=0: Linear(
+            i, o, dtype=dtype, param_dtype=param_dtype, out_block=block,
+            device=device)
+        # The reference's q/k/v kernels are (dim, heads, head_dim).
+        self.q_proj = lin(dim, num_heads * head_dim, head_dim)
+        self.k_proj = lin(dim, num_kv_heads * head_dim, head_dim)
+        self.v_proj = lin(dim, num_kv_heads * head_dim, head_dim)
         self.o_proj = lin(num_heads * head_dim, dim)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,

@@ -1,7 +1,9 @@
 """Llama-family decoder in PyTorch — counterpart of
-``kubeflow_tpu/models/llama.py`` (dense configs only).
+``kubeflow_tpu/models/llama.py``.
 
-GQA + RoPE (half-split) + RMSNorm + SwiGLU, ``lm_head`` in f32.  The
+GQA + RoPE (half-split) + RMSNorm + SwiGLU, ``lm_head`` in f32; with
+``n_experts`` > 0 (the Mixtral configs) every layer's MLP is a top-k
+routed mixture of SwiGLU experts (``models/moe.py``).  The
 parameter names follow the reference's tree (``models/convert.py`` maps
 one onto the other).  Every op with a CUDA kernel (RMSNorm, causal flash
 attention forward and backward, flash decode) routes through ``cfg.impl``:
@@ -30,6 +32,7 @@ from kubeflow_tpu_torch.models.layers import (
     RMSNorm,
     SwiGLU,
 )
+from kubeflow_tpu_torch.models.moe import MoeMlp
 from kubeflow_tpu_torch.models.registry import register_model
 
 NEG_INF = -1e30
@@ -69,8 +72,10 @@ class LlamaConfig:
     remat_mode: str = "block"
     # "auto" | "kernel" | "plain": routes RMSNorm and attention (ops/).
     impl: str = "auto"
-    # MoE (Mixtral-style) is not ported: n_experts > 0 raises in Llama.
+    # MoE (Mixtral-style): n_experts == 0 means a dense SwiGLU MLP.
     n_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
 
     def __post_init__(self):
         if self.remat_mode not in ("block", "mlp"):
@@ -108,7 +113,7 @@ CONFIGS = {
     ),
     "mixtral_8x7b": LlamaConfig(
         dim=4096, n_layers=32, n_heads=32, n_kv_heads=8, ffn_dim=14336,
-        max_seq_len=32768, rope_theta=1000000.0, n_experts=8,
+        max_seq_len=32768, rope_theta=1000000.0, n_experts=8, top_k=2,
     ),
 }
 
@@ -124,32 +129,45 @@ class LlamaBlock(nn.Module):
             param_dtype=cfg.param_dtype, impl=cfg.impl, device=device)
         self.mlp_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps, impl=cfg.impl,
                                 device=device)
-        self.mlp = SwiGLU(cfg.dim, cfg.ffn_dim, dtype=cfg.dtype,
-                          param_dtype=cfg.param_dtype, device=device)
+        self.moe = cfg.n_experts > 0
+        if self.moe:
+            self.mlp = MoeMlp(cfg.dim, cfg.ffn_dim, cfg.n_experts,
+                              top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor,
+                              dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+                              device=device)
+        else:
+            self.mlp = SwiGLU(cfg.dim, cfg.ffn_dim, dtype=cfg.dtype,
+                              param_dtype=cfg.param_dtype, device=device)
         self.remat_mlp = cfg.remat and cfg.remat_mode == "mlp"
 
     def forward(self, x, positions, *, segment_ids=None, cache=None,
-                layer=0, bias_rows=None, cache_slots=None):
+                layer=0, bias_rows=None, cache_slots=None, token_mask=None):
+        """``(x, aux)``: the block's output and, for an MoE block, its
+        load-balancing loss (None for a dense block)."""
         h = self.attn(self.attn_norm(x), positions, segment_ids=segment_ids,
                       cache=cache, layer=layer, bias_rows=bias_rows,
                       cache_slots=cache_slots)
         x = x + h
         h = self.mlp_norm(x)
+        kw = {"token_mask": token_mask} if self.moe else {}
         if self.remat_mlp and torch.is_grad_enabled():
-            return x + _remat(self.mlp, h)
-        return x + self.mlp(h)
+            h = _remat(self.mlp, h, **kw)
+        else:
+            h = self.mlp(h, **kw)
+        aux = None
+        if self.moe:
+            h, aux = h
+        return x + h, aux
 
 
 class Llama(nn.Module):
-    """The dense decoder.  Parameters are uninitialised after
+    """The decoder, dense or MoE.  Parameters are uninitialised after
     construction: call ``reset_parameters(generator)`` or
     ``load_state_dict``."""
 
     def __init__(self, cfg: LlamaConfig, *, device=None):
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "MoE (n_experts > 0) is not ported yet; see ROADMAP.md")
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.dim, dtype=cfg.dtype,
                            param_dtype=cfg.param_dtype, device=device)
@@ -163,7 +181,7 @@ class Llama(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.embedding.device
+        return self.final_norm.scale.device
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's flax initialisers, drawn from ``generator`` on
@@ -196,7 +214,9 @@ class Llama(nn.Module):
                 pad_bias: Optional[torch.Tensor] = None,
                 cache_slots=None,
                 logits_at: Optional[torch.Tensor] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False,
+                token_mask: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
         """Logits [b, s, vocab] f32, or [b, vocab] at the per-row
         positions ``logits_at`` [b] (the head then runs on those rows only),
         or with ``return_hidden`` the final-normed hidden states [b, s, dim]
@@ -219,7 +239,13 @@ class Llama(nn.Module):
         logical slot j iff j <= ``slots[r, t]``, plus its ``pad_bias`` row
         [b, L]; a prefill chunk (``prefix_len`` set) is causal over the
         first prefix_len + s slots instead.  The bias and the flat read
-        indices are built here once a step."""
+        indices are built here once a step.
+
+        ``token_mask`` [b, s] (True on real tokens) keeps padding out of
+        an MoE model's expert routing (the prompt pass passes the prompt
+        mask).  With ``return_aux`` the call returns ``(output, aux)``,
+        aux the MoE load-balancing loss averaged over layers (0 for a
+        dense model), the reference's mean of its sowed losses."""
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
@@ -243,21 +269,32 @@ class Llama(nn.Module):
         x = self.embed(tokens)
         remat_block = (self.cfg.remat and self.cfg.remat_mode == "block"
                        and cache is None and torch.is_grad_enabled())
+        auxes = []
         for i, block in enumerate(self.layers):
             if remat_block:
-                x = _remat(block, x, positions, segment_ids=segment_ids)
+                x, aux = _remat(block, x, positions, segment_ids=segment_ids,
+                                token_mask=token_mask)
             else:
-                x = block(x, positions, segment_ids=segment_ids, cache=cache,
-                          layer=i, bias_rows=bias_rows,
-                          cache_slots=cache_slots)
+                x, aux = block(x, positions, segment_ids=segment_ids,
+                               cache=cache, layer=i, bias_rows=bias_rows,
+                               cache_slots=cache_slots, token_mask=token_mask)
+            if aux is not None:
+                auxes.append(aux)
         if cache is not None and cache_slots is None:
             cache.index += s
         if return_hidden:
-            return self.final_norm(x)
-        if logits_at is not None:
-            x = x[torch.arange(b, device=x.device), logits_at][:, None]
-        logits = self.lm_head(self.final_norm(x))
-        return logits[:, 0] if logits_at is not None else logits
+            out = self.final_norm(x)
+        else:
+            if logits_at is not None:
+                x = x[torch.arange(b, device=x.device), logits_at][:, None]
+            out = self.lm_head(self.final_norm(x))
+            if logits_at is not None:
+                out = out[:, 0]
+        if not return_aux:
+            return out
+        aux = (torch.stack(auxes).mean() if auxes
+               else x.new_zeros((), dtype=torch.float32))
+        return out, aux
 
     @staticmethod
     def _paged_view(cache, ps, pad_bias, b: int, s: int):

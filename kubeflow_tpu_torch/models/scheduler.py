@@ -532,9 +532,8 @@ class DecodeScheduler:
             # Quantum N's tokens are already on the host: harvesting first
             # costs no wait and gets its evictions (and the admissions
             # they allow) into quantum N+1.
-            self._inflight = None
             self._harvest_handle(prev)
-            prev = None
+            self._inflight = prev = None
             self._admit()
             if self._pre_dispatch_sync():
                 return
@@ -603,9 +602,11 @@ class DecodeScheduler:
         return pool_steps(self.model, dstate, rows, write, self.quantum)
 
     def _harvest(self):
+        # ``_inflight`` clears once the harvest is booked, so a reader that
+        # sees it None and no live row reads the final counts in stats().
         if self._inflight is not None:
-            handle, self._inflight = self._inflight, None
-            self._harvest_handle(handle)
+            self._harvest_handle(self._inflight)
+            self._inflight = None
 
     def _harvest_handle(self, h: _Inflight):
         """Wait for one quantum's tokens, then the host bookkeeping: token

@@ -17,7 +17,10 @@ path.  The server is the standard library's ``ThreadingHTTPServer``;
 weights are random, drawn from ``--seed`` on the device, unless
 ``--checkpoint-dir`` names a trainer's checkpoints
 (``train/checkpoint.py``), whose latest parameters are restored in the
-serving dtype.
+serving dtype.  ``--quantize int8`` keeps the matmul and embedding
+weights as int8 with per-channel scales (``models/quantize.py``),
+dequantized at use; ``--n-layers`` cuts a model's depth at full width
+(``mixtral_8x7b``'s 32 layers do not fit one 80 GB card).
 
 Endpoints:
   GET  /healthz             liveness
@@ -51,6 +54,7 @@ import torch
 
 from kubeflow_tpu_torch import config
 from kubeflow_tpu_torch.models.paged import PagedDecodeScheduler
+from kubeflow_tpu_torch.models.quantize import quantize_model, quantized_bytes
 from kubeflow_tpu_torch.models.scheduler import (
     DEFAULT_PRIORITY,
     PRIORITY_CLASSES,
@@ -139,8 +143,12 @@ class GenerationService:
 
     def __init__(self, model, *, default_max_new_tokens: int = 32,
                  max_batch_rows: int = 64,
-                 use_scheduler: Optional[bool] = None, draft_model=None):
+                 use_scheduler: Optional[bool] = None, draft_model=None,
+                 quantize: Optional[str] = None):
         self.model = model
+        # The weights' quantization ("int8", done by load_service), or
+        # None; /debug/serve reports it beside the weight bytes.
+        self.quantize = quantize
         # The paged engine's speculative-decoding draft (same vocabulary).
         self.draft_model = draft_model
         # Why the fixed-slot pool serves instead of the paged engine
@@ -509,6 +517,8 @@ def create_app(service: GenerationService, *, model_name: str = "model",
             "engine": type(sched).__name__ if sched is not None else None,
             "scheduler": sched.stats() if sched is not None else None,
             "paged_fallback": service.scheduler_fallback,
+            "quantize": service.quantize,
+            "weight_bytes": quantized_bytes(service.model),
         })
 
     @app.route("/metrics")
@@ -608,13 +618,21 @@ def load_service(model_name: str, *, device="cuda",
                  mesh_spec: Optional[str] = None,
                  draft_model_name: Optional[str] = None,
                  draft_checkpoint_dir: Optional[str] = None,
-                 use_scheduler: Optional[bool] = None) -> GenerationService:
+                 use_scheduler: Optional[bool] = None,
+                 n_layers: Optional[int] = None) -> GenerationService:
     """Build the model on ``device`` (default the card; raises without
     one).  Its weights are the latest checkpoint's parameters under
     ``checkpoint_dir`` (read without the optimizer state, cast to the
     serving dtype; raises ``FileNotFoundError`` when there is none), else
     random, drawn from ``seed`` directly on the device (an 8B init on the
     host would take minutes).
+
+    ``quantize="int8"`` stores the target's matmul and embedding weights
+    as int8 with per-channel scales (``models/quantize.py``), dequantized
+    at use; from a checkpoint they are quantized from its saved (f32)
+    values, as the reference quantizes its f32 parameters.  The draft
+    stays unquantized, as in the reference.  ``n_layers`` cuts the
+    target's depth (its width stays the config's).
 
     ``draft_model_name`` builds a second, smaller decoder of the same
     vocabulary for speculative decoding under the paged engine, restored
@@ -623,15 +641,17 @@ def load_service(model_name: str, *, device="cuda",
     from kubeflow_tpu_torch import resolve_device
     from kubeflow_tpu_torch.models import create_model
 
-    for flag, value in (("--quantize", quantize), ("--mesh", mesh_spec)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not yet ported to kubeflow_tpu_torch; see "
-                "ROADMAP.md")
+    if mesh_spec:
+        raise NotImplementedError(
+            "--mesh is not yet ported to kubeflow_tpu_torch; see ROADMAP.md")
+    if quantize and quantize != "int8":
+        raise ValueError(f"unsupported quantization {quantize!r} (int8)")
     dev = resolve_device(device)
     overrides = {"max_seq_len": max_seq_len} if max_seq_len else {}
+    if n_layers:
+        overrides["n_layers"] = n_layers
     model = _load_model(create_model(model_name, device=dev, **overrides),
-                        checkpoint_dir, seed)
+                        checkpoint_dir, seed, quantize=bool(quantize))
     draft = None
     if draft_model_name:
         draft = create_model(draft_model_name, device=dev)
@@ -642,23 +662,34 @@ def load_service(model_name: str, *, device="cuda",
                 f"the target's token space")
         draft = _load_model(draft, draft_checkpoint_dir, seed)
     return GenerationService(model, use_scheduler=use_scheduler,
-                             draft_model=draft)
+                             draft_model=draft, quantize=quantize or None)
 
 
-def _load_model(model, checkpoint_dir: Optional[str], seed: int):
+def _load_model(model, checkpoint_dir: Optional[str], seed: int, *,
+                quantize: bool = False):
     """``model`` in eval mode with the latest checkpoint's parameters
-    under ``checkpoint_dir``, else random ones drawn from ``seed``."""
+    under ``checkpoint_dir``, else random ones drawn from ``seed``; with
+    ``quantize``, int8 (from the checkpoint's saved values when there is
+    one)."""
+    source = None
     if checkpoint_dir:
-        from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+        from kubeflow_tpu_torch.train.checkpoint import (
+            CheckpointManager,
+            load_params,
+        )
 
         with CheckpointManager(checkpoint_dir) as mgr:
-            if mgr.restore_params(template=model) is None:
-                raise FileNotFoundError(
-                    f"no checkpoint found under {checkpoint_dir}")
+            source = mgr.restore_params()
+        if source is None:
+            raise FileNotFoundError(
+                f"no checkpoint found under {checkpoint_dir}")
+        load_params(model, source)
     else:
         gen = torch.Generator(device=model.device).manual_seed(seed)
         with torch.no_grad():
             model.reset_parameters(gen)
+    if quantize:
+        quantize_model(model, source=source)
     return model.eval()
 
 
@@ -676,7 +707,11 @@ def main(argv=None) -> int:
                     help="serve the latest checkpoint's parameters here "
                          "(train.run --checkpoint-dir)")
     ap.add_argument("--quantize", choices=["int8"], default=None,
-                    help="not yet ported")
+                    help="weight-only int8 with per-channel scales, "
+                         "dequantized at use")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the model's depth to this many layers (its "
+                         "width stays the config's)")
     ap.add_argument("--mesh", default=None, help="not yet ported")
     ap.add_argument("--draft-model", default=None,
                     help="small same-vocab decoder for speculative "
@@ -692,14 +727,18 @@ def main(argv=None) -> int:
             seed=args.seed, checkpoint_dir=args.checkpoint_dir,
             quantize=args.quantize, mesh_spec=args.mesh,
             draft_model_name=args.draft_model,
-            draft_checkpoint_dir=args.draft_checkpoint_dir)
+            draft_checkpoint_dir=args.draft_checkpoint_dir,
+            n_layers=args.n_layers)
     except (ValueError, KeyError, NotImplementedError, RuntimeError,
             FileNotFoundError) as e:
         ap.error(str(e))
     server = create_app(service, model_name=args.model).make_server(
         args.host, args.port)
     print(json.dumps({"serving": args.model, "port": args.port,
-                      "device": str(service.model.device)}), flush=True)
+                      "device": str(service.model.device),
+                      "quantize": service.quantize,
+                      "weight_bytes": quantized_bytes(service.model)}),
+          flush=True)
     try:
         server.serve_forever()
     finally:

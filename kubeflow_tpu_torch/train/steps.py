@@ -127,17 +127,30 @@ def _unpack(batch):
 
 def lm_loss(module: nn.Module, params: Dict[str, torch.Tensor],
             tokens: torch.Tensor, segment_ids: Optional[torch.Tensor] = None,
-            *, ce_chunk: Optional[int] = None) -> torch.Tensor:
+            *, ce_chunk: Optional[int] = None, with_aux: bool = False):
     """Next-token loss of ``module`` run with ``params`` in place of its
     own (``torch.func.functional_call``).  With ``segment_ids`` a target
     counts only when it continues the same document and is not a pad slot
     (``steps.py:281-301``).  With ``ce_chunk`` the head and the loss run
     per chunk over the full length, targets rolled left and the wrapped
-    last position weighted 0."""
+    last position weighted 0.  With ``with_aux`` returns ``(loss, aux)``,
+    aux the MoE load-balancing loss averaged over layers."""
     kwargs = {} if segment_ids is None else {"segment_ids": segment_ids}
     if ce_chunk is not None:
         kwargs["return_hidden"] = True
+    if with_aux:
+        kwargs["return_aux"] = True
     out = torch.func.functional_call(module, params, (tokens,), kwargs)
+    if with_aux:
+        out, aux = out
+        return _next_token_loss(out, params, tokens, segment_ids,
+                                ce_chunk), aux
+    return _next_token_loss(out, params, tokens, segment_ids, ce_chunk)
+
+
+def _next_token_loss(out, params, tokens, segment_ids, ce_chunk):
+    """The cross-entropy of ``lm_loss`` from the model's output (logits,
+    or with ``ce_chunk`` the final-normed hidden states)."""
     shifted_valid = None
     if segment_ids is not None:
         shifted_valid = ((segment_ids[:, 1:] == segment_ids[:, :-1])
@@ -154,10 +167,16 @@ def lm_loss(module: nn.Module, params: Dict[str, torch.Tensor],
                                  chunk=ce_chunk)
 
 
-def make_lm_grad_fn(*, grad_dtype: Optional[torch.dtype] = None,
+def make_lm_grad_fn(*, aux_loss_weight: float = 0.0,
+                    grad_dtype: Optional[torch.dtype] = None,
                     ce_chunk: Optional[int] = None) -> Callable:
     """``grad_fn(state, batch) -> (grads, metrics)``: the loss and the
     gradient of every parameter (by name).
+
+    ``aux_loss_weight`` > 0 adds that multiple of the MoE load-balancing
+    loss (the layers' mean) to the objective, and the metrics gain
+    ``moe_aux_loss``; ``loss`` stays the cross-entropy alone, as the
+    reference reports it.
 
     ``grad_dtype`` (``torch.bfloat16``): differentiate a copy of every f32
     parameter in that dtype, the head and the norm scales included, so the
@@ -173,18 +192,28 @@ def make_lm_grad_fn(*, grad_dtype: Optional[torch.dtype] = None,
             if grad_dtype is not None and t.dtype == torch.float32:
                 t = t.to(grad_dtype)
             params[name] = t.requires_grad_(True)
-        loss = lm_loss(state.module, params, tokens, segment_ids,
-                       ce_chunk=ce_chunk)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return dict(zip(params, grads)), {"loss": loss.detach()}
+        if aux_loss_weight:
+            loss, aux = lm_loss(state.module, params, tokens, segment_ids,
+                                ce_chunk=ce_chunk, with_aux=True)
+            total = loss + aux_loss_weight * aux
+        else:
+            total = loss = lm_loss(state.module, params, tokens,
+                                   segment_ids, ce_chunk=ce_chunk)
+        grads = torch.autograd.grad(total, list(params.values()))
+        metrics = {"loss": loss.detach()}
+        if aux_loss_weight:
+            metrics["moe_aux_loss"] = aux.detach()
+        return dict(zip(params, grads)), metrics
 
     return grad_fn
 
 
-def make_lm_train_step(*, grad_dtype: Optional[torch.dtype] = None,
+def make_lm_train_step(*, aux_loss_weight: float = 0.0,
+                       grad_dtype: Optional[torch.dtype] = None,
                        ce_chunk: Optional[int] = None) -> Callable:
     """Next-token-prediction step; see ``make_lm_grad_fn``."""
-    grad_fn = make_lm_grad_fn(grad_dtype=grad_dtype, ce_chunk=ce_chunk)
+    grad_fn = make_lm_grad_fn(aux_loss_weight=aux_loss_weight,
+                              grad_dtype=grad_dtype, ce_chunk=ce_chunk)
 
     def step(state: TrainState, batch):
         grads, metrics = grad_fn(state, batch)

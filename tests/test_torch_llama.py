@@ -101,8 +101,11 @@ def test_rope_is_half_split_like_reference():
 
 
 def test_model_refuses_moe_and_missing_card():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("mixtral_debug", device="cpu")
+    """The MoE configs build on the CPU (they were refused until the MoE
+    MLP was ported; the name is kept); a missing card still raises."""
+    moe = create_model("mixtral_debug", device="cpu")
+    assert moe.cfg.n_experts == 4 and moe.layers[0].moe
+    assert moe.layers[0].mlp.w_gate.shape == (4, 64, 128)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             create_model("llama_debug")

@@ -175,8 +175,12 @@ def test_load_service_needs_a_card_unless_cpu_is_asked():
     service = load_service("llama_debug", device="cpu", seed=3)
     out = service.generate([[1, 2, 3]], max_new_tokens=2)
     assert len(out) == 1 and len(out[0]) == 2
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        load_service("llama_debug", device="cpu", quantize="int8")
+    int8 = load_service("llama_debug", device="cpu", seed=3,
+                        quantize="int8")
+    rows = int8.generate([[1, 2, 3]], max_new_tokens=2)
+    assert len(rows) == 1 and len(rows[0]) == 2
+    assert all(0 <= t < 256 for t in rows[0])
+    assert int8.model.lm_head.qweight.dtype == torch.int8
 
 
 def test_metrics_render_prometheus_text():
