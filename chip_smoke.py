@@ -106,6 +106,29 @@ Between 6c and 7 (llama3_8b is freed after int8):
    s2048, bf16 gradients, ``aux_loss_weight`` 0.01, 3 steps on one batch:
    the loss falling, loss and aux finite, exact launches per step.
 
+After 12 (PR 9, the image task and the encoders):
+13. vit:    ``vit_b16`` as the reference bench trains it (b64 at 224 px,
+   bf16, AdamW 3e-4): 5 steps on one batch and an eval forward with the
+   counts at 0 (exact: K2-lse, K3 and K4 12 a step, K2 12 a forward),
+   images/s, model TFLOP/s and MFU (the bench's FLOPs per image over 989
+   TF/s), 3 steps profiled by the port's ``profile_trace``; then at 2
+   layers the kernel route against impl="plain" and an f32 model on one
+   step's loss and gradients (COMPOSE_RATIO).
+14. bert:   ``bert_base`` at b32 s128, 2 classes, AdamW: the same, plus a
+   padded ``attention_mask`` forward (the plain route: no launch) and an
+   all-ones mask against no mask within K2's tolerance.
+15. resnet: ``resnet50`` as the bench trains it (b256 at 224 px, bf16 on
+   f32 masters and stats, SGD 0.1 Nesterov 0.9): no port kernel runs
+   (counts all 0), images/s, peak memory, busy share by class.
+16. slow-step: the loop on that state with a stalled first batch: the
+   slow-step counter reads 1, the next step is profiled, and
+   ``trace_summary`` reads the trace it wrote.
+17. image-cli: ``train.run --task image --model resnet50`` with
+   ``--checkpoint-dir`` for 4 steps, against 2 steps and a resume to 4:
+   weights, batch stats and momentum within RESUME_TOL.
+Within 7, the attention kernels at ViT-B/16's and BERT-base's shapes
+(b64 s197 and b32 s128, h12, d64, non-causal), timed.
+
 Every line of standard output is one JSON object; the line before the
 last lists every kernel with its launches, error and times, and the last
 line is the result, ``{"ok": true, "device": {...}}``.
@@ -305,6 +328,46 @@ MOE_REQUESTS = {
 # on one batch (so the loss must fall), AdamW at lr 1e-3.
 MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2048, 3
 MOE_AUX_WEIGHT, MOE_TRAIN_LR = 0.01, 1e-3
+
+# The image task and the encoders, as the reference's bench sets them up
+# (bench.py ``_resnet_setup``, ``_vit_setup``): ResNet-50 at b256 on 224
+# px images, bf16 compute on f32 masters and batch stats, SGD 0.1 with
+# Nesterov momentum 0.9; ViT-B/16 at b64, bf16, AdamW 3e-4; BERT-base
+# fine-tuning at b32 s128, 2 classes, AdamW 3e-4.  Each takes
+# ENCODER_STEPS steps on one batch (its first pays cuDNN's algorithm
+# choice and the allocator's warm-up), then ENCODER_PROFILED under
+# torch.profiler.
+IMAGE_SIZE = 224
+RESNET_MODEL, RESNET_BATCH = "resnet50", 256
+VIT_MODEL, VIT_BATCH = "vit_b16", 64
+BERT_MODEL, BERT_BATCH, BERT_SEQ, BERT_CLASSES = "bert_base", 32, 128, 2
+ENCODER_STEPS, ENCODER_PROFILED = 5, 3
+# The kernel route against impl="plain" (and an f32 plain model) at full
+# width: the layers kept.
+ENCODER_COMPOSE_LAYERS = 2
+# Attention kernels at the encoders' shapes, non-causal, h12 over 12 kv
+# heads, d64: (batch, seq) of ViT-B/16 (196 patches and the CLS token)
+# and of BERT-base.
+ENCODER_ATTENTION = {"vit_b16": (VIT_BATCH, 197), "bert_base":
+                     (BERT_BATCH, BERT_SEQ)}
+# train.run --task image with --checkpoint-dir: an unbroken run of
+# IMAGE_CLI_STEPS against a run stopped at IMAGE_CLI_STOP and resumed.
+IMAGE_CLI_ARGS = ["--task", "image", "--model", RESNET_MODEL, "--batch",
+                  str(RESNET_BATCH), "--image-size", str(IMAGE_SIZE),
+                  "--log-every", "1", "--checkpoint-every", "2"]
+IMAGE_CLI_STEPS, IMAGE_CLI_STOP = 4, 2
+# The resumed run against the unbroken one, with cuDNN's deterministic
+# algorithms: the weights as one vector, and each batch-stat tensor, by
+# relative L2.  The max-pool's backward adds overlapping windows' terms
+# with atomics, so two runs may differ by f32 rounding, ~1e-7 a step at
+# the trainer's lr 3e-4; 1e-5 is far below what one skipped or repeated
+# step moves (lr x gradient, ~1e-3 of the weights).
+RESUME_TOL = 1e-5
+# The slow-step capture: the threshold, and the first batch held back by
+# the input pipeline for longer (a stall), so that step is slow and the
+# next one, the profiled one (its trace written inside its dispatch
+# span: 0.94 s on the card for a ResNet-50 step), is not.
+SLOW_STEP_SECONDS, SLOW_STALL_SECONDS = 3.0, 3.5
 
 
 def emit(obj) -> None:
@@ -2124,12 +2187,107 @@ def rms_bwd_case(torch, dev, gen, rows, d, dt, st, kind=None):
     return dict(x=x, g=g, scale=scale, checks=checks, bit_equal=True)
 
 
+def attention_rows(torch, dev, gen, timer, name, b, s, h, kvh, d, *,
+                   causal, packed, path):
+    """K2-lse, K3 and K4 on one case (``train_kernel_case``: each against
+    its plain version in f32, K3 and K4 bit-equal on relaunch), timed
+    beside its bound, its plain version and SDPA (forward, or backward
+    through ``torch.autograd.grad``); emits a row per kernel and returns
+    them by kernel."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+
+    seg = packed_segments(torch, dev, s) if packed else None
+    c = train_kernel_case(torch, dev, gen, b, s, s, h, kvh, d, causal,
+                          seg, False)
+    q, k, v, do, o, lse, delta = (c[x] for x in (
+        "q", "k", "v", "do", "o", "lse", "delta"))
+    kw = dict(causal=causal, segment_ids=seg)
+    pairs, vis = visible_pairs(torch, dev, b, s, s, h, causal, seg)
+    qkv_bytes = 2 * (b * s * h * d + 2 * b * s * kvh * d)
+    qo_bytes = 2 * b * s * h * d          # one bf16 tensor of q's shape
+    row_bytes = 4 * b * h * s             # one f32 [b, h, s]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa = (dict(is_causal=causal) if seg is None
+            else dict(attn_mask=vis[:, None]))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                             **sdpa)
+    go = do.transpose(1, 2)
+    lib_fwd = lambda: F.scaled_dot_product_attention(
+        qt.detach(), kt.detach(), vt.detach(), enable_gqa=True, **sdpa)
+    lib_bwd_ms = timer(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), go, retain_graph=True))
+    shape = [b, s, h, kvh, d]
+    out = {
+        "flash_attention_fwd_lse": dict(
+            check=c["checks"]["lse"], o_check=c["checks"]["o"],
+            flops=4 * pairs * d,
+            bound=bound_ms(qkv_bytes + qo_bytes + row_bytes,
+                           4 * pairs * d, PEAK_BF16_FLOPS),
+            ms=timer(lambda: fa.flash_attention_fwd_lse(q, k, v, **kw)),
+            plain_ms=timer(lambda: fa.plain_attention_with_lse(
+                q, k, v, **kw)),
+            library_ms=timer(lib_fwd)),
+        "flash_attention_dq": dict(
+            check=c["checks"]["dq"],
+            flops=6 * pairs * d,
+            bound=bound_ms(qkv_bytes + 3 * qo_bytes + 2 * row_bytes,
+                           6 * pairs * d, PEAK_BF16_FLOPS),
+            ms=timer(lambda: fa.flash_attention_dq(
+                q, k, v, o, do, lse, **kw)),
+            plain_ms=timer(lambda: fa.plain_attention_dq(
+                q, k, v, o, do, lse, **kw)),
+            library_ms=lib_bwd_ms),
+        "flash_attention_dkv": dict(
+            check=max(c["checks"]["dk"], c["checks"]["dv"],
+                      key=lambda x: x[1]),
+            flops=8 * pairs * d,
+            bound=bound_ms(2 * qkv_bytes + 2 * row_bytes,
+                           8 * pairs * d, PEAK_BF16_FLOPS),
+            ms=timer(lambda: fa.flash_attention_dkv(
+                q, k, v, do, lse, delta, **kw)),
+            plain_ms=timer(lambda: fa.plain_attention_dkv(
+                q, k, v, do, lse, delta, **kw)),
+            library_ms=lib_bwd_ms),
+    }
+    rows = {}
+    for kernel, r in out.items():
+        err, share = r["check"][:2]
+        row = {"kernel": kernel, "shape": shape, "case": name,
+               "causal": causal, "segments": packed, "path": path,
+               "max_abs_err": (err if kernel.endswith("lse")
+                               else r["check"][2]),
+               "tol": KERNEL_TOL[kernel],
+               "tol_share": share, "kernel_ms": r["ms"],
+               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+               "library": ("sdpa forward" if kernel.endswith("lse")
+                           else "sdpa backward (dq, dk and dv)"),
+               "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+               "visible_pairs": pairs}
+        if kernel.endswith("lse"):
+            row["o_tol_share"] = r["o_check"][1]
+        else:
+            row["rel_l2"] = err
+        if kernel == "flash_attention_dkv":
+            row["dk_rel_l2"] = c["checks"]["dk"][0]
+            row["dv_rel_l2"] = c["checks"]["dv"][0]
+        if not kernel.endswith("lse"):
+            row["bit_equal_on_relaunch"] = c["bit_equal"]
+        emit(add_rates(row, r["flops"]))
+        rows[kernel] = row
+    del c, q, k, v, do, o, lse, delta, qt, kt, vt, lib_out, go, vis
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_train_kernels(torch, dev, timer):
     """K1 (forward and backward), K2-lse, K3 and K4 at the training path's
     shapes; returns the summary row per kernel at llama_1b4's shape."""
     import torch.nn.functional as F
 
-    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
     from kubeflow_tpu_torch.ops.cuda import rms_norm as k1
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -2192,92 +2350,14 @@ def phase_train_kernels(torch, dev, timer):
     emit(add_rates(row, flops, timer.floor_ms))
     rows["rms_norm_bwd"] = row
     del c, x, g, scale, xl, wl, lib_out, dx_out
-    for name, (b, s, h, kvh, d, packed) in (
+    for name, (b, sq, h, kvh, d, packed) in (
             ("llama_1b4", (1, 8192, 16, 16, 128, False)),
             ("llama_1b4 packed", (1, 8192, 16, 16, 128, True)),
             ("llama3_8b gqa", (1, 4096, 32, 8, 128, False))):
-        seg = packed_segments(torch, dev, s) if packed else None
-        c = train_kernel_case(torch, dev, gen, b, s, s, h, kvh, d, True,
-                              seg, False)
-        q, k, v, do, o, lse, delta = (c[x] for x in (
-            "q", "k", "v", "do", "o", "lse", "delta"))
-        kw = dict(causal=True, segment_ids=seg)
-        pairs, vis = visible_pairs(torch, dev, b, s, s, h, True, seg)
-        qkv_bytes = 2 * (b * s * h * d + 2 * b * s * kvh * d)
-        qo_bytes = 2 * b * s * h * d          # one bf16 tensor of q's shape
-        row_bytes = 4 * b * h * s             # one f32 [b, h, s]
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                      for t in (q, k, v))
-        sdpa = (dict(is_causal=True) if seg is None
-                else dict(attn_mask=vis[:, None]))
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
-                                                 **sdpa)
-        go = do.transpose(1, 2)
-        lib_fwd = lambda: F.scaled_dot_product_attention(
-            qt.detach(), kt.detach(), vt.detach(), enable_gqa=True, **sdpa)
-        lib_bwd_ms = timer(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), go, retain_graph=True))
-        shape = [b, s, h, kvh, d]
-        out = {
-            "flash_attention_fwd_lse": dict(
-                check=c["checks"]["lse"], o_check=c["checks"]["o"],
-                flops=4 * pairs * d,
-                bound=bound_ms(qkv_bytes + qo_bytes + row_bytes,
-                               4 * pairs * d, PEAK_BF16_FLOPS),
-                ms=timer(lambda: fa.flash_attention_fwd_lse(q, k, v, **kw)),
-                plain_ms=timer(lambda: fa.plain_attention_with_lse(
-                    q, k, v, **kw)),
-                library_ms=timer(lib_fwd)),
-            "flash_attention_dq": dict(
-                check=c["checks"]["dq"],
-                flops=6 * pairs * d,
-                bound=bound_ms(qkv_bytes + 3 * qo_bytes + 2 * row_bytes,
-                               6 * pairs * d, PEAK_BF16_FLOPS),
-                ms=timer(lambda: fa.flash_attention_dq(
-                    q, k, v, o, do, lse, **kw)),
-                plain_ms=timer(lambda: fa.plain_attention_dq(
-                    q, k, v, o, do, lse, **kw)),
-                library_ms=lib_bwd_ms),
-            "flash_attention_dkv": dict(
-                check=max(c["checks"]["dk"], c["checks"]["dv"],
-                          key=lambda x: x[1]),
-                flops=8 * pairs * d,
-                bound=bound_ms(2 * qkv_bytes + 2 * row_bytes,
-                               8 * pairs * d, PEAK_BF16_FLOPS),
-                ms=timer(lambda: fa.flash_attention_dkv(
-                    q, k, v, do, lse, delta, **kw)),
-                plain_ms=timer(lambda: fa.plain_attention_dkv(
-                    q, k, v, do, lse, delta, **kw)),
-                library_ms=lib_bwd_ms),
-        }
-        for kernel, r in out.items():
-            err, share = r["check"][:2]
-            row = {"kernel": kernel, "shape": shape, "case": name,
-                   "segments": packed, "path": "train",
-                   "max_abs_err": (err if kernel.endswith("lse")
-                                   else r["check"][2]),
-                   "tol": KERNEL_TOL[kernel],
-                   "tol_share": share, "kernel_ms": r["ms"],
-                   "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
-                   "library": ("sdpa forward" if kernel.endswith("lse")
-                               else "sdpa backward (dq, dk and dv)"),
-                   "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                   "visible_pairs": pairs}
-            if kernel.endswith("lse"):
-                row["o_tol_share"] = r["o_check"][1]
-            else:
-                row["rel_l2"] = err
-            if kernel == "flash_attention_dkv":
-                row["dk_rel_l2"] = c["checks"]["dk"][0]
-                row["dv_rel_l2"] = c["checks"]["dv"][0]
-            if not kernel.endswith("lse"):
-                row["bit_equal_on_relaunch"] = c["bit_equal"]
-            emit(add_rates(row, r["flops"]))
-            if name == "llama_1b4":
-                rows[kernel] = row
-        del c, q, k, v, do, o, lse, delta, qt, kt, vt, lib_out, go, vis
-        gc.collect()
-        torch.cuda.empty_cache()
+        out = attention_rows(torch, dev, gen, timer, name, b, sq, h, kvh, d,
+                             causal=True, packed=packed, path="train")
+        if name == "llama_1b4":
+            rows.update(out)
     return rows
 
 
@@ -3302,6 +3382,478 @@ def phase_moe_train(torch, dev):
     return counts
 
 
+def vit_train_flops_per_image(cfg) -> float:
+    """Model FLOPs of one ViT train step per image, the reference bench's
+    accounting (``bench.py`` ``vit_train_flops_per_image``): 2 M N K over
+    the patch embedding, q/k/v/o, attention and the MLP, times 3 for the
+    backward; norms, softmax and elementwise ops left out."""
+    n_patches = (cfg.image_size // cfg.patch_size) ** 2
+    s = n_patches + 1
+    d = cfg.dim
+    patch_embed = 2 * n_patches * d * (cfg.patch_size ** 2 * 3)
+    per_layer = (4 * 2 * s * d * d + 2 * 2 * s * s * d
+                 + 2 * 2 * s * d * cfg.mlp_dim)
+    head = 2 * d * cfg.num_classes
+    return 3.0 * (patch_embed + cfg.n_layers * per_layer + head)
+
+
+def encoder_launches(n_layers, steps, forwards=0):
+    """Launches of ``steps`` training steps and ``forwards`` no-grad
+    forwards of an encoder: one attention a layer, K2-lse with K3 and K4
+    when training, K2 alone otherwise; no norm kernel (LayerNorm)."""
+    zero = {k: 0 for k in SOURCES}
+    zero.update({"flash_attention_fwd_lse": n_layers * steps,
+                 "flash_attention_dq": n_layers * steps,
+                 "flash_attention_dkv": n_layers * steps,
+                 "flash_attention_fwd": n_layers * forwards})
+    return zero
+
+
+def phase_encoder_kernels(torch, dev, timer):
+    """K2-lse, K3 and K4 at ViT-B/16's and BERT-base's attention shapes
+    (non-causal, h12 over 12 kv heads, d64), each against its plain
+    version in f32 and timed beside its bound and SDPA."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows = {}
+    for name, (b, s) in ENCODER_ATTENTION.items():
+        rows[name] = attention_rows(torch, dev, gen, timer, name, b, s, 12,
+                                    12, 64, causal=False, packed=False,
+                                    path=name.split("_")[0])
+    return rows
+
+
+def classifier_state(torch, dev, name, optimizer, **overrides):
+    """A train state as the trainer builds one: the model on the card,
+    f32 masters (and stats) drawn from SEED, ``optimizer`` over them."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.train.steps import TrainState
+
+    model = create_model(name, device=dev, **overrides)
+    with torch.no_grad():
+        model.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    model.requires_grad_(True)
+    return TrainState(model, optimizer(model.parameters()))
+
+
+def timed_steps(torch, step, state, batch, n):
+    """``n`` steps on one batch, each closed by reading its loss (which
+    waits for the card); returns the state, losses, accuracies and
+    seconds."""
+    losses, accs, secs = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        secs.append(time.perf_counter() - t0)
+        accs.append(m["accuracy"].item())
+    return state, losses, accs, secs
+
+
+def profiled_steps(torch, step, state, batch, n, logdir):
+    """``n`` steps recorded by the port's ``profile_trace``; returns the
+    wall seconds and ``trace_summary`` of the trace."""
+    from kubeflow_tpu_torch.train import profiling
+
+    torch.cuda.synchronize()
+    with profiling.profile_trace(logdir):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, m = step(state, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = profiling.trace_summary(logdir)
+    if summary["total_ms"] <= 0:
+        raise AssertionError(f"profile under {logdir}: no device time")
+    return {"steps": n, "wall_seconds": wall,
+            "device_kernel_ms_per_step": summary["total_ms"] / n,
+            "device_busy_share": summary["total_ms"] / 1e3 / wall,
+            "kernels_per_step": summary["kernels"] / n,
+            "ms_per_step_by_class": {c: r["ms"] / n for c, r in
+                                     summary["classes"].items()},
+            "top_kernels_per_step": [dict(k, ms=k["ms"] / n,
+                                          count=k["count"] / n)
+                                     for k in summary["top"]],
+            "profiler_flops_per_step": (summary["flops"] or 0) / n}
+
+
+def check_losses(what, losses):
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: losses {losses}")
+
+
+def phase_resnet(torch, dev):
+    """ResNet-50 trained as the reference bench trains it: ENCODER_STEPS
+    steps on one b256 batch with the counts at 0 (no kernel of the port
+    runs on this path), an eval forward, then profiled steps.  Returns the
+    counts and the state for the slow-step phase."""
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.train.steps import (
+        make_classification_train_step,
+        sgd,
+    )
+
+    state = classifier_state(
+        torch, dev, RESNET_MODEL,
+        lambda p: sgd(p, 0.1, momentum=0.9, nesterov=True), num_classes=1000)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    batch = (torch.randn(RESNET_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3,
+                         generator=gen, device=dev),
+             torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
+                           device=dev, dtype=torch.int32))
+    step = make_classification_train_step(has_batch_stats=True)
+    n_stats = len(state.batch_stats)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    state, losses, accs, secs = timed_steps(torch, step, state, batch,
+                                            ENCODER_STEPS)
+    with torch.no_grad():
+        logits = state.module(batch[0], train=False)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_losses("resnet", losses)
+    if tuple(logits.shape) != (RESNET_BATCH, 1000) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"resnet eval logits {tuple(logits.shape)}")
+    if any(counts.values()):
+        raise AssertionError(f"resnet launched port kernels: {counts}")
+    stats_moved = all(not torch.equal(t, torch.zeros_like(t))
+                      for k, t in state.batch_stats.items()
+                      if k.endswith(".mean"))
+    if not stats_moved:
+        raise AssertionError("resnet: a running mean stayed at zero")
+    step_s = statistics.median(secs[1:])
+    prof = profiled_steps(torch, step, state, batch, ENCODER_PROFILED,
+                          os.path.join(checkpoint_root(), "profile-resnet"))
+    emit({"phase": "resnet", "model": RESNET_MODEL,
+          "batch": [RESNET_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3],
+          "parameters": sum(p.numel() for p in state.module.parameters()),
+          "batch_stat_tensors": n_stats, "losses": losses,
+          "accuracy": accs, "step_seconds": secs,
+          "median_step_seconds_2_on": step_s,
+          "images_per_sec": RESNET_BATCH / step_s,
+          "max_memory_allocated_bytes": peak, "launches": counts,
+          "profiled": prof})
+    return counts, state, step, batch
+
+
+def phase_slow_step(torch, state, step, batch):
+    """The loop's slow-step hooks on the ResNet-50 state: the first batch
+    arrives SLOW_STALL_SECONDS late with TRAIN_SLOW_STEP_SECONDS at
+    SLOW_STEP_SECONDS and KFT_SLOW_STEP_PROFILE_DIR set.  The counter must
+    read 1, the slow step's span tree must show the stall in its data
+    span, the next step must be the profiled one, and ``trace_summary``
+    must read conv and GEMM time from the trace it wrote."""
+    from kubeflow_tpu_torch.telemetry import compute as ctel
+    from kubeflow_tpu_torch.train import profiling
+    from kubeflow_tpu_torch.train.loop import LoopConfig, train_loop
+
+    logdir = os.path.join(checkpoint_root(), "slow-step")
+    shutil.rmtree(logdir, ignore_errors=True)
+
+    def batches():
+        time.sleep(SLOW_STALL_SECONDS)
+        yield batch
+        while True:
+            yield batch
+
+    counter = ctel.train_slow_steps_total._only()
+    before = counter.value
+    saved = (ctel.TRAIN_SLOW_STEP_SECONDS,
+             os.environ.get("KFT_SLOW_STEP_PROFILE_DIR"))
+    ctel.TRAIN_SLOW_STEP_SECONDS = SLOW_STEP_SECONDS
+    os.environ["KFT_SLOW_STEP_PROFILE_DIR"] = logdir
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            state, history = train_loop(
+                state, step, batches(), LoopConfig(total_steps=3,
+                                                   log_every=1))
+    finally:
+        ctel.TRAIN_SLOW_STEP_SECONDS = saved[0]
+        if saved[1] is None:
+            os.environ.pop("KFT_SLOW_STEP_PROFILE_DIR", None)
+        else:
+            os.environ["KFT_SLOW_STEP_PROFILE_DIR"] = saved[1]
+    slow = counter.value - before
+    traces = ctel.train_tracer.recent(3)
+    spans = [{sp["name"]: sp["duration_ms"] for sp in t["spans"]}
+             for t in traces]
+    files = sorted(os.listdir(logdir)) if os.path.isdir(logdir) else []
+    summary = profiling.trace_summary(logdir) if files else None
+    emit({"phase": "slow-step", "threshold_seconds": SLOW_STEP_SECONDS,
+          "stall_seconds": SLOW_STALL_SECONDS, "slow_steps": slow,
+          "trace_spans_ms": spans, "trace_files": files,
+          "losses": [h["loss"] for h in history],
+          "trace_summary": summary})
+    if slow != 1:
+        raise AssertionError(f"slow-step counter moved by {slow}, not 1")
+    if sum(f.endswith(profiling.TRACE_SUFFIX) for f in files) != 1 \
+            or summary is None:
+        raise AssertionError(f"slow-step traces under {logdir}: {files}")
+    if spans[0].get("data", 0.0) < SLOW_STALL_SECONDS * 1e3 or \
+            "profile" not in spans[1] or "profile" in spans[2]:
+        raise AssertionError(f"slow-step spans {spans}")
+    for cls in ("conv", "gemm"):
+        if summary["classes"][cls]["ms"] <= 0:
+            raise AssertionError(f"slow-step trace: no {cls} time")
+    shutil.rmtree(logdir, ignore_errors=True)
+    return slow
+
+
+def encoder_compose(torch, dev, name, batch):
+    """The kernel route against impl="plain" on one step's loss and
+    gradients, ``name`` at full width and ENCODER_COMPOSE_LAYERS layers,
+    the same f32 masters three ways: kernel and plain routes computing in
+    bf16, and an f32 plain model as the reference.  The kernel route's
+    gradients (all of them, as one vector) may be no farther from the f32
+    model's than COMPOSE_RATIO times the plain route's, and both losses
+    within 1e-2 of its."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.train.steps import (
+        TrainState,
+        make_classification_grad_fn,
+    )
+
+    bf = torch.bfloat16
+    variants = {"kernel": dict(impl="auto", dtype=bf),
+                "plain": dict(impl="plain", dtype=bf),
+                "f32": dict(impl="plain", dtype=torch.float32)}
+    overrides = dict(n_layers=ENCODER_COMPOSE_LAYERS)
+    if name == BERT_MODEL:
+        overrides["num_classes"] = BERT_CLASSES
+    state, grads, losses = None, {}, {}
+    for variant, kw in variants.items():
+        model = create_model(name, device=dev, **overrides, **kw)
+        if state is None:
+            with torch.no_grad():
+                model.reset_parameters(
+                    torch.Generator(device=dev).manual_seed(SEED))
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        g, m = make_classification_grad_fn(has_batch_stats=False)(
+            TrainState(model, None), batch)
+        grads[variant] = torch.cat([t.float().flatten() for t in g.values()])
+        losses[variant] = m["loss"].item()
+        del model, g
+        torch.cuda.empty_cache()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    e_k, e_p = rel(grads["kernel"], grads["f32"]), rel(grads["plain"],
+                                                       grads["f32"])
+    row = {"phase": f"{name.split('_')[0]}-compose", "model": name,
+           "n_layers": ENCODER_COMPOSE_LAYERS, "loss": losses,
+           "all_grads_rel_l2_kernel_vs_f32": e_k,
+           "all_grads_rel_l2_plain_vs_f32": e_p,
+           "ratio": e_k / e_p, "ratio_limit": COMPOSE_RATIO}
+    emit(row)
+    for v in ("kernel", "plain"):
+        if not math.isfinite(losses[v]) or abs(
+                losses[v] - losses["f32"]) > 1e-2 * abs(losses["f32"]):
+            raise AssertionError(f"{name} compose loss {losses}")
+    if not math.isfinite(e_k) or e_k / e_p > COMPOSE_RATIO:
+        raise AssertionError(f"{name} compose: kernel route {e_k} against "
+                             f"plain {e_p} from f32")
+
+
+def phase_vit(torch, dev):
+    """ViT-B/16 trained as the reference bench trains it (b64, bf16,
+    AdamW 3e-4) for ENCODER_STEPS steps and one eval forward with the
+    counts at 0 (exact launches), images/s, model TFLOP/s and MFU by the
+    bench's accounting, profiled steps, then the kernel route against
+    plain at 2 layers."""
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.train.steps import (
+        adamw,
+        make_classification_train_step,
+    )
+
+    state = classifier_state(torch, dev, VIT_MODEL,
+                             lambda p: adamw(p, 3e-4))
+    cfg = state.module.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    batch = (torch.randn(VIT_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3,
+                         generator=gen, device=dev),
+             torch.randint(0, cfg.num_classes, (VIT_BATCH,), generator=gen,
+                           device=dev, dtype=torch.int32))
+    step = make_classification_train_step(has_batch_stats=False)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    state, losses, accs, secs = timed_steps(torch, step, state, batch,
+                                            ENCODER_STEPS)
+    with torch.no_grad():
+        logits = state.module(batch[0], train=False)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_losses("vit", losses)
+    want = encoder_launches(cfg.n_layers, ENCODER_STEPS, forwards=1)
+    if counts != want:
+        raise AssertionError(f"vit launch counts {counts}, expected {want}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("vit eval logits not finite")
+    step_s = statistics.median(secs[1:])
+    fpi = vit_train_flops_per_image(cfg)
+    tflops = VIT_BATCH / step_s * fpi / 1e12
+    prof = profiled_steps(torch, step, state, batch, ENCODER_PROFILED,
+                          os.path.join(checkpoint_root(), "profile-vit"))
+    emit({"phase": "vit", "model": VIT_MODEL,
+          "batch": [VIT_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3],
+          "seq": cfg.num_patches + 1,
+          "parameters": sum(p.numel() for p in state.module.parameters()),
+          "losses": losses, "accuracy": accs, "step_seconds": secs,
+          "median_step_seconds_2_on": step_s,
+          "images_per_sec": VIT_BATCH / step_s,
+          "flops_per_image": fpi, "model_tflops_per_sec": tflops,
+          "mfu": tflops * 1e12 / PEAK_BF16_FLOPS,
+          "max_memory_allocated_bytes": peak, "launches": counts,
+          "launches_per_step": encoder_launches(cfg.n_layers, 1),
+          "profiled": prof})
+    del state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    encoder_compose(torch, dev, VIT_MODEL, batch)
+    return counts
+
+
+def phase_bert(torch, dev):
+    """BERT-base fine-tuning shape (b32 s128, 2 classes, AdamW 3e-4):
+    ENCODER_STEPS steps and one unmasked eval forward with the counts at
+    0 (exact launches); a padded ``attention_mask`` forward runs the plain
+    route (no launch); an all-ones mask agrees with no mask within K2's
+    tolerance; then the kernel route against plain at 2 layers."""
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.train.steps import (
+        adamw,
+        make_classification_train_step,
+    )
+
+    state = classifier_state(torch, dev, BERT_MODEL,
+                             lambda p: adamw(p, 3e-4),
+                             num_classes=BERT_CLASSES)
+    cfg, model = state.module.cfg, state.module
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    tokens = torch.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ),
+                           generator=gen, device=dev, dtype=torch.int32)
+    batch = (tokens, torch.randint(0, BERT_CLASSES, (BERT_BATCH,),
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32))
+    step = make_classification_train_step(has_batch_stats=False)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    state, losses, accs, secs = timed_steps(torch, step, state, batch,
+                                            ENCODER_STEPS)
+    with torch.no_grad():
+        free = model(tokens, train=False)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_losses("bert", losses)
+    want = encoder_launches(cfg.n_layers, ENCODER_STEPS, forwards=1)
+    if counts != want:
+        raise AssertionError(f"bert launch counts {counts}, expected {want}")
+    # Masked forwards: the plain route, no kernel launched.
+    lengths = torch.randint(BERT_SEQ // 4, BERT_SEQ + 1, (BERT_BATCH,),
+                            generator=gen, device=dev)
+    mask = (torch.arange(BERT_SEQ, device=dev)[None] < lengths[:, None])
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        padded = model(tokens, attention_mask=mask.int(), train=False)
+        ones = model(tokens, attention_mask=torch.ones_like(mask).int(),
+                     train=False)
+    masked_counts = kernels.launch_counts()
+    if any(masked_counts.values()):
+        raise AssertionError(f"masked bert launched {masked_counts}")
+    if not torch.isfinite(padded).all():
+        raise AssertionError("masked bert logits not finite")
+    err = check_rel_l2("bert all-ones mask against no mask", free, ones,
+                       KERNEL_TOL["flash_attention_fwd"])
+    step_s = statistics.median(secs[1:])
+    emit({"phase": "bert", "model": BERT_MODEL,
+          "batch": [BERT_BATCH, BERT_SEQ], "classes": BERT_CLASSES,
+          "parameters": sum(p.numel() for p in model.parameters()),
+          "losses": losses, "accuracy": accs, "step_seconds": secs,
+          "median_step_seconds_2_on": step_s,
+          "sequences_per_sec": BERT_BATCH / step_s,
+          "max_memory_allocated_bytes": peak, "launches": counts,
+          "launches_per_step": encoder_launches(cfg.n_layers, 1),
+          "masked_launches": masked_counts,
+          "ones_mask_vs_kernel": {"rel_l2": err[0], "tol_share": err[1],
+                                  "max_abs_err": err[2]},
+          "padded_rows": int((lengths < BERT_SEQ).sum().item())})
+    del state, model, free, padded, ones
+    gc.collect()
+    torch.cuda.empty_cache()
+    encoder_compose(torch, dev, BERT_MODEL, batch)
+    return counts
+
+
+def phase_image_cli(torch):
+    """``train.run --task image --model resnet50`` with ``--checkpoint-dir``
+    (counts at 0 around it: no port kernel on this path), then a run
+    stopped at IMAGE_CLI_STOP steps and resumed to IMAGE_CLI_STEPS in
+    another directory: the two final checkpoints (weights, batch stats,
+    momentum) within RESUME_TOL, under cuDNN's deterministic algorithms."""
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    root = os.path.join(checkpoint_root(), "image-cli")
+    shutil.rmtree(root, ignore_errors=True)
+    unbroken, broken = os.path.join(root, "unbroken"), os.path.join(
+        root, "broken")
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        steps_a, done = run_trainer(IMAGE_CLI_ARGS + [
+            "--steps", str(IMAGE_CLI_STEPS), "--checkpoint-dir", unbroken])
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        steps_b, _ = run_trainer(IMAGE_CLI_ARGS + [
+            "--steps", str(IMAGE_CLI_STOP), "--checkpoint-dir", broken])
+        steps_c, _ = run_trainer(IMAGE_CLI_ARGS + [
+            "--steps", str(IMAGE_CLI_STEPS), "--checkpoint-dir", broken])
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    if any(counts.values()):
+        raise AssertionError(f"image CLI launched port kernels: {counts}")
+    if [s["step"] for s in steps_a] != list(range(1, IMAGE_CLI_STEPS + 1)) \
+            or [s["step"] for s in steps_c] != list(
+                range(IMAGE_CLI_STOP + 1, IMAGE_CLI_STEPS + 1)):
+        raise AssertionError(f"image CLI steps {steps_a} / {steps_c}")
+    check_losses("image CLI", [s["loss"] for s in steps_a + steps_b
+                               + steps_c])
+    load = lambda d, f: torch.load(
+        os.path.join(d, str(IMAGE_CLI_STEPS), f), map_location="cpu",
+        weights_only=True)
+    pa, pb = load(unbroken, "params.pt"), load(broken, "params.pt")
+    oa, ob = load(unbroken, "optimizer.pt"), load(broken, "optimizer.pt")
+    stats = sorted(k for k in pa if k.endswith((".mean", ".var")))
+    weights = sorted(k for k in pa if k not in stats)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    cat = lambda d, keys: torch.cat([d[k].float().flatten() for k in keys])
+    moms = sorted(oa["state"])
+    mom = lambda o: torch.cat([o["state"][k]["momentum_buffer"].flatten()
+                               for k in moms])
+    diffs = {"weights": rel(cat(pb, weights), cat(pa, weights)),
+             "momentum": rel(mom(ob), mom(oa)),
+             "worst_stat": max(rel(pb[k], pa[k]) for k in stats)}
+    bit_equal = all(torch.equal(pa[k], pb[k]) for k in pa)
+    emit({"phase": "image-cli", "args": IMAGE_CLI_ARGS,
+          "steps": IMAGE_CLI_STEPS, "stop_at": IMAGE_CLI_STOP,
+          "unbroken_losses": [s["loss"] for s in steps_a],
+          "resumed_losses": [s["loss"] for s in steps_b + steps_c],
+          "step_seconds": [s["step_seconds"] for s in steps_a],
+          "wall_seconds": wall, "batch_stat_tensors": len(stats),
+          "rel_l2": diffs, "tol": RESUME_TOL, "bit_equal": bit_equal,
+          "launches": counts, "done": done})
+    if set(pa) != set(pb) or not stats or max(diffs.values()) > RESUME_TOL:
+        raise AssertionError(f"image CLI resume differs: {diffs}")
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 SOURCES = {
     "rms_norm": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
                  "kubeflow_tpu/ops/pallas/rms_norm.py:53"),
@@ -3340,6 +3892,7 @@ def main() -> int:
     rows = phase_kernels(torch, dev, timer)
     phase_edges(torch, dev)
     rows.update(phase_train_kernels(torch, dev, timer))
+    phase_encoder_kernels(torch, dev, timer)
     phase_train_edges(torch, dev)
     del timer
     torch.cuda.empty_cache()
@@ -3363,6 +3916,14 @@ def main() -> int:
     phase_train_variants(torch, dev)
     train_counts = phase_train(torch)
     phase_checkpoint(torch, dev)
+    vit_counts = phase_vit(torch, dev)
+    bert_counts = phase_bert(torch, dev)
+    resnet_counts, state, step, batch = phase_resnet(torch, dev)
+    phase_slow_step(torch, state, step, batch)
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_image_cli(torch)
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1],
@@ -3374,7 +3935,10 @@ def main() -> int:
                              "int8": int8_counts[name],
                              "moe": moe_counts[name],
                              "moe_train": moe_train_counts[name],
-                             "train": train_counts[name]},
+                             "train": train_counts[name],
+                             "resnet": resnet_counts[name],
+                             "vit": vit_counts[name],
+                             "bert": bert_counts[name]},
         "shape": rows[name]["shape"], "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["kernel_ms"], "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"],

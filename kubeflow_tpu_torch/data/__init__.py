@@ -1,7 +1,9 @@
-"""Host-side data for the port's trainer: synthetic token streams, the
-sequence packer, and a loader that moves each batch onto the device."""
+"""Host-side data for the port's trainer: synthetic token and image
+streams, the sequence packer, and a loader that moves each batch onto the
+device."""
 from kubeflow_tpu_torch.data.loader import (  # noqa: F401
     DeviceLoader,
+    synthetic_image_batches,
     synthetic_lm_batches,
     synthetic_lm_documents,
 )

@@ -1,4 +1,5 @@
-"""Synthetic LM data and a loader that moves each batch to the device.
+"""Synthetic LM and image data and a loader that moves each batch to the
+device.
 
 The port's copy of ``kubeflow_tpu/data/loader.py`` for one process: the
 synthetic streams draw the same numpy numbers as the reference's for the
@@ -42,6 +43,26 @@ def synthetic_lm_documents(*, vocab_size: int, seed: int = 0,
     while docs is None or i < docs:
         n = int(rng.integers(min_len, max_len + 1))
         yield rng.integers(1, vocab_size, n, dtype=np.int32)
+        i += 1
+
+
+def synthetic_image_batches(*, global_batch: int, image_size: int = 224,
+                            num_classes: int = 1000, channels: int = 3,
+                            seed: int = 0, steps: Optional[int] = None,
+                            start: int = 0):
+    """Random ``(images [b, H, W, C] f32 NHWC, labels [b] int32)`` batches,
+    standard-normal pixels.  Step-indexed like ``synthetic_lm_batches``
+    (``start`` and ``steps`` are absolute step indices), so a resumed run
+    replays the stream."""
+    i = start
+    while steps is None or i < steps:
+        rng = np.random.default_rng((seed, PROCESS_INDEX, i))
+        images = rng.standard_normal(
+            (global_batch, image_size, image_size, channels)).astype(
+                np.float32)
+        labels = rng.integers(0, num_classes, (global_batch,),
+                              dtype=np.int32)
+        yield images, labels
         i += 1
 
 

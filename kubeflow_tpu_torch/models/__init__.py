@@ -1,4 +1,5 @@
-"""Model zoo of the port (dense Llama so far) and its serving stack."""
+"""Model zoo of the port (Llama and Mixtral, ResNet, ViT, BERT) and its
+serving stack."""
 from kubeflow_tpu_torch.models.registry import (  # noqa: F401
     create_model,
     register_model,

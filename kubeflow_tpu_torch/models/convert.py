@@ -1,4 +1,4 @@
-"""Carry the JAX package's Llama parameters into the port's modules.
+"""Carry the JAX package's parameters into the port's modules.
 
 ``params_from_jax`` takes the reference's flax param tree as nested dicts
 of numpy arrays (the caller fetches it from JAX, e.g. with
@@ -8,6 +8,9 @@ the reference's blocks: unrolled (``layer_i``, one subtree a layer) or
 stacked (``layers_scan/block``, every leaf with a leading layer axis, the
 tree of ``scan_layers=True``), whose layer axis it unstacks into the
 port's per-layer modules.
+
+``state_from_flax`` does the same for ResNet (``params`` and
+``batch_stats``), ViT and BERT, from the flax variable tree.
 """
 from __future__ import annotations
 
@@ -162,3 +165,69 @@ def params_from_jax(tree: Mapping, cfg,
             _convert(path, arr).astype(np.float32)))
         state[_target(path)] = t.to(dtype)
     return state
+
+
+# -- ResNet, ViT, BERT ------------------------------------------------------
+
+_BLOCK_PREFIXES = ("BottleneckBlock_", "BasicBlock_", "block_", "layer_")
+
+
+def _flax_key(path: str) -> str:
+    """A flax variable path of ResNet, ViT or BERT -> the port's state-dict
+    key: ``BottleneckBlock_i``/``BasicBlock_i``/``block_i`` -> ``blocks.i``,
+    ``layer_i`` -> ``layers.i``, a block's ``Conv_j``/``BatchNorm_j`` ->
+    ``convs.j``/``norms.j``, ``kernel`` -> ``weight``."""
+    out = []
+    for part in path.split("/"):
+        for prefix in _BLOCK_PREFIXES:
+            if part.startswith(prefix) and part[len(prefix):].isdigit():
+                group = "layers" if prefix == "layer_" else "blocks"
+                part = f"{group}.{part[len(prefix):]}"
+                break
+        else:
+            if part.startswith("Conv_"):
+                part = f"convs.{part[len('Conv_'):]}"
+            elif part.startswith("BatchNorm_"):
+                part = f"norms.{part[len('BatchNorm_'):]}"
+            elif part == "kernel":
+                part = "weight"
+        out.append(part)
+    return ".".join(out)
+
+
+def _flax_array(path: str, arr: np.ndarray) -> np.ndarray:
+    """Reference layout -> torch layout: conv kernels HWIO -> OIHW, dense
+    kernels transposed (``_convert``), everything else as it is."""
+    if path.endswith("/kernel") and arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    return _convert(path, arr)
+
+
+def state_from_flax(variables: Mapping, module) -> Dict[str, torch.Tensor]:
+    """State dict for ``module`` (a port ResNet, ViT or Bert) from the
+    reference's variable tree as nested dicts of numpy arrays:
+    ``{"params": ..., "batch_stats": ...}`` (ResNet's running stats go to
+    the norms' ``mean``/``var`` buffers).  Every tensor is f32, on the
+    module's device.  Raises ``KeyError`` on a missing or extra leaf and
+    ``ValueError`` on a shape mismatch."""
+    own = module.state_dict()
+    state = {}
+    for collection in ("params", "batch_stats"):
+        for path, arr in _flatten(variables.get(collection, {})).items():
+            key = _flax_key(path)
+            if key in state:
+                raise KeyError(f"two leaves map to {key}")
+            state[key] = _flax_array(path, arr)
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"variable tree mismatch: missing {missing}, "
+                       f"extra {extra}")
+    out = {}
+    for key, arr in state.items():
+        if tuple(arr.shape) != tuple(own[key].shape):
+            raise ValueError(f"{key}: shape {tuple(arr.shape)}, expected "
+                             f"{tuple(own[key].shape)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(
+            arr.astype(np.float32))).to(own[key].device)
+    return out

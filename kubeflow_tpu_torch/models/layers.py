@@ -47,17 +47,19 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 
 class Linear(nn.Module):
-    """Bias-free ``y = x @ W.T`` with W [out, in] (``nn.Linear``'s layout,
+    """``y = x @ W.T`` with W [out, in] (``nn.Linear``'s layout,
     uninitialised at construction), computed in ``dtype`` from W stored in
     ``param_dtype``, or, once quantized (``models/quantize.py``), from the
     int8 buffer ``qweight`` and its f32 ``scale``, dequantized at each
     call (``weight`` is then None).  ``out_block`` > 0 marks an output
     axis that the reference splits as (out / out_block, out_block), q/k/v
-    by heads: its scales are then one per out_block index, not per row."""
+    by heads: its scales are then one per out_block index, not per row.
+    With ``bias`` it is flax's ``nn.Dense`` with a bias (zeros at init),
+    added in the compute dtype; without, the bias-free ``DenseGeneral``."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  dtype: torch.dtype, param_dtype: Optional[torch.dtype] = None,
-                 out_block: int = 0, device=None):
+                 out_block: int = 0, bias: bool = False, device=None):
         super().__init__()
         self.in_features = in_features
         self.dtype = dtype
@@ -65,10 +67,16 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.empty(
             out_features, in_features, dtype=param_dtype or dtype,
             device=device), requires_grad=False)
+        self.bias = (nn.Parameter(torch.empty(
+            out_features, dtype=param_dtype or dtype, device=device),
+            requires_grad=False) if bias else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         if self.weight is not None:
             lecun_normal_(self.weight, self.in_features, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def _blocks(self, w: torch.Tensor) -> torch.Tensor:
         """W [out, in] as the reference splits its output axis."""
@@ -97,7 +105,8 @@ class Linear(nn.Module):
         return w.view(self.qweight.shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.dense_weight())
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.dense_weight(), bias)
 
 
 class Embed(nn.Module):
@@ -440,3 +449,240 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+# -- Encoder and convolution blocks (ViT, BERT, ResNet) ------------------------
+
+
+class Mlp(nn.Module):
+    """The classic GELU MLP of ViT and BERT (``kubeflow_tpu/models/layers.py``
+    ``Mlp``): biased ``fc1``, flax's ``nn.gelu`` (the tanh approximation),
+    biased ``fc2``."""
+
+    def __init__(self, dim: int, hidden_dim: int, *, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        lin = lambda i, o: Linear(i, o, dtype=dtype, param_dtype=param_dtype,
+                                  bias=True, device=device)
+        self.fc1 = lin(dim, hidden_dim)
+        self.fc2 = lin(hidden_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: statistics over the last axis in f32, epsilon
+    1e-6 (torch's default is 1e-5), f32 ``scale`` (ones) and ``bias``
+    (zeros), the output in the compute dtype."""
+
+    eps = 1e-6
+
+    def __init__(self, dim: int, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(
+            torch.empty(dim, dtype=torch.float32, device=device),
+            requires_grad=False)
+        self.bias = nn.Parameter(
+            torch.empty(dim, dtype=torch.float32, device=device),
+            requires_grad=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.scale.shape, self.scale,
+                            self.bias, self.eps).to(self.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate), the draws from ``generator``
+    (JAX's random bits cannot be reproduced, only their statistics)."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(f"dropout rate {rate} in training needs a "
+                         "torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class EncoderAttention(nn.Module):
+    """Bidirectional multi-head self-attention of the encoders: the
+    reference's ``Attention`` with ``rope=False``, ``causal=False``, as many
+    kv heads as q heads and no cache (``kubeflow_tpu/models/layers.py``
+    ``:101-120``).  q/k/v/o are bias-free.  A call with ``mask_bias``
+    (BERT's key padding, [b, 1, 1, s]) runs the plain attention: the flash
+    kernel takes no additive bias, as the reference names ``"xla"`` for
+    its biased calls."""
+
+    def __init__(self, dim: int, num_heads: int, *, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None,
+                 softmax_scale: Optional[float] = None, impl: str = "auto",
+                 device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.softmax_scale = softmax_scale
+        self.impl = impl
+        inner = num_heads * self.head_dim
+        lin = lambda i, o, block=0: Linear(
+            i, o, dtype=dtype, param_dtype=param_dtype, out_block=block,
+            device=device)
+        self.q_proj = lin(dim, inner, self.head_dim)
+        self.k_proj = lin(dim, inner, self.head_dim)
+        self.v_proj = lin(dim, inner, self.head_dim)
+        self.o_proj = lin(inner, dim)
+
+    def forward(self, x: torch.Tensor, *,
+                mask_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, s, _ = x.shape
+        shape = (b, s, self.num_heads, self.head_dim)
+        q = self.q_proj(x).view(shape)
+        k = self.k_proj(x).view(shape)
+        v = self.v_proj(x).view(shape)
+        out = ops.dot_product_attention(
+            q, k, v, bias=mask_bias, softmax_scale=self.softmax_scale,
+            impl=self.impl if mask_bias is None else "plain")
+        return self.o_proj(out.reshape(b, s, -1))
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple:
+    """XLA's "SAME" padding of one spatial axis, (low, high): the total
+    max((ceil(size / stride) - 1) * stride + kernel - size, 0), the odd
+    one on the high side.  A 3x3 stride-2 window on 56 pixels pads (0, 1),
+    where torch's ``padding=1`` pads (1, 1) and shifts every window."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_memory_format(t: torch.Tensor) -> torch.memory_format:
+    """The memory layout of NCHW activations and OIHW weights: channels
+    last on the card, where cuDNN runs its NHWC convolutions; contiguous
+    on the CPU, where torch's channels-last backward of a strided 1x1
+    convolution corrupts the heap (torch 2.13)."""
+    return (torch.channels_last if t.device.type == "cuda"
+            else torch.contiguous_format)
+
+
+def _pad_nchw(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
+    (hl, hh), (wl, wh) = pads
+    return F.pad(x, (wl, wh, hl, hh), value=value)
+
+
+def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """flax ``nn.max_pool(x, (window, window), (stride, stride), "SAME")``
+    on NCHW: padded with -inf by ``same_pads``, then pooled unpadded."""
+    pads = [same_pads(n, window, stride) for n in x.shape[2:]]
+    if any(lo or hi for lo, hi in pads):
+        x = _pad_nchw(x, pads, float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+class Conv2d(nn.Module):
+    """flax ``nn.Conv`` over NCHW activations (``conv_memory_format``):
+    weight OIHW f32 (flax keeps HWIO; ``models/convert.py`` transposes),
+    ``lecun_normal`` at init, the optional bias zeros, computed in
+    ``dtype``.  ``padding`` is "SAME" (asymmetric as XLA pads it,
+    ``same_pads``), "VALID", or ((top, bottom), (left, right))."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 *, padding="SAME", bias: bool = False, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.kernel = kernel
+        self.stride = stride
+        self.padding = padding
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            out_ch, in_ch, kernel, kernel, dtype=torch.float32,
+            device=device), requires_grad=False)
+        self.bias = (nn.Parameter(torch.empty(
+            out_ch, dtype=torch.float32, device=device), requires_grad=False)
+            if bias else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def _pads(self, x: torch.Tensor):
+        if self.padding == "SAME":
+            return [same_pads(n, self.kernel, self.stride)
+                    for n in x.shape[2:]]
+        if self.padding == "VALID":
+            return [(0, 0), (0, 0)]
+        return [tuple(p) for p in self.padding]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        pads = self._pads(x)
+        if all(lo == hi for lo, hi in pads):
+            padding = tuple(lo for lo, _ in pads)
+        else:
+            x = _pad_nchw(x, pads)
+            padding = 0
+        w = self.weight.to(self.dtype, memory_format=conv_memory_format(x))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x, w, bias, self.stride, padding)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the channels of NCHW activations, as the
+    reference's ResNet builds it (``momentum=0.9``, ``epsilon=1e-5``): f32
+    ``scale`` (ones, or zeros with ``zero_scale``) and ``bias``, f32 running
+    ``mean`` (zeros) and ``var`` (ones) as buffers.  Training normalises by
+    the batch's mean and biased variance and moves the running stats to
+    0.9 * running + 0.1 * batch, the variance the biased one: the batch
+    statistics come from ``F.batch_norm`` writing into fresh buffers at
+    momentum 1, whose variance (the unbiased one) is scaled by (n - 1) / n.
+    Eval normalises by the running stats.  The output is in the compute
+    dtype."""
+
+    momentum = 0.9
+    eps = 1e-5
+
+    def __init__(self, channels: int, *, dtype: torch.dtype,
+                 zero_scale: bool = False, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.zero_scale = zero_scale
+        f32 = dict(dtype=torch.float32, device=device)
+        self.scale = nn.Parameter(torch.empty(channels, **f32),
+                                  requires_grad=False)
+        self.bias = nn.Parameter(torch.empty(channels, **f32),
+                                 requires_grad=False)
+        self.register_buffer("mean", torch.zeros(channels, **f32))
+        self.register_buffer("var", torch.ones(channels, **f32))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        with torch.no_grad():
+            self.scale.fill_(0.0 if self.zero_scale else 1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if not train:
+            return F.batch_norm(x, self.mean, self.var, self.scale,
+                                self.bias, False, 0.0, self.eps)
+        mean = torch.zeros_like(self.mean)
+        var = torch.ones_like(self.var)
+        y = F.batch_norm(x, mean, var, self.scale, self.bias, True, 1.0,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        with torch.no_grad():
+            self.mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
+        return y

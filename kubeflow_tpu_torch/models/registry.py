@@ -24,7 +24,12 @@ def create_model(name: str, *, device="cuda", **overrides) -> Any:
     """Build a registered model on ``device`` (default the card; raises
     without one) with config ``overrides``.  Its parameters are
     uninitialised: call ``reset_parameters`` or ``load_state_dict``."""
-    from kubeflow_tpu_torch.models import llama  # noqa: F401  (registers)
+    from kubeflow_tpu_torch.models import (  # noqa: F401  (registers)
+        bert,
+        llama,
+        resnet,
+        vit,
+    )
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")

@@ -1,1 +1,2 @@
-"""Serving telemetry of the port: stdlib-only metrics and request traces."""
+"""Telemetry of the port, standard library only: metrics, span traces, and
+the serving and training series."""

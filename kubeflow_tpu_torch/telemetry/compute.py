@@ -1,5 +1,7 @@
 """Train-step telemetry of the port: model FLOPs accounting, MFU against
-the H100's peak, and the step histogram and throughput gauges.
+the H100's peak, the step histogram and throughput gauges, and the step
+traces (data -> dispatch -> bookkeeping spans) with the slow-step
+threshold and counter.
 
 The port's copy of the accounting in ``kubeflow_tpu/telemetry/compute.py``
 (``lm_train_flops_per_token``, the same formula, so MFU reads the same
@@ -12,17 +14,33 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+from kubeflow_tpu_torch import config
 from kubeflow_tpu_torch.telemetry.metrics import (
     Counter,
     Gauge,
     Histogram,
     Registry,
 )
+from kubeflow_tpu_torch.telemetry.trace import Tracer
 
 # NVIDIA H100 SXM, dense bf16 on the tensor cores (no sparsity).
 H100_SXM_BF16_PEAK_TFS = 989.0
 
 registry = Registry()
+
+# A step whose data + dispatch wall time reaches this dumps its span tree
+# as one JSON log line (kubeflow_tpu_torch.train.trace logger) and counts
+# in train_slow_steps_total.  Env-tunable; tests set the attribute.
+TRAIN_SLOW_STEP_SECONDS = config.env_float("TRAIN_SLOW_STEP_SECONDS", 10.0)
+# Step tracing is on unless TRAIN_TRACE_DISABLE is set: a span costs
+# microseconds against steps of milliseconds to seconds.
+STEP_TRACE_ENABLED = not config.env_bool("TRAIN_TRACE_DISABLE", False)
+
+# One trace a step (data -> dispatch -> bookkeeping spans).
+train_tracer = Tracer(
+    "train", buffer_size=config.env_int("TRAIN_TRACE_BUFFER_SIZE", 64),
+    logger="kubeflow_tpu_torch.train.trace",
+    slow_message="slow train step trace")
 
 _STEP_BUCKETS = (0.001, 0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                  10.0, 30.0, 60.0, 180.0, 600.0)
@@ -34,6 +52,11 @@ train_step_seconds = Histogram(
     "state)", ["phase"], registry=registry, buckets=_STEP_BUCKETS)
 train_steps_total = Counter(
     "train_steps_total", "Optimizer steps executed", registry=registry)
+train_slow_steps_total = Counter(
+    "train_slow_steps_total",
+    "Steps that crossed TRAIN_SLOW_STEP_SECONDS (their span tree was "
+    "dumped; see the kubeflow_tpu_torch.train.trace logger)",
+    registry=registry)
 train_tokens_per_sec = Gauge(
     "train_tokens_per_sec",
     "Training throughput over the last completed log window",

@@ -23,18 +23,13 @@ counted too.
 """
 from __future__ import annotations
 
-import collections
 import itertools
-import json
-import logging
-import os
-import threading
-import time
-from contextlib import contextmanager, nullcontext
+from contextlib import nullcontext
 from typing import Dict, List, Optional
 
 from kubeflow_tpu_torch import config
 from kubeflow_tpu_torch.telemetry.metrics import Counter, Gauge, Histogram
+from kubeflow_tpu_torch.telemetry.trace import Tracer
 
 # Requests at or above this wall time dump their span tree as one JSON log
 # line (kubeflow_tpu_torch.serve.trace logger).
@@ -44,107 +39,6 @@ _LATENCY_BUCKETS = (0.01, 0.05, 0.2, 1.0, 5.0, 20.0, 60.0, 180.0)
 _TOKEN_BUCKETS = (0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0)
 
 _request_ids = itertools.count(1)
-_trace_prefix = os.urandom(8).hex()
-_trace_ids = itertools.count(1)
-
-
-class Span:
-    __slots__ = ("name", "offset_s", "duration_s", "attrs")
-
-    def __init__(self, name: str, offset_s: float, attrs: Dict):
-        self.name = name
-        self.offset_s = offset_s
-        self.duration_s = 0.0
-        self.attrs = attrs
-
-    def to_dict(self) -> dict:
-        d = {"name": self.name,
-             "offset_ms": round(self.offset_s * 1e3, 3),
-             "duration_ms": round(self.duration_s * 1e3, 3)}
-        d.update(self.attrs)
-        return d
-
-
-class Trace:
-    def __init__(self, component: str, name: str):
-        self.trace_id = f"{_trace_prefix}{next(_trace_ids):016x}"
-        self.component = component
-        self.name = name
-        self.start_ts = time.time()
-        self.t0 = time.perf_counter()
-        self.spans: List[Span] = []
-        self.result = ""
-
-    def to_dict(self) -> dict:
-        return {
-            "trace_id": self.trace_id,
-            "component": self.component,
-            "request": self.name,
-            "start_ts": round(self.start_ts, 3),
-            "duration_ms": round((time.perf_counter() - self.t0) * 1e3, 3),
-            "result": self.result,
-            "spans": [s.to_dict() for s in self.spans],
-        }
-
-
-class Tracer:
-    """Thread-carried request traces with a bounded ring buffer of the
-    finished ones; traces slower than a threshold are logged as one JSON
-    line."""
-
-    def __init__(self, component: str, *, buffer_size: int = 64,
-                 logger: str = "kubeflow_tpu_torch.serve.trace"):
-        self.component = component
-        self.log = logging.getLogger(logger)
-        self._local = threading.local()
-        self._lock = threading.Lock()
-        self._recent: collections.deque = collections.deque(
-            maxlen=buffer_size)
-
-    def begin(self, name: str) -> Trace:
-        tr = Trace(self.component, name)
-        self._local.trace = tr
-        return tr
-
-    @contextmanager
-    def span(self, name: str, **attrs):
-        tr = getattr(self._local, "trace", None)
-        if tr is None:
-            yield None
-            return
-        t0 = time.perf_counter()
-        sp = Span(name, t0 - tr.t0, attrs)
-        try:
-            yield sp
-        finally:
-            sp.duration_s = time.perf_counter() - t0
-            tr.spans.append(sp)
-
-    def finish(self, result: str, *,
-               slow_seconds: Optional[float] = None) -> Optional[dict]:
-        tr = getattr(self._local, "trace", None)
-        if tr is None:
-            return None
-        self._local.trace = None
-        tr.result = result
-        d = tr.to_dict()
-        with self._lock:
-            self._recent.append(d)
-        if slow_seconds is not None and d["duration_ms"] >= slow_seconds * 1e3:
-            self.log.warning("slow serve request trace: %s",
-                             json.dumps(d, sort_keys=True))
-        return d
-
-    def recent(self, n: Optional[int] = None) -> List[dict]:
-        """Finished traces, newest last; ``n`` keeps the newest n (n <= 0
-        returns nothing)."""
-        with self._lock:
-            out = list(self._recent)
-        if n is None:
-            return out
-        return out[-n:] if n > 0 else []
-
-
 class ServeTelemetry:
     """Instruments + tracer for one serving app, registered in the app's
     own registry.  Safe to call from concurrent request threads."""
@@ -153,7 +47,9 @@ class ServeTelemetry:
         self.component = component
         self.tracer = Tracer(
             component,
-            buffer_size=config.env_int("SERVE_TRACE_BUFFER_SIZE", 64))
+            buffer_size=config.env_int("SERVE_TRACE_BUFFER_SIZE", 64),
+            logger="kubeflow_tpu_torch.serve.trace",
+            slow_message="slow serve request trace")
         self.queue_depth = Gauge(
             "serve_queue_depth",
             "Prompt rows pending in the continuous-batching scheduler "

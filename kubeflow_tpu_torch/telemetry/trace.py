@@ -1,0 +1,123 @@
+"""Span traces, standard library only, shared by the serving app's
+request traces (``telemetry/serve.py``) and the training loop's step
+traces (``telemetry/compute.py``): the active trace rides a thread-local,
+so spans opened anywhere below attach without a context argument;
+finished traces land in a bounded ring buffer (``/debug/traces`` serves a
+service's); a trace slower than the caller's threshold is logged as one
+JSON line.  The port's copy of ``kubeflow_tpu/telemetry/trace.py``.
+"""
+from __future__ import annotations
+
+import collections
+import itertools
+import json
+import logging
+import os
+import threading
+import time
+from contextlib import contextmanager
+from typing import Dict, List, Optional
+
+_trace_prefix = os.urandom(8).hex()
+_trace_ids = itertools.count(1)
+
+
+class Span:
+    __slots__ = ("name", "offset_s", "duration_s", "attrs")
+
+    def __init__(self, name: str, offset_s: float, attrs: Dict):
+        self.name = name
+        self.offset_s = offset_s
+        self.duration_s = 0.0
+        self.attrs = attrs
+
+    def to_dict(self) -> dict:
+        d = {"name": self.name,
+             "offset_ms": round(self.offset_s * 1e3, 3),
+             "duration_ms": round(self.duration_s * 1e3, 3)}
+        d.update(self.attrs)
+        return d
+
+
+class Trace:
+    def __init__(self, component: str, name: str):
+        self.trace_id = f"{_trace_prefix}{next(_trace_ids):016x}"
+        self.component = component
+        self.name = name
+        self.start_ts = time.time()
+        self.t0 = time.perf_counter()
+        self.spans: List[Span] = []
+        self.result = ""
+
+    def to_dict(self) -> dict:
+        return {
+            "trace_id": self.trace_id,
+            "component": self.component,
+            "request": self.name,
+            "start_ts": round(self.start_ts, 3),
+            "duration_ms": round((time.perf_counter() - self.t0) * 1e3, 3),
+            "result": self.result,
+            "spans": [s.to_dict() for s in self.spans],
+        }
+
+
+class Tracer:
+    """Thread-carried traces with a bounded ring buffer of the finished
+    ones; traces slower than a threshold are logged as one JSON line,
+    ``slow_message: {...}``."""
+
+    def __init__(self, component: str, *, buffer_size: int = 64,
+                 logger: str = "kubeflow_tpu_torch.trace",
+                 slow_message: str = "slow trace"):
+        self.component = component
+        self.slow_message = slow_message
+        self.log = logging.getLogger(logger)
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._recent: collections.deque = collections.deque(
+            maxlen=buffer_size)
+
+    def begin(self, name: str, *, enabled: bool = True) -> Optional[Trace]:
+        """Start a trace on this thread, dropping any stale one (None when
+        not ``enabled``: spans are then no-ops)."""
+        tr = Trace(self.component, name) if enabled else None
+        self._local.trace = tr
+        return tr
+
+    @contextmanager
+    def span(self, name: str, **attrs):
+        tr = getattr(self._local, "trace", None)
+        if tr is None:
+            yield None
+            return
+        t0 = time.perf_counter()
+        sp = Span(name, t0 - tr.t0, attrs)
+        try:
+            yield sp
+        finally:
+            sp.duration_s = time.perf_counter() - t0
+            tr.spans.append(sp)
+
+    def finish(self, result: str, *,
+               slow_seconds: Optional[float] = None) -> Optional[dict]:
+        tr = getattr(self._local, "trace", None)
+        if tr is None:
+            return None
+        self._local.trace = None
+        tr.result = result
+        d = tr.to_dict()
+        with self._lock:
+            self._recent.append(d)
+        if slow_seconds is not None and d["duration_ms"] >= slow_seconds * 1e3:
+            self.log.warning("%s: %s", self.slow_message,
+                             json.dumps(d, sort_keys=True))
+        return d
+
+    def recent(self, n: Optional[int] = None) -> List[dict]:
+        """Finished traces, newest last; ``n`` keeps the newest n (n <= 0
+        returns nothing)."""
+        with self._lock:
+            out = list(self._recent)
+        if n is None:
+            return out
+        return out[-n:] if n > 0 else []

@@ -11,7 +11,8 @@ Counterpart of ``kubeflow_tpu/train/checkpoint.py`` (Orbax there).
 
 One directory per step::
 
-    <directory>/<step>/params.pt     parameter name -> tensor
+    <directory>/<step>/params.pt     state-dict key -> tensor (parameters,
+                                     and buffers: a ResNet's batch stats)
     <directory>/<step>/optimizer.pt  optimizer state keyed by parameter name
     <directory>/<step>/meta.json     {"step": ..., "format": 1}
 
@@ -290,10 +291,11 @@ class CheckpointManager:
 
     def restore(self, template, *, step: Optional[int] = None):
         """Load ``step`` (default the latest) into ``template``, a
-        ``TrainState``: its module's parameters, its optimizer's state and
-        its step count, each tensor on the template's device and in its
-        dtype.  Returns the template, or None when there is no
-        checkpoint."""
+        ``TrainState``: its module's parameters and buffers (the batch
+        stats the reference's ``TrainState.batch_stats`` carries), its
+        optimizer's state and its step count, each tensor on the
+        template's device and in its dtype.  Returns the template, or
+        None when there is no checkpoint."""
         step = self._resolve(step)
         if step is None:
             return None

@@ -1,20 +1,25 @@
-"""Trainer CLI of the port: build a model, train it on synthetic tokens.
+"""Trainer CLI of the port: build a model, train it on synthetic data.
 
     python -m kubeflow_tpu_torch.train.run --model llama_1b4 --task lm \\
         --steps 6 --batch 1 --seq 8192 --grad-dtype bf16 --log-every 1
+    python -m kubeflow_tpu_torch.train.run --task image --model resnet50 \\
+        --batch 256 --image-size 224 --steps 6 --log-every 1
 
-The counterpart of the reference trainer (``kubeflow_tpu/train/run.py``,
-``--task lm``) on one device: f32 master weights drawn from ``--seed`` on
-the device, AdamW as ``optax.adamw``, the LM step of ``train/steps.py``
-(attention and RMSNorm on the port's CUDA kernels), the loop of
-``train/loop.py``.  Runs on the
-card unless ``--device cpu`` is given; without a card it stops with an
-error.  ``--checkpoint-dir`` (default ``$KFT_CHECKPOINT_DIR``) resumes
+The counterpart of the reference trainer (``kubeflow_tpu/train/run.py``)
+on one device, f32 master weights drawn from ``--seed`` on the device and
+the loop of ``train/loop.py``.  ``--task lm``: AdamW as ``optax.adamw``
+and the LM step of ``train/steps.py`` (attention and RMSNorm on the
+port's CUDA kernels).  ``--task image``: a classifier (``resnet*``, whose
+batch stats train with it, or ``vit_*``, attention on the kernels) on
+synthetic NHWC images of ``--image-size`` and ``--num-classes`` labels,
+SGD as ``optax.sgd(lr, momentum=0.9)``, the classification step.  Runs on
+the card unless ``--device cpu`` is given; without a card it stops with
+an error.  ``--checkpoint-dir`` (default ``$KFT_CHECKPOINT_DIR``) resumes
 from the latest step there, saves every ``--checkpoint-every`` steps and
-on SIGTERM; serve what it wrote with ``python -m
-kubeflow_tpu_torch.models.serve --checkpoint-dir``.  ``--task image``, a
-``--mesh`` other than ``auto`` and ``--distributed`` are not yet ported
-and stop with an error.
+on SIGTERM; serve an LM it wrote with ``python -m
+kubeflow_tpu_torch.models.serve --checkpoint-dir``.  A ``--mesh`` other
+than ``auto`` and ``--distributed`` are not yet ported and stop with an
+error.
 """
 from __future__ import annotations
 
@@ -99,25 +104,72 @@ def build_lm(args, device: torch.device):
     return state, step, batches
 
 
+def build_image(args, device: torch.device):
+    """``(state, step, batches)`` for the image task on ``device``: the
+    classifier with ``--num-classes`` outputs (a ViT's position table sized
+    for ``--image-size``), SGD with momentum 0.9, the classification step
+    (through the batch-stats path when the model has them, and per
+    microbatch with ``--grad-accum``)."""
+    from kubeflow_tpu_torch.data.loader import (
+        DeviceLoader,
+        synthetic_image_batches,
+    )
+    from kubeflow_tpu_torch.models import create_model, vit
+    from kubeflow_tpu_torch.train.steps import (
+        TrainState,
+        make_classification_grad_fn,
+        make_classification_train_step,
+        make_grad_accum_step,
+        sgd,
+    )
+
+    overrides = {"num_classes": args.num_classes}
+    if args.model in vit.CONFIGS:
+        overrides["image_size"] = args.image_size
+    model = create_model(args.model, device=device, **overrides)
+    with torch.no_grad():
+        model.reset_parameters(
+            torch.Generator(device=device).manual_seed(args.seed))
+    model.requires_grad_(True)
+    state = TrainState(model, sgd(model.parameters(), args.lr,
+                                  momentum=0.9))
+    has_stats = bool(state.batch_stats)
+    if args.grad_accum > 1:
+        step = make_grad_accum_step(
+            make_classification_grad_fn(has_batch_stats=has_stats),
+            args.grad_accum, has_batch_stats=has_stats)
+    else:
+        step = make_classification_train_step(has_batch_stats=has_stats)
+
+    def batches(start_step=0):
+        return DeviceLoader(synthetic_image_batches(
+            global_batch=args.batch, image_size=args.image_size,
+            num_classes=args.num_classes, seed=args.seed,
+            start=start_step), device)
+
+    return state, step, batches
+
+
 def parse_args(argv: Optional[list] = None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--model", default="llama_debug")
-    ap.add_argument("--task", choices=["lm", "image"], default="lm",
-                    help="image is not yet ported")
+    ap.add_argument("--task", choices=["lm", "image"], default="lm")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--image-size", type=int, default=224)
+    ap.add_argument("--num-classes", type=int, default=1000)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches accumulated per optimizer step "
                          "(the batch must divide evenly)")
     ap.add_argument("--grad-dtype", choices=["f32", "bf16"], default="f32",
-                    help="gradient dtype; bf16 = bf16 gradients of a bf16 "
-                         "copy of the f32 master weights")
+                    help="lm task: gradient dtype; bf16 = bf16 gradients "
+                         "of a bf16 copy of the f32 master weights")
     ap.add_argument("--ce-chunk", type=int, default=None,
-                    help="chunked lm_head + cross-entropy chunk size (seq "
-                         "must divide by it)")
+                    help="lm task: chunked lm_head + cross-entropy chunk "
+                         "size (seq must divide by it)")
     ap.add_argument("--packed", action="store_true",
                     help="pack variable-length documents into padding-free "
                          "rows with segment ids")
@@ -138,8 +190,16 @@ def parse_args(argv: Optional[list] = None):
                     help="not yet ported")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    unported = {"--task image": args.task == "image",
-                "--mesh": args.mesh != "auto",
+    if args.task == "image" and (args.ce_chunk is not None
+                                 or args.grad_dtype != "f32"):
+        ap.error("--grad-dtype/--ce-chunk apply to the lm task only")
+    if args.task == "image":
+        from kubeflow_tpu_torch.models import resnet, vit
+
+        if args.model not in {**resnet.CONFIGS, **vit.CONFIGS}:
+            ap.error(f"--task image trains a resnet or vit model, not "
+                     f"{args.model!r}")
+    unported = {"--mesh": args.mesh != "auto",
                 "--distributed": args.distributed}
     for flag, given in unported.items():
         if given:
@@ -149,20 +209,24 @@ def parse_args(argv: Optional[list] = None):
 
 
 def train(args, device: torch.device, stop=None):
-    """Build the LM task from parsed ``args`` and run the loop on
-    ``device``.  Returns ``(state, history)``."""
+    """Build the task from parsed ``args`` and run the loop on ``device``.
+    Returns ``(state, history)``."""
     from kubeflow_tpu_torch.telemetry import compute as ctel
     from kubeflow_tpu_torch.train.loop import LoopConfig, train_loop
 
-    state, step, batches = build_lm(args, device)
+    if args.task == "image":
+        state, step, batches = build_image(args, device)
+        throughput = {}
+    else:
+        state, step, batches = build_lm(args, device)
+        throughput = dict(tokens_per_step=args.batch * args.seq,
+                          flops_per_token=ctel.lm_train_flops_per_token(
+                              state.module.cfg, args.seq))
     return train_loop(
         state, step, batches,
         LoopConfig(total_steps=args.steps, log_every=args.log_every,
                    checkpoint_dir=args.checkpoint_dir,
-                   checkpoint_every=args.checkpoint_every,
-                   tokens_per_step=args.batch * args.seq,
-                   flops_per_token=ctel.lm_train_flops_per_token(
-                       state.module.cfg, args.seq)),
+                   checkpoint_every=args.checkpoint_every, **throughput),
         stop=stop)
 
 

@@ -1,10 +1,11 @@
-"""LM train steps of the port: the loss, its gradient and the optimizer
+"""Train steps of the port: the loss, its gradient and the optimizer
 update, counterparts of ``kubeflow_tpu/train/steps.py``.
 
 A step is ``step(state, batch) -> (state, metrics)``; the state is
-updated in place (the module's parameters and the optimizer's moments),
-where the reference returns a new pytree.  ``batch`` is ``tokens`` [b, s]
-or ``(tokens, segment_ids)`` for packed rows.
+updated in place (the module's parameters, its batch stats and the
+optimizer's moments), where the reference returns a new pytree.  An LM
+``batch`` is ``tokens`` [b, s] or ``(tokens, segment_ids)`` for packed
+rows; a classification batch is ``(inputs, labels)``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from kubeflow_tpu_torch.models.layers import BatchNorm
 
 
 class TokenNLL(torch.autograd.Function):
@@ -96,14 +99,35 @@ def adamw(params, lr: float, *, weight_decay: float = 1e-4
                              weight_decay=weight_decay)
 
 
+def sgd(params, lr: float, *, momentum: float = 0.0,
+        nesterov: bool = False) -> torch.optim.SGD:
+    """``optax.sgd(lr, momentum=, nesterov=)``: no dampening and no weight
+    decay, so the trace starts at the first gradient (t = g, then
+    t = momentum * t + g) and the update is lr * t, or lr * (g + momentum
+    * t) with nesterov, as optax's ``trace`` gives."""
+    return torch.optim.SGD(params, lr=lr, momentum=momentum, dampening=0.0,
+                           nesterov=nesterov, weight_decay=0.0)
+
+
 @dataclasses.dataclass
 class TrainState:
-    """The module (f32 master parameters), its optimizer and the count of
-    applied updates."""
+    """The module (f32 master parameters, and its batch stats as
+    buffers), its optimizer and the count of applied updates."""
 
     module: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+    @property
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        """The running stats of every ``BatchNorm`` (state-dict key ->
+        buffer, updated in place by a training forward); empty for a
+        model without them.  They ride in the module's state dict, so a
+        checkpoint saves and restores them with the parameters."""
+        return {f"{name}.{buf}": t
+                for name, mod in self.module.named_modules()
+                if isinstance(mod, BatchNorm)
+                for buf, t in mod.named_buffers(recurse=False)}
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]
                         ) -> "TrainState":
@@ -222,10 +246,81 @@ def make_lm_train_step(*, aux_loss_weight: float = 0.0,
     return step
 
 
-def make_grad_accum_step(grad_fn: Callable, n_accum: int) -> Callable:
+def _check_batch_stats(state: TrainState, has_batch_stats: bool) -> None:
+    """The reference threads batch stats through a step only when told
+    to; here a training forward updates them in place, so the flag must
+    say whether the model has them."""
+    if bool(state.batch_stats) != has_batch_stats:
+        raise ValueError(
+            f"has_batch_stats={has_batch_stats}, but the model has "
+            f"{len(state.batch_stats)} batch-stat buffers")
+
+
+def classification_loss(module: nn.Module, params: Dict[str, torch.Tensor],
+                        inputs: torch.Tensor, labels: torch.Tensor, *,
+                        generator: Optional[torch.Generator] = None):
+    """``(loss, accuracy)`` of a classifier run in training mode with
+    ``params`` in place of its own: mean softmax cross-entropy over the
+    integer labels and the share of rows whose argmax is the label, both
+    f32.  No attention mask is passed, as in the reference's step."""
+    kwargs = {"train": True}
+    if generator is not None:
+        kwargs["generator"] = generator
+    logits = torch.func.functional_call(module, params, (inputs,), kwargs)
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return cross_entropy(logits, labels), acc
+
+
+def make_classification_grad_fn(*, has_batch_stats: bool,
+                                has_dropout: bool = False) -> Callable:
+    """``grad_fn(state, (inputs, labels), generator=None) -> (grads,
+    metrics)`` for image and sequence classifiers (``steps.py:129-157``):
+    the gradient of every parameter by name, ``loss`` and ``accuracy``.
+    The forward updates the model's batch stats in place, where the
+    reference returns them.  ``has_dropout`` requires the ``generator``
+    the dropout draws from."""
+
+    def grad_fn(state: TrainState, batch,
+                generator: Optional[torch.Generator] = None):
+        _check_batch_stats(state, has_batch_stats)
+        if has_dropout and generator is None:
+            raise ValueError("has_dropout needs a torch.Generator")
+        inputs, labels = batch
+        params = {name: p.detach().requires_grad_(True)
+                  for name, p in state.module.named_parameters()}
+        loss, acc = classification_loss(
+            state.module, params, inputs, labels,
+            generator=generator if has_dropout else None)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return dict(zip(params, grads)), {"loss": loss.detach(),
+                                          "accuracy": acc}
+
+    return grad_fn
+
+
+def make_classification_train_step(*, has_batch_stats: bool,
+                                   has_dropout: bool = False) -> Callable:
+    """Step for image and sequence classifiers, ``step(state, (inputs,
+    labels), generator=None)``; see ``make_classification_grad_fn``."""
+    grad_fn = make_classification_grad_fn(has_batch_stats=has_batch_stats,
+                                          has_dropout=has_dropout)
+
+    def step(state: TrainState, batch,
+             generator: Optional[torch.Generator] = None):
+        grads, metrics = grad_fn(state, batch, generator)
+        return state.apply_gradients(grads), metrics
+
+    return step
+
+
+def make_grad_accum_step(grad_fn: Callable, n_accum: int, *,
+                         has_batch_stats: bool = False) -> Callable:
     """Split the batch's leading axis into ``n_accum`` microbatches, sum
     their gradients in f32 (each parameter's dtype), apply the mean once;
-    metrics are the mean over microbatches (``steps.py:346-399``)."""
+    metrics are the mean over microbatches (``steps.py:346-399``).  With
+    ``has_batch_stats`` the microbatches' forwards update the stats in
+    turn, so the last one's stats win, each having started from the one
+    before, as the reference's scan carries them."""
     if n_accum < 1:
         raise ValueError(f"n_accum must be >= 1, got {n_accum}")
 
@@ -236,6 +331,7 @@ def make_grad_accum_step(grad_fn: Callable, n_accum: int) -> Callable:
         return x.reshape((n_accum, x.shape[0] // n_accum) + x.shape[1:])
 
     def step(state: TrainState, batch):
+        _check_batch_stats(state, has_batch_stats)
         parts = ([split(x) for x in batch]
                  if isinstance(batch, (tuple, list)) else [split(batch)])
         acc = {name: torch.zeros_like(p)

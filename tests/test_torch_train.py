@@ -426,8 +426,15 @@ def test_train_run_without_a_card_or_with_unported_flags_stops(capsys):
     with pytest.raises(SystemExit):
         trainer.main(["--steps", "1"])
     assert "torch.cuda.is_available() is False" in capsys.readouterr().err
-    for flags in (["--task", "image"], ["--mesh", "dp=2"],
-                  ["--distributed"]):
+    for flags in (["--mesh", "dp=2"], ["--distributed"]):
         with pytest.raises(SystemExit):
             trainer.main(flags + ["--device", "cpu"])
         assert "not yet ported" in capsys.readouterr().err
+    # The image task is ported; its memory levers stay the lm task's, as
+    # in the reference, and it trains a classifier only.
+    for flags, msg in ((["--grad-dtype", "bf16"], "apply to the lm task"),
+                       (["--ce-chunk", "8"], "apply to the lm task"),
+                       ([], "trains a resnet or vit model")):
+        with pytest.raises(SystemExit):
+            trainer.main(["--task", "image", "--device", "cpu"] + flags)
+        assert msg in capsys.readouterr().err
