@@ -83,7 +83,7 @@ Phases, each of which raises on failure (exit code 1):
    request served through the scheduler equals ``generate()`` on the
    restored model.
 
-Between 6c and 7 (llama3_8b is freed after int8):
+Between 6c and 7 (llama3_8b is freed after beam):
 6d. int8:   ``load_service("llama3_8b", quantize="int8")`` from the same
    seed: weight bytes against bf16, the service's int8 values equal to
    the bf16 model's quantized, layer 0's dequantized weights on the card
@@ -91,6 +91,30 @@ Between 6c and 7 (llama3_8b is freed after int8):
    paged engine (exact launches, decode rate against 6c's bf16 run), and
    the greedy rows teacher-forced against the bf16 model (argmax
    agreement, logits' relative difference).
+6d1. beam: ``beam_search`` on the bf16 llama3_8b of 6: b2 with
+   prompts of 300 and 17 tokens, 4 beams, 32 new, no EOS, length penalty
+   0: exact launches (K2 a layer at the prefill, K5 a layer a step over
+   the 8 beam-folded rows, K1 65 a forward), beams 1 equal to
+   ``generate``, the best beam rescored on the search's route and by
+   one teacher-forced forward no worse than 1 beam's within
+   BEAM_SCORE_TOL a token, ms a step.
+6d2. t5_serve: ``load_service("t5_large")`` (24 + 24 layers, d1024,
+   random bf16 weights from seed 0, W_q scaled as T5 initialises it:
+   ``t5_conditioned``) over HTTP through the wire client
+   ``models/client.py``: sources of 512, 300, 77 and 17 tokens, 64 new,
+   greedy (A), a seeded sampled row (B, twice), A again (C, identical);
+   A's launches exact (K1 49 + 73 a decoder step; every attention
+   carries T5's per-head bias and runs the plain version, so no K2 or
+   K5); A's tokens teacher-forced through one forward on the kernel
+   route, impl="plain" and an f32 model (each greedy token within
+   AGREE_GAP of its position's largest logit, COMPOSE_RATIO); latency,
+   tokens/s, peak memory; the int8 service's bytes and argmax agreement.
+6d3. t5_beam: ``beam_search_seq2seq`` on that model, b4, 4 beams, 32
+   new: exact launches, beams 1 bit-equal to greedy, rows after EOS hold
+   EOS, the best beam rescored no worse than greedy, ms a step.
+6d4. t5_grad: t5_large's width at 2 + 2 layers, one gradient of the
+   teacher-forced cross-entropy three ways (kernel route with K1's VJP,
+   bf16 plain, f32): COMPOSE_RATIO, exact launches.
 6e. moe_layer: one ``MoeMlp`` at mixtral_8x7b's width (bf16, b2 with a
    half-padded row, s 512 and 2048): the index dispatch against the
    reference's dense one-hot einsums (``moe.dense_dispatch``) on the same
@@ -127,7 +151,9 @@ After 12 (PR 9, the image task and the encoders):
    ``--checkpoint-dir`` for 4 steps, against 2 steps and a resume to 4:
    weights, batch stats and momentum within RESUME_TOL.
 Within 7, the attention kernels at ViT-B/16's and BERT-base's shapes
-(b64 s197 and b32 s128, h12, d64, non-causal), timed.
+(b64 s197 and b32 s128, h12, d64, non-causal), timed; and K1 at
+T5-large's rows ([2048, 1024] and [16, 1024]) and K5 at the beam step's
+(b8 S332), timed.
 
 Every line of standard output is one JSON object; the line before the
 last lists every kernel with its launches, error and times, and the last
@@ -368,6 +394,56 @@ RESUME_TOL = 1e-5
 # next one, the profiled one (its trace written inside its dispatch
 # span: 0.94 s on the card for a ResNet-50 step), is not.
 SLOW_STEP_SECONDS, SLOW_STALL_SECONDS = 3.0, 3.5
+
+# Beam search: ``beam_search`` on the bf16 llama3_8b the serving
+# phases loaded (32 layers), b2 with ragged prompts, BEAMS beams,
+# NEW_TOKENS new tokens, no EOS.  Its launches are request A's: K2 a
+# layer at the prefill, K5 a layer a step (over b x BEAMS rows), K1 65 a
+# forward.
+BEAM_PROMPT_LENS = (300, 17)
+BEAMS = 4
+# The best of BEAMS beams, rescored (length penalty 0) on the route the
+# search scored it on, may fall this far a token (nats, times the row's
+# new tokens) below 1 beam's sequence.  A search of width 4 is not bound
+# to beat greedy: it may prune the greedy path and end below it (on an
+# H100, 1.18 nats under over 32 tokens on one of this phase's rows, both
+# sequences scored on the search's route).  A broken re-gather or
+# backtrack puts a wrong token in the sequence, ~5 nats each at these
+# random weights' logit scale (the top logit against a typical one over
+# 128256 or 32128 tokens), above 0.1 x 32 = 3.2.  The
+# rescoring runs the prompt's prefill and one cached decode step a token
+# over b rows where the search ran b x BEAMS (summation orders differ,
+# ~1e-3 a token).  One teacher-forced forward (K2 over the whole
+# sequence) scores by another route: its comparison gets the same limit
+# plus the two sequences' measured disagreement between the routes.
+BEAM_SCORE_TOL = 0.1
+
+# T5: t5_large at full width and depth (24 + 24 layers, d1024,
+# 16 heads of 64, ffn 2816, vocab 32128, 785M parameters), random bf16
+# weights from SEED, served over HTTP through ``load_service`` and the
+# wire client: sources of these lengths, T5_NEW_TOKENS new tokens; beam
+# search at T5_BEAM_NEW_TOKENS; the gradient check at T5-large's width
+# with T5_GRAD_LAYERS encoder and decoder layers, target length
+# T5_GRAD_TARGET.
+#
+# The random weights are the reference's flax initialisers but for one
+# factor: W_q is scaled by head_dim ** -0.5 (``t5_conditioned``), T5's own
+# initialisation (Mesh TensorFlow's T5 and Hugging Face's
+# ``T5PreTrainedModel._init_weights`` draw W_q with std
+# (d_model * d_kv) ** -0.5, folding the softmax scale into the weights).
+# Flax's lecun_normal draws it with std d_model ** -0.5, so the unscaled
+# attention's logits have std sqrt(64) = 8, the softmax is near an
+# argmax, and the 48-layer model is chaotic: on an H100 two bf16 routes
+# that differ in rounding alone disagreed on 65 % of greedy tokens
+# (teacher-forced logits 1.1 apart by relative L2).  The factor is a
+# power of two, exact in bf16 and in int8's f32 scales.
+T5_MODEL = "t5_large"
+T5_SOURCE_LENS = (512, 300, 77, 17)
+T5_NEW_TOKENS = 64
+T5_BEAM_NEW_TOKENS = 32
+T5_GRAD_LAYERS, T5_GRAD_TARGET = 2, 128
+# K1 at T5-large's rows: the encoder at b4 s512, a beam step at b4 x BEAMS.
+T5_NORM_ROWS = {"t5 encoder": 4 * 512, "t5 beam step": 4 * BEAMS}
 
 
 def emit(obj) -> None:
@@ -1730,7 +1806,7 @@ def stop_server(service, server, thread):
     server.shutdown()
     server.server_close()
     thread.join(timeout=30)
-    if service._scheduler is not None:
+    if getattr(service, "_scheduler", None) is not None:
         service._scheduler.stop()
 
 
@@ -3854,6 +3930,616 @@ def phase_image_cli(torch):
     return counts
 
 
+def no_proxy_client(base):
+    """A ``GenerateClient`` of the local server that ignores proxy
+    settings (the requests never leave the host)."""
+    from kubeflow_tpu_torch.models.client import GenerateClient
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    return GenerateClient(base, timeout=600, opener=lambda req, timeout:
+                          opener.open(req, timeout=timeout))
+
+
+def phase_t5_kernels(torch, dev, timer):
+    """K1 at T5-large's rows ([2048, 1024], the encoder at b4 s512, and
+    [16, 1024], a beam step at b4 x BEAMS; eps 1e-6) and K5 at the Llama
+    beam step's (b2 x BEAMS rows over prompt + NEW_TOKENS slots, the
+    17-token row's padding masked), each against its plain version and
+    timed beside its bound and the library call."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.models.t5 import CONFIGS as T5_CONFIGS
+    from kubeflow_tpu_torch.ops.cuda import flash_decode as k5
+    from kubeflow_tpu_torch.ops.cuda import rms_norm as k1
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bf = torch.bfloat16
+    d = T5_CONFIGS[T5_MODEL].dim
+    scale = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)).float()
+    for where, nrows in T5_NORM_ROWS.items():
+        x = torch.randn(nrows, d, generator=gen, device=dev).to(bf)
+        got = k1.rms_norm(x, scale, eps=1e-6)
+        want = k1.plain_rms_norm(x.float(), scale, eps=1e-6)
+        tol = KERNEL_TOL["rms_norm"]
+        err, share = check_close(f"rms_norm {where}", got, want, tol)
+        flops = 4 * nrows * d
+        bms, by = bound_ms(nrows * d * 4 + d * 4, flops, PEAK_F32_FLOPS)
+        row = {"kernel": "rms_norm", "shape": [nrows, d], "path": where,
+               "max_abs_err": err, "tol": tol, "tol_share": share,
+               "kernel_ms": timer(lambda: k1.rms_norm(x, scale, eps=1e-6)),
+               "plain_ms": timer(lambda: k1.plain_rms_norm(x, scale,
+                                                           eps=1e-6)),
+               "library_ms": timer(lambda: F.rms_norm(
+                   x, (d,), weight=scale.to(bf), eps=1e-6)),
+               "same_bytes_ms": timer(lambda: got.copy_(x)),
+               "bound_ms": bms, "bound_by": by}
+        emit(add_rates(row, flops, timer.floor_ms))
+    h, kvh, hd = 32, 8, 128
+    lens = [n for n in BEAM_PROMPT_LENS for _ in range(BEAMS)]
+    b, longest = len(lens), max(BEAM_PROMPT_LENS)
+    S = longest + NEW_TOKENS
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev).to(bf)
+    k = torch.randn(b, S, kvh, hd, generator=gen, device=dev).to(bf)
+    v = torch.randn(b, S, kvh, hd, generator=gen, device=dev).to(bf)
+    slot = torch.arange(S, device=dev)[None]
+    pad = (slot >= torch.tensor(lens, device=dev)[:, None]) & (slot < longest)
+    bias = torch.where(pad, -1e30, 0.0).float().contiguous()
+    got = k5.flash_decode(q, k, v, bias)
+    want = k5.plain_decode(q.float(), k.float(), v.float(), bias)
+    tol = KERNEL_TOL["flash_decode"]
+    err, share = check_close("flash_decode beam", got, want, tol)
+    needed = (~pad).sum().item()
+    flops = 4 * h * hd * needed
+    bms, by = bound_ms(2 * needed * kvh * hd * 2 + b * S * 4
+                       + 2 * b * h * hd * 2, flops, PEAK_BF16_FLOPS)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = bias[:, None, None, :].to(bf)
+    row = {"kernel": "flash_decode", "shape": [b, S, h, kvh, hd],
+           "path": "beam step", "prompt_lens": list(BEAM_PROMPT_LENS),
+           "beams": BEAMS, "needed_slots": needed, "max_abs_err": err,
+           "tol": tol, "tol_share": share,
+           "kernel_ms": timer(lambda: k5.flash_decode(q, k, v, bias)),
+           "plain_ms": timer(lambda: k5.plain_decode(q, k, v, bias)),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+           "bound_ms": bms, "bound_by": by}
+    emit(add_rates(row, flops))
+
+
+def sequence_logprob(torch, logits, seqs, eos=None):
+    """Sum over each row of log p(token) under teacher-forced ``logits``
+    [b, T, vocab] for ``seqs`` [b, T], through the first ``eos``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tok = logp.gather(-1, seqs[..., None])[..., 0]
+    if eos is not None:
+        before = torch.cumprod((seqs != eos).long(), dim=1)
+        keep = torch.cat([torch.ones_like(before[:, :1]), before[:, :-1]],
+                         dim=1)
+        tok = tok * keep
+    return tok.sum(dim=1).tolist()
+
+
+def cached_logprob(torch, model, prompt, mask, seqs):
+    """Sum over each row of log p(token) for ``seqs`` [b, T] after the
+    right-padded prompt, on the generation route: one prefill, then one
+    cached decode step a token (K2, then K5)."""
+    from kubeflow_tpu_torch.models.generate import (
+        pad_bias_rows,
+        prompt_positions,
+    )
+
+    b, T = seqs.shape
+    positions, lengths = prompt_positions(mask)
+    pad_bias = pad_bias_rows(mask, prompt.shape[1] + T)
+    with torch.inference_mode():
+        cache = model.new_cache(b, prompt.shape[1] + T)
+        logits = model(prompt, positions=positions, cache=cache,
+                       pad_bias=pad_bias, logits_at=lengths - 1)
+        total = torch.zeros(b, device=prompt.device)
+        for t in range(T):
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            total += logp.gather(-1, seqs[:, t:t + 1])[:, 0]
+            if t + 1 < T:
+                logits = model(seqs[:, t:t + 1],
+                               positions=(lengths + t)[:, None],
+                               cache=cache, pad_bias=pad_bias)[:, 0]
+    return total.tolist()
+
+
+def phase_beam(torch, dev, model):
+    """``beam_search`` on the served bf16 llama3_8b: b2 with prompts of
+    BEAM_PROMPT_LENS, BEAMS beams, NEW_TOKENS new, no EOS, length penalty
+    0, twice (the first run cold, counted from 0: exact, K2 a layer at the
+    prefill, K5 a layer a step over the beam-folded rows, K1 65 a forward;
+    the second timed warm); beams 1 equal to ``generate``; the best beam
+    rescored on the search's route no worse than 1 beam's sequence within
+    BEAM_SCORE_TOL, and by one teacher-forced forward within that plus
+    the routes' measured disagreement; ms a step."""
+    from kubeflow_tpu_torch.models.generate import (
+        beam_search,
+        generate,
+        generate_prefill,
+    )
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    cfg = model.cfg
+    _, prompt, mask = ragged_batch(torch, dev, cfg.vocab_size,
+                                   BEAM_PROMPT_LENS)
+    kw = dict(prompt_mask=mask, max_new_tokens=NEW_TOKENS)
+    seconds = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        best = beam_search(model, prompt, beams=BEAMS, length_penalty=0.0,
+                           **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if run == 0:
+            counts = kernels.launch_counts()
+    want = {k: 0 for k in SOURCES}
+    want.update(rms_norm=(2 * cfg.n_layers + 1) * NEW_TOKENS,
+                flash_attention_fwd=cfg.n_layers,
+                flash_decode=cfg.n_layers * (NEW_TOKENS - 1))
+    if counts != want:
+        raise AssertionError(f"beam launches {counts}, expected {want}")
+    t0 = time.perf_counter()
+    first, _ = generate_prefill(model, prompt, **kw)
+    first.tolist()
+    prefill_s = time.perf_counter() - t0
+    greedy = generate(model, prompt, **kw)
+    beam1 = beam_search(model, prompt, beams=1, **kw)
+    if not torch.equal(beam1, greedy):
+        raise AssertionError("beam search with 1 beam differs from greedy")
+    cached, forward = {}, {}
+    for name, seqs in (("beams_1", beam1), ("beams_best", best)):
+        cached[name] = cached_logprob(torch, model, prompt, mask, seqs)
+        forward[name] = []
+        for row, n, seq in zip(prompt, BEAM_PROMPT_LENS, seqs):
+            full = torch.cat([row[:n], seq])[None]
+            with torch.inference_mode():
+                logits = model(full)[:, n - 1:-1]
+            forward[name] += sequence_logprob(torch, logits, seq[None])
+    margin = [a - b for a, b in zip(cached["beams_best"], cached["beams_1"])]
+    tol = BEAM_SCORE_TOL * NEW_TOKENS
+    fwd_margin = [a - b for a, b in zip(forward["beams_best"],
+                                        forward["beams_1"])]
+    routes = [sum(abs(forward[k][r] - cached[k][r]) for k in cached)
+              for r in range(len(BEAM_PROMPT_LENS))]
+    emit({"phase": "beam", "model": "llama3_8b",
+          "prompt_lens": list(BEAM_PROMPT_LENS), "beams": BEAMS,
+          "max_new_tokens": NEW_TOKENS, "seconds_cold": seconds[0],
+          "seconds_warm": seconds[1], "prefill_seconds": prefill_s,
+          "ms_per_step_cold": (seconds[0] - prefill_s) / (NEW_TOKENS - 1)
+          * 1e3,
+          "ms_per_step_warm": (seconds[1] - prefill_s) / (NEW_TOKENS - 1)
+          * 1e3,
+          "launches": counts, "beams_1_equals_greedy": True,
+          "rescored_cached": cached, "best_minus_beams_1_cached": margin,
+          "rescored_forward": forward, "best_minus_beams_1_forward":
+          fwd_margin, "route_disagreement": routes, "tol": tol,
+          "best_row0_head": best[0, :8].tolist()})
+    for r in range(len(BEAM_PROMPT_LENS)):
+        if margin[r] < -tol or fwd_margin[r] < -tol - routes[r]:
+            raise AssertionError(
+                f"beam: the best of {BEAMS} beams scores {margin} (cached) "
+                f"and {fwd_margin} (forward) against 1 beam's")
+    return counts
+
+
+def t5_launches(cfg, steps, backward=False):
+    """Launches of one T5 encode and ``steps`` cached decoder steps (or,
+    with ``backward``, of one teacher-forced forward and its backward):
+    the encoder's norms (2 a layer and the final one) once, the
+    decoder's (3 a layer and the final one) a step; every attention
+    carries a bias and runs the plain version, so no K2 or K5."""
+    zero = {k: 0 for k in SOURCES}
+    norms = (2 * cfg.n_encoder_layers + 1
+             + (3 * cfg.n_decoder_layers + 1) * steps)
+    zero["rms_norm"] = norms
+    if backward:
+        zero["rms_norm_bwd"] = norms
+    return zero
+
+
+def t5_conditioned(torch, model):
+    """``model`` with every attention's W_q scaled by head_dim ** -0.5, in
+    place (a quantized W_q's scales): T5's own initialisation of the
+    random weights (see T5_MODEL)."""
+    from kubeflow_tpu_torch.models.layers import BiasedAttention
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, BiasedAttention):
+                q = mod.q_proj
+                factor = mod.head_dim ** -0.5
+                (q.weight if q.weight is not None else q.scale).mul_(factor)
+    return model
+
+
+def t5_teacher_forced(torch, model, src, mask, gen):
+    """Logits [b, T, vocab] f32 of one forward of ``model`` over the
+    sources and ``[0] + gen[:-1]`` (BOS, then the generated tokens)."""
+    tgt = torch.cat([torch.zeros_like(gen[:, :1]), gen[:, :-1]], dim=1)
+    with torch.inference_mode():
+        return model(src, tgt, source_mask=mask).float()
+
+
+def t5_profile(torch, model, src, mask, n):
+    """Where a T5 request's card time goes: one ``generate_seq2seq`` call
+    (no HTTP), on the host clock, then under torch.profiler with every
+    attention call in a ``t5_biased_attention`` range.  Device ms by
+    kernel class (K1, matrix products, the rest), and the attention
+    ranges' device ms (their products included) and share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from kubeflow_tpu_torch import ops
+    from kubeflow_tpu_torch.models.generate import generate_seq2seq
+
+    run = lambda: generate_seq2seq(model, src, source_mask=mask,
+                                   max_new_tokens=n).tolist()
+    t0 = time.perf_counter()
+    run()
+    wall_s = time.perf_counter() - t0
+    attention = ops.dot_product_attention
+
+    def annotated(*args, **kwargs):
+        with record_function("t5_biased_attention"):
+            return attention(*args, **kwargs)
+
+    ops.dot_product_attention = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+    finally:
+        ops.dot_product_attention = attention
+    classes = {"rms_norm": 0.0, "matmul": 0.0, "other": 0.0}
+    attn_us, attn_calls, n_kernels, by_name = 0.0, 0, 0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            n_kernels += 1
+            us = e.time_range.elapsed_us()
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + us, c + 1)
+            name = e.name.lower()
+            if "rms_norm_kernel" in name:
+                classes["rms_norm"] += us
+            elif any(t in name for t in ("gemm", "gemv", "cutlass", "xmma",
+                                         "cublas", "nvjet")):
+                classes["matmul"] += us
+            else:
+                classes["other"] += us
+        elif e.name == "t5_biased_attention" and e.device_type != \
+                DeviceType.CUDA:
+            attn_us += e.device_time_total
+            attn_calls += 1
+    device_us = sum(classes.values())
+    return {"call": "generate_seq2seq (request A, no HTTP)",
+            "wall_seconds": wall_s, "device_kernel_seconds": device_us / 1e6,
+            "device_busy_share": device_us / 1e6 / wall_s,
+            "device_kernels": n_kernels,
+            "device_ms_by_class": {k: v / 1e3 for k, v in classes.items()},
+            "attention_calls": attn_calls,
+            "attention_device_ms": attn_us / 1e3,
+            "attention_share_of_device": attn_us / device_us
+            if device_us else None,
+            "top_kernels": [
+                {"name": name[:90], "ms": t / 1e3, "count": c}
+                for name, (t, c) in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1][0])[:10]]}
+
+
+def phase_t5_serve(torch, dev):
+    """``load_service(T5_MODEL)`` (``t5_conditioned``) behind the HTTP app,
+    requests through the wire client: A greedy over the T5_SOURCE_LENS rows, B one seeded
+    sampled row (twice: equal), C = A (token-identical).  A's launches
+    exact; its tokens teacher-forced through one forward on the kernel
+    route, on impl="plain" and on an f32 model (each greedy token within
+    AGREE_GAP of its position's largest logit; the kernel route within
+    COMPOSE_RATIO of the plain route's distance from f32); latency,
+    tokens/s, peak memory; A's card time by kernel class and the plain
+    biased attention's share (``t5_profile``).  Then the int8 service:
+    weight bytes and argmax agreement with bf16 on A's tokens.  Returns
+    (A's launches, the service's model)."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.models.quantize import quantized_bytes
+    from kubeflow_tpu_torch.models.serve import load_service
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    t0 = time.perf_counter()
+    service = load_service(T5_MODEL, device="cuda", seed=SEED)
+    t5_conditioned(torch, service.model)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model, cfg = service.model, service.model.cfg
+    toks, src, mask = ragged_batch(torch, dev, cfg.vocab_size, T5_SOURCE_LENS)
+    n = T5_NEW_TOKENS
+    server, thread, base = http_server(service, T5_MODEL)
+    client = no_proxy_client(base)
+    try:
+        status, ready = http(base, "/readyz")
+        if status != 200 or not ready.get("ready"):
+            raise AssertionError(f"t5 /readyz: {status} {ready}")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t_a = time.perf_counter()
+        res_a = client.generate(toks, max_new_tokens=n)
+        t_a = time.perf_counter() - t_a
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = t5_launches(cfg, n)
+        if not res_a.ok or counts != want:
+            raise AssertionError(f"t5 request A: {res_a.status} {res_a.log}; "
+                                 f"launches {counts}, expected {want}")
+        sampled = dict(max_new_tokens=n, temperature=0.8, seed=7)
+        res_b = client.generate([toks[1]], **sampled)
+        res_b2 = client.generate([toks[1]], **sampled)
+        res_c = client.generate(toks, max_new_tokens=n)
+        for name, res, rows in (("A", res_a, 4), ("B", res_b, 1),
+                                ("C", res_c, 4)):
+            if not res.ok or len(res.tokens) != rows or any(
+                    len(r) != n or not all(0 <= t < cfg.vocab_size
+                                           for t in r) for r in res.tokens):
+                raise AssertionError(f"t5 request {name}: {res.status} "
+                                     f"{res.log} {res.tokens}")
+        if res_c.tokens != res_a.tokens or res_b2.tokens != res_b.tokens:
+            raise AssertionError("t5: a repeated request differs")
+        _, traces = http(base, "/debug/traces?n=1")
+        spans = [s["name"] for s in traces["traces"][-1]["spans"]]
+        if spans != ["admit", "queue", "generate"]:
+            raise AssertionError(f"t5 spans {spans}")
+    finally:
+        stop_server(service, server, thread)
+    profiled = t5_profile(torch, model, src, mask, n)
+    gen = torch.tensor(res_a.tokens, device=dev)
+    keep = torch.cumprod((gen != service.default_eos_token).long(), dim=1)
+    keep = torch.cat([torch.ones_like(keep[:, :1]), keep[:, :-1]],
+                     dim=1).bool()
+    logits = {"kernel": t5_teacher_forced(torch, model, src, mask, gen)}
+    state = model.state_dict()
+    for name, kw in (("plain", dict(impl="plain")),
+                     ("f32", dict(impl="plain", dtype=torch.float32))):
+        other = create_model(T5_MODEL, device=dev, **kw)
+        other.load_state_dict(state)
+        logits[name] = t5_teacher_forced(torch, other.eval(), src, mask, gen)
+        del other
+        torch.cuda.empty_cache()
+    rel = lambda a, b: ((a - b)[keep].norm() / b[keep].norm()).item()
+    lk = logits["kernel"]
+    gaps = (lk.amax(-1) - lk.gather(-1, gen[..., None])[..., 0])[keep]
+    e_k, e_p = rel(lk, logits["f32"]), rel(logits["plain"], logits["f32"])
+    row = {"phase": "t5_serve", "model": T5_MODEL,
+           "layers": [cfg.n_encoder_layers, cfg.n_decoder_layers],
+           "parameters": sum(p.numel() for p in model.parameters()),
+           "load_seconds": load_s, "source_lens": list(T5_SOURCE_LENS),
+           "max_new_tokens": n, "request_a_seconds": t_a,
+           "tokens_per_s": len(T5_SOURCE_LENS) * n / t_a,
+           "max_memory_allocated_bytes": peak, "launches": counts,
+           "a_equals_c": True, "b_repeats": True, "profile": profiled,
+           "a_row0_head": res_a.tokens[0][:8],
+           "b_row0_head": res_b.tokens[0][:8],
+           "teacher_forced": {
+               "positions": int(keep.sum()),
+               "argmax_agreement": (lk.argmax(-1) == gen)[keep].float()
+               .mean().item(),
+               "worst_gap": gaps.max().item(), "gap_limit": AGREE_GAP,
+               "rel_l2_kernel_vs_plain": rel(lk, logits["plain"]),
+               "rel_l2_kernel_vs_f32": e_k, "rel_l2_plain_vs_f32": e_p,
+               "ratio_limit": COMPOSE_RATIO}}
+    if not torch.isfinite(lk).all() or gaps.max().item() > AGREE_GAP:
+        raise AssertionError(f"t5 teacher-forced: {row['teacher_forced']}")
+    if e_k > COMPOSE_RATIO * e_p:
+        raise AssertionError(f"t5: kernel route {e_k} from f32, more than "
+                             f"{COMPOSE_RATIO} x the plain route's {e_p}")
+    del logits["plain"], logits["f32"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    qservice = load_service(T5_MODEL, device="cuda", seed=SEED,
+                            quantize="int8")
+    t5_conditioned(torch, qservice.model)
+    server, thread, base = http_server(qservice, T5_MODEL)
+    try:
+        t_q = time.perf_counter()
+        res_q = no_proxy_client(base).generate(toks, max_new_tokens=n)
+        t_q = time.perf_counter() - t_q
+    finally:
+        stop_server(qservice, server, thread)
+    if not res_q.ok or len(res_q.tokens) != len(toks):
+        raise AssertionError(f"t5 int8 request: {res_q.status} {res_q.log}")
+    lq = t5_teacher_forced(torch, qservice.model, src, mask, gen)
+    if not torch.isfinite(lq).all():
+        raise AssertionError("t5 int8: non-finite logits")
+    row["int8"] = {
+        "weight_bytes_int8": quantized_bytes(qservice.model),
+        "weight_bytes_bf16": quantized_bytes(model),
+        "request_seconds": t_q,
+        "argmax_agreement_with_bf16": (lq.argmax(-1) == lk.argmax(-1))[keep]
+        .float().mean().item(),
+        "logits_rel_l2_vs_bf16": rel(lq, lk),
+        "equal_tokens_with_bf16": sum(a == b for g, w in zip(
+            res_q.tokens, res_a.tokens) for a, b in zip(g, w))}
+    emit(row)
+    del qservice, lq, lk, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, model
+
+
+def t5_cached_logprob(torch, model, src, mask, seqs, eos):
+    """Sum over each row of log p(token) for ``seqs`` [b, T] through the
+    first ``eos``, on the generation route: one encode, then one cached
+    decoder step a token from BOS."""
+    b, T = seqs.shape
+    with torch.inference_mode():
+        encoded = model.encode(src, mask)
+        cache = model.new_cache(b, T)
+        token = torch.zeros_like(seqs[:, :1])
+        total = torch.zeros(b, device=src.device)
+        alive = torch.ones(b, dtype=torch.bool, device=src.device)
+        for t in range(T):
+            logits = model.decode(encoded, token, source_mask=mask,
+                                  cache=cache)[:, -1]
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            total += torch.where(alive, logp.gather(
+                -1, seqs[:, t:t + 1])[:, 0], 0.0)
+            alive &= seqs[:, t] != eos
+            token = seqs[:, t:t + 1]
+    return total.tolist()
+
+
+def phase_t5_beam(torch, dev, model):
+    """``beam_search_seq2seq`` on the served T5 at b4 (T5_SOURCE_LENS),
+    BEAMS beams, T5_BEAM_NEW_TOKENS new, length penalty 0, twice (cold and
+    counted, then warm): exact launches (one encode, a decoder step over
+    b x BEAMS rows each step), beams 1 bit-equal to greedy
+    ``generate_seq2seq``, rows past EOS hold EOS, the best beam rescored
+    no worse than greedy's (as ``phase_beam``); ms a step."""
+    from kubeflow_tpu_torch.models.generate import (
+        beam_search_seq2seq,
+        generate_seq2seq,
+    )
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    cfg, n, eos = model.cfg, T5_BEAM_NEW_TOKENS, 1
+    _, src, mask = ragged_batch(torch, dev, cfg.vocab_size, T5_SOURCE_LENS)
+    kw = dict(source_mask=mask, max_new_tokens=n)
+    seconds = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        best = beam_search_seq2seq(model, src, beams=BEAMS, eos_token=eos,
+                                   length_penalty=0.0, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if run == 0:
+            counts = kernels.launch_counts()
+    want = t5_launches(cfg, n)
+    if counts != want:
+        raise AssertionError(f"t5 beam launches {counts}, expected {want}")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        model.encode(src, mask).sum().item()
+    encode_s = time.perf_counter() - t0
+    greedy = generate_seq2seq(model, src, eos_token=eos, **kw)
+    beam1 = beam_search_seq2seq(model, src, beams=1, eos_token=eos, **kw)
+    if not torch.equal(beam1, greedy):
+        raise AssertionError("t5 beam search with 1 beam differs from greedy")
+    for name, seqs in (("best", best), ("greedy", greedy)):
+        for r in seqs.tolist():
+            if eos in r and any(t != eos for t in r[r.index(eos):]):
+                raise AssertionError(f"t5 {name}: a row leaves EOS: {r}")
+    seqs = {"greedy": greedy, "beams_best": best}
+    cached = {k: t5_cached_logprob(torch, model, src, mask, v, eos)
+              for k, v in seqs.items()}
+    forward = {k: sequence_logprob(torch, t5_teacher_forced(
+        torch, model, src, mask, v), v, eos) for k, v in seqs.items()}
+    margin = [a - b for a, b in zip(cached["beams_best"], cached["greedy"])]
+    tol = BEAM_SCORE_TOL * n
+    fwd_margin = [a - b for a, b in zip(forward["beams_best"],
+                                        forward["greedy"])]
+    routes = [sum(abs(forward[k][r] - cached[k][r]) for k in seqs)
+              for r in range(len(T5_SOURCE_LENS))]
+    emit({"phase": "t5_beam", "model": T5_MODEL,
+          "source_lens": list(T5_SOURCE_LENS), "beams": BEAMS,
+          "max_new_tokens": n, "seconds_cold": seconds[0],
+          "seconds_warm": seconds[1], "encode_seconds": encode_s,
+          "ms_per_step_cold": (seconds[0] - encode_s) / n * 1e3,
+          "ms_per_step_warm": (seconds[1] - encode_s) / n * 1e3,
+          "launches": counts, "beams_1_equals_greedy": True,
+          "rows_with_eos": sum(eos in r for r in best.tolist()),
+          "rescored_cached": cached, "best_minus_greedy_cached": margin,
+          "rescored_forward": forward, "best_minus_greedy_forward":
+          fwd_margin, "route_disagreement": routes, "tol": tol,
+          "best_row0_head": best[0, :8].tolist()})
+    for r in range(len(T5_SOURCE_LENS)):
+        if margin[r] < -tol or fwd_margin[r] < -tol - routes[r]:
+            raise AssertionError(
+                f"t5 beam: the best of {BEAMS} beams scores {margin} "
+                f"(cached) and {fwd_margin} (forward) against greedy's")
+    return counts
+
+
+def phase_t5_grad(torch, dev):
+    """T5_MODEL's width at T5_GRAD_LAYERS encoder and decoder layers, the
+    same f32 master weights three ways: the kernel route (K1 and its VJP)
+    and the plain route computing in bf16, and an f32 plain model as the
+    reference.  One gradient of the reference's teacher-forced
+    cross-entropy (tests/test_t5.py) over b4 sources of T5_SOURCE_LENS and
+    T5_GRAD_TARGET target tokens: the kernel route's gradients (one
+    vector) no farther from the f32 model's than COMPOSE_RATIO times the
+    plain route's; the kernel route's launches exact."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    bf = torch.bfloat16
+    variants = {"kernel": dict(impl="auto", dtype=bf),
+                "plain": dict(impl="plain", dtype=bf),
+                "f32": dict(impl="plain", dtype=torch.float32)}
+    layers = dict(n_encoder_layers=T5_GRAD_LAYERS,
+                  n_decoder_layers=T5_GRAD_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    state, grads, losses, counts = None, {}, {}, None
+    for name, kw in variants.items():
+        model = create_model(T5_MODEL, device=dev, param_dtype=torch.float32,
+                             **layers, **kw)
+        if state is None:
+            with torch.no_grad():
+                model.reset_parameters(
+                    torch.Generator(device=dev).manual_seed(SEED))
+            state = t5_conditioned(torch, model).state_dict()
+            _, src, mask = ragged_batch(torch, dev, model.cfg.vocab_size,
+                                        T5_SOURCE_LENS)
+            tgt = torch.randint(0, model.cfg.vocab_size,
+                                (len(T5_SOURCE_LENS), T5_GRAD_TARGET),
+                                generator=gen, device=dev)
+        else:
+            model.load_state_dict(state)
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        kernels.reset_launch_counts()
+        logits = model(src, tgt, source_mask=mask)
+        labels = torch.roll(tgt, -1, dims=1)
+        loss = F.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]).float(),
+            labels[:, :-1].reshape(-1))
+        g = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        if name == "kernel":
+            counts = kernels.launch_counts()
+            want = t5_launches(model.cfg, 1, backward=True)
+            if counts != want:
+                raise AssertionError(f"t5 grad launches {counts}, expected "
+                                     f"{want}")
+        grads[name] = torch.cat([t.float().flatten() for t in g])
+        losses[name] = loss.item()
+        del model, params, logits, g
+        torch.cuda.empty_cache()
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    e_k, e_p = rel(grads["kernel"], grads["f32"]), rel(grads["plain"],
+                                                       grads["f32"])
+    emit({"phase": "t5_grad", "model": T5_MODEL, "layers": T5_GRAD_LAYERS,
+          "source_lens": list(T5_SOURCE_LENS), "target_len": T5_GRAD_TARGET,
+          "loss": losses, "launches": counts,
+          "all_grads_rel_l2_kernel_vs_f32": e_k,
+          "all_grads_rel_l2_plain_vs_f32": e_p, "ratio": e_k / e_p,
+          "ratio_limit": COMPOSE_RATIO})
+    for v in ("kernel", "plain"):
+        if not math.isfinite(losses[v]) or abs(
+                losses[v] - losses["f32"]) > 1e-2 * abs(losses["f32"]):
+            raise AssertionError(f"t5 grad loss {losses}")
+    if not math.isfinite(e_k) or e_k > COMPOSE_RATIO * e_p:
+        raise AssertionError(f"t5 grad: kernel route {e_k} against plain "
+                             f"{e_p} from f32")
+    del grads, state
+    torch.cuda.empty_cache()
+    return counts
+
+
 SOURCES = {
     "rms_norm": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
                  "kubeflow_tpu/ops/pallas/rms_norm.py:53"),
@@ -3893,6 +4579,7 @@ def main() -> int:
     phase_edges(torch, dev)
     rows.update(phase_train_kernels(torch, dev, timer))
     phase_encoder_kernels(torch, dev, timer)
+    phase_t5_kernels(torch, dev, timer)
     phase_train_edges(torch, dev)
     del timer
     torch.cuda.empty_cache()
@@ -3904,11 +4591,18 @@ def main() -> int:
     paged_counts, paged_http = phase_paged(torch, dev, model, fixed, tol,
                                            fixed_quantum)
     int8_counts = phase_int8(torch, dev, model, paged_http)
+    beam_counts = phase_beam(torch, dev, model)
     # The card cannot hold llama3_8b (17.1 GB) beside the Mixtral phases'
     # 24.0 GB and the training phases.
     del model, fixed
     gc.collect()
     torch.cuda.empty_cache()
+    t5_serve_counts, t5 = phase_t5_serve(torch, dev)
+    t5_beam_counts = phase_t5_beam(torch, dev, t5)
+    del t5
+    gc.collect()
+    torch.cuda.empty_cache()
+    t5_grad_counts = phase_t5_grad(torch, dev)
     phase_moe_layer(torch, dev)
     moe_counts = phase_moe_serve(torch, dev)
     moe_train_counts = phase_moe_train(torch, dev)
@@ -3933,6 +4627,10 @@ def main() -> int:
                              "schedule": schedule_counts[name],
                              "paged": paged_counts[name],
                              "int8": int8_counts[name],
+                             "beam": beam_counts[name],
+                             "t5_serve": t5_serve_counts[name],
+                             "t5_beam": t5_beam_counts[name],
+                             "t5_grad": t5_grad_counts[name],
                              "moe": moe_counts[name],
                              "moe_train": moe_train_counts[name],
                              "train": train_counts[name],

@@ -10,7 +10,9 @@ tree of ``scan_layers=True``), whose layer axis it unstacks into the
 port's per-layer modules.
 
 ``state_from_flax`` does the same for ResNet (``params`` and
-``batch_stats``), ViT and BERT, from the flax variable tree.
+``batch_stats``), ViT, BERT and T5, from the flax variable tree (T5's
+``DenseGeneral`` q/k/v kernels [dim, h, hd] and o kernels [h, hd, dim]
+become [out, in] weights, as Llama's do).
 """
 from __future__ import annotations
 
@@ -167,21 +169,25 @@ def params_from_jax(tree: Mapping, cfg,
     return state
 
 
-# -- ResNet, ViT, BERT ------------------------------------------------------
+# -- ResNet, ViT, BERT, T5 --------------------------------------------------
 
-_BLOCK_PREFIXES = ("BottleneckBlock_", "BasicBlock_", "block_", "layer_")
+# A flax block name's prefix (before its index) -> the port's ModuleList.
+_BLOCK_PREFIXES = {"BottleneckBlock_": "blocks", "BasicBlock_": "blocks",
+                   "block_": "blocks", "layer_": "layers",
+                   "encoder_": "encoder_blocks", "decoder_": "decoder_blocks"}
 
 
 def _flax_key(path: str) -> str:
-    """A flax variable path of ResNet, ViT or BERT -> the port's state-dict
-    key: ``BottleneckBlock_i``/``BasicBlock_i``/``block_i`` -> ``blocks.i``,
-    ``layer_i`` -> ``layers.i``, a block's ``Conv_j``/``BatchNorm_j`` ->
-    ``convs.j``/``norms.j``, ``kernel`` -> ``weight``."""
+    """A flax variable path of ResNet, ViT, BERT or T5 -> the port's
+    state-dict key: ``BottleneckBlock_i``/``BasicBlock_i``/``block_i`` ->
+    ``blocks.i``, ``layer_i`` -> ``layers.i``, T5's ``encoder_i`` and
+    ``decoder_i`` -> ``encoder_blocks.i`` and ``decoder_blocks.i``, a
+    block's ``Conv_j``/``BatchNorm_j`` -> ``convs.j``/``norms.j``,
+    ``kernel`` -> ``weight``."""
     out = []
     for part in path.split("/"):
-        for prefix in _BLOCK_PREFIXES:
+        for prefix, group in _BLOCK_PREFIXES.items():
             if part.startswith(prefix) and part[len(prefix):].isdigit():
-                group = "layers" if prefix == "layer_" else "blocks"
                 part = f"{group}.{part[len(prefix):]}"
                 break
         else:
@@ -204,7 +210,7 @@ def _flax_array(path: str, arr: np.ndarray) -> np.ndarray:
 
 
 def state_from_flax(variables: Mapping, module) -> Dict[str, torch.Tensor]:
-    """State dict for ``module`` (a port ResNet, ViT or Bert) from the
+    """State dict for ``module`` (a port ResNet, ViT, Bert or T5) from the
     reference's variable tree as nested dicts of numpy arrays:
     ``{"params": ..., "batch_stats": ...}`` (ResNet's running stats go to
     the norms' ``mean``/``var`` buffers).  Every tensor is f32, on the

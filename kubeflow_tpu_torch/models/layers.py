@@ -553,6 +553,111 @@ class EncoderAttention(nn.Module):
         return self.o_proj(out.reshape(b, s, -1))
 
 
+@dataclasses.dataclass
+class Seq2SeqCache(KVCache):
+    """An encoder-decoder's decode cache: per decoder layer the
+    self-attention K/V [b, length, h, d] written at the shared ``index``
+    (the decode step), and the cross-attention K/V [b, src_len, h, d],
+    projected from the encoder output by the first step and reused by
+    every later one (the reference's ``cached_cross_key``/``_value``,
+    ``kubeflow_tpu/models/layers.py:145-155``).  A beam search re-gathers
+    ``k`` and ``v`` rows after their parents and leaves the cross K/V,
+    which are equal across a source's beams."""
+
+    cross_k: List[Optional[torch.Tensor]] = dataclasses.field(
+        default_factory=list)
+    cross_v: List[Optional[torch.Tensor]] = dataclasses.field(
+        default_factory=list)
+
+    @classmethod
+    def empty(cls, n_layers: int, batch: int, length: int, heads: int,
+              head_dim: int, *, dtype: torch.dtype,
+              device) -> "Seq2SeqCache":
+        self_kv = KVCache.empty(n_layers, batch, length, heads, head_dim,
+                                dtype=dtype, device=device)
+        return cls(k=self_kv.k, v=self_kv.v, cross_k=[None] * n_layers,
+                   cross_v=[None] * n_layers)
+
+
+class BiasedAttention(nn.Module):
+    """Multi-head attention whose every call carries an additive bias: the
+    parts of the reference's ``Attention`` that T5 uses
+    (``kubeflow_tpu/models/layers.py:101-233``) — an explicit
+    ``head_dim``, a ``softmax_scale`` (T5's 1.0: unscaled; None is
+    1/sqrt(head_dim), tested with ``is not None`` so 1.0 is never taken
+    for unset), as many kv heads as q heads, no RoPE.
+
+    Modes, by the arguments of ``forward``:
+      * self-attention over ``x`` (``causal`` for a decoder);
+      * cross-attention over ``kv`` (an encoder output), never causal;
+      * with a ``Seq2SeqCache``: self-attention writes its K/V at
+        ``cache.index`` and attends over the whole cache, the caller's
+        bias hiding the slots past the step; cross-attention projects
+        ``kv`` into the cache at the first step and reuses it after.
+
+    The bias ([1 or b, h or 1, sq, sk] f32: T5's per-head relative bias,
+    key padding, the cache's visibility) is added to the logits.  The
+    flash kernels take no additive bias, and K5's bias rows are
+    head-uniform: a per-head bias must not be collapsed into them (the
+    reference refuses the same, ``layers.py:212-227``).  So every call
+    runs the plain attention, named at the call site, as the reference's
+    biased calls run XLA's."""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int, *,
+                 dtype: torch.dtype, param_dtype: Optional[torch.dtype] = None,
+                 softmax_scale: Optional[float] = None, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = head_dim
+        self.softmax_scale = softmax_scale
+        inner = num_heads * head_dim
+        lin = lambda i, o, block=0: Linear(
+            i, o, dtype=dtype, param_dtype=param_dtype, out_block=block,
+            device=device)
+        self.q_proj = lin(dim, inner, head_dim)
+        self.k_proj = lin(dim, inner, head_dim)
+        self.v_proj = lin(dim, inner, head_dim)
+        self.o_proj = lin(inner, dim)
+
+    def _heads(self, t: torch.Tensor) -> torch.Tensor:
+        return t.view(t.shape[0], t.shape[1], self.num_heads, self.head_dim)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor, *,
+                kv: Optional[torch.Tensor] = None, causal: bool = False,
+                cache: Optional[Seq2SeqCache] = None,
+                layer: int = 0) -> torch.Tensor:
+        b, s, _ = x.shape
+        q = self._heads(self.q_proj(x))
+        if kv is not None:
+            if causal:
+                raise ValueError("cross-attention is never causal")
+            if cache is None or cache.cross_k[layer] is None:
+                k = self._heads(self.k_proj(kv))
+                v = self._heads(self.v_proj(kv))
+                if cache is not None:
+                    cache.cross_k[layer], cache.cross_v[layer] = k, v
+            else:
+                k, v = cache.cross_k[layer], cache.cross_v[layer]
+        elif cache is not None:
+            # The caller's bias carries the visibility (slot <= step), so
+            # the cache path is not causal by position.
+            idx = cache.index
+            if idx + s > cache.length:
+                raise ValueError(
+                    f"cache of {cache.length} slots cannot take {s} tokens "
+                    f"at index {idx}")
+            k, v = cache.k[layer], cache.v[layer]
+            k[:, idx:idx + s] = self._heads(self.k_proj(x))
+            v[:, idx:idx + s] = self._heads(self.v_proj(x))
+            causal = False
+        else:
+            k, v = self._heads(self.k_proj(x)), self._heads(self.v_proj(x))
+        out = ops.dot_product_attention(
+            q, k, v, causal=causal, bias=bias,
+            softmax_scale=self.softmax_scale, impl="plain")
+        return self.o_proj(out.reshape(b, s, -1))
+
+
 def same_pads(size: int, kernel: int, stride: int) -> tuple:
     """XLA's "SAME" padding of one spatial axis, (low, high): the total
     max((ceil(size / stride) - 1) * stride + kernel - size, 0), the odd

@@ -14,9 +14,11 @@ the port's layouts (``Linear`` weights are [out, in]):
 
 What is quantized is selected by the reference's leaf paths: a weight
 whose path (``convert.reference_path``, dot-joined) matches
-``DEFAULT_PATTERN``, a final segment ``kernel`` or ``embedding``.  So the
-MoE router (``mlp/router/kernel``) is quantized and the expert tensors
-(``mlp/w_gate``, ``w_up``, ``w_down``) and the norm scales are not.
+``DEFAULT_PATTERN``, a final segment exactly ``kernel`` or ``embedding``.
+So the MoE router (``mlp/router/kernel``) is quantized and the expert
+tensors (``mlp/w_gate``, ``w_up``, ``w_down``) and the norm scales are
+not, nor T5's relative-bias tables (``*_rel_bias/rel_embedding``, a
+suffix match would catch them): they stay f32.
 
 A quantized module keeps only the int8 values and the scales on the
 device and dequantizes its one matrix inside ``forward``

@@ -20,17 +20,28 @@ def register_model(name: str):
     return deco
 
 
+def _register_families() -> None:
+    """Import every model family for its registrations."""
+    from kubeflow_tpu_torch.models import (  # noqa: F401
+        bert,
+        llama,
+        resnet,
+        t5,
+        vit,
+    )
+
+
 def create_model(name: str, *, device="cuda", **overrides) -> Any:
     """Build a registered model on ``device`` (default the card; raises
     without one) with config ``overrides``.  Its parameters are
     uninitialised: call ``reset_parameters`` or ``load_state_dict``."""
-    from kubeflow_tpu_torch.models import (  # noqa: F401  (registers)
-        bert,
-        llama,
-        resnet,
-        vit,
-    )
-
+    _register_families()
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](device=resolve_device(device), **overrides)
+
+
+def list_models() -> list:
+    """The registered model names, sorted."""
+    _register_families()
+    return sorted(_REGISTRY)

@@ -1,5 +1,5 @@
-"""Generation server: serve a decoder of the model zoo over HTTP, in
-PyTorch on the card.
+"""Generation server: serve a decoder or an encoder-decoder of the model
+zoo over HTTP, in PyTorch on the card.
 
     python -m kubeflow_tpu_torch.models.serve --model llama3_8b --port 8080
 
@@ -13,14 +13,16 @@ speculative decoding), unless ``KFT_SERVE_PAGED=0`` pins the fixed-slot
 ``KFT_SERVE_SCHEDULER=0`` (or ``use_scheduler=False``) the
 lock-serialized path; library use of a bare ``GenerationService`` takes
 the lock path.  A scheduler whose loop crashed fails over to the lock
-path.  The server is the standard library's ``ThreadingHTTPServer``;
-weights are random, drawn from ``--seed`` on the device, unless
-``--checkpoint-dir`` names a trainer's checkpoints
-(``train/checkpoint.py``), whose latest parameters are restored in the
-serving dtype.  ``--quantize int8`` keeps the matmul and embedding
-weights as int8 with per-channel scales (``models/quantize.py``),
-dequantized at use; ``--n-layers`` cuts a model's depth at full width
-(``mixtral_8x7b``'s 32 layers do not fit one 80 GB card).
+path.  An encoder-decoder (``--model t5_large``) is served by
+``Seq2SeqGenerationService``, always on the lock path.  The server is
+the standard library's ``ThreadingHTTPServer``; weights are random,
+drawn from ``--seed`` on the device, unless ``--checkpoint-dir`` names a
+trainer's checkpoints (``train/checkpoint.py``), whose latest parameters
+are restored in the serving dtype.  ``--quantize int8`` keeps the
+matmul and embedding weights as int8 with per-channel scales
+(``models/quantize.py``), dequantized at use; ``--n-layers`` cuts a
+decoder's depth at full width (``mixtral_8x7b``'s 32 layers do not fit
+one 80 GB card).
 
 Endpoints:
   GET  /healthz             liveness
@@ -129,6 +131,47 @@ def _check_deadline(deadline) -> None:
     if deadline is not None and time.monotonic() >= deadline:
         raise DeadlineExceeded(
             "request deadline expired while queued for the service lock")
+
+
+def _lock_request(service, rows, eos_token, validate, run):
+    """One request on the lock-serialized path, for both services: admit
+    (``validate``, before the lock, so a bad request is refused without
+    queueing) -> queue (the lock wait; queue depth counts its waiters) ->
+    ``run(tel, t_arrival, *validate())`` under the lock -> the token
+    counters.  With ``service.telemetry`` None (library use) every span
+    and series is a no-op."""
+    tel = service.telemetry
+    t_arrival = time.perf_counter()
+    if tel is not None:
+        tel.begin_request()
+    try:
+        with span_or_null(tel, "admit"):
+            args = validate()
+            if tel is not None:
+                tel.batch_rows.observe(len(rows))
+                tel.batch_fill_ratio.observe(
+                    len(rows) / max(service.max_batch_rows, 1))
+                tel.input_tokens.inc(sum(len(r) for r in rows))
+        with span_or_null(tel, "queue"):
+            if tel is not None:
+                tel.queue_depth.inc()
+            try:
+                service._lock.acquire()
+            finally:
+                if tel is not None:
+                    tel.queue_depth.dec()
+        try:
+            result = run(tel, t_arrival, *args)
+        finally:
+            service._lock.release()
+        if tel is not None:
+            tel.output_tokens.inc(_generated_token_count(result, eos_token))
+            tel.finish_request("ok")
+        return result
+    except BaseException:
+        if tel is not None:
+            tel.finish_request("error")
+        raise
 
 
 class GenerationService:
@@ -273,57 +316,102 @@ class GenerationService:
                 sched, rows, validate, temperature=temperature, top_k=top_k,
                 eos_token=eos_token, seed=seed, priority=priority,
                 deadline=deadline)
-        tel = self.telemetry
-        t_arrival = time.perf_counter()
-        if tel is not None:
-            tel.begin_request()
-        try:
-            with span_or_null(tel, "admit"):
-                prompt, mask, n = validate()
-                if tel is not None:
-                    tel.batch_rows.observe(len(rows))
-                    tel.batch_fill_ratio.observe(
-                        len(rows) / max(self.max_batch_rows, 1))
-                    tel.input_tokens.inc(sum(len(r) for r in rows))
-            with span_or_null(tel, "queue"):
-                if tel is not None:
-                    tel.queue_depth.inc()
-                try:
-                    self._lock.acquire()
-                finally:
-                    if tel is not None:
-                        tel.queue_depth.dec()
-            try:
-                _check_deadline(deadline)
-                kw = dict(temperature=temperature, top_k=top_k,
-                          eos_token=eos_token)
-                gens = row_generators(seed, prompt.shape[0], device)
-                # Prefill and decode as separate spans; TTFT is the first
-                # token's arrival on the host.
-                with span_or_null(tel, "prefill", rows=prompt.shape[0]):
-                    first, state = generate_prefill(
-                        self.model, prompt, prompt_mask=mask,
-                        max_new_tokens=n, generators=gens, **kw)
-                    first.tolist()  # device -> host: where TTFT is read
-                t_decode = time.perf_counter()
-                with span_or_null(tel, "decode", tokens=n):
-                    result = generate_decode(self.model, state,
-                                             **kw).tolist()
-                t_done = time.perf_counter()
-            finally:
-                self._lock.release()
+
+        def run(tel, t_arrival, prompt, mask, n):
+            _check_deadline(deadline)
+            kw = dict(temperature=temperature, top_k=top_k,
+                      eos_token=eos_token)
+            gens = row_generators(seed, prompt.shape[0], device)
+            # Prefill and decode as separate spans; TTFT is the first
+            # token's arrival on the host.
+            with span_or_null(tel, "prefill", rows=prompt.shape[0]):
+                first, state = generate_prefill(
+                    self.model, prompt, prompt_mask=mask, max_new_tokens=n,
+                    generators=gens, **kw)
+                first.tolist()  # device -> host: where TTFT is read
+            t_decode = time.perf_counter()
+            with span_or_null(tel, "decode", tokens=n):
+                result = generate_decode(self.model, state, **kw).tolist()
             if tel is not None:
                 tel.ttft.observe(t_decode - t_arrival)
                 if n > 1:
-                    tel.per_token.observe((t_done - t_decode) / (n - 1))
-                tel.output_tokens.inc(_generated_token_count(result,
-                                                             eos_token))
-                tel.finish_request("ok")
+                    tel.per_token.observe(
+                        (time.perf_counter() - t_decode) / (n - 1))
             return result
-        except BaseException:
-            if tel is not None:
-                tel.finish_request("error")
-            raise
+
+        return _lock_request(self, rows, eos_token, validate, run)
+
+
+class Seq2SeqGenerationService:
+    """Serves one encoder-decoder (T5), the counterpart of the reference's
+    ``Seq2SeqGenerationService`` (``kubeflow_tpu/models/serve.py:408-482``):
+    the request contract of ``GenerationService``, but ``tokens`` rows are
+    sources and the response is each row's generated target (BOS the pad
+    id 0, EOS 1 unless the request sets ``eos_token``).
+
+    Requests always run one at a time under the lock (``_lock_request``,
+    one ``generate`` span: the encoder pass is not a prompt-cache
+    prefill).  It has no scheduler branch, so neither
+    ``KFT_SERVE_SCHEDULER`` nor ``KFT_SERVE_PAGED`` can route it: each
+    decoder slot would need its own cross-attention K/V against a source
+    of its own length, which the slot pools cannot hold.  T5 configs have
+    no ``max_seq_len``, so the service bounds the target, the source and
+    the rows, which size the caches and the encoder's O(S^2) work."""
+
+    default_eos_token: Optional[int] = 1
+    # ServeTelemetry, attached by create_app; None = library use.
+    telemetry: Optional[ServeTelemetry] = None
+
+    def __init__(self, model, *, default_max_new_tokens: int = 32,
+                 max_target_len: int = 512, max_source_len: int = 4096,
+                 max_batch_rows: int = 64, quantize: Optional[str] = None):
+        self.model = model
+        self.quantize = quantize
+        self.default_max_new_tokens = default_max_new_tokens
+        self.max_target_len = max_target_len
+        self.max_source_len = max_source_len
+        self.max_batch_rows = max_batch_rows
+        self._lock = threading.Lock()
+
+    def generate(self, rows, *, max_new_tokens: Optional[int] = None,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 eos_token=_UNSET, seed: int = 0,
+                 priority: Optional[int] = None,
+                 deadline: Optional[float] = None):
+        """``priority`` is accepted for the wire's sake and inert (the lock
+        serializes in arrival order); a request whose ``deadline`` passed
+        while it waited for the lock raises ``DeadlineExceeded``."""
+        from kubeflow_tpu_torch.models.generate import (
+            generate_seq2seq,
+            row_generators,
+        )
+
+        del priority
+        if eos_token is _UNSET:
+            eos_token = self.default_eos_token
+        device = self.model.device
+
+        def validate():
+            return _validate_and_pad(
+                rows, self.model.cfg.vocab_size,
+                max_new_tokens=max_new_tokens,
+                default_max=self.default_max_new_tokens,
+                limit_new=self.max_target_len,
+                limit_source=self.max_source_len, top_k=top_k,
+                eos_token=eos_token, limit_rows=self.max_batch_rows,
+                device=device)
+
+        def run(tel, t_arrival, source, mask, n):
+            del t_arrival
+            _check_deadline(deadline)
+            with span_or_null(tel, "generate", tokens=n):
+                return generate_seq2seq(
+                    self.model, source, source_mask=mask, max_new_tokens=n,
+                    temperature=temperature, top_k=top_k, eos_token=eos_token,
+                    generators=row_generators(seed, source.shape[0],
+                                              device)).tolist()
+
+        return _lock_request(self, rows, eos_token, validate, run)
 
 
 # -- a minimal HTTP app on the standard library ------------------------------
@@ -435,9 +523,10 @@ class App:
         return server
 
 
-def create_app(service: GenerationService, *, model_name: str = "model",
+def create_app(service, *, model_name: str = "model",
                revision: Optional[int] = None) -> App:
-    """The serving app.  ``revision`` is exported as
+    """The serving app of a ``GenerationService`` or a
+    ``Seq2SeqGenerationService``.  ``revision`` is exported as
     ``serve_replica_revision`` (default: KFT_SERVE_REVISION, else 0)."""
     app = App("model-serve")
     registry = Registry()
@@ -512,12 +601,12 @@ def create_app(service: GenerationService, *, model_name: str = "model",
         # fixed-slot pool serves when it does.
         if not debug_traces_enabled:
             raise HttpError(404, "debug traces disabled")
-        sched = service._scheduler
+        sched = getattr(service, "_scheduler", None)
         return success({
             "engine": type(sched).__name__ if sched is not None else None,
             "scheduler": sched.stats() if sched is not None else None,
-            "paged_fallback": service.scheduler_fallback,
-            "quantize": service.quantize,
+            "paged_fallback": getattr(service, "scheduler_fallback", None),
+            "quantize": getattr(service, "quantize", None),
             "weight_bytes": quantized_bytes(service.model),
         })
 
@@ -619,13 +708,18 @@ def load_service(model_name: str, *, device="cuda",
                  draft_model_name: Optional[str] = None,
                  draft_checkpoint_dir: Optional[str] = None,
                  use_scheduler: Optional[bool] = None,
-                 n_layers: Optional[int] = None) -> GenerationService:
+                 n_layers: Optional[int] = None):
     """Build the model on ``device`` (default the card; raises without
     one).  Its weights are the latest checkpoint's parameters under
     ``checkpoint_dir`` (read without the optimizer state, cast to the
     serving dtype; raises ``FileNotFoundError`` when there is none), else
     random, drawn from ``seed`` directly on the device (an 8B init on the
     host would take minutes).
+
+    A decoder returns a ``GenerationService``; an encoder-decoder (a model
+    with ``encode``, T5) a ``Seq2SeqGenerationService``.  A knob the
+    model's config lacks (T5 has neither ``max_seq_len`` nor
+    ``n_layers``) raises instead of being dropped.
 
     ``quantize="int8"`` stores the target's matmul and embedding weights
     as int8 with per-channel scales (``models/quantize.py``), dequantized
@@ -637,7 +731,8 @@ def load_service(model_name: str, *, device="cuda",
     ``draft_model_name`` builds a second, smaller decoder of the same
     vocabulary for speculative decoding under the paged engine, restored
     from ``draft_checkpoint_dir`` or drawn from ``seed`` the same way; a
-    vocabulary mismatch fails here, at startup."""
+    vocabulary mismatch, a seq2seq draft or a seq2seq target fails here,
+    at startup."""
     from kubeflow_tpu_torch import resolve_device
     from kubeflow_tpu_torch.models import create_model
 
@@ -650,11 +745,29 @@ def load_service(model_name: str, *, device="cuda",
     overrides = {"max_seq_len": max_seq_len} if max_seq_len else {}
     if n_layers:
         overrides["n_layers"] = n_layers
+    # The config's knobs are checked on a build without storage: the full
+    # model may not fit the card its cut (``n_layers``) is served on.
+    shapes = create_model(model_name, device="meta")
+    for knob in overrides:
+        if not hasattr(shapes.cfg, knob):
+            raise ValueError(f"{model_name} has no {knob} config; drop "
+                             f"--{knob.replace('_', '-')}")
+    seq2seq = hasattr(shapes, "encode")
+    if seq2seq and draft_model_name:
+        raise ValueError(
+            "--draft-model applies to decoder-only serving; seq2seq models "
+            "have no speculative-decoding path")
     model = _load_model(create_model(model_name, device=dev, **overrides),
                         checkpoint_dir, seed, quantize=bool(quantize))
+    if seq2seq:
+        return Seq2SeqGenerationService(model, quantize=quantize or None)
     draft = None
     if draft_model_name:
         draft = create_model(draft_model_name, device=dev)
+        if hasattr(draft, "encode"):
+            raise ValueError(
+                f"draft model {draft_model_name} is seq2seq; speculative "
+                f"decoding needs a decoder-only draft")
         if draft.cfg.vocab_size != model.cfg.vocab_size:
             raise ValueError(
                 f"draft vocab {draft.cfg.vocab_size} != target vocab "
