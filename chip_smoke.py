@@ -19,14 +19,22 @@ Phases, each of which raises on failure (exit code 1):
    Then the shapes the kernels accept beyond the serving path's.
 4. compose: ``llama3_8b`` at full width, 2 layers, on the card: the
    kernel route (impl="auto") against impl="plain" on the logits of a
-   ragged batch, after prefill and after one decode step.
+   ragged batch, after prefill and after one decode step; then a b2
+   ragged prompt prefilled in two chunks (DENSE_CHUNKS) through the dense
+   cache, the second at index 512 (K2 end-aligned causal over the
+   written slots: exact launches, the route counter, the logits).
 5. serve:   ``load_service("llama3_8b")`` (32 layers, random bf16 weights
    from seed 0 on the card) behind the HTTP app, pinned to the lock path
    (``use_scheduler=False``: one request at a time, whose launches it
    counts exactly); /readyz, then three POST /v1/generate: A greedy, B
    sampled, C = A again (token-identical).  The kernels' launch counts
    are set to 0 just before A and read just after it; each must equal
-   what the path launches.
+   what the path launches.  Around A the telemetry holds: the route
+   counter rose by A's K2 launches, ``hbm_peak_bytes`` is the allocator's
+   peak, ``device_memory_bytes`` has all three kinds for cuda:0.  C is
+   sent with a traceparent while ``/debug/profile?seconds=1`` captures a
+   registered profiler: samples under the model's role, and C's trace
+   linked as ``causal_trace_id`` on /debug/traces.
 6. profile: request A's device time by kernel class (torch.profiler).
 6b. schedule: the same model behind the continuous-batching scheduler
    (8 slots of 1024 positions, quantum 8): 12 rows in 6 requests over
@@ -34,7 +42,8 @@ Phases, each of which raises on failure (exit code 1):
    Each request's tokens equal the request sent alone; greedy tokens
    agree with the lock path under a teacher-forced prefill; pipelined and
    synchronous loops give equal tokens; launches are exact for a run
-   queued before its loop starts; the counters balance.  This phase pins
+   queued before its loop starts; the counters balance, and
+   ``serve_dispatch_overlap_ratio`` on /metrics equals ``stats()``.  This phase pins
    the fixed-slot pool (``KFT_SERVE_PAGED=0``).
 6c. paged: the same model and requests through the paged engine, the
    service's default (8 lanes of 1024 slots, 64-token pages, 129 pages,
@@ -108,7 +117,9 @@ Between 6c and 7 (llama3_8b is freed after beam):
    K5); A's tokens teacher-forced through one forward on the kernel
    route, impl="plain" and an f32 model (each greedy token within
    AGREE_GAP of its position's largest logit, COMPOSE_RATIO); latency,
-   tokens/s, peak memory; the int8 service's bytes and argmax agreement.
+   tokens/s, peak memory; the int8 service's bytes and argmax agreement;
+   the attention pre-flight gauge after A (its last plain call) and after
+   the encoder alone (the largest), and its host time a call.
 6d3. t5_beam: ``beam_search_seq2seq`` on that model, b4, 4 beams, 32
    new: exact launches, beams 1 bit-equal to greedy, rows after EOS hold
    EOS, the best beam rescored no worse than greedy, ms a step.
@@ -150,6 +161,7 @@ After 12 (PR 9, the image task and the encoders):
 17. image-cli: ``train.run --task image --model resnet50`` with
    ``--checkpoint-dir`` for 4 steps, against 2 steps and a resume to 4:
    weights, batch stats and momentum within RESUME_TOL.
+Within 3, K2 at the dense-cache chunk's shape (b2, q 300 over k 812).
 Within 7, the attention kernels at ViT-B/16's and BERT-base's shapes
 (b64 s197 and b32 s128, h12, d64, non-causal), timed; and K1 at
 T5-large's rows ([2048, 1024] and [16, 1024]) and K5 at the beam step's
@@ -306,6 +318,11 @@ DRAFT_LAYERS, DRAFT_SEED = 2, 1
 DEEP_SLOT_LEN = 8192
 # K2 at a prefill chunk's shape: the 900-token row's second chunk.
 CHUNK_B, CHUNK_SQ, CHUNK_SK = 1, 388, 900
+# The dense-cache chunk (compose phase): a b2 ragged prompt prefilled in
+# two chunks through ``Llama.forward(cache=)``, the second at cache index
+# DENSE_CHUNKS[0]; K2 runs end-aligned causal over the written slots.
+DENSE_CHUNKS = (512, 300)
+DENSE_LENS = (812, 700)
 
 # Training phase: the repo's training configuration at full width and
 # depth, as the reference's bench trains it (b1 s8192, bf16 gradients).
@@ -637,6 +654,10 @@ def phase_kernels(torch, dev, timer):
         emit(add_rates(row, flops))
         if s == 512 and not packed:
             rows["flash_attention_fwd"] = row
+    emit(chunk_k2_row(torch, dev, timer, b=len(DENSE_LENS),
+                      sq=DENSE_CHUNKS[1], sk=sum(DENSE_CHUNKS),
+                      path="dense-cache prefill chunk at index "
+                           f"{DENSE_CHUNKS[0]} (end-aligned causal)"))
 
     # K5: one decode token over S = prompt + 32 slots, padded rows masked;
     # and one long row (b1 S8192), whose cache is 33.5 MB.
@@ -930,26 +951,92 @@ def phase_compose(torch, dev):
     row["greedy_agreement_kernel_vs_f32"] = (
         out["auto"][0].argmax(-1) == out["f32"][0].argmax(-1)
     ).float().mean().item()
+    dense = dense_chunk_compose(torch, dev, models)
     emit(row)
+    emit({"phase": "compose_dense_chunk", **dense})
     del models, out
     torch.cuda.empty_cache()
 
 
-def http(base, path, body=None, timeout=600):
-    """One request to the local server (no proxy, whatever the env says)."""
+def dense_chunk_compose(torch, dev, models):
+    """The DENSE_LENS rows prefilled in two chunks through
+    ``Llama.forward(cache=)`` into a cache with room to decode, the second
+    chunk at index DENSE_CHUNKS[0]; its logits at valid positions held to
+    COMPOSE_RATIO as above.  On the kernel route K2 launches once a layer
+    a chunk (the second end-aligned causal over the written slots) and
+    the route counter counts the same calls."""
+    from kubeflow_tpu_torch.models.generate import prompt_positions
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.telemetry import compute as ctel
+
+    first = DENSE_CHUNKS[0]
+    _, prompt, mask = ragged_batch(torch, dev, 128256, DENSE_LENS)
+    positions, _ = prompt_positions(mask)
+    valid = mask[:, first:]
+    out, counts, routed = {}, None, None
+    for name, model in models.items():
+        cache = model.new_cache(len(DENSE_LENS), sum(DENSE_CHUNKS)
+                                + NEW_TOKENS)
+        if name == "auto":
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            calls0 = ctel.attention_impl_calls("kernel")
+        with torch.inference_mode():
+            model(prompt[:, :first], positions=positions[:, :first],
+                  cache=cache)
+            logits = model(prompt[:, first:], positions=positions[:, first:],
+                           cache=cache)
+        if name == "auto":
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            routed = ctel.attention_impl_calls("kernel") - calls0
+        out[name] = logits.float()[valid]
+        del cache, logits
+    n_layers = models["auto"].cfg.n_layers
+    want = {k: 0 for k in counts}
+    want.update({"rms_norm": 2 * (2 * n_layers + 1),
+                 "flash_attention_fwd": 2 * n_layers})
+    if counts != want or routed != 2 * n_layers:
+        raise AssertionError(f"dense chunk launches {counts} (route counter "
+                             f"{routed}), expected {want}")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    e_auto, e_plain = rel(out["auto"], out["f32"]), rel(out["plain"],
+                                                        out["f32"])
+    res = {"lens": list(DENSE_LENS), "chunks": list(DENSE_CHUNKS),
+           "positions": int(valid.sum()), "launches": counts,
+           "route_counter_kernel": routed,
+           "rel_l2_kernel_vs_f32": e_auto, "rel_l2_plain_vs_f32": e_plain,
+           "rel_l2_kernel_vs_plain": rel(out["auto"], out["plain"]),
+           "argmax_agreement_kernel_vs_f32": (
+               out["auto"].argmax(-1) == out["f32"].argmax(-1)
+           ).float().mean().item()}
+    for name in ("auto", "plain"):
+        if not torch.isfinite(out[name]).all():
+            raise AssertionError(f"dense chunk {name}: non-finite")
+    if e_auto > COMPOSE_RATIO * e_plain:
+        raise AssertionError(
+            f"dense chunk: kernel route {e_auto} from the f32 model, more "
+            f"than {COMPOSE_RATIO} x the plain route's {e_plain}")
+    return res
+
+
+def http(base, path, body=None, timeout=600, headers=None):
+    """One request to the local server (no proxy, whatever the env says);
+    /metrics and /debug/profile answer text, the rest JSON."""
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(base + path, data=data, headers={
-        "Content-Type": "application/json"})
+        "Content-Type": "application/json", **(headers or {})})
     opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
     with opener.open(req, timeout=timeout) as resp:
         raw = resp.read()
-        return resp.status, (json.loads(raw) if path != "/metrics"
-                             else raw.decode())
+        text = path == "/metrics" or path.startswith("/debug/profile")
+        return resp.status, raw.decode() if text else json.loads(raw)
 
 
 def phase_serve(torch, dev):
     from kubeflow_tpu_torch.models.serve import create_app, load_service
     from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.telemetry import compute as ctel
 
     t0 = time.perf_counter()
     # The lock path, whose one request at a time the counts below hold;
@@ -975,10 +1062,15 @@ def phase_serve(torch, dev):
         torch.cuda.reset_peak_memory_stats()
 
         kernels.reset_launch_counts()
+        routed0 = {i: ctel.attention_impl_calls(i) for i in ("kernel",
+                                                             "plain")}
         t_a = time.perf_counter()
         _, out_a = http(base, "/v1/generate", body_a)
         t_a = time.perf_counter() - t_a
         counts = kernels.launch_counts()
+        routed = {i: ctel.attention_impl_calls(i) - routed0[i]
+                  for i in routed0}
+        telemetry = serve_telemetry_checks(torch, counts, routed)
 
         forwards = NEW_TOKENS            # 1 prefill + 31 decode steps
         want = {"rms_norm": (2 * cfg.n_layers + 1) * forwards,
@@ -995,7 +1087,7 @@ def phase_serve(torch, dev):
         decode_s = spans["decode"]["duration_ms"] / 1e3
 
         _, out_b = http(base, "/v1/generate", body_b)
-        _, out_c = http(base, "/v1/generate", body_a)
+        out_c, replica = profiled_traced_request(base, body_a)
         for name, out in (("A", out_a), ("B", out_b), ("C", out_c)):
             rows = out["tokens"]
             if len(rows) != len(PROMPT_LENS) or any(
@@ -1019,11 +1111,83 @@ def phase_serve(torch, dev):
               "launches": counts, "a_equals_c": True,
               "a_row0_head": out_a["tokens"][0][:8],
               "b_row0_head": out_b["tokens"][0][:8]})
+        emit({"phase": "serve_telemetry", **telemetry})
+        emit({"phase": "serve_profile_traceparent", **replica})
         return counts, service.model
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+
+
+def serve_telemetry_checks(torch, counts, routed):
+    """Around request A: the route counter rose by exactly A's K2 launches
+    (no plain call), ``hbm_peak_bytes`` is the allocator's peak,
+    ``device_memory_bytes`` carries all three kinds for cuda:0, and its
+    limit is the card's total memory."""
+    from kubeflow_tpu_torch.telemetry import compute as ctel
+
+    if routed != {"kernel": counts["flash_attention_fwd"], "plain": 0}:
+        raise AssertionError(f"route counter {routed} against K2's "
+                             f"{counts['flash_attention_fwd']} launches")
+    peak, want_peak = ctel.hbm_peak_bytes(), torch.cuda.max_memory_allocated()
+    if peak != want_peak:
+        raise AssertionError(f"hbm_peak_bytes {peak}, allocator peak "
+                             f"{want_peak}")
+    samples = {kind: metric_value(
+        ctel.render(), f'device_memory_bytes{{device="cuda:0",kind="{kind}"}}')
+        for kind in ("in_use", "peak", "limit")}
+    total = torch.cuda.mem_get_info(0)[1]
+    if not all(samples.values()) or samples["peak"] != want_peak or (
+            samples["limit"] != total):
+        raise AssertionError(f"device_memory_bytes {samples}: peak "
+                             f"{want_peak}, mem_get_info total {total}")
+    return {"route_counter": routed, "hbm_peak_bytes": peak,
+            "device_memory_bytes": samples,
+            "free_hbm_bytes": ctel.free_hbm_bytes()}
+
+
+def profiled_traced_request(base, body):
+    """Request C (= A) sent with a traceparent while /debug/profile?seconds=1
+    captures a registered Profiler: the capture holds folded stacks, some
+    under the model's role (the request thread, through the Tracer seam);
+    /debug/traces finds C by the caller's trace id as causal_trace_id."""
+    from kubeflow_tpu_torch.telemetry import causal, profiler
+
+    ctx = causal.mint()
+    prof = profiler.Profiler()
+    profiler.register_debug_profiler(prof)
+    try:
+        # The capture starts first; the request follows it into its second.
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(http, base, "/debug/profile?seconds=1")
+            time.sleep(0.1)
+            _, out = http(base, "/v1/generate", body,
+                          headers={"traceparent": ctx.to_traceparent()})
+            status, folded = fut.result()
+    finally:
+        profiler.register_debug_profiler(None)
+    lines = folded.splitlines()
+    roles = {}
+    for ln in lines:
+        role = ln.split(";", 1)[0]
+        roles[role] = roles.get(role, 0) + int(ln.rsplit(" ", 1)[1])
+    if status != 200 or not roles.get("llama3_8b"):
+        raise AssertionError(f"/debug/profile {status}: no llama3_8b "
+                             f"samples in {roles}")
+    _, traces = http(base, f"/debug/traces?trace_id={ctx.trace_id}")
+    linked = [t for t in traces["traces"]
+              if t.get("causal_trace_id") == ctx.trace_id]
+    if len(linked) != 1 or linked[0]["causal_span_id"] != ctx.span_id:
+        raise AssertionError(f"traceparent {ctx.to_traceparent()} not "
+                             f"linked: {traces['traces']}")
+    return out, {"profile_status": status, "profile_lines": len(lines),
+                 "profile_samples_by_role": roles,
+                 "profile_model_lines": sum(
+                     ln.startswith("llama3_8b;") for ln in lines),
+                 "traceparent": ctx.to_traceparent(),
+                 "linked_trace_id": linked[0]["trace_id"],
+                 "linked_spans": [sp["name"] for sp in linked[0]["spans"]]}
 
 
 def phase_profile(torch, dev, model):
@@ -1385,6 +1549,17 @@ def phase_schedule(torch, dev, model):
                 "serve_decode_slots")}
             _, debug = http(base, "/debug/serve")
             row["counters"] = counters
+            # serve_dispatch_overlap_ratio, set at each harvest, equals
+            # the ratio stats() reports (rounded there to 6 decimals).
+            overlap = [float(ln.split()[1]) for ln in metrics.splitlines()
+                       if ln.startswith("serve_dispatch_overlap_ratio ")]
+            ratio = sched.stats()["dispatch_overlap_ratio"]
+            if len(overlap) != 1 or abs(overlap[0] - ratio) > 5e-7:
+                raise AssertionError(f"serve_dispatch_overlap_ratio "
+                                     f"{overlap} against stats() {ratio}")
+            emit({"phase": "schedule_overlap_gauge",
+                  "serve_dispatch_overlap_ratio": overlap[0],
+                  "stats_dispatch_overlap_ratio": ratio})
             if (counters["serve_scheduler_admitted_rows_total"]
                     != counters["serve_scheduler_evicted_rows_total"]
                     or counters["serve_decode_slots_active"] != 0
@@ -1698,15 +1873,17 @@ def gather_row(torch, dev, timer, L):
             "per_step_ms_32_layers": 32 * ms}
 
 
-def chunk_k2_row(torch, dev, timer):
-    """K2 at a prefill chunk's shape: q [1, 388] over k/v [1, 900] (the
-    900-token row's second chunk, end-aligned causal), h32/8 d128."""
+def chunk_k2_row(torch, dev, timer, b=CHUNK_B, sq=CHUNK_SQ, sk=CHUNK_SK,
+                 path="paged prefill chunk (end-aligned causal)"):
+    """K2 at a prefill chunk's shape, end-aligned causal, h32/8 d128: by
+    default q [1, 388] over k/v [1, 900] (the paged engine's second chunk
+    of the 900-token row)."""
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops.cuda import flash_attention as k2
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 41)
-    b, sq, sk, h, kvh, hd = CHUNK_B, CHUNK_SQ, CHUNK_SK, 32, 8, 128
+    h, kvh, hd = 32, 8, 128
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
         torch.bfloat16)
     q, k, v = rnd(b, sq, h, hd), rnd(b, sk, kvh, hd), rnd(b, sk, kvh, hd)
@@ -1722,7 +1899,7 @@ def chunk_k2_row(torch, dev, timer):
     bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     row = {"kernel": "flash_attention_fwd", "shape": [b, sq, sk, h, kvh, hd],
-           "path": "paged prefill chunk (end-aligned causal)",
+           "path": path,
            "max_abs_err": err, "tol": tol, "tol_share": share,
            "kernel_ms": timer(lambda: k2.flash_attention(q, k, v,
                                                          causal=True)),
@@ -4247,6 +4424,7 @@ def phase_t5_serve(torch, dev):
     from kubeflow_tpu_torch.models.quantize import quantized_bytes
     from kubeflow_tpu_torch.models.serve import load_service
     from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.telemetry import compute as ctel
 
     t0 = time.perf_counter()
     service = load_service(T5_MODEL, device="cuda", seed=SEED)
@@ -4264,10 +4442,13 @@ def phase_t5_serve(torch, dev):
             raise AssertionError(f"t5 /readyz: {status} {ready}")
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
+        plain0 = ctel.attention_impl_calls("plain")
         t_a = time.perf_counter()
         res_a = client.generate(toks, max_new_tokens=n)
         t_a = time.perf_counter() - t_a
         counts = kernels.launch_counts()
+        plain_calls = ctel.attention_impl_calls("plain") - plain0
+        last_estimate = ctel.attention_estimate_value()
         peak = torch.cuda.max_memory_allocated()
         want = t5_launches(cfg, n)
         if not res_a.ok or counts != want:
@@ -4292,6 +4473,8 @@ def phase_t5_serve(torch, dev):
             raise AssertionError(f"t5 spans {spans}")
     finally:
         stop_server(service, server, thread)
+    emit({"phase": "t5_preflight", **t5_preflight_checks(
+        torch, dev, model, src, mask, plain_calls, last_estimate)})
     profiled = t5_profile(torch, model, src, mask, n)
     gen = torch.tensor(res_a.tokens, device=dev)
     keep = torch.cumprod((gen != service.default_eos_token).long(), dim=1)
@@ -4365,6 +4548,57 @@ def phase_t5_serve(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return counts, model
+
+
+def t5_preflight_checks(torch, dev, model, src, mask, plain_calls,
+                        last_estimate):
+    """The attention pre-flight on T5's plain calls.  After request A the
+    gauge holds its last call's footprint (the last decoder layer's
+    cross-attention of the last step, 1 query over the sources); after
+    the encoder alone, the footprint of the phase's largest plain call
+    (the encoder's self-attention over the sources).  Request A counted
+    one plain call an attention (24 encoder layers once, 2 x 24 decoder
+    attentions a step).  The pre-flight's and the counter's host time a
+    call is measured at the decode step's shape."""
+    from kubeflow_tpu_torch.ops import attention as attn
+    from kubeflow_tpu_torch.telemetry import compute as ctel
+
+    cfg = model.cfg
+    b, s = src.shape
+    fp = lambda sq, sk: attn.attention_footprint_bytes(
+        batch=b, heads=cfg.n_heads, q_len=sq, k_len=sk, causal=False,
+        segments=False)
+    want_calls = (cfg.n_encoder_layers
+                  + 2 * cfg.n_decoder_layers * T5_NEW_TOKENS)
+    plain0 = ctel.attention_impl_calls("plain")
+    with torch.inference_mode():
+        model.encode(src, mask)
+    torch.cuda.synchronize()
+    encoder_estimate = ctel.attention_estimate_value()
+    encoder_calls = ctel.attention_impl_calls("plain") - plain0
+    if (last_estimate != fp(1, s) or encoder_estimate != fp(s, s)
+            or plain_calls != want_calls
+            or encoder_calls != cfg.n_encoder_layers):
+        raise AssertionError(
+            f"t5 pre-flight: after A {last_estimate} (want {fp(1, s)}), "
+            f"after the encoder {encoder_estimate} (want {fp(s, s)}); plain "
+            f"calls {plain_calls} (want {want_calls}), encoder "
+            f"{encoder_calls}")
+    q = torch.zeros(b, 1, cfg.n_heads, cfg.head_dim, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.zeros(b, s, cfg.n_heads, cfg.head_dim, device=dev,
+                    dtype=torch.bfloat16)
+    reps = 2000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ctel.note_attention_impl("plain")
+        attn._preflight(q, k, causal=False, segments=False)
+    us = (time.perf_counter() - t0) / reps * 1e6
+    return {"last_call_estimate_bytes": last_estimate,
+            "largest_call_estimate_bytes": encoder_estimate,
+            "plain_calls_request_a": plain_calls,
+            "host_us_per_plain_call": us,
+            "host_ms_per_request_a": us * plain_calls / 1e3}
 
 
 def t5_cached_logprob(torch, model, src, mask, seqs, eos):

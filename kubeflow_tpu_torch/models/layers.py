@@ -310,9 +310,10 @@ class Attention(nn.Module):
     Without a cache: causal attention over the sequence (``segment_ids``
     masks packed documents).  With a ``KVCache`` (scalar-index mode): the
     new K/V are written at ``cache.index``; a multi-token call at index 0
-    (prefill) attends causally over the fresh q/k/v only, and a
-    single-token call (decode) attends over the whole cache with the
-    caller's bias row [b, length] (causal + padding).  With
+    (prefill) attends causally over the fresh q/k/v only, one at a later
+    index (a later prefill chunk) end-aligned causally over the written
+    slots, and a single-token call (decode) attends over the whole cache
+    with the caller's bias row [b, length] (causal + padding).  With
     ``cache_slots`` [b] (per-row mode, single-token only): row r writes
     its K/V at slot ``cache_slots[r]`` and the caller's bias rows carry
     the whole per-row visibility (the continuous-batching slot pool,
@@ -401,9 +402,17 @@ class Attention(nn.Module):
                 out = ops.dot_product_attention(q, k, v, causal=True,
                                                 impl=self.impl)
             else:
-                raise NotImplementedError(
-                    "multi-token steps at a cache index > 0 (chunked "
-                    "prefill) are not ported yet; see ROADMAP.md")
+                # A later chunk: end-aligned causal attention over the
+                # written slots 0 .. idx + s - 1 is the reference's
+                # cached bias (slot j visible to the query at slot idx + i
+                # iff j <= idx + i; unwritten slots hidden), as a paged
+                # chunk runs it.  The kernel takes contiguous K/V, so a
+                # cache longer than the written prefix is copied.
+                end = idx + s
+                out = ops.dot_product_attention(
+                    q, k_buf[:, :end].contiguous(),
+                    v_buf[:, :end].contiguous(), causal=True,
+                    impl=self.impl)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
     def _paged(self, q, k, v, cache: PagedKVCache, layer: int,

@@ -627,6 +627,9 @@ class DecodeScheduler:
         if tel is not None:
             active = sum(s is not None for s in h.snapshot)
             tel.batch_fill_ratio.observe(active / self.slots)
+            if self._cycle_s > 0:
+                tel.dispatch_overlap.set(
+                    1.0 - self._blocked_s / self._cycle_s)
         for i, slot in enumerate(h.snapshot):
             if slot is None or self._slot_state[i] is not slot:
                 continue

@@ -36,8 +36,19 @@ Endpoints:
                             headers X-KFT-Priority (interactive|standard|
                             batch) and X-KFT-Deadline-Seconds
   GET  /metrics             Prometheus text
-  GET  /debug/traces        recent request span trees (?n=, ?trace_id=)
+  GET  /debug/traces        recent request span trees (?n=, ?trace_id=,
+                            which also matches a trace's causal_trace_id)
+  GET  /debug/profile       folded stacks of the registered sampling
+                            profiler (telemetry/profiler.py): the open
+                            window, ?window=N, or ?seconds=S captured now;
+                            404 while no profiler is registered
   GET  /debug/serve         the engine that serves and its scheduler's stats
+
+A request's ``traceparent`` header (W3C) is the handler thread's current
+context (``telemetry/causal.py``) while the request runs, so its trace
+links the caller's trace as ``causal_trace_id``.  The debug routes are
+off with ``DEBUG_TRACES=0``.  The app registers no profiler itself: a
+caller starts one and passes it to ``register_debug_profiler``.
 """
 from __future__ import annotations
 
@@ -63,6 +74,7 @@ from kubeflow_tpu_torch.models.scheduler import (
     DeadlineExceeded,
     DecodeScheduler,
 )
+from kubeflow_tpu_torch.telemetry import causal, profiler
 from kubeflow_tpu_torch.telemetry.metrics import Counter, Gauge, Histogram, Registry
 from kubeflow_tpu_torch.telemetry.serve import (
     ServeTelemetry,
@@ -461,7 +473,9 @@ def failure(message: str, status: int = 400,
 
 
 class App:
-    """Routes (method, path) to handlers ``fn(request) -> Response``."""
+    """Routes (method, path) to handlers ``fn(request) -> Response``; a
+    handler runs with the request's ``traceparent`` header, when it has
+    a valid one, as its thread's current causal context."""
 
     def __init__(self, name: str):
         self.name = name
@@ -484,8 +498,11 @@ class App:
         fn = handlers.get(method)
         if fn is None:
             return failure(f"method {method} not allowed", 405)
+        ctx = causal.parse_traceparent(
+            headers.get(causal.TRACEPARENT_HEADER) if headers else None)
         try:
-            return fn(Request(args, headers, body))
+            with causal.use(ctx):
+                return fn(Request(args, headers, body))
         except HttpError as e:
             return failure(e.message, e.status)
         except Exception as e:  # noqa: BLE001 — the server must keep serving
@@ -592,6 +609,33 @@ def create_app(service, *, model_name: str = "model",
         return json_response({"traces": filter_traces(
             tel.tracer.recent(), n=n,
             trace_id=request.args.get("trace_id"))})
+
+    @app.route("/debug/profile")
+    def debug_profile(request):
+        # Folded stacks of the registered profiler: a request thread's
+        # samples fold under the model's name through the Tracer seam.
+        if not debug_traces_enabled:
+            raise HttpError(404, "debug traces disabled")
+        prof = profiler.debug_profiler()
+        if prof is None:
+            raise HttpError(404, "no profiler registered")
+        body = None
+        if request.args.get("seconds"):
+            try:
+                body = prof.capture(float(request.args["seconds"]))
+            except ValueError:
+                body = None
+        elif request.args.get("window"):
+            try:
+                body = prof.folded(int(request.args["window"]))
+            except ValueError:
+                body = None
+        else:
+            body = prof.folded()
+        if body is None:
+            raise HttpError(404, "no such profile window")
+        return 200, {"Content-Type": "text/plain; charset=utf-8"}, \
+            body.encode()
 
     @app.route("/debug/serve")
     def debug_serve(request):

@@ -7,6 +7,15 @@ tensors, "plain" always runs ``plain_attention`` (the counterpart of
 ``xla_attention`` in ``kubeflow_tpu/ops/attention.py``).  The routing never changes
 a result beyond the kernels' rounding: the CPU parity tests pin the plain
 path to the JAX reference, and ``chip_smoke.py`` each kernel to it.
+
+``dot_product_attention`` counts each call by the route it takes in
+``attention_kernel_calls_total{impl="kernel"|"plain"}``
+(``telemetry/compute.py``), and before a plain call publishes its
+``attention_footprint_bytes`` (the pre-flight, with the budget warning).
+The reference estimates only its masked (causal or segmented) XLA calls;
+the port estimates every plain call, since each materializes the same f32
+logits and probabilities whatever carries its mask (T5's calls carry it
+in the bias).  ``decode_attention`` is not counted, as in the reference.
 """
 from __future__ import annotations
 
@@ -18,12 +27,36 @@ from kubeflow_tpu_torch.ops.cuda import flash_attention as _k2
 from kubeflow_tpu_torch.ops.cuda import flash_decode as _k5
 from kubeflow_tpu_torch.ops.cuda.flash_attention import plain_attention
 from kubeflow_tpu_torch.ops.cuda.flash_decode import plain_decode
+from kubeflow_tpu_torch.telemetry import compute as ctel
 
 IMPLS = ("auto", "kernel", "plain")
 NOT_PORTED = ("ring", "ulysses")
 
-__all__ = ["decode_attention", "dot_product_attention", "plain_attention",
-           "plain_decode"]
+__all__ = ["attention_footprint_bytes", "decode_attention",
+           "dot_product_attention", "plain_attention", "plain_decode"]
+
+
+def attention_footprint_bytes(*, batch: int, heads: int, q_len: int,
+                              k_len: int, causal: bool,
+                              segments: bool) -> int:
+    """The bytes a plain attention call materializes, from shapes alone:
+    its f32 logits and softmax probabilities, [b, h, sq, sk] each (the
+    reference's formula, ``kubeflow_tpu/ops/attention.py:29-48``; the masks
+    add no buffer of that size, so ``causal`` and ``segments`` only label
+    the warning)."""
+    del causal, segments
+    return 2 * 4 * batch * heads * q_len * k_len
+
+
+def _preflight(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
+               segments: bool) -> None:
+    b, sq, h = q.shape[:3]
+    sk = k.shape[1]
+    est = attention_footprint_bytes(batch=b, heads=h, q_len=sq, k_len=sk,
+                                    causal=causal, segments=segments)
+    ctel.note_attention_estimate(est, batch=b, heads=h, q_len=sq, k_len=sk,
+                                 causal=causal, segments=segments,
+                                 impl="plain")
 
 
 def _route(impl: str, t: torch.Tensor) -> bool:
@@ -52,12 +85,15 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     enabled and q, k or v requiring grad) runs the differentiable kernels
     (K2-lse forward, K3 + K4 backward); any other runs K2 alone."""
     if _route(impl, q):
+        ctel.note_attention_impl("plain")
+        _preflight(q, k, causal=causal, segments=segment_ids is not None)
         return plain_attention(q, k, v, causal=causal,
                                segment_ids=segment_ids, bias=bias,
                                softmax_scale=softmax_scale)
     if bias is not None:
         raise ValueError("the flash kernel takes no additive bias; pass "
                          "impl='plain' for a biased call on the card")
+    ctel.note_attention_impl("kernel")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _k2.flash_attention_with_lse(

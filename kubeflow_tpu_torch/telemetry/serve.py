@@ -28,8 +28,9 @@ from contextlib import nullcontext
 from typing import Dict, List, Optional
 
 from kubeflow_tpu_torch import config
+from kubeflow_tpu_torch.telemetry import causal
 from kubeflow_tpu_torch.telemetry.metrics import Counter, Gauge, Histogram
-from kubeflow_tpu_torch.telemetry.trace import Tracer
+from kubeflow_tpu_torch.telemetry.trace import Trace, Tracer
 
 # Requests at or above this wall time dump their span tree as one JSON log
 # line (kubeflow_tpu_torch.serve.trace logger).
@@ -39,6 +40,8 @@ _LATENCY_BUCKETS = (0.01, 0.05, 0.2, 1.0, 5.0, 20.0, 60.0, 180.0)
 _TOKEN_BUCKETS = (0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0)
 
 _request_ids = itertools.count(1)
+
+
 class ServeTelemetry:
     """Instruments + tracer for one serving app, registered in the app's
     own registry.  Safe to call from concurrent request threads."""
@@ -137,6 +140,13 @@ class ServeTelemetry:
             "Shards the paged-KV pool axis splits into over the serving "
             "mesh's data axes (1 = unsharded/replicated pool; set when "
             "the pool is built)", registry=registry)
+        self.dispatch_overlap = Gauge(
+            "serve_dispatch_overlap_ratio",
+            "Fraction of each decode dispatch->harvest cycle the "
+            "scheduler host thread was NOT blocked on device results "
+            "(cumulative since start; the synchronous loop spends the "
+            "whole quantum blocked, pipelined dispatch hides the wait "
+            "behind bookkeeping)", registry=registry)
         self.paged_fallback = Counter(
             "serve_paged_fallback_total",
             "Times the service routed to the fixed-slot scheduler "
@@ -146,7 +156,15 @@ class ServeTelemetry:
             "human-readable detail", ["reason"], registry=registry)
 
     def begin_request(self) -> Trace:
-        return self.tracer.begin(f"req-{next(_request_ids)}")
+        """Start the request's trace; a caller's context (the app installs
+        a ``traceparent`` header as the thread's current context) is
+        linked as ``causal_trace_id``/``causal_span_id``."""
+        tr = self.tracer.begin(f"req-{next(_request_ids)}")
+        ctx = causal.current()
+        if tr is not None and ctx is not None:
+            tr.links["causal_trace_id"] = ctx.trace_id
+            tr.links["causal_span_id"] = ctx.span_id
+        return tr
 
     def span(self, name: str, **attrs):
         return self.tracer.span(name, **attrs)
@@ -162,10 +180,12 @@ def span_or_null(tel: Optional[ServeTelemetry], name: str, **attrs):
 
 def filter_traces(traces: List[dict], *, n: Optional[int] = None,
                   trace_id: Optional[str] = None) -> List[dict]:
-    """The ``/debug/traces`` query: ``trace_id`` matches exactly, then
-    ``n`` keeps the newest n matches (n <= 0 returns nothing)."""
+    """The ``/debug/traces`` query: ``trace_id`` matches a trace's own id
+    or its ``causal_trace_id`` link, then ``n`` keeps the newest n matches
+    (n <= 0 returns nothing)."""
     if trace_id:
-        traces = [t for t in traces if t.get("trace_id") == trace_id]
+        traces = [t for t in traces if t.get("trace_id") == trace_id
+                  or t.get("causal_trace_id") == trace_id]
     if n is not None:
         traces = traces[-n:] if n > 0 else []
     return traces

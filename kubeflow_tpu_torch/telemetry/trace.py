@@ -5,21 +5,26 @@ so spans opened anywhere below attach without a context argument;
 finished traces land in a bounded ring buffer (``/debug/traces`` serves a
 service's); a trace slower than the caller's threshold is logged as one
 JSON line.  The port's copy of ``kubeflow_tpu/telemetry/trace.py``.
+
+A tracer is the sampling profiler's attribution seam
+(``telemetry/profiler.py``): while a trace is active, samples of its
+thread fold under the tracer's component (the serving model, ``train``);
+a slow trace's dump names the profile window that covered it
+(``profile_window``).  A trace's ``links`` are merged into its dict: a
+request that came with a ``traceparent`` carries ``causal_trace_id`` and
+``causal_span_id`` (``telemetry/serve.py``).
 """
 from __future__ import annotations
 
 import collections
-import itertools
 import json
 import logging
-import os
 import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
-_trace_prefix = os.urandom(8).hex()
-_trace_ids = itertools.count(1)
+from kubeflow_tpu_torch.telemetry import causal, profiler
 
 
 class Span:
@@ -41,16 +46,17 @@ class Span:
 
 class Trace:
     def __init__(self, component: str, name: str):
-        self.trace_id = f"{_trace_prefix}{next(_trace_ids):016x}"
+        self.trace_id = causal.new_trace_id()
         self.component = component
         self.name = name
         self.start_ts = time.time()
         self.t0 = time.perf_counter()
         self.spans: List[Span] = []
         self.result = ""
+        self.links: Dict[str, str] = {}
 
     def to_dict(self) -> dict:
-        return {
+        d = {
             "trace_id": self.trace_id,
             "component": self.component,
             "request": self.name,
@@ -59,6 +65,8 @@ class Trace:
             "result": self.result,
             "spans": [s.to_dict() for s in self.spans],
         }
+        d.update(self.links)
+        return d
 
 
 class Tracer:
@@ -79,9 +87,14 @@ class Tracer:
 
     def begin(self, name: str, *, enabled: bool = True) -> Optional[Trace]:
         """Start a trace on this thread, dropping any stale one (None when
-        not ``enabled``: spans are then no-ops)."""
+        not ``enabled``: spans are then no-ops), and point the thread's
+        profile samples at the component."""
         tr = Trace(self.component, name) if enabled else None
         self._local.trace = tr
+        if tr is None:
+            profiler.clear_active_role()
+        else:
+            profiler.set_active_role(self.component)
         return tr
 
     @contextmanager
@@ -104,11 +117,18 @@ class Tracer:
         if tr is None:
             return None
         self._local.trace = None
+        profiler.clear_active_role()
         tr.result = result
         d = tr.to_dict()
+        slow = (slow_seconds is not None
+                and d["duration_ms"] >= slow_seconds * 1e3)
+        if slow:
+            wid = profiler.covering_window_id()
+            if wid is not None:
+                d["profile_window"] = wid
         with self._lock:
             self._recent.append(d)
-        if slow_seconds is not None and d["duration_ms"] >= slow_seconds * 1e3:
+        if slow:
             self.log.warning("%s: %s", self.slow_message,
                              json.dumps(d, sort_keys=True))
         return d

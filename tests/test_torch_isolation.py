@@ -41,11 +41,14 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.train.checkpoint",
     "kubeflow_tpu_torch.models.scheduler",
     "kubeflow_tpu_torch.models.paged",
+    "kubeflow_tpu_torch.telemetry.compute",
+    "kubeflow_tpu_torch.telemetry.profiler",
+    "kubeflow_tpu_torch.telemetry.causal",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
-    """The modules that save and serve a trained model import with JAX,
-    the JAX package and the serving libraries blocked, and pull none of
-    them in."""
+    """The modules that save and serve a trained model, and the replica's
+    telemetry, import with JAX, the JAX package and the serving libraries
+    blocked, and pull none of them in."""
     path = REPO / (module.replace(".", "/") + ".py")
     assert path in PORT_FILES
     code = textwrap.dedent(f"""

@@ -122,3 +122,37 @@ def test_seeded_init_follows_flax_schemes():
     assert q.abs().max().item() <= 2 * 256 ** -0.5 / 0.87962566103423978
     assert abs(emb.std().item() - 256 ** -0.5) < 0.05 * 256 ** -0.5
     assert torch.equal(model.final_norm.scale, torch.ones(256))
+
+
+@pytest.mark.parametrize("first", [12, 5])
+def test_second_prefill_chunk_at_a_cache_index_matches_reference(pair,
+                                                                  first):
+    """A multi-token step at cache index > 0 (a later prefill chunk) runs
+    end-aligned causal attention over the written slots; the reference
+    attends over its whole cache with the causal and unwritten-slot bias
+    of ``_update_cache``.  Two right-padded rows of 20 and 13 tokens, cut
+    into two chunks, into a cache longer than the prompt: every position
+    of both chunks agrees within 1e-4."""
+    jm, params, _, model = pair
+    lens, cache_len = (20, 13), 24
+    rs = np.random.RandomState(7)
+    mask = np.arange(max(lens))[None] < np.array(lens)[:, None]
+    tokens = np.where(mask, rs.randint(0, 256, size=mask.shape), 0)
+    positions = np.maximum(np.cumsum(mask, axis=-1) - 1, 0)
+    chunks = [slice(0, first), slice(first, max(lens))]
+    want, variables = [], {"params": params}
+    for c in chunks:
+        logits, state = jm.apply(
+            variables, jnp.asarray(tokens[:, c]),
+            positions=jnp.asarray(positions[:, c]), decode=True,
+            cache_len=cache_len, mutable=["cache"])
+        variables = {"params": params, "cache": state["cache"]}
+        want.append(np.asarray(logits))
+    cache = model.new_cache(len(lens), cache_len)
+    with torch.inference_mode():
+        for c, w in zip(chunks, want):
+            got = model(torch.from_numpy(tokens[:, c]).long(),
+                        positions=torch.from_numpy(positions[:, c]),
+                        cache=cache)
+            np.testing.assert_allclose(got.numpy(), w, atol=1e-4, rtol=0)
+    assert cache.index == max(lens)

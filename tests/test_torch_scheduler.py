@@ -621,3 +621,32 @@ def test_concurrent_http_requests_pool_and_balance_counters(model,
     stats = service._scheduler.stats()
     assert stats["admitted_total"] == stats["evicted_total"] == 16
     assert stats["active_rows"] == 0 and stats["queued_rows"] == 0
+
+
+@pytest.mark.parametrize("paged", ["0", "1"])
+def test_dispatch_overlap_ratio_on_metrics_equals_stats(model, monkeypatch,
+                                                        paged):
+    """serve_dispatch_overlap_ratio is set after each harvest, as the
+    reference sets it (its paged engine reaches the same harvest): after
+    a scheduled request drains, /metrics carries the ratio that stats()
+    reports (stats() rounds it to 6 decimals)."""
+    monkeypatch.setenv("KFT_SERVE_PAGED", paged)
+    service = GenerationService(model)
+    app = create_app(service, model_name="llama_debug")
+    body = json.dumps({"tokens": [[4, 5, 6], [7]],
+                       "max_new_tokens": 6}).encode()
+    assert app.handle("POST", "/v1/generate", {}, body)[0] == 200
+    sched = service._scheduler
+    deadline = time.monotonic() + 30
+    while sched._inflight is not None or sched.stats()["active_rows"]:
+        assert time.monotonic() < deadline, sched.stats()
+        time.sleep(0.01)
+    text = _get(app, "/metrics")[1]
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("serve_dispatch_overlap_ratio ")]
+    assert len(lines) == 1, text
+    stats = sched.stats()
+    assert stats["dispatch_cycle_s"] > 0
+    got = float(lines[0].split()[1])
+    assert 0.0 <= got <= 1.0
+    assert abs(got - stats["dispatch_overlap_ratio"]) <= 5e-7
