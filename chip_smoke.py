@@ -161,6 +161,25 @@ After 12 (PR 9, the image task and the encoders):
 17. image-cli: ``train.run --task image --model resnet50`` with
    ``--checkpoint-dir`` for 4 steps, against 2 steps and a resume to 4:
    weights, batch stats and momentum within RESUME_TOL.
+After 7 (sequence parallelism on one card):
+7a. ring:   ``parallel/ring.py``'s own ``hop`` and ``merge`` over SP = 4
+   virtual ranks in one process, the script handing each rank its K/V
+   blocks (two NCCL ranks cannot share a card): llama_1b4's b1 s8192
+   h16 d128 causal and dense, llama3_8b's b1 s4096 h32/8 causal.  The
+   output and lse against one K2-lse call over the whole sequence (the
+   output's distance from f32 within COMPOSE_RATIO of the one call's, the
+   lse at K2-lse's lse gate), dq/dk/dv against one K2-lse + K3 + K4 call
+   within relative L2 2e-2, exact launches (a causal ring of 4 runs 10
+   hops, a dense one 16, each one K2-lse, K3 and K4), both layouts timed.
+7b. ulysses: the local attention of 4 virtual ranks of 4 heads each over
+   the whole sequence (b1 s8192 h16): 4 K2 launches, held to one K2 call
+   over all 16 heads (bit-equal expected; the row says), both timed.
+After 11:
+11a. mesh:  ``train.run.main`` with ``--distributed --mesh fsdp=1``: the
+   process group from torchrun's env at world size 1 over NCCL, the
+   state sharded by llama_rules and trained by the sharded step; losses
+   against the train phase's (MESH_LOSS_TOL), exact launches a step,
+   step seconds and peak memory; the group destroyed after it.
 Within 3, K2 at the dense-cache chunk's shape (b2, q 300 over k 812).
 Within 7, the attention kernels at ViT-B/16's and BERT-base's shapes
 (b64 s197 and b32 s128, h12, d64, non-causal), timed; and K1 at
@@ -334,6 +353,26 @@ TRAIN_ARGS = ["--model", TRAIN_MODEL, "--batch", "1", "--seq",
 PACKED_ARGS = ["--model", TRAIN_MODEL, "--batch", "4", "--seq", "2048",
                "--grad-dtype", "bf16", "--steps", "2", "--log-every", "1",
                "--packed"]
+
+# Sequence parallelism on one card: the ring's hops and the Ulysses head
+# groups of SP virtual ranks, run in one process (two NCCL ranks cannot
+# share a card).  Ring cases: (name, b, s, h, kv_h, d, causal); a causal
+# ring of n ranks runs n (n + 1) / 2 hops, a dense one n * n.
+SP = 4
+RING_CASES = (("llama_1b4", 1, TRAIN_SEQ, 16, 16, 128, True),
+              ("llama_1b4", 1, TRAIN_SEQ, 16, 16, 128, False),
+              ("llama3_8b gqa", 1, 4096, 32, 8, 128, True))
+ULYSSES_SHAPE = (1, TRAIN_SEQ, 16, 128)
+# The trainer over a mesh of one process (NCCL world size 1): the same
+# arguments as the train phase, sharded by llama_rules at fsdp=1.
+MESH_ARGS = TRAIN_ARGS + ["--distributed", "--mesh", "fsdp=1"]
+# Its losses against the train phase's, relative, at every step: the
+# sharded step runs the one-process grad function on the same parameters
+# (at world size 1 nothing is gathered or reduced and the loss's share is
+# exactly 1), so only the kernels' own run-to-run rounding may differ; 1e-5
+# as VARIANT_TOL's chunked head.  A step that applied no update or a wrong
+# one moves the loss by more (the train phase's 5 updates move it ~1e-3).
+MESH_LOSS_TOL = 1e-5
 
 # The int8 phase: llama3_8b from the same seed, weight-only int8
 # (load_service(quantize="int8")), the schedule requests through the paged
@@ -2869,6 +2908,246 @@ def phase_train_variants(torch, dev):
     torch.cuda.empty_cache()
 
 
+def ring_hop_count(n: int, causal: bool) -> int:
+    return n * (n + 1) // 2 if causal else n * n
+
+
+def rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+def phase_ring(torch, dev, timer):
+    """Ring attention's own ``hop`` and ``merge`` over SP virtual ranks in
+    one process, the script handing each rank its K/V blocks: the output
+    and lse against one K2-lse call over the whole sequence (both held to
+    f32 within COMPOSE_RATIO of the one call's distance; the lse also to
+    K2-lse's lse gate), dq/dk/dv against one K2-lse + K3 + K4 call within
+    relative L2 2e-2, exact launches (a causal ring runs n (n + 1) / 2
+    hops, each a K2-lse forward and a K3 (with the lse cotangent) and a
+    K4 backward), and each layout timed forward and forward + backward.
+    First, a chunk shape the kernels do not take must raise under the
+    default block route, not run the plain blocks on the card.  Returns
+    the first case's launch counts."""
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import ring
+
+    bad = torch.zeros(1, 64, 4, 96, dtype=torch.bfloat16, device=dev)
+    try:
+        ring.use_flash(bad, bad, "auto")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ring blocks took head_dim 96 on the card")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    first = None
+    for name, b, s, h, kvh, d, causal in RING_CASES:
+        bf = torch.bfloat16
+        rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                         device=dev).to(bf)
+        q, k, v, do = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d), \
+            rnd(b, s, h, d)
+        chunk = s // SP
+
+        def run_ring(q, k, v):
+            qs, ks, vs = ([t[:, i * chunk:(i + 1) * chunk].contiguous()
+                           for i in range(SP)] for t in (q, k, v))
+            outs, lses = [], []
+            for i in range(SP):
+                state = ring.init_state(qs[i])
+                for r in range(SP):
+                    src = (i - r) % SP
+                    blk = ring.hop(qs[i], ks[src], vs[src],
+                                   ring.hop_mode(i, src, causal))
+                    if blk is not None:
+                        state = ring.merge(state, *blk)
+                out, lse = ring.finish(state)
+                outs.append(out)
+                lses.append(lse)
+            return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        kernels.reset_launch_counts()
+        out, lse = run_ring(*leaves)
+        grads = torch.autograd.grad(out, leaves, do.float())
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        hops = ring_hop_count(SP, causal)
+        want = {kk: 0 for kk in counts}
+        want.update(flash_attention_fwd_lse=hops, flash_attention_dq=hops,
+                    flash_attention_dkv=hops)
+        if counts != want:
+            raise AssertionError(f"ring {name} causal={causal} launches "
+                                 f"{counts}, expected {want}")
+        first = first or counts
+        one = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o1, lse1 = fa.flash_attention_with_lse(*one, causal=causal)
+        g1 = torch.autograd.grad(o1, one, do)
+        o32, lse32 = fa.plain_attention_with_lse(q.float(), k.float(),
+                                                 v.float(), causal=causal)
+        ring_dist, one_dist = rel_l2(out, o32), rel_l2(o1, o32)
+        if ring_dist > COMPOSE_RATIO * one_dist:
+            raise AssertionError(f"ring {name}: output {ring_dist} from f32, "
+                                 f"one call {one_dist}")
+        lse_err, lse_share = check_lse(f"ring {name} lse", lse, lse32)
+        lse_one = (lse1 - lse32).abs().max().item()
+        del o32, lse32
+        checks = {n: check_rel_l2(f"ring {name} {n}", g, w,
+                                  KERNEL_TOL["flash_attention_dq"])
+                  for n, g, w in zip(("dq", "dk", "dv"), grads, g1)}
+
+        def fwd_bwd(fn):
+            def run():
+                ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                o = fn(*ls)[0]
+                torch.autograd.grad(o, ls, do.to(o.dtype))
+            return run
+
+        with torch.no_grad():
+            ring_ms = timer(lambda: run_ring(q, k, v))
+            one_ms = timer(lambda: fa.flash_attention_fwd_lse(
+                q, k, v, causal=causal))
+        row = {"phase": "ring", "case": name, "shape": [b, s, h, kvh, d],
+               "causal": causal, "sp": SP, "hops": hops, "launches": counts,
+               "out_rel_l2_from_f32": ring_dist,
+               "one_call_rel_l2_from_f32": one_dist,
+               "lse_max_abs_err": lse_err, "lse_tol_share": lse_share,
+               "one_call_lse_max_abs_err": lse_one,
+               "grad_rel_l2_to_one_call": {n: c[0] for n, c in
+                                           checks.items()},
+               "ring_fwd_ms": ring_ms, "one_call_fwd_ms": one_ms,
+               "ring_fwd_bwd_ms": timer(fwd_bwd(run_ring)),
+               "one_call_fwd_bwd_ms": timer(fwd_bwd(
+                   lambda q, k, v: fa.flash_attention_with_lse(
+                       q, k, v, causal=causal)))}
+        emit(row)
+        del q, k, v, do, leaves, out, lse, grads, one, o1, lse1, g1
+        gc.collect()
+        torch.cuda.empty_cache()
+    return first
+
+
+def phase_ulysses(torch, dev, timer):
+    """A Ulysses step's local attention on SP virtual ranks of h / SP
+    heads each over the whole sequence (what each rank holds after the
+    first all-to-all): SP K2 launches, held to one K2 call over all the
+    heads (the kernel's blocks are per head, so the output should be
+    bit-equal; the row says whether it was), both timed."""
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import ulysses
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    b, s, h, d = ULYSSES_SHAPE
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    group = h // SP
+    parts = [[t[:, :, r * group:(r + 1) * group].contiguous()
+              for t in (q, k, v)] for r in range(SP)]
+
+    def heads():
+        return torch.cat([ulysses.local_attention(*p, causal=True,
+                                                  softmax_scale=None)
+                          for p in parts], dim=2)
+
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = heads()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {kk: 0 for kk in counts}
+    want["flash_attention_fwd"] = SP
+    if counts != want:
+        raise AssertionError(f"ulysses launches {counts}, expected {want}")
+    one = fa.flash_attention(q, k, v, causal=True)
+    err, share = check_close("ulysses head groups", out, one,
+                             KERNEL_TOL["flash_attention_fwd"])
+    emit({"phase": "ulysses", "shape": list(ULYSSES_SHAPE), "sp": SP,
+          "heads_per_rank": group, "launches": counts,
+          "bit_equal_to_one_call": bool(torch.equal(out, one)),
+          "max_abs_err_to_one_call": err, "tol_share": share,
+          "head_groups_ms": timer(heads),
+          "one_call_ms": timer(lambda: fa.flash_attention(q, k, v,
+                                                           causal=True))})
+    del q, k, v, parts, out, one
+    torch.cuda.empty_cache()
+    return counts
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh(torch, train):
+    """``train.run.main(MESH_ARGS)`` in this process: the process group
+    from torchrun's env at world size 1 over NCCL, the mesh fsdp=1, the
+    state sharded by llama_rules and trained by the sharded step.  The
+    group is gone after it.  Losses held to the train phase's step by step
+    (MESH_LOSS_TOL), launches a step equal to the train phase's, step
+    seconds and peak memory beside it.  Returns the launch counts."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models.llama import CONFIGS
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    cfg = CONFIGS[TRAIN_MODEL]
+    n_steps = int(MESH_ARGS[MESH_ARGS.index("--steps") + 1])
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved = {kk: os.environ.get(kk) for kk in env}
+    os.environ.update(env)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        steps, done = run_trainer(MESH_ARGS)
+        wall_s = time.perf_counter() - t0
+    finally:
+        for kk, vv in saved.items():
+            if vv is None:
+                os.environ.pop(kk, None)
+            else:
+                os.environ[kk] = vv
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {kk: n * n_steps for kk, n in train_launches_per_step(cfg).items()}
+    if counts != want:
+        raise AssertionError(f"mesh launch counts {counts}, expected {want}")
+    losses = [st["loss"] for st in steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+    # Both runs' losses are read from the trainer's lines, printed to 6
+    # significant digits: one unit of the sixth digit is allowed besides.
+    limits = [MESH_LOSS_TOL
+              + 10.0 ** (math.floor(math.log10(abs(b))) - 5) / abs(b)
+              for b in train["losses"]]
+    if len(losses) != n_steps or any(r > t for r, t in zip(rel, limits)):
+        raise AssertionError(f"mesh losses {losses} against the train "
+                             f"phase's {train['losses']}: {rel}")
+    step_s = statistics.median(st["step_seconds"] for st in steps[1:])
+    emit({"phase": "mesh", "args": MESH_ARGS, "world_size": 1,
+          "backend": "nccl", "losses": losses,
+          "train_phase_losses": train["losses"], "loss_rel_diff": rel,
+          "loss_tol": MESH_LOSS_TOL,
+          "step_seconds": [st["step_seconds"] for st in steps],
+          "median_step_seconds_2_to_6": step_s,
+          "train_phase_median_step_seconds": train["step_seconds"],
+          "max_memory_allocated_bytes": peak,
+          "train_phase_max_memory_allocated_bytes": train["peak"],
+          "wall_seconds": wall_s, "launches": counts,
+          "launches_per_step": train_launches_per_step(cfg),
+          "group_destroyed": not dist.is_initialized(), "done": done})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def run_trainer(argv):
     """``train.run.main(argv)`` with its standard output captured; returns
     the exit code and the parsed ``train_step`` lines."""
@@ -3034,7 +3313,7 @@ def phase_train(torch):
           "launches": counts_p, "done": done_p})
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"losses": losses, "step_seconds": step_s, "peak": peak}
 
 
 def ckpt_state(torch, dev, n_layers):
@@ -4812,6 +5091,8 @@ def main() -> int:
     rows = phase_kernels(torch, dev, timer)
     phase_edges(torch, dev)
     rows.update(phase_train_kernels(torch, dev, timer))
+    ring_counts = phase_ring(torch, dev, timer)
+    ulysses_counts = phase_ulysses(torch, dev, timer)
     phase_encoder_kernels(torch, dev, timer)
     phase_t5_kernels(torch, dev, timer)
     phase_train_edges(torch, dev)
@@ -4842,7 +5123,8 @@ def main() -> int:
     moe_train_counts = phase_moe_train(torch, dev)
     phase_train_compose(torch, dev)
     phase_train_variants(torch, dev)
-    train_counts = phase_train(torch)
+    train_counts, train = phase_train(torch)
+    mesh_counts = phase_mesh(torch, train)
     phase_checkpoint(torch, dev)
     vit_counts = phase_vit(torch, dev)
     bert_counts = phase_bert(torch, dev)
@@ -4868,6 +5150,9 @@ def main() -> int:
                              "moe": moe_counts[name],
                              "moe_train": moe_train_counts[name],
                              "train": train_counts[name],
+                             "ring": ring_counts[name],
+                             "ulysses": ulysses_counts[name],
+                             "mesh": mesh_counts[name],
                              "resnet": resnet_counts[name],
                              "vit": vit_counts[name],
                              "bert": bert_counts[name]},

@@ -28,6 +28,7 @@ from torch import nn
 
 from kubeflow_tpu_torch import ops
 from kubeflow_tpu_torch.models import quantize
+from kubeflow_tpu_torch.parallel import sharding
 
 # flax's truncated-normal initialisers divide the target std by the std
 # of a unit normal truncated to [-2, 2].
@@ -351,9 +352,21 @@ class Attention(nn.Module):
                 bias_rows: Optional[torch.Tensor] = None,
                 cache_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        # Under tensor parallelism q/k/v hold this rank's heads (their
+        # row shards) and o_proj the matching input columns: the heads are
+        # counted from the projections, and o_proj's partial sums are
+        # summed over tp.
+        tp = sharding.tp_group(self.q_proj.weight,
+                               self.num_heads * self.head_dim)
+        if tp is not None and (self.num_heads % tp.size()
+                               or self.num_kv_heads % tp.size()):
+            raise ValueError(
+                f"tp={tp.size()} must divide n_heads={self.num_heads} and "
+                f"n_kv_heads={self.num_kv_heads}")
+        x = sharding.copy_to_tp(x, tp)
+        q = self.q_proj(x).view(b, s, -1, self.head_dim)
+        k = self.k_proj(x).view(b, s, -1, self.head_dim)
+        v = self.v_proj(x).view(b, s, -1, self.head_dim)
         q = apply_rope(q, positions, theta=self.rope_theta)
         k = apply_rope(k, positions, theta=self.rope_theta)
         if isinstance(cache, PagedKVCache):
@@ -380,8 +393,8 @@ class Attention(nn.Module):
                 v_buf[rows, cache_slots] = v[:, 0]
                 out = ops.decode_attention(q, k_buf, v_buf, bias_rows,
                                            impl=self.impl)
-                return self.o_proj(
-                    out.reshape(b, s, self.num_heads * self.head_dim))
+                return sharding.reduce_from_tp(
+                    self.o_proj(out.reshape(b, s, -1)), tp)
             idx = cache.index
             if idx + s > cache.length:
                 raise ValueError(
@@ -413,7 +426,8 @@ class Attention(nn.Module):
                     q, k_buf[:, :end].contiguous(),
                     v_buf[:, :end].contiguous(), causal=True,
                     impl=self.impl)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return sharding.reduce_from_tp(self.o_proj(out.reshape(b, s, -1)),
+                                       tp)
 
     def _paged(self, q, k, v, cache: PagedKVCache, layer: int,
                view: Optional[PagedView], bias_rows) -> torch.Tensor:
@@ -452,12 +466,17 @@ class SwiGLU(nn.Module):
         super().__init__()
         lin = lambda i, o: Linear(i, o, dtype=dtype, param_dtype=param_dtype,
                                   device=device)
+        self.hidden_dim = hidden_dim
         self.gate_proj = lin(dim, hidden_dim)
         self.up_proj = lin(dim, hidden_dim)
         self.down_proj = lin(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        # gate/up column-parallel, down row-parallel under tp (as Attention).
+        tp = sharding.tp_group(self.gate_proj.weight, self.hidden_dim)
+        x = sharding.copy_to_tp(x, tp)
+        return sharding.reduce_from_tp(
+            self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)), tp)
 
 
 # -- Encoder and convolution blocks (ViT, BERT, ResNet) ------------------------

@@ -15,6 +15,7 @@ Training stores f32 parameters (``param_dtype``) and computes in
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional, Union
 
 import torch
@@ -34,6 +35,7 @@ from kubeflow_tpu_torch.models.layers import (
 )
 from kubeflow_tpu_torch.models.moe import MoeMlp
 from kubeflow_tpu_torch.models.registry import register_model
+from kubeflow_tpu_torch.parallel.context import sequence_offset
 
 NEG_INF = -1e30
 
@@ -118,17 +120,29 @@ CONFIGS = {
 }
 
 
+SEQUENCE_PARALLEL = ("ring", "ulysses")
+# The projections models/layers.py runs tensor-parallel (Attention, SwiGLU).
+TP_LOCAL = (r".*(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)"
+            r"\.weight")
+
+
+def _norm_impl(impl: str) -> str:
+    """The RMSNorm route for a config's ``impl``: the sequence-parallel
+    attention routes leave the norms on "auto"."""
+    return "auto" if impl in SEQUENCE_PARALLEL else impl
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None):
         super().__init__()
-        self.attn_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps, impl=cfg.impl,
-                                 device=device)
+        self.attn_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps,
+                                 impl=_norm_impl(cfg.impl), device=device)
         self.attn = Attention(
             cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             rope_theta=cfg.rope_theta, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, impl=cfg.impl, device=device)
-        self.mlp_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps, impl=cfg.impl,
-                                device=device)
+        self.mlp_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps,
+                                impl=_norm_impl(cfg.impl), device=device)
         self.moe = cfg.n_experts > 0
         if self.moe:
             self.mlp = MoeMlp(cfg.dim, cfg.ffn_dim, cfg.n_experts,
@@ -173,8 +187,8 @@ class Llama(nn.Module):
                            param_dtype=cfg.param_dtype, device=device)
         self.layers = nn.ModuleList(
             LlamaBlock(cfg, device=device) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps, impl=cfg.impl,
-                                  device=device)
+        self.final_norm = RMSNorm(cfg.dim, eps=cfg.norm_eps,
+                                  impl=_norm_impl(cfg.impl), device=device)
         # The reference computes the head in f32 (dtype=jnp.float32).
         self.lm_head = Linear(cfg.dim, cfg.vocab_size, dtype=torch.float32,
                               device=device)
@@ -182,6 +196,12 @@ class Llama(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.final_norm.scale.device
+
+    def tp_local(self, name: str) -> bool:
+        """Whether parameter ``name`` is computed with as its ``tp`` shard
+        under a mesh (``parallel/train.py`` then hands it over ungathered
+        on ``tp``): the attention and SwiGLU projections."""
+        return re.fullmatch(TP_LOCAL, name) is not None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's flax initialisers, drawn from ``generator`` on
@@ -249,6 +269,10 @@ class Llama(nn.Module):
         b, s = tokens.shape
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+            if self.cfg.impl in SEQUENCE_PARALLEL:
+                # Under ring or Ulysses attention ``tokens`` is this rank's
+                # chunk of the sequence: its positions are global.
+                positions = positions + sequence_offset(s)
         bias_rows = None
         if isinstance(cache_slots, PagedSlots) or isinstance(
                 cache, PagedKVCache):

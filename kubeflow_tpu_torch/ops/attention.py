@@ -9,8 +9,10 @@ a result beyond the kernels' rounding: the CPU parity tests pin the plain
 path to the JAX reference, and ``chip_smoke.py`` each kernel to it.
 
 ``dot_product_attention`` counts each call by the route it takes in
-``attention_kernel_calls_total{impl="kernel"|"plain"}``
-(``telemetry/compute.py``), and before a plain call publishes its
+``attention_kernel_calls_total{impl="kernel"|"plain"|"ring"|"ulysses"}``
+(``telemetry/compute.py``; a ring or Ulysses call counts once under its
+own label, not again for the blocks it runs), and before a plain call
+publishes its
 ``attention_footprint_bytes`` (the pre-flight, with the budget warning).
 The reference estimates only its masked (causal or segmented) XLA calls;
 the port estimates every plain call, since each materializes the same f32
@@ -30,7 +32,7 @@ from kubeflow_tpu_torch.ops.cuda.flash_decode import plain_decode
 from kubeflow_tpu_torch.telemetry import compute as ctel
 
 IMPLS = ("auto", "kernel", "plain")
-NOT_PORTED = ("ring", "ulysses")
+SEQUENCE_PARALLEL = ("ring", "ulysses")
 
 __all__ = ["attention_footprint_bytes", "decode_attention",
            "dot_product_attention", "plain_attention", "plain_decode"]
@@ -62,10 +64,6 @@ def _preflight(q: torch.Tensor, k: torch.Tensor, *, causal: bool,
 def _route(impl: str, t: torch.Tensor) -> bool:
     """True to take the plain version: ``impl="plain"``, or a CPU tensor
     under "auto"."""
-    if impl in NOT_PORTED:
-        raise NotImplementedError(
-            f"impl={impl!r} (sequence parallelism) is not ported yet; see "
-            "ROADMAP.md")
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "kernel" and t.device.type != "cuda":
@@ -83,7 +81,17 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     additive ``bias``: a biased call on CUDA tensors raises unless
     ``impl="plain"``.  On CUDA tensors, a call that autograd records (grad
     enabled and q, k or v requiring grad) runs the differentiable kernels
-    (K2-lse forward, K3 + K4 backward); any other runs K2 alone."""
+    (K2-lse forward, K3 + K4 backward); any other runs K2 alone.
+
+    ``impl="ring"`` or ``"ulysses"``: q, k and v are this rank's chunk of
+    the sequence over the active mesh's ``sp`` axis (``parallel/context.py``
+    ``global_mesh``; RuntimeError without one), attended exactly over the
+    whole sequence by ``parallel/ring.py`` or ``parallel/ulysses.py``; they
+    take no ``bias`` or ``segment_ids`` (NotImplementedError)."""
+    if impl in SEQUENCE_PARALLEL:
+        return _sequence_parallel(q, k, v, impl, causal=causal,
+                                  segment_ids=segment_ids, bias=bias,
+                                  softmax_scale=softmax_scale)
     if _route(impl, q):
         ctel.note_attention_impl("plain")
         _preflight(q, k, causal=causal, segments=segment_ids is not None)
@@ -94,6 +102,17 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the flash kernel takes no additive bias; pass "
                          "impl='plain' for a biased call on the card")
     ctel.note_attention_impl("kernel")
+    return flash(q, k, v, causal=causal, segment_ids=segment_ids,
+                 softmax_scale=softmax_scale)
+
+
+def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool = False, segment_ids: Optional[torch.Tensor] = None,
+          softmax_scale: Optional[float] = None) -> torch.Tensor:
+    """The flash kernels on CUDA tensors, the plain version on CPU ones,
+    uncounted: K2-lse with K3 + K4 when autograd records the call, else
+    K2.  ``dot_product_attention``'s kernel route, and the local attention
+    of a Ulysses head group."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _k2.flash_attention_with_lse(
@@ -102,6 +121,29 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _k2.flash_attention(q, k, v, causal=causal,
                                segment_ids=segment_ids,
                                softmax_scale=softmax_scale)
+
+
+def _sequence_parallel(q, k, v, impl, *, causal, segment_ids, bias,
+                       softmax_scale):
+    from kubeflow_tpu_torch.parallel.context import get_global_mesh
+
+    mesh = get_global_mesh()
+    if mesh is None:
+        raise RuntimeError(
+            f"impl={impl!r} needs an active mesh; wrap the call in "
+            "kubeflow_tpu_torch.parallel.context.global_mesh(mesh)")
+    if bias is not None or segment_ids is not None:
+        raise NotImplementedError(f"{impl} attention: bias/segment_ids TODO")
+    ctel.note_attention_impl(impl)
+    if impl == "ring":
+        from kubeflow_tpu_torch.parallel.ring import ring_attention
+
+        return ring_attention(q, k, v, mesh=mesh, causal=causal,
+                              softmax_scale=softmax_scale)
+    from kubeflow_tpu_torch.parallel.ulysses import ulysses_attention
+
+    return ulysses_attention(q, k, v, mesh=mesh, causal=causal,
+                             softmax_scale=softmax_scale)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -22,6 +22,16 @@ step.  The parameters sit in their own file, so ``restore_params`` never
 reads the optimizer state (twice the parameters for AdamW).  Optimizer
 state is keyed by parameter name, not by its position in the optimizer.
 
+A state sharded over a mesh (``parallel/train.py``) is saved whole, in
+the same files as a one-process run: every process takes part in
+gathering the full parameters and optimizer state
+(``ShardedTrainState.full_state``), and rank 0 writes them.  ``restore``
+reads the full state on every process and keeps each process's shards,
+so a checkpoint moves between a mesh and one process bit for bit, either
+way.  In a
+process group the step list is rank 0's (broadcast), so every process
+takes the same decisions; the directory must be shared.
+
 The port's train step updates the state in place (``train/steps.py``),
 so ``save`` takes its snapshot on the caller's thread before it returns:
 device tensors are copied into pinned host buffers (kept for the next
@@ -41,6 +51,7 @@ import uuid
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 log = logging.getLogger("kubeflow_tpu_torch.train.checkpoint")
 
@@ -111,6 +122,20 @@ def load_params(module, params: Dict[str, torch.Tensor]) -> None:
             t.copy_(src)
 
 
+def _group_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_sharded(state) -> bool:
+    """Whether ``state`` holds shards over a mesh
+    (``parallel/train.py`` ``ShardedTrainState``)."""
+    return getattr(state, "mesh", None) is not None
+
+
 def _fsync_dir(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -163,11 +188,16 @@ class CheckpointManager:
         return sorted(steps)
 
     def all_steps(self) -> List[int]:
-        """Complete steps on disk, plus the one being written."""
+        """Complete steps on disk, plus the one being written (rank 0's
+        list in a process group, where every process must call it)."""
         steps = self._disk_steps()
         if self._pending_step is not None and \
                 self._pending_step not in steps:
             steps = sorted(steps + [self._pending_step])
+        if _group_size() > 1:
+            box = [steps]
+            dist.broadcast_object_list(box, src=0)
+            steps = box[0]
         return steps
 
     def latest_step(self) -> Optional[int]:
@@ -205,20 +235,26 @@ class CheckpointManager:
             raise FileExistsError(f"checkpoint step {step} already exists "
                                   f"under {self.directory}")
         t0 = time.perf_counter()
-        params = {name: self._snapshot(f"params/{name}", t)
-                  for name, t in state.module.state_dict().items()}
-        optim = None
-        if state.optimizer is not None:
-            optim = optimizer_state_by_name(state.module, state.optimizer)
-            optim["state"] = {
-                name: {k: (self._snapshot(f"optim/{name}/{k}", v)
-                           if isinstance(v, torch.Tensor) else v)
-                       for k, v in per.items()}
-                for name, per in optim["state"].items()}
         event = None
-        if any(p.is_cuda for p in state.module.parameters()):
-            event = torch.cuda.Event()
-            event.record()
+        if is_sharded(state):
+            params, optim = state.full_state()
+            if _rank() != 0:
+                return True
+        else:
+            params = {name: self._snapshot(f"params/{name}", t)
+                      for name, t in state.module.state_dict().items()}
+            optim = None
+            if state.optimizer is not None:
+                optim = optimizer_state_by_name(state.module,
+                                                state.optimizer)
+                optim["state"] = {
+                    name: {k: (self._snapshot(f"optim/{name}/{k}", v)
+                               if isinstance(v, torch.Tensor) else v)
+                           for k, v in per.items()}
+                    for name, per in optim["state"].items()}
+            if any(p.is_cuda for p in state.module.parameters()):
+                event = torch.cuda.Event()
+                event.record()
         meta = {"step": step, "format": FORMAT,
                 "train_step": int(state.step)}
         snapshot_s = time.perf_counter() - t0
@@ -299,11 +335,15 @@ class CheckpointManager:
         step = self._resolve(step)
         if step is None:
             return None
-        load_params(template.module, self._load(step, PARAMS_FILE))
-        if template.optimizer is not None:
-            load_optimizer_state_by_name(
-                template.module, template.optimizer,
-                self._load(step, OPTIMIZER_FILE, mmap=False))
+        params = self._load(step, PARAMS_FILE)
+        optim = (None if template.optimizer is None
+                 else self._load(step, OPTIMIZER_FILE, mmap=False))
+        if is_sharded(template):
+            params, optim = template.load_full_state(params, optim)
+        load_params(template.module, params)
+        if optim is not None:
+            load_optimizer_state_by_name(template.module, template.optimizer,
+                                         optim)
         with open(os.path.join(self._step_dir(step), META_FILE)) as f:
             template.step = int(json.load(f)["train_step"])
         return template

@@ -17,9 +17,21 @@ the card unless ``--device cpu`` is given; without a card it stops with
 an error.  ``--checkpoint-dir`` (default ``$KFT_CHECKPOINT_DIR``) resumes
 from the latest step there, saves every ``--checkpoint-every`` steps and
 on SIGTERM; serve an LM it wrote with ``python -m
-kubeflow_tpu_torch.models.serve --checkpoint-dir``.  A ``--mesh`` other
-than ``auto`` and ``--distributed`` are not yet ported and stop with an
-error.
+kubeflow_tpu_torch.models.serve --checkpoint-dir``.
+
+``--distributed`` joins the process group from the platform's worker env
+or torchrun's (``parallel/dist.py``; NCCL on the card, gloo with
+``--device cpu``), one process a device, and ``--mesh`` lays the
+reference's axes over the processes:
+
+    torchrun --nproc-per-node 8 -m kubeflow_tpu_torch.train.run \
+        --distributed --mesh dp=2,fsdp=2,tp=2 --model llama_1b4 ...
+
+The state is then sharded by the model family's partition rules and
+trained by the sharded step (``parallel/train.py``), each process drawing
+its rows of the global batch.  ``--mesh auto`` factors the process count
+(``default_mesh_config``); one process without ``--distributed`` trains
+unsharded.
 """
 from __future__ import annotations
 
@@ -50,15 +62,59 @@ def install_preemption_handler(stop: threading.Event,
     return {sig: signal.signal(sig, _handler) for sig in signals}
 
 
-def build_lm(args, device: torch.device):
-    """``(state, step, batches)`` for the LM task on ``device``."""
+def parse_mesh(spec: str, n_devices: int):
+    """'auto' or 'tp=4,fsdp=2' -> the ``MeshConfig`` over ``n_devices``
+    processes (the reference's grammar; ``ValueError`` on a bad spec or a
+    size that is not the device count)."""
+    from kubeflow_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        default_mesh_config,
+        resolve_config,
+    )
+
+    if spec == "auto":
+        return default_mesh_config(n_devices)
+    axes = {}
+    for part in spec.split(","):
+        if not part:
+            continue
+        key, _, value = part.partition("=")
+        if key not in MeshConfig.__dataclass_fields__:
+            raise ValueError(f"unknown mesh axis {key!r} in {spec!r}")
+        try:
+            axes[key] = int(value)
+        except ValueError:
+            raise ValueError(
+                f"mesh axis {key!r} needs an integer, got {value!r}") from None
+    return resolve_config(None, n_devices, **axes)
+
+
+def _shard(state, grad_fn, n_accum, mesh, rules):
+    """The state placed on ``mesh`` and the sharded step of ``grad_fn``."""
+    from kubeflow_tpu_torch.parallel.train import (
+        make_sharded_train_step,
+        shard_train_state,
+    )
+
+    state = shard_train_state(state, mesh, rules)
+    step, _ = make_sharded_train_step(grad_fn, state, mesh, rules,
+                                      n_accum=n_accum)
+    return state, step
+
+
+def build_lm(args, device: torch.device, mesh=None):
+    """``(state, step, batches)`` for the LM task on ``device``, sharded by
+    ``llama_rules`` over ``mesh`` when one is given (build and iterate it
+    under ``global_mesh(mesh)``, so each process draws its rows)."""
     from kubeflow_tpu_torch.data.loader import (
         DeviceLoader,
+        _local_rows,
         synthetic_lm_batches,
         synthetic_lm_documents,
     )
     from kubeflow_tpu_torch.data.packing import packed_lm_batches
     from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.parallel.sharding import llama_rules
     from kubeflow_tpu_torch.train.steps import (
         TrainState,
         adamw,
@@ -78,9 +134,12 @@ def build_lm(args, device: torch.device):
         "grad_dtype": torch.bfloat16 if args.grad_dtype == "bf16" else None,
         "ce_chunk": args.ce_chunk,
     }
-    if args.grad_accum > 1:
-        step = make_grad_accum_step(make_lm_grad_fn(**step_kwargs),
-                                    args.grad_accum)
+    grad_fn = make_lm_grad_fn(**step_kwargs)
+    if mesh is not None:
+        state, step = _shard(state, grad_fn, args.grad_accum, mesh,
+                             llama_rules())
+    elif args.grad_accum > 1:
+        step = make_grad_accum_step(grad_fn, args.grad_accum)
     else:
         step = make_lm_train_step(**step_kwargs)
     vocab = model.cfg.vocab_size
@@ -92,11 +151,12 @@ def build_lm(args, device: torch.device):
             # step-indexed: a resumed run restarts it, as the reference's
             # does).
             max_len = min(256, args.seq)
+            rows, _ = _local_rows(args.batch)
             return DeviceLoader(packed_lm_batches(
                 synthetic_lm_documents(vocab_size=vocab, seed=args.seed,
                                        min_len=min(8, max_len),
                                        max_len=max_len),
-                batch_rows=args.batch, seq_len=args.seq), device)
+                batch_rows=rows, seq_len=args.seq), device)
         return DeviceLoader(synthetic_lm_batches(
             global_batch=args.batch, seq_len=args.seq, vocab_size=vocab,
             seed=args.seed, start=start_step), device)
@@ -104,17 +164,19 @@ def build_lm(args, device: torch.device):
     return state, step, batches
 
 
-def build_image(args, device: torch.device):
+def build_image(args, device: torch.device, mesh=None):
     """``(state, step, batches)`` for the image task on ``device``: the
     classifier with ``--num-classes`` outputs (a ViT's position table sized
     for ``--image-size``), SGD with momentum 0.9, the classification step
     (through the batch-stats path when the model has them, and per
-    microbatch with ``--grad-accum``)."""
+    microbatch with ``--grad-accum``); over ``mesh`` sharded by
+    ``resnet_rules``, as the reference shards every image model."""
     from kubeflow_tpu_torch.data.loader import (
         DeviceLoader,
         synthetic_image_batches,
     )
     from kubeflow_tpu_torch.models import create_model, vit
+    from kubeflow_tpu_torch.parallel.sharding import resnet_rules
     from kubeflow_tpu_torch.train.steps import (
         TrainState,
         make_classification_grad_fn,
@@ -134,10 +196,13 @@ def build_image(args, device: torch.device):
     state = TrainState(model, sgd(model.parameters(), args.lr,
                                   momentum=0.9))
     has_stats = bool(state.batch_stats)
-    if args.grad_accum > 1:
-        step = make_grad_accum_step(
-            make_classification_grad_fn(has_batch_stats=has_stats),
-            args.grad_accum, has_batch_stats=has_stats)
+    grad_fn = make_classification_grad_fn(has_batch_stats=has_stats)
+    if mesh is not None:
+        state, step = _shard(state, grad_fn, args.grad_accum, mesh,
+                             resnet_rules())
+    elif args.grad_accum > 1:
+        step = make_grad_accum_step(grad_fn, args.grad_accum,
+                                    has_batch_stats=has_stats)
     else:
         step = make_classification_train_step(has_batch_stats=has_stats)
 
@@ -175,8 +240,8 @@ def parse_args(argv: Optional[list] = None):
                          "rows with segment ids")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="auto",
-                    help="only 'auto' (one device); others are not yet "
-                         "ported")
+                    help="'auto' or axis sizes over the processes, e.g. "
+                         "dp=2,fsdp=2,tp=2 (axes pp dp fsdp ep tp sp)")
     # KFT_CHECKPOINT_DIR is what a job controller injects: a restarted
     # worker resumes without its command line naming the directory.
     ap.add_argument("--checkpoint-dir",
@@ -187,7 +252,8 @@ def parse_args(argv: Optional[list] = None):
     ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--distributed", action="store_true",
-                    help="not yet ported")
+                    help="join the process group from the platform's "
+                         "worker env or torchrun's")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.task == "image" and (args.ce_chunk is not None
@@ -199,26 +265,21 @@ def parse_args(argv: Optional[list] = None):
         if args.model not in {**resnet.CONFIGS, **vit.CONFIGS}:
             ap.error(f"--task image trains a resnet or vit model, not "
                      f"{args.model!r}")
-    unported = {"--mesh": args.mesh != "auto",
-                "--distributed": args.distributed}
-    for flag, given in unported.items():
-        if given:
-            ap.error(f"{flag} is not yet ported to kubeflow_tpu_torch; see "
-                     "ROADMAP.md")
     return ap, args
 
 
-def train(args, device: torch.device, stop=None):
-    """Build the task from parsed ``args`` and run the loop on ``device``.
-    Returns ``(state, history)``."""
+def train(args, device: torch.device, stop=None, mesh=None):
+    """Build the task from parsed ``args`` and run the loop on ``device``,
+    sharded over ``mesh`` when one is given (run it under
+    ``global_mesh(mesh)``).  Returns ``(state, history)``."""
     from kubeflow_tpu_torch.telemetry import compute as ctel
     from kubeflow_tpu_torch.train.loop import LoopConfig, train_loop
 
     if args.task == "image":
-        state, step, batches = build_image(args, device)
+        state, step, batches = build_image(args, device, mesh)
         throughput = {}
     else:
-        state, step, batches = build_lm(args, device)
+        state, step, batches = build_lm(args, device, mesh)
         throughput = dict(tokens_per_step=args.batch * args.seq,
                           flops_per_token=ctel.lm_train_flops_per_token(
                               state.module.cfg, args.seq))
@@ -231,21 +292,52 @@ def train(args, device: torch.device, stop=None):
 
 
 def main(argv: Optional[list] = None) -> int:
+    import torch.distributed as dist
+
     from kubeflow_tpu_torch import resolve_device
+    from kubeflow_tpu_torch.parallel import mesh as meshes
+    from kubeflow_tpu_torch.parallel.context import global_mesh
 
     ap, args = parse_args(argv)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.error(str(e))
-    print(f"devices=1 device={device}", flush=True)
+    joined = False
+    if args.distributed:
+        from kubeflow_tpu_torch.parallel.dist import (
+            elastic_slices,
+            initialize_from_env,
+        )
+
+        joined = initialize_from_env(device_type=device.type)
+        allocated, declared = elastic_slices()
+        if allocated < declared:
+            # A gang the queue admitted at fewer slices than it declared:
+            # the same checkpoint, a smaller data axis.
+            print(f"elastic: running at {allocated}/{declared} slices "
+                  "(shrunk; will grow back via checkpoint-restart)",
+                  flush=True)
     stop = threading.Event()
-    replaced = install_preemption_handler(stop)
+    replaced = {}
     try:
-        state, history = train(args, device, stop)
+        n = meshes.world_size()
+        try:
+            config = parse_mesh(args.mesh, n)
+        except ValueError as e:
+            ap.error(str(e))   # a clean exit, not a traceback
+        mesh = (meshes.make_mesh(config, device_type=device.type)
+                if dist.is_initialized() else None)
+        shape = dict(zip(meshes.AXIS_NAMES, config.axis_sizes()))
+        print(f"devices={n} mesh={shape} device={device}", flush=True)
+        replaced = install_preemption_handler(stop)
+        with global_mesh(mesh):
+            state, history = train(args, device, stop, mesh)
     finally:
         for sig, handler in replaced.items():
             signal.signal(sig, handler)
+        if joined:
+            dist.destroy_process_group()
     if stop.is_set():
         print(f"preempted at step {state.step}: checkpoint saved"
               if args.checkpoint_dir else

@@ -151,14 +151,20 @@ def _unpack(batch):
 
 def lm_loss(module: nn.Module, params: Dict[str, torch.Tensor],
             tokens: torch.Tensor, segment_ids: Optional[torch.Tensor] = None,
-            *, ce_chunk: Optional[int] = None, with_aux: bool = False):
+            *, ce_chunk: Optional[int] = None, with_aux: bool = False,
+            sequence: Optional[tuple] = None):
     """Next-token loss of ``module`` run with ``params`` in place of its
-    own (``torch.func.functional_call``).  With ``segment_ids`` a target
-    counts only when it continues the same document and is not a pad slot
+    own (``torch.func.functional_call``): the weighted mean NLL of
+    ``next_token_targets``.  With ``segment_ids`` a target counts only when
+    it continues the same document and is not a pad slot
     (``steps.py:281-301``).  With ``ce_chunk`` the head and the loss run
-    per chunk over the full length, targets rolled left and the wrapped
-    last position weighted 0.  With ``with_aux`` returns ``(loss, aux)``,
-    aux the MoE load-balancing loss averaged over layers."""
+    per chunk (``chunked_cross_entropy``).  With ``sequence=(index,
+    count)`` the model runs on that chunk of the sequence, the targets cut
+    from the whole (``next_token_inputs``).  With ``with_aux`` returns
+    ``(loss, aux)``, aux the MoE load-balancing loss averaged over
+    layers."""
+    tokens, segment_ids, targets, weights = next_token_inputs(
+        tokens, segment_ids, sequence)
     kwargs = {} if segment_ids is None else {"segment_ids": segment_ids}
     if ce_chunk is not None:
         kwargs["return_hidden"] = True
@@ -167,35 +173,94 @@ def lm_loss(module: nn.Module, params: Dict[str, torch.Tensor],
     out = torch.func.functional_call(module, params, (tokens,), kwargs)
     if with_aux:
         out, aux = out
-        return _next_token_loss(out, params, tokens, segment_ids,
-                                ce_chunk), aux
-    return _next_token_loss(out, params, tokens, segment_ids, ce_chunk)
-
-
-def _next_token_loss(out, params, tokens, segment_ids, ce_chunk):
-    """The cross-entropy of ``lm_loss`` from the model's output (logits,
-    or with ``ce_chunk`` the final-normed hidden states)."""
-    shifted_valid = None
-    if segment_ids is not None:
-        shifted_valid = ((segment_ids[:, 1:] == segment_ids[:, :-1])
-                         & (segment_ids[:, 1:] != 0))
     if ce_chunk is None:
-        return cross_entropy(out[:, :-1], tokens[:, 1:],
-                             weights=shifted_valid)
+        loss = cross_entropy(out, targets, weights=weights)
+    else:
+        loss = chunked_cross_entropy(out, params["lm_head.weight"], targets,
+                                     weights, chunk=ce_chunk)
+    return (loss, aux) if with_aux else loss
+
+
+def next_token_targets(tokens: torch.Tensor,
+                       segment_ids: Optional[torch.Tensor] = None) -> tuple:
+    """``(targets, weights)`` [b, s] over the whole sequence: targets
+    rolled left, the last position weighted 0; with ``segment_ids`` a
+    target counts only when it continues the same document and is not a
+    pad slot."""
     b, s = tokens.shape
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
-    valid = (torch.ones(b, s - 1, device=tokens.device)
-             if shifted_valid is None else shifted_valid.float())
-    w = torch.cat([valid, torch.zeros(b, 1, device=tokens.device)], dim=1)
-    return chunked_cross_entropy(out, params["lm_head.weight"], targets, w,
-                                 chunk=ce_chunk)
+    if segment_ids is None:
+        valid = torch.ones(b, s - 1, device=tokens.device)
+    else:
+        valid = ((segment_ids[:, 1:] == segment_ids[:, :-1])
+                 & (segment_ids[:, 1:] != 0)).float()
+    return targets, torch.cat(
+        [valid, torch.zeros(b, 1, device=tokens.device)], dim=1)
+
+
+def next_token_inputs(tokens: torch.Tensor,
+                      segment_ids: Optional[torch.Tensor] = None,
+                      sequence: Optional[tuple] = None) -> tuple:
+    """``(tokens, segment_ids, targets, weights)``: ``next_token_targets``
+    over the whole sequence, then with ``sequence=(index, count)`` all four
+    cut to that chunk of ``count`` equal chunks (a sequence split over
+    ``sp``: a chunk's last position predicts the next chunk's first
+    token)."""
+    targets, weights = next_token_targets(tokens, segment_ids)
+    if sequence is None:
+        return tokens, segment_ids, targets, weights
+    index, count = sequence
+    s = tokens.shape[1]
+    if s % count:
+        raise ValueError(f"seq len {s} does not split over sp={count}")
+    cut = slice(index * s // count, (index + 1) * s // count)
+    return (tokens[:, cut],
+            None if segment_ids is None else segment_ids[:, cut],
+            targets[:, cut], weights[:, cut])
+
+
+def lm_batch_weight(batch, *, sequence: Optional[tuple] = None
+                    ) -> torch.Tensor:
+    """The count ``lm_loss`` divides the batch's NLL sum by (f32, 0-d):
+    its weighted targets, of chunk ``sequence`` when given."""
+    tokens, segment_ids = _unpack(batch)
+    return next_token_inputs(tokens, segment_ids, sequence)[3].sum()
+
+
+def classification_batch_weight(batch) -> torch.Tensor:
+    """The count ``classification_loss`` divides by (f32, 0-d): the
+    batch's rows."""
+    labels = batch[1]
+    return torch.tensor(float(labels.shape[0]), device=labels.device)
+
+
+def _differentiable(state: TrainState, params: Optional[dict],
+                    dtype: Optional[torch.dtype] = None) -> dict:
+    """Name -> a leaf that requires grad: each of ``params`` (default: the
+    module's own parameters) detached, f32 ones cast to ``dtype`` when
+    given."""
+    if params is None:
+        params = dict(state.module.named_parameters())
+    out = {}
+    for name, p in params.items():
+        t = p.detach()
+        if dtype is not None and t.dtype == torch.float32:
+            t = t.to(dtype)
+        out[name] = t.requires_grad_(True)
+    return out
 
 
 def make_lm_grad_fn(*, aux_loss_weight: float = 0.0,
                     grad_dtype: Optional[torch.dtype] = None,
                     ce_chunk: Optional[int] = None) -> Callable:
-    """``grad_fn(state, batch) -> (grads, metrics)``: the loss and the
-    gradient of every parameter (by name).
+    """``grad_fn(state, batch, *, params=None, sequence=None, scale=None)
+    -> (grads, metrics)``: the loss and the gradient of every parameter
+    (by name).  For a sharded step: ``params`` are tensors to
+    differentiate at in place of the module's own (its gathered
+    parameters), ``sequence`` is ``lm_loss``'s, and ``scale`` multiplies
+    the objective before it is differentiated (the process's share of the
+    global mean; the metrics stay this batch's).  ``grad_fn.batch_weight``
+    is ``lm_batch_weight``, the count the loss is a mean over.
 
     ``aux_loss_weight`` > 0 adds that multiple of the MoE load-balancing
     loss (the layers' mean) to the objective, and the metrics gain
@@ -208,27 +273,28 @@ def make_lm_grad_fn(*, aux_loss_weight: float = 0.0,
     reference's ``_cast_params`` does.  The model computes in its config
     dtype either way."""
 
-    def grad_fn(state: TrainState, batch):
+    def grad_fn(state: TrainState, batch, *, params: Optional[dict] = None,
+                sequence: Optional[tuple] = None,
+                scale: Optional[torch.Tensor] = None):
         tokens, segment_ids = _unpack(batch)
-        params = {}
-        for name, p in state.module.named_parameters():
-            t = p.detach()
-            if grad_dtype is not None and t.dtype == torch.float32:
-                t = t.to(grad_dtype)
-            params[name] = t.requires_grad_(True)
+        params = _differentiable(state, params, grad_dtype)
+        kw = dict(ce_chunk=ce_chunk, sequence=sequence)
         if aux_loss_weight:
             loss, aux = lm_loss(state.module, params, tokens, segment_ids,
-                                ce_chunk=ce_chunk, with_aux=True)
+                                with_aux=True, **kw)
             total = loss + aux_loss_weight * aux
         else:
             total = loss = lm_loss(state.module, params, tokens,
-                                   segment_ids, ce_chunk=ce_chunk)
+                                   segment_ids, **kw)
+        if scale is not None:
+            total = total * scale
         grads = torch.autograd.grad(total, list(params.values()))
         metrics = {"loss": loss.detach()}
         if aux_loss_weight:
             metrics["moe_aux_loss"] = aux.detach()
         return dict(zip(params, grads)), metrics
 
+    grad_fn.batch_weight = lm_batch_weight
     return grad_fn
 
 
@@ -273,28 +339,34 @@ def classification_loss(module: nn.Module, params: Dict[str, torch.Tensor],
 
 def make_classification_grad_fn(*, has_batch_stats: bool,
                                 has_dropout: bool = False) -> Callable:
-    """``grad_fn(state, (inputs, labels), generator=None) -> (grads,
-    metrics)`` for image and sequence classifiers (``steps.py:129-157``):
-    the gradient of every parameter by name, ``loss`` and ``accuracy``.
-    The forward updates the model's batch stats in place, where the
-    reference returns them.  ``has_dropout`` requires the ``generator``
-    the dropout draws from."""
+    """``grad_fn(state, (inputs, labels), generator=None, *, params=None,
+    scale=None) -> (grads, metrics)`` for image and sequence classifiers
+    (``steps.py:129-157``): the gradient of every parameter by name,
+    ``loss`` and ``accuracy``; ``params`` and ``scale`` as
+    ``make_lm_grad_fn``'s.  The
+    forward updates the model's batch stats in place, where the reference
+    returns them.  ``has_dropout`` requires the ``generator`` the dropout
+    draws from.  ``grad_fn.batch_weight`` is
+    ``classification_batch_weight``."""
 
     def grad_fn(state: TrainState, batch,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, *,
+                params: Optional[dict] = None,
+                scale: Optional[torch.Tensor] = None):
         _check_batch_stats(state, has_batch_stats)
         if has_dropout and generator is None:
             raise ValueError("has_dropout needs a torch.Generator")
         inputs, labels = batch
-        params = {name: p.detach().requires_grad_(True)
-                  for name, p in state.module.named_parameters()}
+        params = _differentiable(state, params)
         loss, acc = classification_loss(
             state.module, params, inputs, labels,
             generator=generator if has_dropout else None)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = torch.autograd.grad(loss if scale is None else loss * scale,
+                                    list(params.values()))
         return dict(zip(params, grads)), {"loss": loss.detach(),
                                           "accuracy": acc}
 
+    grad_fn.batch_weight = classification_batch_weight
     return grad_fn
 
 
@@ -324,23 +396,13 @@ def make_grad_accum_step(grad_fn: Callable, n_accum: int, *,
     if n_accum < 1:
         raise ValueError(f"n_accum must be >= 1, got {n_accum}")
 
-    def split(x):
-        if x.shape[0] % n_accum:
-            raise ValueError(
-                f"batch axis {x.shape[0]} not divisible by n_accum {n_accum}")
-        return x.reshape((n_accum, x.shape[0] // n_accum) + x.shape[1:])
-
     def step(state: TrainState, batch):
         _check_batch_stats(state, has_batch_stats)
-        parts = ([split(x) for x in batch]
-                 if isinstance(batch, (tuple, list)) else [split(batch)])
         acc = {name: torch.zeros_like(p)
                for name, p in state.module.named_parameters()}
         metrics_seq = []
-        for i in range(n_accum):
-            micro = tuple(x[i] for x in parts)
-            grads, metrics = grad_fn(state, micro if len(micro) > 1
-                                     else micro[0])
+        for micro in split_microbatches(batch, n_accum):
+            grads, metrics = grad_fn(state, micro)
             for name, g in grads.items():
                 acc[name].add_(g)
             metrics_seq.append(metrics)
@@ -349,3 +411,15 @@ def make_grad_accum_step(grad_fn: Callable, n_accum: int, *,
                        for k in metrics_seq[0]}
 
     return step
+
+
+def split_microbatches(batch, n: int) -> list:
+    """The batch's rows as ``n`` microbatches of its form (a tensor, or a
+    tuple of tensors split alike)."""
+    parts = list(batch) if isinstance(batch, (tuple, list)) else [batch]
+    for x in parts:
+        if x.shape[0] % n:
+            raise ValueError(
+                f"batch axis {x.shape[0]} not divisible by n_accum {n}")
+    return [micro if len(micro) > 1 else micro[0]
+            for micro in zip(*(x.chunk(n) for x in parts))]

@@ -49,7 +49,8 @@ def _train_steps(out):
 def test_train_run_image_task_on_cpu(capsys, extra):
     rc = trainer.main(CLI + ["--steps", "3"] + extra)
     out = capsys.readouterr().out.splitlines()
-    assert rc == 0 and out[0] == "devices=1 device=cpu"
+    assert rc == 0 and out[0] == ("devices=1 mesh={'pp': 1, 'dp': 1, 'fsdp': 1, "
+                                  "'ep': 1, 'tp': 1, 'sp': 1} device=cpu")
     lines = _train_steps(out)
     assert len(lines) == 3
     assert all("loss=" in ln and "accuracy=" in ln for ln in lines)

@@ -44,12 +44,24 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.telemetry.compute",
     "kubeflow_tpu_torch.telemetry.profiler",
     "kubeflow_tpu_torch.telemetry.causal",
+    "kubeflow_tpu_torch.parallel",
+    "kubeflow_tpu_torch.parallel.envspec",
+    "kubeflow_tpu_torch.parallel.dist",
+    "kubeflow_tpu_torch.parallel.mesh",
+    "kubeflow_tpu_torch.parallel.context",
+    "kubeflow_tpu_torch.parallel.sharding",
+    "kubeflow_tpu_torch.parallel.train",
+    "kubeflow_tpu_torch.parallel.ring",
+    "kubeflow_tpu_torch.parallel.ulysses",
+    "kubeflow_tpu_torch.parallel.pipeline",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
-    """The modules that save and serve a trained model, and the replica's
-    telemetry, import with JAX, the JAX package and the serving libraries
-    blocked, and pull none of them in."""
+    """The modules that save and serve a trained model, the replica's
+    telemetry and the parallel package import with JAX, the JAX package
+    and the serving libraries blocked, and pull none of them in."""
     path = REPO / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = REPO / module.replace(".", "/") / "__init__.py"
     assert path in PORT_FILES
     code = textwrap.dedent(f"""
         import sys

@@ -170,8 +170,10 @@ def test_kernel_impl_on_cpu_raises_and_unported_impls_name_roadmap():
     with pytest.raises(ValueError, match="CUDA"):
         ops.decode_attention(q[:, :1], k, v, torch.zeros(2, 8),
                              impl="kernel")
+    # The sequence-parallel routes need an active mesh, as in the
+    # reference (kubeflow_tpu/ops/attention.py:165-172).
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(RuntimeError, match="needs an active mesh"):
             ops.dot_product_attention(q, k, v, impl=impl)
     with pytest.raises(ValueError, match="unknown impl"):
         ops.rms_norm(q, torch.ones(64), impl="pallas")

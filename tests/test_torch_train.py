@@ -415,7 +415,8 @@ def test_train_run_main_on_cpu_prints_done(capsys):
                        "--grad-dtype", "bf16", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
     assert rc == 0
-    assert out[0] == "devices=1 device=cpu"
+    assert out[0] == ("devices=1 mesh={'pp': 1, 'dp': 1, 'fsdp': 1, "
+                      "'ep': 1, 'tp': 1, 'sp': 1} device=cpu")
     assert sum(line.startswith("train_step step=") for line in out) == 3
     done = out[-1]
     assert done.startswith("done: step 3 loss=")
@@ -426,10 +427,12 @@ def test_train_run_without_a_card_or_with_unported_flags_stops(capsys):
     with pytest.raises(SystemExit):
         trainer.main(["--steps", "1"])
     assert "torch.cuda.is_available() is False" in capsys.readouterr().err
-    for flags in (["--mesh", "dp=2"], ["--distributed"]):
-        with pytest.raises(SystemExit):
-            trainer.main(flags + ["--device", "cpu"])
-        assert "not yet ported" in capsys.readouterr().err
+    # A mesh larger than the one process stops with the reference's
+    # device-count error (kubeflow_tpu/parallel/mesh.py:89-93).
+    with pytest.raises(SystemExit):
+        trainer.main(["--mesh", "dp=2", "--device", "cpu"])
+    assert ("mesh {'pp': 1, 'dp': 2, 'fsdp': 1, 'ep': 1, 'tp': 1, 'sp': 1} "
+            "needs 2 devices, have 1") in capsys.readouterr().err
     # The image task is ported; its memory levers stay the lm task's, as
     # in the reference, and it trains a classifier only.
     for flags, msg in ((["--grad-dtype", "bf16"], "apply to the lm task"),
