@@ -335,6 +335,13 @@ DRAFT_LAYERS, DRAFT_SEED = 2, 1
 # The depth a deployment runs: llama3_8b's max_seq_len, whose default
 # pool is 8 x 128 + 1 = 1025 pages (8.6 GB).
 DEEP_SLOT_LEN = 8192
+# Serving under a mesh: tp_virtual splits llama3_8b's heads and MLP into
+# TP_VIRTUAL tp shards (8 q over 2 kv heads, ffn 3584 a rank), run as
+# virtual ranks in one process over TP_LAYERS layers: a ragged prefill of
+# TP_LENS, then TP_STEPS greedy decode steps; K2 and K5 timed at one
+# rank's heads (TP_K2_SHAPE b, s; TP_K5_SHAPE b, S).
+TP_VIRTUAL, TP_LAYERS, TP_LENS, TP_STEPS = 4, 2, (300, 512), 8
+TP_K2_SHAPE, TP_K5_SHAPE = (4, 512), (4, 512 + NEW_TOKENS)
 # K2 at a prefill chunk's shape: the 900-token row's second chunk.
 CHUNK_B, CHUNK_SQ, CHUNK_SK = 1, 388, 900
 # The dense-cache chunk (compose phase): a b2 ragged prompt prefilled in
@@ -610,8 +617,6 @@ def phase_kernels(torch, dev, timer):
     kernel (the shape the serving path calls it at most often)."""
     import torch.nn.functional as F
 
-    from kubeflow_tpu_torch.ops.cuda import flash_attention as k2
-    from kubeflow_tpu_torch.ops.cuda import flash_decode as k5
     from kubeflow_tpu_torch.ops.cuda import rms_norm as k1
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -653,7 +658,6 @@ def phase_kernels(torch, dev, timer):
     b, h, kvh, hd = 4, 32, 8, 128
     cases = [(512, False), (300, False), (512, True)]
     for s, packed in cases:
-        q, k, v = rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd)
         seg = None
         if packed:
             # Three documents per row, boundaries differing per row.
@@ -661,36 +665,7 @@ def phase_kernels(torch, dev, timer):
             cut = torch.tensor([[100, 250], [37, 400], [256, 300],
                                 [1, 511]], device=dev)
             seg = 1 + (pos >= cut[:, :1]).int() + (pos >= cut[:, 1:]).int()
-        got = k2.flash_attention(q, k, v, causal=True, segment_ids=seg)
-        want = k2.plain_attention(q.float(), k.float(), v.float(),
-                                  causal=True, segment_ids=seg)
-        tol = KERNEL_TOL["flash_attention_fwd"]
-        err, share = check_close("flash_attention_fwd", got, want, tol)
-        vis = torch.tril(torch.ones(s, s, dtype=torch.bool, device=dev))
-        if seg is not None:
-            vis = vis[None] & (seg[:, :, None] == seg[:, None, :])
-            pairs = vis.sum().item() * h
-        else:
-            pairs = vis.sum().item() * h * b
-        nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
-        flops = 4 * pairs * hd
-        bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if seg is None:
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        else:
-            lib = lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=vis[:, None], enable_gqa=True)
-        row = {"kernel": "flash_attention_fwd", "shape": [b, s, h, kvh, hd],
-               "segments": packed, "path": "prefill", "max_abs_err": err,
-               "tol": tol, "tol_share": share,
-               "kernel_ms": timer(lambda: k2.flash_attention(
-                   q, k, v, causal=True, segment_ids=seg)),
-               "plain_ms": timer(lambda: k2.plain_attention(
-                   q, k, v, causal=True, segment_ids=seg)),
-               "library_ms": timer(lib), "bound_ms": bms, "bound_by": by}
-        emit(add_rates(row, flops))
+        row = k2_row(torch, dev, rnd, timer, b, s, h, kvh, hd, seg)
         if s == 512 and not packed:
             rows["flash_attention_fwd"] = row
     emit(chunk_k2_row(torch, dev, timer, b=len(DENSE_LENS),
@@ -701,34 +676,91 @@ def phase_kernels(torch, dev, timer):
     # K5: one decode token over S = prompt + 32 slots, padded rows masked;
     # and one long row (b1 S8192), whose cache is 33.5 MB.
     for b, S in ((4, 512 + NEW_TOKENS), (4, 1000), (1, 8192)):
-        q = rnd(b, 1, h, hd)
-        k, v = rnd(b, S, kvh, hd), rnd(b, S, kvh, hd)
-        lens = [[17], [128], [300], [S]] if b == 4 else [[S]]
-        valid = torch.arange(S, device=dev)[None] < torch.tensor(
-            lens, device=dev)
-        bias = torch.where(valid, 0.0, -1e30).float().contiguous()
-        got = k5.flash_decode(q, k, v, bias)
-        want = k5.plain_decode(q.float(), k.float(), v.float(), bias)
-        tol = KERNEL_TOL["flash_decode"]
-        err, share = check_close("flash_decode", got, want, tol)
-        nbytes = 2 * b * S * kvh * hd * 2 + b * S * 4 + 2 * b * h * hd * 2
-        flops = 4 * b * h * S * hd
-        bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        mask = bias[:, None, None, :].to(bf)
-        row = {"kernel": "flash_decode", "shape": [b, S, h, kvh, hd],
-               "path": "decode", "max_abs_err": err, "tol": tol,
-               "tol_share": share,
-               "kernel_ms": timer(lambda: k5.flash_decode(q, k, v, bias)),
-               "plain_ms": timer(lambda: k5.plain_decode(q, k, v, bias)),
-               "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, attn_mask=mask, enable_gqa=True)),
-               "bound_ms": bms, "bound_by": by}
-        emit(add_rates(row, flops))
+        row = k5_row(torch, dev, rnd, timer, b, S, h, kvh, hd)
         if S == 512 + NEW_TOKENS:
             rows["flash_decode"] = row
     emit(add_rates(*pool_decode_row(torch, dev, gen, timer)))
     return rows
+
+
+def k2_row(torch, dev, rnd, timer, b, s, h, kvh, hd, seg=None, path=None):
+    """K2 causal over random bf16 q [b, s, h, hd] and k/v at ``kvh``
+    heads (``seg``: segment ids) against its plain version, timed beside
+    its bound and SDPA; emitted and returned."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.cuda import flash_attention as k2
+
+    packed = seg is not None
+    q, k, v = rnd(b, s, h, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd)
+    got = k2.flash_attention(q, k, v, causal=True, segment_ids=seg)
+    want = k2.plain_attention(q.float(), k.float(), v.float(),
+                              causal=True, segment_ids=seg)
+    tol = KERNEL_TOL["flash_attention_fwd"]
+    err, share = check_close("flash_attention_fwd", got, want, tol)
+    vis = torch.tril(torch.ones(s, s, dtype=torch.bool, device=dev))
+    if seg is not None:
+        vis = vis[None] & (seg[:, :, None] == seg[:, None, :])
+        pairs = vis.sum().item() * h
+    else:
+        pairs = vis.sum().item() * h * b
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+    flops = 4 * pairs * hd
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if seg is None:
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=vis[:, None], enable_gqa=True)
+    row = {"kernel": "flash_attention_fwd", "shape": [b, s, h, kvh, hd],
+           "segments": packed, "path": path or "prefill",
+           "max_abs_err": err,
+           "tol": tol, "tol_share": share,
+           "kernel_ms": timer(lambda: k2.flash_attention(
+               q, k, v, causal=True, segment_ids=seg)),
+           "plain_ms": timer(lambda: k2.plain_attention(
+               q, k, v, causal=True, segment_ids=seg)),
+           "library_ms": timer(lib), "bound_ms": bms, "bound_by": by}
+    emit(add_rates(row, flops))
+    return row
+
+
+def k5_row(torch, dev, rnd, timer, b, S, h, kvh, hd, path=None):
+    """K5 over a random bf16 cache [b, S, kvh, hd], rows of 17, 128, 300
+    and S visible slots (one row of S when b is 1), against its plain
+    version, timed beside its bound and SDPA; emitted and returned."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.cuda import flash_decode as k5
+
+    bf = torch.bfloat16
+    q = rnd(b, 1, h, hd)
+    k, v = rnd(b, S, kvh, hd), rnd(b, S, kvh, hd)
+    lens = [[17], [128], [300], [S]] if b == 4 else [[S]]
+    valid = torch.arange(S, device=dev)[None] < torch.tensor(
+        lens, device=dev)
+    bias = torch.where(valid, 0.0, -1e30).float().contiguous()
+    got = k5.flash_decode(q, k, v, bias)
+    want = k5.plain_decode(q.float(), k.float(), v.float(), bias)
+    tol = KERNEL_TOL["flash_decode"]
+    err, share = check_close("flash_decode", got, want, tol)
+    nbytes = 2 * b * S * kvh * hd * 2 + b * S * 4 + 2 * b * h * hd * 2
+    flops = 4 * b * h * S * hd
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = bias[:, None, None, :].to(bf)
+    row = {"kernel": "flash_decode", "shape": [b, S, h, kvh, hd],
+           "path": path or "decode", "max_abs_err": err, "tol": tol,
+           "tol_share": share,
+           "kernel_ms": timer(lambda: k5.flash_decode(q, k, v, bias)),
+           "plain_ms": timer(lambda: k5.plain_decode(q, k, v, bias)),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+           "bound_ms": bms, "bound_by": by}
+    emit(add_rates(row, flops))
+    return row
 
 
 def pool_decode_row(torch, dev, gen, timer):
@@ -2346,7 +2378,341 @@ def phase_paged(torch, dev, model, fixed, tol, fixed_quantum):
     emit(row)
     gc.collect()
     torch.cuda.empty_cache()
-    return row["http"]["launches"], row["http"]
+    return row["http"]["launches"], row["http"], {
+        "bodies": bodies, "pooled": pooled, "held_launches": det_counts}
+
+
+class VirtualMesh:
+    """One process's view of a tp mesh, as ``sharding.layout_for`` and
+    ``local_shard`` read it: ``tp`` ranks, this one ``rank``, every other
+    axis of size 1."""
+
+    mesh_dim_names = ("pp", "dp", "fsdp", "ep", "tp", "sp")
+
+    def __init__(self, tp, rank):
+        self.tp, self.rank = tp, rank
+
+    def size(self, i):
+        return self.tp if self.mesh_dim_names[i] == "tp" else 1
+
+    def get_local_rank(self, axis):
+        return self.rank if axis == "tp" else 0
+
+
+def phase_serve_mesh(torch, dev, paged_ref):
+    """``load_service("llama3_8b", mesh_spec="tp=1")`` at world size 1
+    over NCCL (torchrun's env set in this process, as ``phase_mesh``
+    does): built shard by shard from seed SEED, served behind the HTTP app
+    through the paged engine at 6c's geometry.  At world size 1 nothing is
+    exchanged and the kernels see 6c's inputs: 6c's requests give its
+    tokens bit for bit, and queued before the loop starts (pipeline and
+    prefix cache off) its launches exactly.  /debug/serve shows the mesh
+    and pool_shards 1; with a 2-layer draft under the mesh the fixed-slot
+    pool serves, its tokens the schedule phase's (request B8, bit for
+    bit), and /metrics counts spec-decode-mesh.  The group is gone
+    after.  Returns the launch counts of the HTTP run."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.models.paged import PagedDecodeScheduler
+    from kubeflow_tpu_torch.models.scheduler import DecodeScheduler
+    from kubeflow_tpu_torch.models.serve import GenerationService, load_service
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.parallel.context import set_global_mesh
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    knobs = {"KFT_SERVE_SLOTS": str(POOL_SLOTS),
+             "KFT_SERVE_SLOT_LEN": str(POOL_SLOT_LEN),
+             "KFT_SERVE_DECODE_QUANTUM": str(POOL_QUANTUM)}
+    bodies = paged_ref["bodies"]
+    t_phase = time.perf_counter()
+    row = {"phase": "serve_mesh", "model": "llama3_8b", "mesh_spec": "tp=1"}
+    try:
+        with env_set(env):
+            t0 = time.perf_counter()
+            service = load_service("llama3_8b", device="cuda", seed=SEED,
+                                   mesh_spec="tp=1")
+            torch.cuda.synchronize()
+            row["load_seconds"] = time.perf_counter() - t0
+        row.update(world_size=dist.get_world_size(),
+                   backend=dist.get_backend())
+        model, mesh, ls = service.model, service.mesh, service.lockstep
+        with env_set(knobs):
+            server, thread, base = http_server(service, "llama3_8b")
+            try:
+                out, row["http"] = paged_http_run(torch, service, base,
+                                                  bodies, "serve_mesh")
+                _, debug = http(base, "/debug/serve")
+            finally:
+                stop_server(service, server, thread)
+        counts = row["http"]["launches"]
+        if out != paged_ref["pooled"]:
+            raise AssertionError("serve_mesh: tokens differ from the paged "
+                                 "phase's")
+        if (debug["mesh"] != dict(zip(mesh.mesh_dim_names, [1] * 6))
+                or debug["scheduler"]["pool_shards"] != 1
+                or debug["engine"] != "PagedDecodeScheduler"):
+            raise AssertionError(f"serve_mesh /debug/serve {debug}")
+        held = PagedDecodeScheduler(
+            model, pipeline=False, prefix_cache=False, mesh=mesh,
+            lockstep=ls, slots=POOL_SLOTS, slot_len=POOL_SLOT_LEN,
+            quantum=POOL_QUANTUM)
+        kernels.reset_launch_counts()
+        held_out, held_s = run_held(held, bodies)
+        held_counts = kernels.launch_counts()
+        held.stop()
+        if held_counts != paged_ref["held_launches"]:
+            raise AssertionError(
+                f"serve_mesh held launches {held_counts}, the paged "
+                f"phase's {paged_ref['held_launches']}")
+        if held_out != paged_ref["pooled"]:
+            raise AssertionError("serve_mesh: held run's tokens differ")
+        row["held"] = {"launches": held_counts, "wall_seconds": held_s,
+                       "launches_equal_paged_phase": True}
+        del held
+        # A draft under the mesh: the fixed-slot pool serves, recorded.
+        draft = create_model("llama3_8b", device=dev, n_layers=DRAFT_LAYERS)
+        with torch.no_grad():
+            draft.reset_parameters(
+                torch.Generator(device=dev).manual_seed(DRAFT_SEED))
+        spec = GenerationService(model, mesh=mesh, lockstep=ls,
+                                 draft_model=draft.eval())
+        with env_set(knobs):
+            server, thread, base = http_server(spec, "llama3_8b")
+            try:
+                body = bodies["B8"]
+                status, got = http(base, "/v1/generate", body)
+                _, metrics = http(base, "/metrics")
+                _, debug = http(base, "/debug/serve")
+            finally:
+                stop_server(spec, server, thread)
+        fb = 'serve_paged_fallback_total{reason="spec-decode-mesh"}'
+        if (status != 200 or got["tokens"] != paged_ref["fixed"]["B8"]
+                or not isinstance(spec._scheduler, DecodeScheduler)
+                or isinstance(spec._scheduler, PagedDecodeScheduler)
+                or metric_value(metrics, fb) != 1.0
+                or debug["paged_fallback"]["reason"] != "spec-decode-mesh"
+                or debug["mesh"]["tp"] != 1):
+            raise AssertionError(f"serve_mesh fallback: {status} {debug}")
+        row["spec_decode_mesh"] = {"engine": debug["engine"],
+                                   "fallback": debug["paged_fallback"],
+                                   "tokens_equal_schedule_phase": True}
+        row.update(tokens_equal_paged_phase=True, launches=counts,
+                   debug_mesh=debug["mesh"], pool_shards=1)
+        del spec, draft, service, model
+    finally:
+        set_global_mesh(None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    row["group_destroyed"] = not dist.is_initialized()
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tp_virtual_ranks(torch, dev, whole, tp):
+    """Each virtual rank's attention and MLP of every layer of ``whole``:
+    modules at the rank's heads (n_heads / tp over n_kv_heads / tp) and
+    ffn / tp, their weights this rank's ``local_shard`` of the whole
+    model's by ``llama_rules``."""
+    from kubeflow_tpu_torch.models.layers import Attention, SwiGLU
+    from kubeflow_tpu_torch.parallel.sharding import (
+        layout_for,
+        llama_rules,
+        local_shard,
+    )
+
+    cfg = whole.cfg
+    rules = llama_rules()
+    ranks = []
+    for r in range(tp):
+        mesh = VirtualMesh(tp, r)
+        blocks = []
+        for i, block in enumerate(whole.layers):
+            attn = Attention(cfg.dim, cfg.n_heads // tp, cfg.n_kv_heads // tp,
+                             cfg.head_dim, rope_theta=cfg.rope_theta,
+                             dtype=cfg.dtype, device=dev)
+            mlp = SwiGLU(cfg.dim, cfg.ffn_dim // tp, dtype=cfg.dtype,
+                         device=dev)
+            for part, src, names in (
+                    (attn, block.attn, ("q_proj", "k_proj", "v_proj",
+                                        "o_proj")),
+                    (mlp, block.mlp, ("gate_proj", "up_proj", "down_proj"))):
+                where = "attn" if part is attn else "mlp"
+                for n in names:
+                    w = getattr(src, n).weight
+                    key = f"layers.{i}.{where}.{n}.weight"
+                    getattr(part, n).weight = torch.nn.Parameter(
+                        local_shard(w, layout_for(key, w.shape, rules, mesh),
+                                    mesh), requires_grad=False)
+            blocks.append((attn, mlp))
+        ranks.append(blocks)
+    return ranks
+
+
+def tp_forward(torch, whole, ranks, tokens, positions, caches, *,
+               pad_bias, logits_at=None):
+    """``whole``'s forward with each layer's attention and MLP run by every
+    virtual rank on its shard and their partial sums added in rank order
+    where the all-reduce over tp would (in the model's dtype); each rank
+    runs every norm over the whole hidden state.  The caches (one a rank,
+    at its kv heads) advance by the call's tokens."""
+    from kubeflow_tpu_torch.models.llama import NEG_INF
+
+    b, s = tokens.shape
+    bias = None
+    if s == 1:
+        length = caches[0].length
+        slots = torch.arange(length, device=tokens.device)
+        visible = (slots <= caches[0].index)[None].expand(b, -1)
+        bias = (torch.where(visible, 0.0, NEG_INF).float()
+                + pad_bias).contiguous()
+    x = whole.embed(tokens)
+    for i, block in enumerate(whole.layers):
+        h = None
+        for r, blocks in enumerate(ranks):
+            part = blocks[i][0](block.attn_norm(x), positions,
+                                cache=caches[r], layer=i, bias_rows=bias)
+            h = part if h is None else h + part
+        x = x + h
+        h = None
+        for blocks in ranks:
+            part = blocks[i][1](block.mlp_norm(x))
+            h = part if h is None else h + part
+        x = x + h
+    for c in caches:
+        c.index += s
+    normed = [whole.final_norm(x) for _ in ranks][0]
+    if logits_at is not None:
+        normed = normed[torch.arange(b, device=x.device), logits_at][:, None]
+    return whole.lm_head(normed)[:, -1].float()
+
+
+def phase_tp_virtual(torch, dev):
+    """The kernels at one tp rank's heads: ``llama3_8b`` at full width,
+    TP_LAYERS layers, split by the port's ``local_shard`` into TP_VIRTUAL
+    tp shards run as virtual ranks in one process (``tp_forward``): a
+    ragged b2 prefill (K2 at 8 q over 2 kv heads) and TP_STEPS greedy
+    decode steps (K5), whose tokens the bf16 plain route and an f32 copy
+    of the whole model are teacher-forced through.  The sharded route's
+    logits must be no farther from the f32 model's than COMPOSE_RATIO
+    times the plain route's, its greedy tokens equal the f32 model's or
+    within AGREE_GAP of its largest logit; launches exact (K2 and K5 once
+    a layer a rank, K1 once a norm a rank).  Then K2 and K5 timed at one
+    rank's heads beside their bounds and SDPA.  Returns the counts."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.models.generate import (
+        pad_bias_rows,
+        prompt_positions,
+    )
+    from kubeflow_tpu_torch.models.layers import KVCache
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    tp = TP_VIRTUAL
+    t_phase = time.perf_counter()
+    variants = {"auto": dict(impl="auto"), "plain": dict(impl="plain"),
+                "f32": dict(impl="plain", dtype=torch.float32)}
+    models = {name: create_model("llama3_8b", device=dev, n_layers=TP_LAYERS,
+                                 **kw) for name, kw in variants.items()}
+    with torch.no_grad():
+        models["auto"].reset_parameters(
+            torch.Generator(device=dev).manual_seed(SEED))
+    for name in ("plain", "f32"):
+        models[name].load_state_dict(models["auto"].state_dict())
+    whole = models["auto"]
+    cfg = whole.cfg
+    ranks = tp_virtual_ranks(torch, dev, whole, tp)
+    _, prompt, mask = ragged_batch(torch, dev, cfg.vocab_size, TP_LENS)
+    b = prompt.shape[0]
+    positions, lengths = prompt_positions(mask)
+    length = prompt.shape[1] + TP_STEPS
+    pad_bias = pad_bias_rows(mask, length)
+    caches = [KVCache.empty(cfg.n_layers, b, length, cfg.n_kv_heads // tp,
+                            cfg.head_dim, dtype=cfg.dtype, device=dev)
+              for _ in range(tp)]
+    kernels.reset_launch_counts()
+    logits, tokens = [], []
+    with torch.inference_mode():
+        logits.append(tp_forward(torch, whole, ranks, prompt, positions,
+                                 caches, pad_bias=pad_bias,
+                                 logits_at=lengths - 1))
+        for i in range(TP_STEPS):
+            tokens.append(logits[-1].argmax(-1))
+            logits.append(tp_forward(
+                torch, whole, ranks, tokens[-1][:, None],
+                (lengths + i)[:, None], caches, pad_bias=pad_bias))
+    counts = kernels.launch_counts()
+    n, forwards = cfg.n_layers, 1 + TP_STEPS
+    want = {"rms_norm": tp * (2 * n + 1) * forwards, "rms_norm_bwd": 0,
+            "flash_attention_fwd": tp * n, "flash_attention_fwd_lse": 0,
+            "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            "flash_decode": tp * n * TP_STEPS}
+    if counts != want:
+        raise AssertionError(f"tp_virtual launches {counts}, expected {want}")
+    # The same tokens through the whole model, bf16 plain and f32.
+    ref = {}
+    for name in ("plain", "f32"):
+        model = models[name]
+        out = []
+        with torch.inference_mode():
+            cache = model.new_cache(b, length)
+            out.append(model(prompt, positions=positions, cache=cache,
+                             pad_bias=pad_bias, logits_at=lengths - 1).float())
+            for i, tok in enumerate(tokens):
+                out.append(model(
+                    tok[:, None], positions=(lengths + i)[:, None],
+                    cache=cache, pad_bias=pad_bias)[:, 0].float())
+        ref[name] = out
+        del cache
+    rel = lambda a, c: ((a - c).norm() / c.norm()).item()
+    row = {"phase": "tp_virtual", "model": "llama3_8b", "n_layers": n,
+           "tp": tp, "heads_per_rank": [cfg.n_heads // tp,
+                                        cfg.n_kv_heads // tp],
+           "ffn_per_rank": cfg.ffn_dim // tp, "prompt_lens": list(TP_LENS),
+           "decode_steps": TP_STEPS, "ratio_limit": COMPOSE_RATIO,
+           "launches": counts}
+    for step, sl in (("prefill", slice(0, 1)), ("decode", slice(1, None))):
+        got = torch.stack(logits[sl])
+        f32 = torch.stack(ref["f32"][sl])
+        plain = torch.stack(ref["plain"][sl])
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"tp_virtual {step}: non-finite logits")
+        e_tp, e_plain = rel(got, f32), rel(plain, f32)
+        row[f"{step}_rel_l2_tp_vs_f32"] = e_tp
+        row[f"{step}_rel_l2_plain_vs_f32"] = e_plain
+        if e_tp > COMPOSE_RATIO * e_plain:
+            raise AssertionError(
+                f"tp_virtual {step}: the sharded route {e_tp} from the f32 "
+                f"model, more than {COMPOSE_RATIO} x the plain route's "
+                f"{e_plain}")
+    f32 = torch.stack(ref["f32"][:-1])                 # [steps, b, vocab]
+    chosen = torch.stack(tokens)
+    gaps = f32.amax(-1) - f32.gather(-1, chosen[..., None])[..., 0]
+    if gaps.max().item() > AGREE_GAP:
+        raise AssertionError(f"tp_virtual: greedy tokens {gaps.tolist()} "
+                             f"from the f32 model's largest logits")
+    row["greedy_equal_f32"] = (chosen == f32.argmax(-1)).float().mean().item()
+    row["greedy_max_gap"] = gaps.max().item()
+    del models, whole, ranks, caches, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    timer = Timer(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(
+        torch.bfloat16)
+    h, kvh, hd = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim
+    row["timed"] = [
+        k2_row(torch, dev, rnd, timer, *TP_K2_SHAPE, h, kvh, hd,
+               path=f"prefill at one tp={tp} rank's heads"),
+        k5_row(torch, dev, rnd, timer, *TP_K5_SHAPE, h, kvh, hd,
+               path=f"decode at one tp={tp} rank's heads")]
+    del timer
+    row["phase_seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return counts
 
 
 def check_rel_l2(name, got, want, tol):
@@ -5103,15 +5469,19 @@ def main() -> int:
     phase_profile(torch, dev, model)
     schedule_counts, fixed, tol, fixed_quantum = phase_schedule(
         torch, dev, model)
-    paged_counts, paged_http = phase_paged(torch, dev, model, fixed, tol,
-                                           fixed_quantum)
+    paged_counts, paged_http, paged_ref = phase_paged(
+        torch, dev, model, fixed, tol, fixed_quantum)
     int8_counts = phase_int8(torch, dev, model, paged_http)
     beam_counts = phase_beam(torch, dev, model)
     # The card cannot hold llama3_8b (17.1 GB) beside the Mixtral phases'
     # 24.0 GB and the training phases.
+    paged_ref["fixed"] = fixed
     del model, fixed
     gc.collect()
     torch.cuda.empty_cache()
+    serve_mesh_counts = phase_serve_mesh(torch, dev, paged_ref)
+    del paged_ref
+    tp_virtual_counts = phase_tp_virtual(torch, dev)
     t5_serve_counts, t5 = phase_t5_serve(torch, dev)
     t5_beam_counts = phase_t5_beam(torch, dev, t5)
     del t5
@@ -5144,6 +5514,8 @@ def main() -> int:
                              "paged": paged_counts[name],
                              "int8": int8_counts[name],
                              "beam": beam_counts[name],
+                             "serve_mesh": serve_mesh_counts[name],
+                             "tp_virtual": tp_virtual_counts[name],
                              "t5_serve": t5_serve_counts[name],
                              "t5_beam": t5_beam_counts[name],
                              "t5_grad": t5_grad_counts[name],

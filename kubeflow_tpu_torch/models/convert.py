@@ -131,8 +131,8 @@ def _convert(path: str, arr: np.ndarray) -> np.ndarray:
 
 
 def params_from_jax(tree: Mapping, cfg,
-                    param_dtype: Optional[torch.dtype] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    param_dtype: Optional[torch.dtype] = None, *,
+                    mesh=None, rules=None) -> Dict[str, torch.Tensor]:
     """State dict for ``Llama(cfg)`` from the reference's param tree.
     Dense, expert and embedding weights are stored in ``param_dtype``
     (default ``cfg.param_dtype``, else ``cfg.dtype``: the reference casts
@@ -141,7 +141,12 @@ def params_from_jax(tree: Mapping, cfg,
     the reference's master weight exactly.  The tree may be in either
     layout (``layers_scan`` is told by its top-level key).  Raises
     ``KeyError`` on a missing or extra leaf and ``ValueError`` on a shape
-    mismatch."""
+    mismatch.
+
+    With ``mesh`` and ``rules`` (``parallel/sharding.py``) the whole set
+    is converted, then each tensor is cut to this process's slice by the
+    rules: a sharded model takes them as they are
+    (``sharding.shard_for_serving(source=...)``)."""
     dense_dtype = param_dtype or cfg.param_dtype or cfg.dtype
     flat = _flatten(tree)
     scan_layers = "layers_scan" in tree
@@ -166,6 +171,14 @@ def params_from_jax(tree: Mapping, cfg,
         t = torch.from_numpy(np.ascontiguousarray(
             _convert(path, arr).astype(np.float32)))
         state[_target(path)] = t.to(dtype)
+    if mesh is not None:
+        from kubeflow_tpu_torch.parallel.sharding import (
+            layout_for,
+            local_shard,
+        )
+
+        state = {k: local_shard(v, layout_for(k, v.shape, rules, mesh), mesh)
+                 for k, v in state.items()}
     return state
 
 

@@ -11,7 +11,11 @@
   paged engine's (``models/paged.py``), through page tables.
 * Sampling is per row: row i draws its Gumbel noise from its own
   ``torch.Generator``, so a row's stream depends on its generator only.
-  A caller (a parity test) may inject the noise instead.
+  A caller (a parity test) may inject the noise instead.  Under a mesh
+  every process runs the same calls with the same per-row generators on
+  bit-equal logits (the head is whole on every process, and an
+  all-reduce leaves each the same sum), so every process samples the
+  same token and none is broadcast.
 * **Encoder-decoder** models (T5: ``encode``/``decode``) generate with
   ``generate_seq2seq``: the source is encoded once, then cached decoder
   steps run from BOS.

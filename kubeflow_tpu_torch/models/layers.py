@@ -98,9 +98,12 @@ class Linear(nn.Module):
         self.register_buffer("scale", scale)
 
     def dense_weight(self) -> torch.Tensor:
-        """W in the compute dtype (dequantized when quantized)."""
-        if self.weight is not None:
-            return self.weight.to(self.dtype)
+        """W in the compute dtype (dequantized when quantized).  W is read
+        once: under a mesh a read may gather it
+        (``sharding.GatherAtUse``)."""
+        w = self.weight
+        if w is not None:
+            return w.to(self.dtype)
         w = quantize.dequantize(self._blocks(self.qweight), self.scale,
                                 self.dtype)
         return w.view(self.qweight.shape)
@@ -145,8 +148,9 @@ class Embed(nn.Module):
         self.register_buffer("scale", scale)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        if self.embedding is not None:
-            return F.embedding(tokens, self.embedding.to(self.dtype))
+        table = self.embedding     # read once (a read may gather it)
+        if table is not None:
+            return F.embedding(tokens, table.to(self.dtype))
         # Dequantizing is elementwise, so the looked-up rows alone give
         # the rows of the dequantized table.
         return quantize.dequantize(self.qweight[tokens], self.scale,
@@ -229,26 +233,71 @@ class PagedKVCache:
     through its page table; page 0 is the null page, where unallocated
     logical pages point and idle lanes write, always behind the mask.
     Counterpart of the reference's ``paged_key``/``paged_value`` cache
-    variables (``kubeflow_tpu/models/layers.py:274-306``)."""
+    variables (``kubeflow_tpu/models/layers.py:274-306``).
+
+    Under a mesh with data axes (``groups``, their process groups) the
+    pool's positions split over them: this process holds the ``count``
+    positions from ``first`` (``sharding.page_pool_spec``), plus one spare
+    row that takes the writes of positions it does not own.  A write
+    lands only at the owner; a read gathers each process's own positions,
+    zeros elsewhere, and sums them over the data axes (``gather``), one
+    collective a data axis and layer for K and V together."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
+    first: int = 0
+    count: Optional[int] = None
+    total: Optional[int] = None
+    groups: tuple = ()
 
     @classmethod
     def empty(cls, n_layers: int, pool_positions: int, kv_heads: int,
-              head_dim: int, *, dtype: torch.dtype,
-              device) -> "PagedKVCache":
-        shape = (pool_positions, kv_heads, head_dim)
+              head_dim: int, *, dtype: torch.dtype, device,
+              shard: Optional[tuple] = None,
+              groups: tuple = ()) -> "PagedKVCache":
+        first, count = shard if groups and shard else (0, pool_positions)
+        rows = count + 1 if groups else count
+        shape = (rows, kv_heads, head_dim)
         return cls(
             k=[torch.zeros(shape, dtype=dtype, device=device)
                for _ in range(n_layers)],
             v=[torch.zeros(shape, dtype=dtype, device=device)
                for _ in range(n_layers)],
+            first=first, count=count, total=pool_positions,
+            groups=tuple(groups),
         )
 
     @property
     def pool_positions(self) -> int:
-        return self.k[0].shape[0]
+        return self.total if self.total is not None else self.k[0].shape[0]
+
+    def _local(self, positions: torch.Tensor):
+        """(local row of each position, whether this process owns it);
+        a position it does not own maps to the spare row."""
+        local = positions - self.first
+        own = (local >= 0) & (local < self.count)
+        return torch.where(own, local, self.count), own
+
+    def write(self, layer: int, positions: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+        """K/V [n, kv_h, d] into the pool at ``positions`` [n]."""
+        if self.groups:
+            positions, _ = self._local(positions)
+        self.k[layer].index_copy_(0, positions, k)
+        self.v[layer].index_copy_(0, positions, v)
+
+    def gather(self, layer: int, positions: torch.Tensor):
+        """``(k, v)`` [n, kv_h, d] at the pool's ``positions`` [n]."""
+        if not self.groups:
+            return (self.k[layer].index_select(0, positions),
+                    self.v[layer].index_select(0, positions))
+        local, own = self._local(positions)
+        kv = torch.stack([self.k[layer].index_select(0, local),
+                          self.v[layer].index_select(0, local)])
+        kv = torch.where(own[None, :, None, None], kv, 0)
+        for group in self.groups:
+            kv = sharding.all_reduce_sum(kv, group)
+        return kv[0], kv[1]
 
 
 @dataclasses.dataclass
@@ -356,7 +405,7 @@ class Attention(nn.Module):
         # row shards) and o_proj the matching input columns: the heads are
         # counted from the projections, and o_proj's partial sums are
         # summed over tp.
-        tp = sharding.tp_group(self.q_proj.weight,
+        tp = sharding.tp_group(sharding.stored(self.q_proj, "weight"),
                                self.num_heads * self.head_dim)
         if tp is not None and (self.num_heads % tp.size()
                                or self.num_kv_heads % tp.size()):
@@ -435,15 +484,16 @@ class Attention(nn.Module):
             raise ValueError("a paged cache needs the step's PagedView "
                              "(Llama.forward builds it from PagedSlots)")
         b, s = q.shape[:2]
-        kvh, d = self.num_kv_heads, self.head_dim
-        k_pool, v_pool = cache.k[layer], cache.v[layer]
-        k_pool.index_copy_(0, view.write, k.reshape(b * s, kvh, d))
-        v_pool.index_copy_(0, view.write, v.reshape(b * s, kvh, d))
+        # Under tp the projections hold this rank's K/V heads.
+        kvh, d = k.shape[2], self.head_dim
+        cache.write(layer, view.write, k.reshape(b * s, kvh, d),
+                    v.reshape(b * s, kvh, d))
         # The gather keeps logical order, so a row's view is the layout
         # the contiguous cache would hold; the null page's slots lie
         # behind the mask (bias rows, or the causal bound of a chunk).
-        k_rows = k_pool.index_select(0, view.read).view(b, view.length, kvh, d)
-        v_rows = v_pool.index_select(0, view.read).view(b, view.length, kvh, d)
+        k_rows, v_rows = cache.gather(layer, view.read)
+        k_rows = k_rows.view(b, view.length, kvh, d)
+        v_rows = v_rows.view(b, view.length, kvh, d)
         if view.causal:
             # A prefill chunk: every row's chunk starts at the same logical
             # slot, so end-aligned causal attention over the first
@@ -473,7 +523,8 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # gate/up column-parallel, down row-parallel under tp (as Attention).
-        tp = sharding.tp_group(self.gate_proj.weight, self.hidden_dim)
+        tp = sharding.tp_group(sharding.stored(self.gate_proj, "weight"),
+                               self.hidden_dim)
         x = sharding.copy_to_tp(x, tp)
         return sharding.reduce_from_tp(
             self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)), tp)

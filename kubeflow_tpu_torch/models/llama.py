@@ -35,6 +35,7 @@ from kubeflow_tpu_torch.models.layers import (
 )
 from kubeflow_tpu_torch.models.moe import MoeMlp
 from kubeflow_tpu_torch.models.registry import register_model
+from kubeflow_tpu_torch.parallel import sharding
 from kubeflow_tpu_torch.parallel.context import sequence_offset
 
 NEG_INF = -1e30
@@ -124,6 +125,8 @@ SEQUENCE_PARALLEL = ("ring", "ulysses")
 # The projections models/layers.py runs tensor-parallel (Attention, SwiGLU).
 TP_LOCAL = (r".*(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)"
             r"\.weight")
+# The MoE experts models/moe.py computes as their ep shards.
+EP_LOCAL = r".*\.(w_gate|w_up|w_down)"
 
 
 def _norm_impl(impl: str) -> str:
@@ -203,6 +206,21 @@ class Llama(nn.Module):
         on ``tp``): the attention and SwiGLU projections."""
         return re.fullmatch(TP_LOCAL, name) is not None
 
+    def ep_local(self, name: str) -> bool:
+        """Whether parameter ``name`` is computed with as its ``ep`` shard
+        under a mesh: the MoE experts (``models/moe.py`` sends each
+        expert's tokens to the process that holds it)."""
+        return re.fullmatch(EP_LOCAL, name) is not None
+
+    def local_kv_heads(self) -> int:
+        """The K/V heads this process computes: ``n_kv_heads / tp`` when
+        the projections hold a ``tp`` shard, else ``n_kv_heads``."""
+        proj = self.layers[0].attn.k_proj
+        w = sharding.stored(proj, "weight")
+        if w is None:
+            w = proj.qweight
+        return w.shape[0] // self.cfg.head_dim
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's flax initialisers, drawn from ``generator`` on
         the parameters' device."""
@@ -215,17 +233,22 @@ class Llama(nn.Module):
         if length > cfg.max_seq_len:
             raise ValueError(
                 f"cache_len {length} exceeds max_seq_len {cfg.max_seq_len}")
-        return KVCache.empty(cfg.n_layers, batch, length, cfg.n_kv_heads,
-                             cfg.head_dim, dtype=cfg.dtype,
-                             device=self.device)
+        return KVCache.empty(cfg.n_layers, batch, length,
+                             self.local_kv_heads(), cfg.head_dim,
+                             dtype=cfg.dtype, device=self.device)
 
-    def new_paged_cache(self, pool_positions: int) -> PagedKVCache:
+    def new_paged_cache(self, pool_positions: int, *,
+                        shard: Optional[tuple] = None,
+                        groups: tuple = ()) -> PagedKVCache:
         """The paged engine's pool: zeros, [pool_positions, kv_h, d] a
-        layer in the model's dtype."""
+        layer in the model's dtype, kv_h this process's K/V heads; with
+        the data axes' ``groups``, only the positions ``shard`` = (first,
+        count) (``PagedKVCache``)."""
         cfg = self.cfg
         return PagedKVCache.empty(cfg.n_layers, pool_positions,
-                                  cfg.n_kv_heads, cfg.head_dim,
-                                  dtype=cfg.dtype, device=self.device)
+                                  self.local_kv_heads(), cfg.head_dim,
+                                  dtype=cfg.dtype, device=self.device,
+                                  shard=shard, groups=groups)
 
     def forward(self, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,

@@ -31,6 +31,17 @@ einsums, kept beside the module to check the index dispatch.
 The load-balancing loss is the reference's (Switch eq. 4): ``e * sum_e
 f_e * p_e / k`` over the real tokens; ``forward`` returns it beside the
 output and ``Llama`` averages it over layers (``return_aux``).
+
+Under a mesh with an ``ep`` axis a process holds ``e / ep`` of the
+experts (``parallel/sharding.py``: ``w_gate``/``w_up``/``w_down`` split
+on their expert axis), the reference's GShard lowering
+(``kubeflow_tpu/models/moe.py:117-133``): routing, dispatch and combine
+stay on each process's rows, one ``all_to_all_single`` over ``ep`` sends
+the expert buffers [e, b, c, d] to the processes that hold each expert,
+which compute with their experts as stored, and a second brings the
+results back.  The backward runs the same exchanges in reverse, so an
+expert's gradient is its own process's, summed over every process's
+tokens.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kubeflow_tpu_torch.models.layers import Linear, lecun_normal_
+from kubeflow_tpu_torch.parallel import sharding
 
 
 @dataclasses.dataclass
@@ -162,9 +174,23 @@ class MoeMlp(nn.Module):
         buf = xd.new_zeros(spare + 1, d).index_copy(
             0, torch.where(r.keep, dest, spare).reshape(-1), src)
         xin = buf[:spare].view(e, b * c, d)
-        h = F.silu(torch.bmm(xin, self.w_gate.to(dt))) * torch.bmm(
-            xin, self.w_up.to(dt))
-        out = torch.bmm(h, self.w_down.to(dt)).view(spare, d)
+        w_gate, w_up, w_down = self.w_gate, self.w_up, self.w_down
+        group = sharding.ep_group(w_gate.shape[0], e)
+        if group is not None:
+            # [ep, e / ep, b * c, d]: block j to process j, which returns
+            # its experts' rows of every process, [e / ep, ep * b * c, d].
+            n = group.size()
+            xin = sharding.expert_all_to_all(xin, group).view(
+                n, e // n, b * c, d).transpose(0, 1).reshape(
+                    e // n, n * b * c, d)
+        h = F.silu(torch.bmm(xin, w_gate.to(dt))) * torch.bmm(
+            xin, w_up.to(dt))
+        out = torch.bmm(h, w_down.to(dt))
+        if group is not None:
+            out = sharding.expert_all_to_all(
+                out.view(e // n, n, b * c, d).transpose(0, 1).reshape(
+                    e, b * c, d), group)
+        out = out.reshape(spare, d)
         picked = out.index_select(
             0, torch.where(r.keep, dest, 0).reshape(-1)).view(b, s, k, d)
         y = (r.gates.to(dt).float()[..., None] * picked.float()).sum(2)

@@ -2,8 +2,7 @@
 prefill and draft-model speculative decoding on the continuous-batching
 scheduler (``models/scheduler.py``).
 
-Counterpart of ``kubeflow_tpu/models/paged.py`` on one device (no mesh,
-so the pool is never sharded: ``pool_shards`` is 1).  The fixed-slot pool
+Counterpart of ``kubeflow_tpu/models/paged.py``.  The fixed-slot pool
 gives every row ``slot_len`` cache positions; here K/V live in ONE flat
 pool of ``num_pages x page_len`` positions a layer
 (``layers.PagedKVCache``), and a row holds ``ceil(len / page_len)`` pages,
@@ -41,6 +40,20 @@ first token replays the lock path's generator recipe
 (``generate.sample_first``), so a request's tokens equal the lock path's
 (greedy and seeded) up to the last bits that another batch shape moves.
 
+Under a mesh (``mesh=``, the reference's ``paged.py:45-55, 511-573``)
+the flat pool's positions shard over the data axes
+(``sharding.page_pool_spec``; ``num_pages`` rounds up to a multiple of
+``pool_shards``, so a page never straddles two processes): a process
+writes only the positions it owns, and a step's view is assembled from
+each owner's positions with one collective a layer
+(``layers.PagedKVCache``).  Lanes stay replicated, as in the reference:
+every process steps every lane, its heads split over ``tp``.  The page
+tables, free list and prefix trie are the same on every process, which
+all apply rank 0's decisions (``parallel/lockstep.py``).  A mesh with no
+data axis keeps ``pool_shards`` at 1.  A draft model under a mesh raises
+at construction: the draft pool's mirroring is not mesh-aware, and the
+service serves the fixed-slot pool instead (``spec-decode-mesh``).
+
 ``KFT_SERVE_PAGED=0`` pins a service to the fixed-slot pool
 (``models/serve.py`` records and counts why).
 """
@@ -68,6 +81,11 @@ from kubeflow_tpu_torch.models.scheduler import (
     DecodeScheduler,
     PendingRequest,
     _Slot,
+)
+from kubeflow_tpu_torch.parallel.sharding import (
+    data_groups,
+    page_pool_shards,
+    page_pool_spec,
 )
 
 
@@ -394,11 +412,22 @@ class PagedDecodeScheduler(DecodeScheduler):
                  num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  spec_tokens: Optional[int] = None, draft_model=None,
-                 prefix_cache: Optional[bool] = None):
+                 prefix_cache: Optional[bool] = None, mesh=None,
+                 lockstep=None):
+        if mesh is not None and draft_model is not None:
+            # The draft pool mirrors the target's pages from host-built
+            # slots; that mirroring is not mesh-aware (the reference's
+            # rule).  models/serve.py records the fallback.
+            raise ValueError(
+                "speculative decoding under a mesh is not supported: drop "
+                "the draft model or the mesh (serve.py falls back to the "
+                "fixed-slot scheduler for this combination)")
         super().__init__(model, slots=slots, slot_len=slot_len,
                          quantum=quantum, pipeline=pipeline,
-                         telemetry=telemetry)
-        self.pool_shards = 1
+                         telemetry=telemetry, mesh=mesh, lockstep=lockstep)
+        # The pool's position axis splits over the data axes (1 on a
+        # mesh without one: the pool then replicates, tp splits heads).
+        self.pool_shards = page_pool_shards(mesh)
         self.page_len = page_len or config.env_int_strict(
             *config.SERVE_PAGE_LEN)
         if self.page_len < 1 or self.slot_len % self.page_len:
@@ -414,6 +443,10 @@ class PagedDecodeScheduler(DecodeScheduler):
                 f"KFT_SERVE_PAGES {self.num_pages} cannot hold one "
                 f"full-length row ({self.max_pages_row} pages) plus the "
                 f"null page")
+        if self.num_pages % self.pool_shards:
+            # Round up: every shard then holds whole pages.
+            self.num_pages += self.pool_shards - self.num_pages % \
+                self.pool_shards
         self.pool_positions = self.num_pages * self.page_len
         self.prefill_chunk = prefill_chunk if prefill_chunk is not None \
             else config.env_int_strict(*config.SERVE_PREFILL_CHUNK)
@@ -452,6 +485,17 @@ class PagedDecodeScheduler(DecodeScheduler):
         self._page_waits_total = 0
 
     # -- sizing -----------------------------------------------------------
+
+    def _local_rows(self) -> tuple:
+        # Lanes stay replicated: every process steps every lane.
+        return 0, self.slots, 1
+
+    def knobs(self) -> dict:
+        return dict(super().knobs(), page_len=self.page_len,
+                    num_pages=self.num_pages,
+                    prefill_chunk=self.prefill_chunk,
+                    spec_tokens=self.spec_tokens,
+                    prefix_cache=self.prefix is not None)
 
     def _spec_slack(self) -> int:
         """Write slots a verify pass can touch past the last budgeted
@@ -520,7 +564,11 @@ class PagedDecodeScheduler(DecodeScheduler):
         if self._pool is not None:
             return
         dev = self.model.device
-        self._pool = self.model.new_paged_cache(self.pool_positions)
+        groups = data_groups(self.mesh)
+        self._pool = self.model.new_paged_cache(
+            self.pool_positions, groups=groups,
+            shard=(page_pool_spec(self.mesh, self.pool_positions)
+                   if groups else None))
         self._pad_rows = torch.full((self.slots, self.slot_len), NEG_INF,
                                     dtype=torch.float32, device=dev)
         self._spare = torch.Generator(device=dev).manual_seed(0)
@@ -605,6 +653,8 @@ class PagedDecodeScheduler(DecodeScheduler):
                 try:
                     self._advance_prefill(st)
                 except Exception as exc:  # noqa: BLE001 — per request
+                    if self.lockstep is not None:
+                        raise   # the processes may have diverged
                     self._abort_prefill(st, exc)
                     continue
                 if self._prefilling is not None:
@@ -618,6 +668,8 @@ class PagedDecodeScheduler(DecodeScheduler):
             try:
                 started = self._begin_prefill(req)
             except Exception as exc:  # noqa: BLE001 — per request
+                if self.lockstep is not None:
+                    raise
                 self._drop_queued(req)
                 req._fail(exc)
                 tel = self._telemetry()

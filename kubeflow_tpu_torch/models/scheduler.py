@@ -1,10 +1,10 @@
 """Continuous batching across requests for decoder-only serving: a fixed
 pool of KV-cache slots and one decode loop over it, in PyTorch.
 
-Counterpart of ``kubeflow_tpu/models/scheduler.py`` on one device (no
-mesh).  The lock-serialized path (``models/serve.py``) batches only the
-rows of one request, and concurrent users wait behind its lock; here
-every request's rows share one running decode loop.
+Counterpart of ``kubeflow_tpu/models/scheduler.py``.  The
+lock-serialized path (``models/serve.py``) batches only the rows of one
+request, and concurrent users wait behind its lock; here every request's
+rows share one running decode loop.
 
     submit ──► queue ──► admit (prefill, request-batched) ──► slots
                                                                │ decode
@@ -44,9 +44,24 @@ quantum N's tokens, so the host's bookkeeping overlaps the device.  The
 harvest credits tokens against the slot snapshot taken at dispatch, so a
 slot refilled meanwhile never inherits its predecessor's tokens; an
 admission, whose carry rebuild reads host values, harvests first.
+
+Under a mesh (``mesh=``, the reference's ``scheduler.py:316-369,
+495-515``) the pool's batch axis shards over the data axes: a process
+holds and computes only its own block of slots (``slots`` must divide
+by the data-axis size), every process prefills each admitted request,
+and the owner alone moves a row into its slot.  After each quantum the
+tokens and done flags are gathered over the data axes, so every
+process's bookkeeping sees every slot.  The processes run in lock step
+(``parallel/lockstep.py``): rank 0 takes every decision that depends on
+the clock or on a request (which request is admitted next, whether a
+dispatched quantum is back, stop) and sends it before the device work
+it steers; a follower (``follow()``) applies rank 0's decisions to its
+own copy and takes none.  Under lock step an error in device work ends
+the world instead of failing one request.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Callable, List, Optional
@@ -62,12 +77,16 @@ from kubeflow_tpu_torch.models.generate import (
     generate_prefill,
     row_generators,
 )
+from kubeflow_tpu_torch.parallel.sharding import data_coordinates, gather_data
 
 # Request priority classes (the X-KFT-Priority wire vocabulary), lowest
 # value admitted first, FIFO within a class; decode slots already held are
 # never preempted.
 PRIORITY_CLASSES = {"interactive": 0, "standard": 1, "batch": 2}
 DEFAULT_PRIORITY = PRIORITY_CLASSES["standard"]
+
+
+_REQUEST_IDS = itertools.count()
 
 
 class DeadlineExceeded(RuntimeError):
@@ -121,6 +140,24 @@ class PendingRequest:
         self.t_admitted: Optional[float] = None
         self.t_first: Optional[float] = None
         self.t_done: Optional[float] = None
+        self.id = next(_REQUEST_IDS)
+
+    def spec(self) -> dict:
+        """What a lock-step follower needs to run this request as rank 0
+        does (``from_spec``)."""
+        return {"id": self.id, "rows": self.rows,
+                "max_new_tokens": self.max_new_tokens,
+                "temperature": self.temperature, "top_k": self.top_k,
+                "eos_token": self.eos_token, "seed": self.seed,
+                "priority": self.priority}
+
+    @classmethod
+    def from_spec(cls, spec: dict) -> "PendingRequest":
+        spec = dict(spec)
+        rid = spec.pop("id")
+        req = cls(spec.pop("rows"), **spec)
+        req.id = rid
+        return req
 
     def _fail(self, exc: BaseException):
         self.error = exc
@@ -217,8 +254,13 @@ class DecodeScheduler:
                  slot_len: Optional[int] = None,
                  quantum: Optional[int] = None,
                  pipeline: Optional[bool] = None,
-                 telemetry: Optional[Callable[[], object]] = None):
+                 telemetry: Optional[Callable[[], object]] = None,
+                 mesh=None, lockstep=None):
         self.model = model
+        # The mesh the model is sharded over, and the lock-step channel
+        # of its processes (None on one process).
+        self.mesh = mesh
+        self.lockstep = lockstep
         self.slots = slots or config.env_int(*config.SERVE_SLOTS)
         self.slot_len = slot_len or config.env_int(
             *config.SERVE_SLOT_LEN) or model.cfg.max_seq_len
@@ -234,6 +276,8 @@ class DecodeScheduler:
                 f"max_seq_len {model.cfg.max_seq_len}")
         self.pipeline = pipeline if pipeline is not None else \
             config.env_bool(*config.SERVE_PIPELINE)
+        # The slots this process holds and computes, [lo, hi).
+        self._lo, self._hi, self._row_shards = self._local_rows()
         # Zero-arg callable, so a service can re-attach telemetry (every
         # create_app builds a fresh registry).
         self._telemetry = telemetry or (lambda: None)
@@ -260,6 +304,24 @@ class DecodeScheduler:
         self._blocked_s = 0.0
         self._cycle_s = 0.0
         self._t_cycle_mark: Optional[float] = None
+
+    def _local_rows(self) -> tuple:
+        """``(lo, hi, shards)``: this process's block of the slots, of
+        ``shards`` equal blocks over the mesh's data axes."""
+        index, count = (data_coordinates(self.mesh)
+                        if self.mesh is not None else (0, 1))
+        if self.slots % count:
+            raise ValueError(
+                f"slots {self.slots} must divide over the mesh's data axes "
+                f"({count} processes)")
+        n = self.slots // count
+        return index * n, (index + 1) * n, count
+
+    def knobs(self) -> dict:
+        """The constructor's sizing knobs as resolved here (a lock-step
+        follower builds its copy from rank 0's)."""
+        return {"slots": self.slots, "slot_len": self.slot_len,
+                "quantum": self.quantum, "pipeline": self.pipeline}
 
     # -- public surface ---------------------------------------------------
 
@@ -348,19 +410,35 @@ class DecodeScheduler:
 
     # -- loop thread ------------------------------------------------------
 
+    def follow(self):
+        """A lock-step follower: run the loop in this thread on rank 0's
+        decisions until rank 0 stops it; an error (here or rank 0's
+        abort) is raised."""
+        self._loop()
+        if self._dead is not None:
+            raise self._dead
+
+    def _decide(self, fn):
+        """``fn()``; under lock step rank 0's value on every process."""
+        return fn() if self.lockstep is None else self.lockstep.decide(fn)
+
+    def _wait_for_work(self) -> bool:
+        """Sleep until there is work or a stop; True to stop."""
+        with self._cond:
+            while (not self._stop_flag and not self._queue
+                   and not self._pending_rows
+                   and self._inflight is None
+                   and all(s is None for s in self._slot_state)):
+                self._cond.wait()
+            return self._stop_flag
+
     def _loop(self):
         try:
             with torch.inference_mode():
                 self._ensure_pool()
                 while True:
-                    with self._cond:
-                        while (not self._stop_flag and not self._queue
-                               and not self._pending_rows
-                               and self._inflight is None
-                               and all(s is None for s in self._slot_state)):
-                            self._cond.wait()
-                        if self._stop_flag:
-                            break
+                    if self._decide(self._wait_for_work):
+                        break
                     self._admit()
                     if any(s is not None for s in self._slot_state):
                         self._run_quantum()
@@ -371,6 +449,8 @@ class DecodeScheduler:
                         self._harvest()
         except BaseException as exc:  # noqa: BLE001 — fail every waiter
             self._dead = exc
+            if self.lockstep is not None:
+                self.lockstep.abort(exc)
             self._fail_outstanding(exc)
             return
         self._fail_outstanding(RuntimeError("scheduler stopped"))
@@ -379,16 +459,31 @@ class DecodeScheduler:
         if self._pool is not None:
             return
         dev = self.model.device
-        self._pool = self.model.new_cache(self.slots, self.slot_len)
-        self._pad_rows = torch.full((self.slots, self.slot_len), NEG_INF,
+        local = self._hi - self._lo
+        self._pool = self.model.new_cache(local, self.slot_len)
+        self._pad_rows = torch.full((local, self.slot_len), NEG_INF,
                                     dtype=torch.float32, device=dev)
         self._spare = torch.Generator(device=dev).manual_seed(0)
-        self._gens = [self._spare] * self.slots
+        self._gens = [self._spare] * local
 
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self._slot_state) if s is None]
 
     def _next_queued(self, *, pop: bool) -> Optional[PendingRequest]:
+        """The request to admit next (``_pick_queued``); under lock step
+        rank 0's pick.  A follower has no queue: rank 0 owns it, with its
+        deadlines, so a follower builds each pick anew from rank 0's spec
+        and keeps none that does not start."""
+        if self.lockstep is None:
+            return self._pick_queued(pop=pop)
+        if self.lockstep.leader:
+            req = self._pick_queued(pop=pop)
+            self.lockstep.decide(lambda: None if req is None else req.spec())
+            return req
+        spec = self.lockstep.decide()
+        return None if spec is None else PendingRequest.from_spec(spec)
+
+    def _pick_queued(self, *, pop: bool) -> Optional[PendingRequest]:
         """Admission-order selection under the queue lock: first fail the
         queued requests whose deadline has passed (they never reach
         prefill), then pick the lowest priority class, FIFO within it.
@@ -431,6 +526,8 @@ class DecodeScheduler:
             try:
                 self._pending_rows.extend(self._prefill(req))
             except BaseException as exc:  # noqa: BLE001 — per request
+                if self.lockstep is not None:
+                    raise       # the processes may have diverged
                 req._fail(exc)
                 tel = self._telemetry()
                 if tel is not None:
@@ -497,15 +594,18 @@ class DecodeScheduler:
 
     def _place(self, slot: _Slot, idx: int):
         """Move a prefilled row into pool slot ``idx``: its cache rows,
-        layer by layer, its pad row and its generator.  Admission is
-        counted here: a row waiting for a slot still reads as queued."""
-        src = slot._cache
-        length = src.length
-        for layer in range(len(src.k)):
-            self._pool.k[layer][idx, :length].copy_(src.k[layer][slot.row])
-            self._pool.v[layer][idx, :length].copy_(src.v[layer][slot.row])
-        self._pad_rows[idx].copy_(slot._pad_row)
-        self._gens[idx] = slot._generator
+        layer by layer, its pad row and its generator (on the process
+        that holds the slot).  Admission is counted here: a row waiting
+        for a slot still reads as queued."""
+        if self._lo <= idx < self._hi:
+            j = idx - self._lo
+            src = slot._cache
+            length = src.length
+            for layer in range(len(src.k)):
+                self._pool.k[layer][j, :length].copy_(src.k[layer][slot.row])
+                self._pool.v[layer][j, :length].copy_(src.v[layer][slot.row])
+            self._pad_rows[j].copy_(slot._pad_row)
+            self._gens[j] = slot._generator
         self._admitted_total += 1
         tel = self._telemetry()
         if tel is not None:
@@ -543,11 +643,10 @@ class DecodeScheduler:
         if not self.pipeline:
             self._harvest()
 
-    @staticmethod
-    def _inflight_ready(h: _Inflight) -> bool:
+    def _inflight_ready(self, h: _Inflight) -> bool:
         """Whether a dispatched quantum's results are on the host already
-        (a query, never a wait)."""
-        return h.event is None or h.event.query()
+        (a query, never a wait; under lock step rank 0's answer)."""
+        return self._decide(lambda: h.event is None or h.event.query())
 
     def _pre_dispatch_sync(self) -> bool:
         """A cleared carry means an admission changed the pool, and its
@@ -564,8 +663,10 @@ class DecodeScheduler:
         quanta; only an admission rebuilds it from the host's
         bookkeeping.  An eviction leaves it: the freed slot steps on with
         its writes clamped into its own masked row and its tokens
-        discarded, until the next occupant overwrites what matters."""
-        state = self._slot_state
+        discarded, until the next occupant overwrites what matters.
+        Under a mesh the carry holds this process's slots, and the
+        quantum's tokens and done flags are gathered over the data axes."""
+        state = self._slot_state[self._lo:self._hi]
         if self._carry is None:
             dev = self.model.device
             t = lambda vals, dtype: torch.tensor(vals, dtype=dtype,
@@ -589,6 +690,10 @@ class DecodeScheduler:
         dstate, rows, write = self._carry
         write, toks, dones = self._pool_steps(dstate, rows, write)
         self._carry = (dstate, rows, write)
+        if self._row_shards > 1:
+            both = gather_data(torch.stack([toks, dones.long()]), self.mesh,
+                               dim=2)
+            toks, dones = both[0], both[1].bool()
         toks_h, dones_h = _to_host(toks), _to_host(dones)
         event = None
         if toks.is_cuda:
@@ -596,7 +701,8 @@ class DecodeScheduler:
             event.record()
         if self._t_cycle_mark is None:
             self._t_cycle_mark = time.perf_counter()
-        return _Inflight(toks_h, dones_h, event, list(state), self.quantum)
+        return _Inflight(toks_h, dones_h, event, list(self._slot_state),
+                         self.quantum)
 
     def _pool_steps(self, dstate, rows, write):
         return pool_steps(self.model, dstate, rows, write, self.quantum)
@@ -647,7 +753,8 @@ class DecodeScheduler:
     def _evict(self, idx: int):
         slot = self._slot_state[idx]
         self._slot_state[idx] = None
-        self._gens[idx] = self._spare
+        if self._lo <= idx < self._hi:
+            self._gens[idx - self._lo] = self._spare
         # First token + decode tokens, EOS-padded to the budget: the lock
         # path's right-padding after EOS.
         fill = slot.req.eos_token

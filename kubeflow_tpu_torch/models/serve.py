@@ -24,6 +24,24 @@ matmul and embedding weights as int8 with per-channel scales
 decoder's depth at full width (``mixtral_8x7b``'s 32 layers do not fit
 one 80 GB card).
 
+``--mesh tp=2`` (or ``tp=2,fsdp=2``, ``ep=2``, ``auto``) serves the model
+sharded over a mesh of the world's processes, one a GPU, each holding
+its shards by the family's partition rules (``parallel/sharding.py``):
+
+    torchrun --nproc-per-node 2 -m kubeflow_tpu_torch.models.serve \
+        --mesh tp=2 --model llama3_8b
+
+Every process runs the same device work in lock step
+(``parallel/lockstep.py``): global rank 0 serves HTTP and takes every
+decision that depends on the clock or a request, the others follow it
+and bind no port.  A dense Llama computes tensor-parallel over ``tp``,
+a Mixtral's experts as their ``ep`` shards; every other weight (and
+every weight of T5) is gathered whole at its use.  The fixed-slot pool
+shards its slots over the data axes, the paged engine its pool
+positions.  A draft model under a mesh is inert: the fixed-slot pool
+serves (``spec-decode-mesh``).  ``--device cpu`` serves the same over
+gloo.
+
 Endpoints:
   GET  /healthz             liveness
   GET  /readyz              readiness: runs (and caches) a one-token warm
@@ -42,7 +60,8 @@ Endpoints:
                             profiler (telemetry/profiler.py): the open
                             window, ?window=N, or ?seconds=S captured now;
                             404 while no profiler is registered
-  GET  /debug/serve         the engine that serves and its scheduler's stats
+  GET  /debug/serve         the engine that serves, its scheduler's stats
+                            and the mesh's axis sizes
 
 A request's ``traceparent`` header (W3C) is the handler thread's current
 context (``telemetry/causal.py``) while the request runs, so its trace
@@ -74,6 +93,7 @@ from kubeflow_tpu_torch.models.scheduler import (
     DeadlineExceeded,
     DecodeScheduler,
 )
+from kubeflow_tpu_torch.parallel.lockstep import WorldBroken
 from kubeflow_tpu_torch.telemetry import causal, profiler
 from kubeflow_tpu_torch.telemetry.metrics import Counter, Gauge, Histogram, Registry
 from kubeflow_tpu_torch.telemetry.serve import (
@@ -186,7 +206,75 @@ def _lock_request(service, rows, eos_token, validate, run):
         raise
 
 
-class GenerationService:
+class _MeshService:
+    """What both services share under a mesh: the mesh the model is
+    sharded over and the lock-step channel of its processes (both None
+    on one process), the follower's loop and ``close``."""
+
+    mesh = None
+    lockstep = None
+
+    def mesh_shape(self) -> Optional[dict]:
+        """The mesh's axis sizes, or None without one (``/debug/serve``)."""
+        if self.mesh is None:
+            return None
+        return dict(zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape))
+
+    def _send(self, message) -> None:
+        """Rank 0 under a mesh: one message to the followers' loop."""
+        if self.lockstep is not None and self.lockstep.leader:
+            self.lockstep.send(message)
+
+    def _run_in_step(self, message, work):
+        """``work()``, the lock path's device work.  Under a mesh rank 0
+        first sends ``message`` (the request) to the followers' loop, and
+        a failure after the send on any process aborts the world and
+        raises ``WorldBroken``: the followers may be inside the same
+        device work, so no later request may start.  Rank 0's followers
+        then end at the abort, or when their collective fails as rank 0
+        exits (``main``)."""
+        if self.lockstep is None:
+            return work()
+        self._send(message)
+        try:
+            return work()
+        except BaseException as exc:
+            self.lockstep.abort(exc)
+            raise WorldBroken(
+                f"the lock-step world broke on rank {self.lockstep.rank}: "
+                f"{exc!r}") from exc
+
+    def follow(self) -> None:
+        """A follower's loop (every process of the mesh but rank 0): run
+        each request rank 0 sends, and the scheduler rank 0 starts, until
+        rank 0 closes.  An error ends the loop by raising."""
+        while True:
+            message = self.lockstep.recv()
+            if message[0] == "close":
+                return
+            if message[0] == "lock":
+                self.generate(**message[1])
+            elif message[0] == "scheduler":
+                self._follower_scheduler(message[1], message[2]).follow()
+            else:
+                raise WorldBroken(f"unknown lock-step message {message!r}")
+
+    def _follower_scheduler(self, kind, knobs):
+        raise WorldBroken(f"{type(self).__name__} has no scheduler")
+
+    def close(self) -> None:
+        """Stop the scheduler; under a mesh, rank 0 then ends the
+        followers' loops."""
+        sched = getattr(self, "_scheduler", None)
+        if sched is not None:
+            sched.stop()
+        ls = self.lockstep
+        if ls is not None and ls.leader and ls.broken is None:
+            with self._lock:
+                ls.send(("close",))
+
+
+class GenerationService(_MeshService):
     """Serves one decoder.  Requests are validated and right-padded, then
     either submitted to the continuous-batching scheduler (an
     instrumented service, unless pinned off) or run one at a time under
@@ -199,8 +287,12 @@ class GenerationService:
     def __init__(self, model, *, default_max_new_tokens: int = 32,
                  max_batch_rows: int = 64,
                  use_scheduler: Optional[bool] = None, draft_model=None,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, mesh=None, lockstep=None):
         self.model = model
+        # The mesh the model is sharded over and the lock-step channel of
+        # its processes (``load_service(mesh_spec=)``), or None.
+        self.mesh = mesh
+        self.lockstep = lockstep
         # The weights' quantization ("int8", done by load_service), or
         # None; /debug/serve reports it beside the weight bytes.
         self.quantize = quantize
@@ -231,25 +323,57 @@ class GenerationService:
             return None
         with self._scheduler_lock:
             if self._scheduler is None:
-                self._scheduler = self._new_scheduler()
+                if self.lockstep is None:
+                    self._scheduler = self._new_scheduler()
+                else:
+                    # No lock-path request may run on the devices while
+                    # the followers switch to the scheduler's loop.
+                    with self._lock:
+                        self._scheduler = self._new_scheduler()
             sched = self._scheduler
+        if not sched.alive and self.lockstep is not None:
+            # Under a mesh a dead scheduler means a broken world: there is
+            # no lock path to fail over to.
+            raise WorldBroken("the lock-step world is broken") \
+                from sched._dead
         return sched if sched.alive else None
 
     def _new_scheduler(self) -> DecodeScheduler:
         """The paged engine, unless ``KFT_SERVE_PAGED=0`` pins the
-        fixed-slot pool: a pin the user asks for, recorded and counted.
-        (The reference's other reason, a draft model under a mesh, cannot
-        arise: the port has no mesh.)"""
+        fixed-slot pool or a draft model is asked for under a mesh
+        (``spec-decode-mesh``: the draft is inert): each reason recorded
+        and counted.  Under a mesh rank 0 sends the engine and its knobs
+        to the followers, which build the same."""
         telemetry = lambda: self.telemetry
-        if config.env_bool(*config.SERVE_PAGED):
-            return PagedDecodeScheduler(self.model, telemetry=telemetry,
-                                        draft_model=self.draft_model)
-        reason = "env-disabled"
-        self.scheduler_fallback = {
-            "reason": reason,
-            "detail": "KFT_SERVE_PAGED=0 pins the fixed-slot pool"}
+        reason = detail = None
+        if not config.env_bool(*config.SERVE_PAGED):
+            reason = "env-disabled"
+            detail = "KFT_SERVE_PAGED=0 pins the fixed-slot pool"
+        elif self.mesh is not None and self.draft_model is not None:
+            reason = "spec-decode-mesh"
+            detail = ("speculative decoding is not mesh-aware; the "
+                      "fixed-slot pool serves this mesh and the draft "
+                      "model is inert")
+        if reason is None:
+            sched = PagedDecodeScheduler(
+                self.model, telemetry=telemetry,
+                draft_model=self.draft_model, mesh=self.mesh,
+                lockstep=self.lockstep)
+            self._send(("scheduler", "paged", sched.knobs()))
+            return sched
+        self.scheduler_fallback = {"reason": reason, "detail": detail}
         self.telemetry.paged_fallback.labels(reason=reason).inc()
-        return DecodeScheduler(self.model, telemetry=telemetry)
+        sched = DecodeScheduler(self.model, telemetry=telemetry,
+                                mesh=self.mesh, lockstep=self.lockstep)
+        self._send(("scheduler", "fixed", sched.knobs()))
+        return sched
+
+    def _follower_scheduler(self, kind, knobs) -> DecodeScheduler:
+        """A follower's copy of the engine rank 0 started."""
+        cls = PagedDecodeScheduler if kind == "paged" else DecodeScheduler
+        self._scheduler = cls(self.model, mesh=self.mesh,
+                              lockstep=self.lockstep, **knobs)
+        return self._scheduler
 
     def _generate_scheduled(self, sched: DecodeScheduler, rows, validate, *,
                             temperature, top_k, eos_token, seed, priority,
@@ -299,6 +423,7 @@ class GenerationService:
         ``deadline`` is an absolute ``time.monotonic()`` cutoff: a request
         still queued past it raises ``DeadlineExceeded``."""
         from kubeflow_tpu_torch.models.generate import (
+            _check_cache_len,
             generate_decode,
             generate_prefill,
             row_generators,
@@ -333,28 +458,42 @@ class GenerationService:
             _check_deadline(deadline)
             kw = dict(temperature=temperature, top_k=top_k,
                       eos_token=eos_token)
-            gens = row_generators(seed, prompt.shape[0], device)
-            # Prefill and decode as separate spans; TTFT is the first
-            # token's arrival on the host.
-            with span_or_null(tel, "prefill", rows=prompt.shape[0]):
-                first, state = generate_prefill(
-                    self.model, prompt, prompt_mask=mask, max_new_tokens=n,
-                    generators=gens, **kw)
-                first.tolist()  # device -> host: where TTFT is read
-            t_decode = time.perf_counter()
-            with span_or_null(tel, "decode", tokens=n):
-                result = generate_decode(self.model, state, **kw).tolist()
-            if tel is not None:
-                tel.ttft.observe(t_decode - t_arrival)
-                if n > 1:
-                    tel.per_token.observe(
-                        (time.perf_counter() - t_decode) / (n - 1))
-            return result
+            if self.lockstep is not None:
+                if self._scheduler is not None:
+                    raise RuntimeError(
+                        "under a mesh the lock path is closed once the "
+                        "scheduler serves")
+                # Validated on rank 0 before anything is sent.
+                _check_cache_len(self.model, prompt.shape[1], n)
+
+            def work():
+                gens = row_generators(seed, prompt.shape[0], device)
+                # Prefill and decode as separate spans; TTFT is the first
+                # token's arrival on the host.
+                with span_or_null(tel, "prefill", rows=prompt.shape[0]):
+                    first, state = generate_prefill(
+                        self.model, prompt, prompt_mask=mask,
+                        max_new_tokens=n, generators=gens, **kw)
+                    first.tolist()  # device -> host: where TTFT is read
+                t_decode = time.perf_counter()
+                with span_or_null(tel, "decode", tokens=n):
+                    result = generate_decode(self.model, state,
+                                             **kw).tolist()
+                if tel is not None:
+                    tel.ttft.observe(t_decode - t_arrival)
+                    if n > 1:
+                        tel.per_token.observe(
+                            (time.perf_counter() - t_decode) / (n - 1))
+                return result
+
+            return self._run_in_step(
+                ("lock", dict(rows=rows, max_new_tokens=n, seed=seed, **kw)),
+                work)
 
         return _lock_request(self, rows, eos_token, validate, run)
 
 
-class Seq2SeqGenerationService:
+class Seq2SeqGenerationService(_MeshService):
     """Serves one encoder-decoder (T5), the counterpart of the reference's
     ``Seq2SeqGenerationService`` (``kubeflow_tpu/models/serve.py:408-482``):
     the request contract of ``GenerationService``, but ``tokens`` rows are
@@ -376,8 +515,11 @@ class Seq2SeqGenerationService:
 
     def __init__(self, model, *, default_max_new_tokens: int = 32,
                  max_target_len: int = 512, max_source_len: int = 4096,
-                 max_batch_rows: int = 64, quantize: Optional[str] = None):
+                 max_batch_rows: int = 64, quantize: Optional[str] = None,
+                 mesh=None, lockstep=None):
         self.model = model
+        self.mesh = mesh
+        self.lockstep = lockstep
         self.quantize = quantize
         self.default_max_new_tokens = default_max_new_tokens
         self.max_target_len = max_target_len
@@ -416,12 +558,19 @@ class Seq2SeqGenerationService:
         def run(tel, t_arrival, source, mask, n):
             del t_arrival
             _check_deadline(deadline)
-            with span_or_null(tel, "generate", tokens=n):
-                return generate_seq2seq(
-                    self.model, source, source_mask=mask, max_new_tokens=n,
-                    temperature=temperature, top_k=top_k, eos_token=eos_token,
-                    generators=row_generators(seed, source.shape[0],
-                                              device)).tolist()
+
+            def work():
+                with span_or_null(tel, "generate", tokens=n):
+                    return generate_seq2seq(
+                        self.model, source, source_mask=mask,
+                        max_new_tokens=n, temperature=temperature,
+                        top_k=top_k, eos_token=eos_token,
+                        generators=row_generators(seed, source.shape[0],
+                                                  device)).tolist()
+
+            return self._run_in_step(("lock", dict(
+                rows=rows, max_new_tokens=n, temperature=temperature,
+                top_k=top_k, eos_token=eos_token, seed=seed)), work)
 
         return _lock_request(self, rows, eos_token, validate, run)
 
@@ -652,6 +801,7 @@ def create_app(service, *, model_name: str = "model",
             "paged_fallback": getattr(service, "scheduler_fallback", None),
             "quantize": getattr(service, "quantize", None),
             "weight_bytes": quantized_bytes(service.model),
+            "mesh": service.mesh_shape(),
         })
 
     @app.route("/metrics")
@@ -776,15 +926,35 @@ def load_service(model_name: str, *, device="cuda",
     vocabulary for speculative decoding under the paged engine, restored
     from ``draft_checkpoint_dir`` or drawn from ``seed`` the same way; a
     vocabulary mismatch, a seq2seq draft or a seq2seq target fails here,
-    at startup."""
+    at startup.
+
+    ``mesh_spec`` ("tp=2", "tp=2,fsdp=2", "ep=2", "auto") serves the model
+    sharded over a mesh of the world's processes, every one of which
+    calls this function: quantization with a mesh and a malformed spec
+    raise ``ValueError`` before anything is built; then the process joins
+    the world (``parallel.dist.initialize_from_env``; an initialized group
+    is used as it is, and without either a launcher's env raises),
+    the spec is resolved over the world size, and each process builds
+    only its shards of the model by the family's rules
+    (``sharding.shard_for_serving``), drawn from ``seed`` or read slice by
+    slice from the checkpoint.  The service carries the mesh and the
+    lock-step channel (``parallel/lockstep.py``): rank 0 serves, every
+    other process runs ``service.follow()``.  A draft model is built
+    whole on every process and stays inert (``spec-decode-mesh``)."""
     from kubeflow_tpu_torch import resolve_device
     from kubeflow_tpu_torch.models import create_model
 
-    if mesh_spec:
-        raise NotImplementedError(
-            "--mesh is not yet ported to kubeflow_tpu_torch; see ROADMAP.md")
     if quantize and quantize != "int8":
         raise ValueError(f"unsupported quantization {quantize!r} (int8)")
+    if mesh_spec:
+        # Before anything is built: a typo must fail in milliseconds.
+        from kubeflow_tpu_torch.train.run import mesh_axes
+
+        if quantize:
+            raise ValueError(
+                "--mesh with --quantize is not supported: the int8 weights "
+                "carry per-channel scales with no partition rule")
+        mesh_axes(mesh_spec)
     dev = resolve_device(device)
     overrides = {"max_seq_len": max_seq_len} if max_seq_len else {}
     if n_layers:
@@ -801,10 +971,17 @@ def load_service(model_name: str, *, device="cuda",
         raise ValueError(
             "--draft-model applies to decoder-only serving; seq2seq models "
             "have no speculative-decoding path")
-    model = _load_model(create_model(model_name, device=dev, **overrides),
-                        checkpoint_dir, seed, quantize=bool(quantize))
+    mesh = lockstep = None
+    if mesh_spec:
+        mesh, lockstep, model = _load_sharded(
+            model_name, mesh_spec, dev, overrides, checkpoint_dir, seed)
+    else:
+        model = _load_model(create_model(model_name, device=dev,
+                                         **overrides),
+                            checkpoint_dir, seed, quantize=bool(quantize))
     if seq2seq:
-        return Seq2SeqGenerationService(model, quantize=quantize or None)
+        return Seq2SeqGenerationService(model, quantize=quantize or None,
+                                        mesh=mesh, lockstep=lockstep)
     draft = None
     if draft_model_name:
         draft = create_model(draft_model_name, device=dev)
@@ -819,7 +996,61 @@ def load_service(model_name: str, *, device="cuda",
                 f"the target's token space")
         draft = _load_model(draft, draft_checkpoint_dir, seed)
     return GenerationService(model, use_scheduler=use_scheduler,
-                             draft_model=draft, quantize=quantize or None)
+                             draft_model=draft, quantize=quantize or None,
+                             mesh=mesh, lockstep=lockstep)
+
+
+def _join_world(dev: torch.device) -> None:
+    """Join the deployment's process group unless this process is in one,
+    from the platform's or torchrun's env (``initialize_from_env``);
+    without either there is no world to lay a mesh over."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel.dist import initialize_from_env
+
+    if dist.is_initialized() or initialize_from_env(device_type=dev.type):
+        return
+    raise RuntimeError(
+        "--mesh serves over a world of processes, one a device, and this "
+        "process has no launcher's env: run every process under torchrun "
+        "(torchrun --nproc-per-node N -m kubeflow_tpu_torch.models.serve "
+        "--mesh ...) or the platform's multi-host env")
+
+
+def _load_sharded(model_name: str, mesh_spec: str, dev: torch.device,
+                  overrides: dict, checkpoint_dir: Optional[str], seed: int):
+    """``(mesh, lockstep, model)``: join the world, lay the mesh over it,
+    and build this process's shards of the model by its family's rules,
+    from the seed or from the latest checkpoint's files read slice by
+    slice.  The mesh becomes the process's global mesh."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.parallel.context import set_global_mesh
+    from kubeflow_tpu_torch.parallel.lockstep import Lockstep
+    from kubeflow_tpu_torch.parallel.mesh import make_mesh, world_size
+    from kubeflow_tpu_torch.parallel.sharding import (
+        rules_for_model,
+        shard_for_serving,
+    )
+    from kubeflow_tpu_torch.train.run import parse_mesh
+
+    _join_world(dev)
+    mesh = make_mesh(parse_mesh(mesh_spec, world_size()),
+                     device_type=dev.type)
+    model = create_model(model_name, device="meta", **overrides)
+    rules = rules_for_model(model)
+    if checkpoint_dir:
+        from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+
+        with CheckpointManager(checkpoint_dir) as mgr:
+            source = mgr.restore_params()
+        if source is None:
+            raise FileNotFoundError(
+                f"no checkpoint found under {checkpoint_dir}")
+        shard_for_serving(model, mesh, rules, device=dev, source=source)
+    else:
+        shard_for_serving(model, mesh, rules, device=dev, seed=seed)
+    set_global_mesh(mesh)
+    return mesh, Lockstep(), model.eval()
 
 
 def _load_model(model, checkpoint_dir: Optional[str], seed: int, *,
@@ -869,7 +1100,12 @@ def main(argv=None) -> int:
     ap.add_argument("--n-layers", type=int, default=None,
                     help="cut the model's depth to this many layers (its "
                          "width stays the config's)")
-    ap.add_argument("--mesh", default=None, help="not yet ported")
+    ap.add_argument("--mesh", default=None,
+                    help="serve sharded over a mesh of the world's "
+                         "processes (e.g. tp=2, tp=2,fsdp=2, ep=2, auto); "
+                         "every process runs this command (torchrun, or "
+                         "the platform's env): rank 0 serves HTTP, the "
+                         "others follow it")
     ap.add_argument("--draft-model", default=None,
                     help="small same-vocab decoder for speculative "
                          "decoding under the paged engine "
@@ -889,18 +1125,41 @@ def main(argv=None) -> int:
     except (ValueError, KeyError, NotImplementedError, RuntimeError,
             FileNotFoundError) as e:
         ap.error(str(e))
+    lockstep = service.lockstep
+    if lockstep is not None and not lockstep.leader:
+        # A follower binds no port: it runs rank 0's requests until rank
+        # 0 closes (or an error ends the world).
+        print(json.dumps({"following": args.model, "rank": lockstep.rank,
+                          "mesh": service.mesh_shape()}), flush=True)
+        service.follow()
+        return 0
     server = create_app(service, model_name=args.model).make_server(
         args.host, args.port)
     print(json.dumps({"serving": args.model, "port": args.port,
                       "device": str(service.model.device),
                       "quantize": service.quantize,
+                      "mesh": service.mesh_shape(),
                       "weight_bytes": quantized_bytes(service.model)}),
           flush=True)
+    if lockstep is not None:
+        threading.Thread(target=_shutdown_when_broken,
+                         args=(lockstep, server), daemon=True,
+                         name="kft-lockstep-watch").start()
     try:
         server.serve_forever()
     finally:
         server.server_close()
-    return 0
+        if lockstep is not None and lockstep.broken is None:
+            service.close()
+    return 1 if lockstep is not None and lockstep.broken is not None else 0
+
+
+def _shutdown_when_broken(lockstep, server) -> None:
+    """Rank 0's watch: a broken lock-step world stops the server, so the
+    process exits and its peers' waits end."""
+    while lockstep.broken is None:
+        time.sleep(0.5)
+    server.shutdown()
 
 
 if __name__ == "__main__":

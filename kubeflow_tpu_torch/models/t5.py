@@ -18,6 +18,11 @@ the decoder over the whole target (training, scoring) or, with a
 ``Seq2SeqCache``, one token at the cache's step (generation,
 ``models/generate.py``).  The parameter names follow the reference's
 tree (``models/convert.state_from_flax`` maps one onto the other).
+
+Served under a mesh (``load_service(mesh_spec=)``), T5 stores its
+weights split by ``parallel.sharding.t5_rules`` and gathers each whole
+at its use (``sharding.GatherAtUse``): every process computes every
+head, so its caches keep all heads.
 """
 from __future__ import annotations
 

@@ -24,22 +24,29 @@ state):
 | lm_head.weight             | [vocab, dim]   | ("tp", "fsdp")   |
 
 ``parallel/train.py`` keeps each process's shard of every parameter
-(``Layout``) and gathers it for the step.  A model may declare parameters
-it computes with as their ``tp`` shards (``tp_local(name)``): Llama's
+(``Layout``) and gathers it for the step; a served model keeps its
+shards too and gathers each at its use (``shard_for_serving``).  A model
+may declare parameters it computes with as their ``tp`` shards
+(``tp_local(name)``): Llama's
 column-parallel q/k/v, gate and up and row-parallel o and down, so a
 block's only ``tp`` collectives are one all-reduce after o_proj and one
 after down_proj (``copy_to_tp`` / ``reduce_from_tp``, run by
 ``models/layers.py``); every other parameter is gathered whole over
-``tp`` too.
+``tp`` too.  A MoE model's experts are computed as their ``ep`` shards
+(``ep_local(name)``): ``models/moe.py`` sends each expert's tokens to
+the process that holds it (``expert_all_to_all``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
+from torch.nn.utils import parametrize
 
 from kubeflow_tpu_torch.parallel.context import get_global_mesh
 from kubeflow_tpu_torch.parallel.mesh import axis_index, axis_size
@@ -244,6 +251,49 @@ def data_coordinates(mesh) -> tuple:
     return index, count
 
 
+def data_groups(mesh) -> tuple:
+    """The process groups of the data axes longer than 1, innermost first
+    (ep, fsdp, dp): gathering over them in this order joins the chunks in
+    ``data_coordinates`` order."""
+    if mesh is None:
+        return ()
+    return tuple(mesh.get_group(a) for a in reversed(data_axes(mesh))
+                 if axis_size(mesh, a) > 1)
+
+
+def gather_data(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """The processes' chunks along ``dim`` joined over the data axes, in
+    ``data_coordinates`` order (``x`` itself without a data axis)."""
+    for group in data_groups(mesh):
+        x = all_gather_dim(x, group, dim)
+    return x
+
+
+def page_pool_shards(mesh) -> int:
+    """How many shards the paged-KV pool's position axis splits into on
+    ``mesh``: the product of the data-axis sizes (1 without a mesh; the
+    ``tp`` and ``sp`` axes never split the pool, the K/V heads already
+    split over ``tp`` inside each position).  The reference's
+    ``page_pool_shards``."""
+    if mesh is None:
+        return 1
+    return math.prod(axis_size(mesh, a) for a in data_axes(mesh))
+
+
+def page_pool_spec(mesh, pool_positions: int) -> tuple:
+    """``(first, count)``: the pool positions this process owns, the
+    contiguous block at its data coordinate (the reference's
+    ``page_pool_spec`` shards the same axis over the same axes).  The
+    paged engine rounds its pages up to a multiple of
+    ``page_pool_shards``, so a page never straddles two processes."""
+    index, count = data_coordinates(mesh) if mesh is not None else (0, 1)
+    if pool_positions % count:
+        raise ValueError(f"{pool_positions} pool positions do not divide "
+                         f"over {count} data shards")
+    n = pool_positions // count
+    return index * n, n
+
+
 def batch_sharding(mesh, *, seq_axis: bool = False) -> BatchSharding:
     """Batch rows over the data axes; with ``seq_axis`` the sequence over
     ``sp`` too."""
@@ -269,6 +319,107 @@ def shard_params(module: torch.nn.Module, mesh, rules: Rules) -> dict:
                 setattr(mod, pname, torch.nn.Parameter(
                     local_shard(p.detach(), layout, mesh),
                     requires_grad=p.requires_grad))
+    return layouts
+
+
+def local_axes(module: torch.nn.Module, name: str) -> tuple:
+    """The mesh axes along which ``module`` computes with its shard of
+    parameter ``name`` (``tp`` for a model's ``tp_local`` parameters,
+    ``ep`` for its ``ep_local`` experts); every other axis of the
+    parameter's layout is gathered at use."""
+    return tuple(a for a, fn in (("tp", "tp_local"), ("ep", "ep_local"))
+                 if hasattr(module, fn) and getattr(module, fn)(name))
+
+
+class GatherAtUse(nn.Module):
+    """A parametrization that joins a parameter's shards over ``steps``
+    (``(group, dim)`` pairs) each time the parameter is read: the module
+    stores its shard, and the whole (or its computed shard) exists only
+    while a call uses it.  Every process reads its parameters in the same
+    order, so the gathers pair up."""
+
+    def __init__(self, steps):
+        super().__init__()
+        self.steps = tuple(steps)
+
+    def forward(self, shard: torch.Tensor) -> torch.Tensor:
+        for group, dim in self.steps:
+            shard = all_gather_dim(shard, group, dim)
+        return shard
+
+
+def stored(module: torch.nn.Module, name: str) -> Optional[torch.Tensor]:
+    """The tensor ``module`` stores as ``name``: its shard when the
+    parameter is gathered at use (read without gathering it)."""
+    if parametrize.is_parametrized(module, name):
+        return module.parametrizations[name].original
+    return getattr(module, name)
+
+
+def _source_shard(src: torch.Tensor, layout: Layout, mesh) -> torch.Tensor:
+    """A source tensor (whole, or already this process's slice) -> this
+    process's slice.  Slicing a memory-mapped tensor reads the slice."""
+    if tuple(src.shape) == layout.shape:
+        return local_shard(src, layout, mesh)
+    want = list(layout.shape)
+    for axis, dim in layout.shards:
+        want[dim] //= axis_size(mesh, axis)
+    if list(src.shape) != want:
+        raise ValueError(f"source shape {tuple(src.shape)} is neither the "
+                         f"whole {layout.shape} nor this process's {want}")
+    return src
+
+
+def shard_for_serving(model: torch.nn.Module, mesh, rules: Rules, *,
+                      device, seed: Optional[int] = None,
+                      source: Optional[dict] = None) -> dict:
+    """Give ``model``, built on the ``meta`` device, this process's shards
+    of its parameters on ``device``, without the whole model on any
+    device: module by module (the order ``reset_parameters`` walks),
+    the module's parameters are drawn whole from a generator seeded with
+    ``seed`` (so the values are those of an unsharded model drawn from
+    the same seed), or taken from ``source`` (name -> the whole tensor,
+    e.g. memory-mapped from a checkpoint, or this process's slice), and
+    only this process's slice is kept.  A parameter sharded over an axis
+    the model does not compute along (``local_axes``) is gathered at
+    each use (``GatherAtUse``).  Returns ``{name: Layout}``."""
+    if (seed is None) == (source is None):
+        raise ValueError("give exactly one of seed and source")
+    gen = (torch.Generator(device=device).manual_seed(seed)
+           if source is None else None)
+    names = {id(m): n for n, m in model.named_modules()}
+    layouts = {}
+    for mod in list(model.modules()):
+        own = list(mod.named_parameters(recurse=False))
+        if not own:
+            continue
+        prefix = names[id(mod)]
+        if source is None:
+            mod.to_empty(device=device, recurse=False)
+            if mod is not model and hasattr(mod, "reset_parameters"):
+                with torch.no_grad():
+                    mod.reset_parameters(gen)
+            own = list(mod.named_parameters(recurse=False))
+        for pname, p in own:
+            name = f"{prefix}.{pname}" if prefix else pname
+            layout = layout_for(name, p.shape, rules, mesh)
+            if source is None:
+                local = local_shard(p.detach(), layout, mesh)
+            else:
+                local = _source_shard(source[name], layout, mesh).to(
+                    device=device, dtype=p.dtype).contiguous()
+            setattr(mod, pname, nn.Parameter(local, requires_grad=False))
+            keep = local_axes(model, name)
+            steps = [(mesh.get_group(a), d) for a, d in layout.shards
+                     if a not in keep]
+            if steps:
+                parametrize.register_parametrization(
+                    mod, pname, GatherAtUse(steps), unsafe=True)
+            layouts[name] = layout
+    if source is not None:
+        extra = sorted(set(source) - set(layouts))
+        if extra:
+            raise KeyError(f"source has parameters the model lacks: {extra}")
     return layouts
 
 
@@ -323,6 +474,50 @@ def tp_group(weight: Optional[torch.Tensor], full_rows: int):
             f"a weight of {weight.shape[0]} of {full_rows} rows is a tp "
             "shard, but the active mesh's tp axis does not split it so")
     return mesh.get_group("tp")
+
+
+def ep_group(local_experts: int, n_experts: int):
+    """The ``ep`` process group when a process holds ``local_experts`` of
+    a layer's ``n_experts`` (its experts are an ``ep`` shard), else None.
+    A shard with no active mesh raises."""
+    if local_experts >= n_experts:
+        return None
+    mesh = get_global_mesh()
+    if mesh is None or axis_size(mesh, "ep") * local_experts != n_experts:
+        raise RuntimeError(
+            f"{local_experts} of {n_experts} experts is an ep shard, but the "
+            "active mesh's ep axis does not split them so")
+    return mesh.get_group("ep")
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over equal chunks of dim 0; with equal chunks
+    it is its own transpose, so the backward sends the gradient's chunks
+    back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.group)
+        return out, None
+
+
+def expert_all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """[n, ...] expert-major buffers -> the same shape with chunk j of dim
+    0 (the experts process j holds) sent to process j, and chunk i of the
+    result received from process i."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group)
 
 
 def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:

@@ -6,8 +6,10 @@ keeps each process's shard of every parameter (``sharding.shard_params``:
 ``fsdp`` and the other axes of a rule split it, ``Layout`` records how),
 and the optimizer updates only those shards, so its moments are sharded
 alike.  The step gathers every parameter at its start: whole over every
-axis but ``tp``, and over ``tp`` too unless the model computes with its
-``tp`` shard (the model's ``tp_local``).  So parameters and optimizer
+axis but ``tp`` and ``ep``, and over those too unless the model computes
+with its shard along them (the model's ``tp_local``, and ``ep_local``
+for the MoE experts, which ``models/moe.py`` computes as their ``ep``
+shards).  So parameters and optimizer
 state are stored sharded, but a step holds whole parameters and
 gradients at its peak, as under ZeRO-1, where the reference's ZeRO-3
 gathers each at its use.  The step runs the one-process grad function of
@@ -47,6 +49,7 @@ from kubeflow_tpu_torch.parallel.sharding import (
     batch_sharding,
     data_axes,
     layout_for,
+    local_axes,
     local_shard,
     reduce_scatter_dim,
     shard_params,
@@ -153,14 +156,17 @@ class _Plan:
 
 def _plan(module, name: str, layout, reduce_axes) -> _Plan:
     tp_dim = layout.axis_dim("tp")
-    keep_tp = (tp_dim is not None and hasattr(module, "tp_local")
-               and module.tp_local(name))
-    gather = tuple(a for a, _ in layout.shards if not (a == "tp" and keep_tp))
-    scatter = tuple((a, d) for a, d in layout.shards if a in reduce_axes)
+    # The axes the model computes along with its shard: no gather, and no
+    # exchange of the gradient, which is already the shard's (an ep
+    # shard's sums every process's tokens through the all-to-alls).
+    keep = local_axes(module, name)
+    gather = tuple(a for a, _ in layout.shards if a not in keep)
+    scatter = tuple((a, d) for a, d in layout.shards
+                    if a in reduce_axes and a not in keep)
     sharded = {a for a, _ in layout.shards}
     return _Plan(gather, scatter,
                  tuple(a for a in reduce_axes if a not in sharded),
-                 None if keep_tp else tp_dim)
+                 None if "tp" in keep else tp_dim)
 
 
 def _gathered(state, plans) -> dict:

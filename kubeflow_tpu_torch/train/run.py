@@ -62,18 +62,14 @@ def install_preemption_handler(stop: threading.Event,
     return {sig: signal.signal(sig, _handler) for sig in signals}
 
 
-def parse_mesh(spec: str, n_devices: int):
-    """'auto' or 'tp=4,fsdp=2' -> the ``MeshConfig`` over ``n_devices``
-    processes (the reference's grammar; ``ValueError`` on a bad spec or a
-    size that is not the device count)."""
-    from kubeflow_tpu_torch.parallel.mesh import (
-        MeshConfig,
-        default_mesh_config,
-        resolve_config,
-    )
+def mesh_axes(spec: str) -> dict:
+    """'tp=4,fsdp=2' -> {"tp": 4, "fsdp": 2} ('auto' -> {}), the
+    reference's grammar without a device count; ``ValueError`` on an
+    unknown axis or a size that is not an integer."""
+    from kubeflow_tpu_torch.parallel.mesh import MeshConfig
 
     if spec == "auto":
-        return default_mesh_config(n_devices)
+        return {}
     axes = {}
     for part in spec.split(","):
         if not part:
@@ -86,6 +82,21 @@ def parse_mesh(spec: str, n_devices: int):
         except ValueError:
             raise ValueError(
                 f"mesh axis {key!r} needs an integer, got {value!r}") from None
+    return axes
+
+
+def parse_mesh(spec: str, n_devices: int):
+    """'auto' or 'tp=4,fsdp=2' -> the ``MeshConfig`` over ``n_devices``
+    processes (the reference's grammar; ``ValueError`` on a bad spec or a
+    size that is not the device count)."""
+    from kubeflow_tpu_torch.parallel.mesh import (
+        default_mesh_config,
+        resolve_config,
+    )
+
+    axes = mesh_axes(spec)
+    if spec == "auto":
+        return default_mesh_config(n_devices)
     return resolve_config(None, n_devices, **axes)
 
 

@@ -54,6 +54,7 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.parallel.ring",
     "kubeflow_tpu_torch.parallel.ulysses",
     "kubeflow_tpu_torch.parallel.pipeline",
+    "kubeflow_tpu_torch.parallel.lockstep",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
     """The modules that save and serve a trained model, the replica's

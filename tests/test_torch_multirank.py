@@ -4,20 +4,24 @@
 this file, each joining a gloo process group at a ``file://`` rendezvous
 under ``tmp_path`` (never a fixed port) and running the function
 registered as ``case`` with its rank and the pickled ``inputs``; it
-returns what each rank returned.  Every world has a hard time limit and
-the group's collectives time out after ``GLOO_TIMEOUT``, so a deadlock
-fails the test instead of hanging the run.  The cases import torch and the
+returns what each rank returned.  ``World`` starts them before the
+inputs are ready, so their start overlaps the caller's work.  Every
+world has a hard time limit and the group's collectives time out after
+``GLOO_TIMEOUT``, so a deadlock fails the test instead of hanging the
+run.  The cases import torch and the
 port only (the tests that call them hold the results against the JAX
 package in their own process); this module holds no test of its own.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import pathlib
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -64,18 +68,45 @@ def wait_all(procs, timeout: float = WORLD_TIMEOUT) -> list:
     return outs
 
 
+class World:
+    """``world`` processes of this file running ``case``, started before
+    their inputs exist: they import torch and join the group while the
+    caller computes the inputs, which ``result`` hands over; it returns
+    what each rank returned.  Leaving the ``with`` block kills any
+    process still running."""
+
+    def __init__(self, name: str, world: int, tmp_path):
+        self.dir = pathlib.Path(tmp_path) / f"world-{name}-{world}"
+        self.dir.mkdir(parents=True)
+        self.world = world
+        self.procs = [subprocess.Popen(
+            [sys.executable, __file__, name, str(r), str(world),
+             str(self.dir)],
+            cwd=REPO, env=worker_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+    def result(self, inputs=None, timeout: float = WORLD_TIMEOUT) -> list:
+        staged = self.dir / "inputs.staged"
+        torch.save(inputs, staged)
+        os.replace(staged, self.dir / "inputs.pt")
+        wait_all(self.procs, timeout)
+        return [torch.load(self.dir / f"out-{r}.pt", weights_only=False)
+                for r in range(self.world)]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
 def run_world(name: str, world: int, tmp_path, inputs=None,
               timeout: float = WORLD_TIMEOUT) -> list:
-    d = pathlib.Path(tmp_path) / f"world-{name}-{world}"
-    d.mkdir(parents=True)
-    torch.save(inputs, d / "inputs.pt")
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, name, str(r), str(world), str(d)],
-        cwd=REPO, env=worker_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    wait_all(procs, timeout)
-    return [torch.load(d / f"out-{r}.pt", weights_only=False)
-            for r in range(world)]
+    with World(name, world, tmp_path) as w:
+        return w.result(inputs, timeout)
 
 
 def _main(name, rank, world, d):
@@ -85,12 +116,26 @@ def _main(name, rank, world, d):
     dist.init_process_group("gloo", init_method=f"file://{d}/rendezvous",
                             rank=rank, world_size=world,
                             timeout=GLOO_TIMEOUT)
+    code = 1
     try:
+        deadline = time.monotonic() + WORLD_TIMEOUT
+        while not (d / "inputs.pt").exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError("no inputs")
+            time.sleep(0.01)
         inputs = torch.load(d / "inputs.pt", weights_only=False)
         out = CASES[name](rank, world, inputs)
         torch.save(out, d / f"out-{rank}.pt")
-    finally:
-        dist.destroy_process_group()
+        code = 0
+    except BaseException:
+        traceback.print_exc()
+    # Leave without tearing the process groups down: under load, torch's
+    # gloo teardown of a world's many groups now and then aborted a rank
+    # ("terminate called without an active exception") after its outputs
+    # were saved, and nothing a case checks runs past this point.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 # -- cases ----------------------------------------------------------------------
@@ -408,6 +453,423 @@ def checkpoints(rank, world, inp):
         assert mgr.save(state.step, state)
     return {"restored": restored, "saved": state.full_state() + (state.step,)}
 
+
+
+# -- serving under a mesh ---------------------------------------------------------
+
+
+def _lockstep(spec: str, world: int):
+    """The mesh of ``spec`` over the world (the process's global mesh) and
+    its lock-step channel, as ``load_service(mesh_spec=)`` sets them up."""
+    from kubeflow_tpu_torch.parallel.context import set_global_mesh
+    from kubeflow_tpu_torch.parallel.lockstep import Lockstep
+    from kubeflow_tpu_torch.train.run import parse_mesh
+
+    mesh = _mesh(**dataclasses.asdict(parse_mesh(spec, world)))
+    set_global_mesh(mesh)
+    return mesh, Lockstep()
+
+
+def _sharded(name, mesh, source, **overrides):
+    """This process's shards of ``name`` on the CPU from ``source`` (whole
+    tensors, or this process's slices)."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.parallel.sharding import (
+        rules_for_model,
+        shard_for_serving,
+    )
+
+    model = create_model(name, device="meta", **overrides)
+    shard_for_serving(model, mesh, rules_for_model(model), device="cpu",
+                      source=source)
+    return model.eval()
+
+
+def _jax_llama(tree, mesh, name="llama_debug", **overrides):
+    """The reference's params converted whole, cut to this process's
+    slices (``params_from_jax(mesh=)``), and a model built on them."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.models.convert import params_from_jax
+    from kubeflow_tpu_torch.parallel.sharding import rules_for_model
+
+    shapes = create_model(name, device="meta", **overrides)
+    source = params_from_jax(tree, shapes.cfg, mesh=mesh,
+                             rules=rules_for_model(shapes))
+    return _sharded(name, mesh, source, **overrides)
+
+
+def _engine(sched, leader, requests, late=None):
+    """One scheduler run in lock step: rank 0 submits every request and
+    stops the scheduler after their tokens, a follower follows.
+    ``(rank 0's tokens in order or None, tokens by request id as this
+    process's bookkeeping completed them, stats after the drain (read
+    as the stop begins, before it fails what is left), the ``late``
+    request's id and what it raised)``.  ``late`` (rows and a
+    budget, paged engine) is submitted third with a deadline that rank
+    0 makes pass at its first wait for pages, so it expires after the
+    followers saw it picked: it is picked as soon as the second request's
+    prefill ends, while the first still holds its pages."""
+    from kubeflow_tpu_torch.models.scheduler import PendingRequest
+
+    drained = {}
+    fail = sched._fail_outstanding
+
+    def drained_then_fail(exc):
+        drained.setdefault("stats", sched.stats())
+        fail(exc)
+
+    sched._fail_outstanding = drained_then_fail
+    if leader:
+        if late is not None:
+            begin = sched._begin_prefill
+
+            def expire_at_first_wait(req):
+                started = begin(req)
+                if not started and req.deadline is not None:
+                    req.deadline = time.monotonic()
+                return started
+
+            sched._begin_prefill = expire_at_first_wait
+        pend = [sched.submit(rows, max_new_tokens=n, temperature=t,
+                             top_k=k, seed=seed)
+                for rows, n, t, k, seed in requests[:2]]
+        if late is not None:
+            late = sched.submit(late[0], max_new_tokens=late[1],
+                                deadline=time.monotonic() + 3600.0)
+        pend += [sched.submit(rows, max_new_tokens=n, temperature=t,
+                              top_k=k, seed=seed)
+                 for rows, n, t, k, seed in requests[2:]]
+        out = [p.result() for p in pend]
+        late_seen = None
+        if late is not None:
+            late.done.wait()
+            late_seen = (late.id, type(late.error).__name__)
+        sched.stop()
+        return out, {p.id: p.outputs for p in pend}, drained["stats"], \
+            late_seen
+    made = {}
+    descriptor = PendingRequest.__dict__["from_spec"]
+    build = PendingRequest.from_spec
+
+    def record(spec):
+        made[spec["id"]] = req = build(spec)
+        return req
+
+    PendingRequest.from_spec = staticmethod(record)
+    try:
+        sched.follow()
+    finally:
+        PendingRequest.from_spec = descriptor
+    return None, {i: r.outputs for i, r in made.items()}, \
+        drained["stats"], sorted(made)
+
+
+def _service_run(svc, leader, fn):
+    """``fn(svc)`` on rank 0, then close; a follower follows until then
+    and returns the tokens its own runs of rank 0's requests gave."""
+    if not leader:
+        seen, generate = [], svc.generate
+        svc.generate = lambda **kw: seen.append(generate(**kw))
+        svc.follow()
+        return seen
+    try:
+        return fn(svc)
+    finally:
+        svc.close()
+
+
+def _local_state(model) -> dict:
+    """``{name: tensor}`` of what each parameter of ``model`` stores under
+    its own name (a gathered-at-use parameter's shard)."""
+    from kubeflow_tpu_torch.parallel.sharding import stored
+
+    out = {}
+    for mod_name, mod in model.named_modules():
+        if "parametrizations" in mod_name.split("."):
+            continue
+        names = set(getattr(mod, "parametrizations", {}) or {})
+        names |= {n for n, _ in mod.named_parameters(recurse=False)}
+        for pname in sorted(names - {"parametrizations"}):
+            key = f"{mod_name}.{pname}" if mod_name else pname
+            out[key] = stored(mod, pname)
+    return out
+
+
+def _lock_tokens(svc, requests):
+    return [svc.generate(rows, max_new_tokens=n, temperature=t, top_k=k,
+                         seed=seed) for rows, n, t, k, seed in requests]
+
+
+def _same_everywhere(*tensors) -> dict:
+    """Whether every process holds the same values (gathered bit for bit)."""
+    import torch.distributed as dist
+
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        got = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(got, t)
+        out.append(all(torch.equal(g, got[0]) for g in got))
+    return all(out)
+
+
+@case
+def serve_mesh(rank, world, inp):
+    """Llama (and with ``inp["t5"]`` T5) served under ``inp["mesh"]``:
+    the lock path from the reference's params (greedy and seeded), the
+    decode of every rank bit-equal, beam search, the fixed-slot pool and
+    the paged engine (pipelined and synchronous, with ``num_pages``),
+    and with ``inp["debug"]`` the spec-decode-mesh fallback and
+    /debug/serve.  Every engine runs rank 0's requests in lock step."""
+    from kubeflow_tpu_torch.models import generate as tgen
+    from kubeflow_tpu_torch.models.paged import PagedDecodeScheduler
+    from kubeflow_tpu_torch.models.scheduler import DecodeScheduler
+    from kubeflow_tpu_torch.models.serve import GenerationService, create_app
+
+    mesh, ls = _lockstep(inp["mesh"], world)
+    leader = ls.leader
+    model = _jax_llama(inp["llama"], mesh, max_seq_len=64)
+    out = {"kv_heads": model.local_kv_heads()}
+    reqs = inp["requests"]
+    out["lock"] = _service_run(
+        GenerationService(model, mesh=mesh, lockstep=ls), leader,
+        lambda svc: _lock_tokens(svc, reqs))
+    # Every rank runs the same decode (no service): bit-equal tokens.
+    prompt = torch.tensor([[5, 9, 2, 7], [3, 1, 4, 0]])
+    mask = torch.tensor([[True] * 4, [True] * 3 + [False]])
+    with torch.inference_mode():
+        seeded = tgen.generate(model, prompt, prompt_mask=mask,
+                               max_new_tokens=6, temperature=0.9, top_k=5,
+                               generators=tgen.row_generators(7, 2, "cpu"))
+        beams = tgen.beam_search(model, prompt[:1], max_new_tokens=4,
+                                 beams=2)
+    out["seeded"] = seeded.tolist()
+    out["beam"] = beams.tolist()
+    out["same_everywhere"] = _same_everywhere(seeded, beams)
+    knobs = dict(slots=4, slot_len=64, quantum=3)
+    sched = DecodeScheduler(model, mesh=mesh, lockstep=ls, **knobs)
+    out["fixed"], out["fixed_by_id"], out["fixed_stats"], _ = _engine(
+        sched, leader, reqs)
+    out["fixed_rows"] = (sched._lo, sched._hi)
+    paged = {}
+    for pipeline in (True, False):
+        sched = PagedDecodeScheduler(
+            model, mesh=mesh, lockstep=ls, page_len=8,
+            num_pages=inp["num_pages"], pipeline=pipeline, **knobs)
+        pages = set()
+        allocate = sched.allocator.alloc
+
+        def alloc(n):
+            got = allocate(n)
+            pages.update(got or ())
+            return got
+
+        sched.allocator.alloc = alloc
+        toks, by_id, st, late = _engine(
+            sched, leader, reqs + inp["prefix_requests"], inp["late"])
+        paged[pipeline] = {"tokens": toks, "by_id": by_id, "stats": st,
+                           "late": late,
+                           "pool_rows": sched._pool.k[0].shape[0],
+                           "max_page": max(pages)}
+    out["paged"] = paged
+    if inp.get("debug"):
+        out["debug"] = {}
+        for key, draft in (("fallback", model), ("paged", None)):
+            svc = GenerationService(model, mesh=mesh, lockstep=ls,
+                                    draft_model=draft)
+
+            def drive(svc):
+                app = create_app(svc, model_name="m")
+                toks = svc.generate([[5, 9, 2, 7]], max_new_tokens=4)
+                get = lambda path: app.handle("GET", path, {}, b"")[2]
+                import json
+                return {"tokens": toks,
+                        "metrics": get("/metrics").decode(),
+                        "debug": json.loads(get("/debug/serve")),
+                        "fallback": svc.scheduler_fallback}
+
+            got = _service_run(svc, leader, drive)
+            out["debug"][key] = got if leader else type(
+                svc._scheduler).__name__
+    if inp.get("t5"):
+        from kubeflow_tpu_torch.models import create_model
+        from kubeflow_tpu_torch.models.convert import state_from_flax
+        from kubeflow_tpu_torch.models.serve import Seq2SeqGenerationService
+
+        whole = create_model("t5_debug", device="cpu")
+        t5 = _sharded("t5_debug", mesh, state_from_flax(
+            {"params": inp["t5"]}, whole))
+        del whole
+        out["t5"] = _service_run(
+            Seq2SeqGenerationService(t5, mesh=mesh, lockstep=ls), leader,
+            lambda svc: svc.generate([[5, 9, 2, 7]], max_new_tokens=5))
+    if inp.get("checkpoint"):
+        from kubeflow_tpu_torch.models.serve import load_service
+        from kubeflow_tpu_torch.parallel.sharding import (
+            layout_for,
+            llama_rules,
+            local_shard,
+        )
+        from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+
+        svc = load_service("llama_debug", device="cpu", max_seq_len=64,
+                           checkpoint_dir=inp["checkpoint"],
+                           mesh_spec=inp["mesh"], use_scheduler=False)
+        with CheckpointManager(inp["checkpoint"]) as mgr:
+            saved = mgr.restore_params()
+        mine = _local_state(svc.model)
+        rules = llama_rules()
+        out["slices_equal"] = sorted(mine) == sorted(saved) and all(
+            torch.equal(mine[k], local_shard(
+                v, layout_for(k, v.shape, rules, mesh), mesh).to(
+                    mine[k].dtype)) for k, v in saved.items())
+        out["sliced"] = sorted(k for k, v in mine.items()
+                               if v.shape != saved[k].shape)
+        out["checkpoint_tokens"] = _service_run(
+            svc, leader, lambda svc: svc.generate([[5, 9, 2]],
+                                                  max_new_tokens=4))
+    return out
+
+
+@case
+def serve_failure(rank, world, inp):
+    """A failure inside lock-step device work.  By default a follower
+    whose pool step raises in its second quantum: it leaves the world,
+    and rank 0's request must fail, not hang.  With ``inp["leader"]``
+    rank 0's model raises in the lock path's first decode step, after the
+    request was sent: its request fails, a second one is refused at once,
+    and the follower, inside the same decode, must end too.  Returns what
+    each rank saw and how long rank 0's request took."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.models.scheduler import DecodeScheduler
+    from kubeflow_tpu_torch.models.serve import GenerationService
+    from kubeflow_tpu_torch.parallel.sharding import (
+        llama_rules,
+        shard_for_serving,
+    )
+
+    mesh, ls = _lockstep("tp=2", world)
+    model = create_model("llama_debug", device="meta", max_seq_len=64)
+    shard_for_serving(model, mesh, llama_rules(), device="cpu", seed=0)
+    model.eval()
+    leader_fails = bool(inp and inp.get("leader"))
+    if leader_fails:
+        svc = GenerationService(model, mesh=mesh, lockstep=ls)
+    else:
+        sched = DecodeScheduler(model, mesh=mesh, lockstep=ls, slots=2,
+                                slot_len=64, quantum=2)
+    if ls.leader == leader_fails:
+        calls = {"n": 0}
+
+        def failing(fn):
+            def call(*a, **k):
+                calls["n"] += 1
+                if calls["n"] == 2:
+                    raise RuntimeError(f"injected failure on rank {rank}")
+                return fn(*a, **k)
+            return call
+
+        if leader_fails:
+            model.forward = failing(model.forward)
+        else:
+            sched._pool_steps = failing(sched._pool_steps)
+    if not ls.leader:
+        t0 = time.monotonic()
+        try:
+            svc.follow() if leader_fails else sched.follow()
+        except Exception as e:  # noqa: BLE001 — what the follower saw
+            return {"error": repr(e), "seconds": time.monotonic() - t0}
+        return {"error": None}
+    t0 = time.monotonic()
+    out = {}
+    for key in ("error", "second") if leader_fails else ("error",):
+        try:
+            if leader_fails:
+                svc.generate([[5, 9, 2, 7]], max_new_tokens=40)
+            else:
+                sched.submit([[5, 9, 2, 7]], max_new_tokens=40).result()
+            out[key] = None
+        except Exception as e:  # noqa: BLE001 — what the request saw
+            out[key] = repr(e)
+        out.setdefault("seconds", time.monotonic() - t0)
+    out["broken"] = ls.broken is not None
+    if not leader_fails:
+        out["alive"] = sched.alive
+    return out
+
+
+@case
+def moe_ep(rank, world, inp):
+    """Mixtral under ``ep`` = world: one MoE layer on this process's rows
+    (output and aux loss), a sharded step's expert gradients (SGD at
+    lr 1: the update is the gradient), and served tokens on the lock path
+    and the fixed-slot pool."""
+    from kubeflow_tpu_torch.models.moe import MoeMlp
+    from kubeflow_tpu_torch.models.scheduler import DecodeScheduler
+    from kubeflow_tpu_torch.models.serve import GenerationService
+    from kubeflow_tpu_torch.parallel.context import global_mesh
+    from kubeflow_tpu_torch.parallel.mesh import axis_index
+    from kubeflow_tpu_torch.parallel.sharding import llama_rules
+    from kubeflow_tpu_torch.parallel.train import (
+        make_sharded_train_step,
+        shard_train_state,
+    )
+    from kubeflow_tpu_torch.train.steps import TrainState, make_lm_grad_fn
+
+    mesh, ls = _lockstep(f"ep={world}", world)
+    ep = axis_index(mesh, "ep")
+    out = {}
+    # One layer: the experts this process holds, its own batch row.
+    layer = inp["layer"]
+    e = layer["w_gate"].shape[0]
+    m = MoeMlp(layer["w_gate"].shape[1], layer["w_gate"].shape[2], e,
+               top_k=inp["top_k"], capacity_factor=inp["capacity_factor"],
+               dtype=torch.float32)
+    with torch.no_grad():
+        m.router.weight.copy_(torch.from_numpy(layer["router"]))
+        for name in ("w_gate", "w_up", "w_down"):
+            setattr(m, name, torch.nn.Parameter(torch.from_numpy(
+                layer[name]).chunk(world)[ep].clone(), requires_grad=False))
+        x = torch.from_numpy(inp["x"][ep:ep + 1])
+        mask = torch.from_numpy(inp["mask"][ep:ep + 1])
+        with global_mesh(mesh):
+            y, aux = m(x, mask)
+    out["layer"] = (y.numpy(), float(aux))
+    # One sharded step over ep (a data axis: each process its rows).
+    from kubeflow_tpu_torch.models import create_model
+
+    model = create_model("mixtral_debug", device="cpu",
+                         param_dtype=torch.float32, max_seq_len=64)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in inp["mixtral"].items()})
+    model.requires_grad_(True)
+    rules = llama_rules()
+    state = shard_train_state(
+        TrainState(model, torch.optim.SGD(model.parameters(), lr=1.0)),
+        mesh, rules)
+    before = {k: p.detach().clone()
+              for k, p in state.module.named_parameters()}
+    step, _ = make_sharded_train_step(make_lm_grad_fn(), state, mesh, rules)
+    with global_mesh(mesh):
+        state, metrics = step(state, _rows(inp["tokens"], mesh))
+    out["loss"] = float(metrics["loss"])
+    out["expert_grads"] = {
+        k: (before[k] - p.detach()).numpy()
+        for k, p in state.module.named_parameters()
+        if k.endswith(("w_gate", "w_up", "w_down"))}
+    # Served tokens.
+    served = _sharded("mixtral_debug", mesh,
+                      {k: torch.from_numpy(v) for k, v in
+                       inp["mixtral"].items()}, max_seq_len=64)
+    out["expert_rows"] = served.layers[0].mlp.w_gate.shape[0]
+    reqs = inp["requests"]
+    out["lock"] = _service_run(
+        GenerationService(served, mesh=mesh, lockstep=ls), ls.leader,
+        lambda svc: _lock_tokens(svc, reqs))
+    sched = DecodeScheduler(served, mesh=mesh, lockstep=ls, slots=2,
+                            slot_len=64, quantum=3)
+    out["fixed"] = _engine(sched, ls.leader, reqs)[0]
+    return out
 
 if __name__ == "__main__":
     _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),

@@ -269,7 +269,7 @@ def test_unsupported_quantization_and_mesh_raise():
     with pytest.raises(ValueError, match=r"unsupported quantization 'int4' "
                                          r"\(int8\)"):
         load_service("llama_debug", device="cpu", quantize="int4")
-    with pytest.raises(NotImplementedError, match="--mesh"):
+    with pytest.raises(ValueError, match="quantize"):
         load_service("llama_debug", device="cpu", quantize="int8",
                      mesh_spec="tp=2")
 
