@@ -155,12 +155,31 @@ After 12 (PR 9, the image task and the encoders):
 15. resnet: ``resnet50`` as the bench trains it (b256 at 224 px, bf16 on
    f32 masters and stats, SGD 0.1 Nesterov 0.9): no port kernel runs
    (counts all 0), images/s, peak memory, busy share by class.
+15a. batch_stats: that batch's every norm input split over 2 virtual
+   data ranks, their per-channel sums merged as the all-reduce over the
+   data axes merges them, against the whole batch's statistics.
 16. slow-step: the loop on that state with a stalled first batch: the
    slow-step counter reads 1, the next step is profiled, and
    ``trace_summary`` reads the trace it wrote.
 17. image-cli: ``train.run --task image --model resnet50`` with
    ``--checkpoint-dir`` for 4 steps, against 2 steps and a resume to 4:
-   weights, batch stats and momentum within RESUME_TOL.
+   weights, batch stats and momentum within RESUME_TOL; then 2 steps
+   with ``--distributed --mesh dp=1`` (NCCL, world size 1) whose losses
+   equal the unbroken run's.
+After beam (serving under a mesh on one card):
+6d0. serve_mesh: ``load_service("llama3_8b", mesh_spec="tp=1")`` at
+   NCCL world size 1 through the paged engine over HTTP: the paged
+   phase's tokens and held launches; the spec-decode-mesh fallback.
+6d0a. tp_virtual: llama3_8b (2 layers) as 4 virtual tp ranks (the port's
+   modules under a ``VirtualMesh``, the script adding partial sums and
+   joining vocabulary shards in rank order): a ragged prefill and 8
+   decode steps against plain and f32, exact launches, the
+   vocabulary-parallel embedding, f32 head and loss against the whole
+   ones, K2 and K5 at one rank's heads; then vit_b16 and bert_base (2
+   layers, one forward and backward; BERT at 2 ranks, as its vocabulary
+   splits) and t5_large (2 + 2 layers, 8 greedy steps) as virtual
+   ranks, exact launches, against f32, with K2-lse, K3 and K4 timed at
+   one rank's heads.
 After 7 (sequence parallelism on one card):
 7a. ring:   ``parallel/ring.py``'s own ``hop`` and ``merge`` over SP = 4
    virtual ranks in one process, the script handing each rank its K/V
@@ -342,6 +361,32 @@ DEEP_SLOT_LEN = 8192
 # rank's heads (TP_K2_SHAPE b, s; TP_K5_SHAPE b, S).
 TP_VIRTUAL, TP_LAYERS, TP_LENS, TP_STEPS = 4, 2, (300, 512), 8
 TP_K2_SHAPE, TP_K5_SHAPE = (4, 512), (4, 512 + NEW_TOKENS)
+# The vocabulary-parallel embedding and head at llama3_8b's vocabulary
+# (128256 rows, 32064 a rank): the ranks' logits of TP_HEAD_ROWS hidden
+# rows joined against the whole f32 head's, and the vocabulary-parallel
+# loss against F.cross_entropy, each within TP_HEAD_TOL (relative): both
+# are the same f32 products and sums in another order (~1e-7 a term).
+TP_HEAD_ROWS, TP_HEAD_TOL = 16, 1e-5
+# The encoders at ENCODER_COMPOSE_LAYERS layers, one forward and backward
+# each, as TP_VIRTUAL virtual ranks where the rules split every weight so
+# (vit_b16: 3 heads of 64, mlp 768 a rank), else fewer (bert_base: its
+# 30522-token vocabulary splits over 2, 6 heads and mlp 1536 a rank).
+# T5 at TP_VIRTUAL ranks (4 heads of 64, ffn 704 a rank), T5_GRAD_LAYERS
+# encoder and decoder layers: a b2 source of T5_TP_LENS, T5_TP_STEPS
+# greedy decode steps.
+T5_TP_LENS, T5_TP_STEPS = (300, 217), 8
+# BatchNorm over virtual data ranks: resnet50's b256 batch as this many
+# ranks' rows; the merged statistics of every norm's input, and the
+# ranks' running stats, within BN_MERGE_TOL (relative L2) of the whole
+# batch's.  The ranks' outputs and gradients are held by their distance
+# from the norm in f32 (COMPOSE_RATIO times the one-process norm's), at a
+# floor of BN_F32_FLOOR where both compute in f32 (the scale's and bias's
+# gradients: sums over up to 3.2M elements a channel in another order,
+# through statistics held to BN_MERGE_TOL).
+BN_DATA_RANKS, BN_MERGE_TOL, BN_F32_FLOOR = 2, 1e-5, 1e-4
+# The image trainer over a mesh of one process (NCCL world size 1,
+# dp=1): IMAGE_MESH_STEPS steps against the unbroken image-cli run's.
+IMAGE_MESH_STEPS = 2
 # K2 at a prefill chunk's shape: the 900-token row's second chunk.
 CHUNK_B, CHUNK_SQ, CHUNK_SK = 1, 388, 900
 # The dense-cache chunk (compose phase): a b2 ragged prompt prefilled in
@@ -2383,20 +2428,77 @@ def phase_paged(torch, dev, model, fixed, tol, fixed_quantum):
 
 
 class VirtualMesh:
-    """One process's view of a tp mesh, as ``sharding.layout_for`` and
-    ``local_shard`` read it: ``tp`` ranks, this one ``rank``, every other
-    axis of size 1."""
+    """One process's view of a mesh of ``tp`` ranks (this one ``rank``)
+    and ``dp`` data ranks (this one ``dp_rank``), every other axis of size
+    1, as ``sharding.layout_for`` and ``local_shard`` read it.  Its groups
+    are ``sharding.VirtualGroup``s: set as the global mesh, the port's
+    modules compute this rank's part (its heads, columns, vocabulary
+    rows) and skip the tp collectives, which the caller does itself,
+    adding the ranks' partial sums in rank order and joining their
+    outputs.  A data-axis sum (``sharding.sum_over``) the caller replaces
+    while the mesh is set (``phase_batch_stats``)."""
 
     mesh_dim_names = ("pp", "dp", "fsdp", "ep", "tp", "sp")
 
-    def __init__(self, tp, rank):
-        self.tp, self.rank = tp, rank
+    def __init__(self, tp, rank, dp=1, dp_rank=0):
+        self.sizes = {"tp": tp, "dp": dp}
+        self.ranks = {"tp": rank, "dp": dp_rank}
 
     def size(self, i):
-        return self.tp if self.mesh_dim_names[i] == "tp" else 1
+        return self.sizes.get(self.mesh_dim_names[i], 1)
 
     def get_local_rank(self, axis):
-        return self.rank if axis == "tp" else 0
+        return self.ranks.get(axis, 0)
+
+    def get_group(self, axis):
+        from kubeflow_tpu_torch.parallel.sharding import VirtualGroup
+
+        return VirtualGroup()
+
+
+def rank_sum(tp, fn):
+    """``fn(r)`` of every virtual rank under its ``VirtualMesh``, added in
+    rank order (an all-reduce over tp)."""
+    from kubeflow_tpu_torch.parallel.context import global_mesh
+
+    out = None
+    for r in range(tp):
+        with global_mesh(VirtualMesh(tp, r)):
+            part = fn(r)
+        out = part if out is None else out + part
+    return out
+
+
+def rank_cat(torch, tp, fn):
+    """``fn(r)`` of every virtual rank joined on the last axis in rank
+    order (an all-gather over tp)."""
+    from kubeflow_tpu_torch.parallel.context import global_mesh
+
+    parts = []
+    for r in range(tp):
+        with global_mesh(VirtualMesh(tp, r)):
+            parts.append(fn(r))
+    return torch.cat(parts, dim=-1)
+
+
+def shard_copy(torch, whole, rules, tp, r):
+    """A copy of ``whole`` whose parameters the rules split are virtual
+    rank ``r``'s ``local_shard`` of ``whole``'s (``requires_grad`` kept)."""
+    import copy
+
+    from kubeflow_tpu_torch.parallel.sharding import layout_for, local_shard
+
+    mesh = VirtualMesh(tp, r)
+    rank = copy.deepcopy(whole)
+    for mod_name, mod in rank.named_modules():
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            name = f"{mod_name}.{pname}" if mod_name else pname
+            layout = layout_for(name, p.shape, rules, mesh)
+            if layout.shards:
+                setattr(mod, pname, torch.nn.Parameter(
+                    local_shard(p.detach(), layout, mesh),
+                    requires_grad=p.requires_grad))
+    return rank
 
 
 def phase_serve_mesh(torch, dev, paged_ref):
@@ -2525,12 +2627,24 @@ def tp_virtual_ranks(torch, dev, whole, tp):
         local_shard,
     )
 
+    from kubeflow_tpu_torch.models.layers import Embed, Linear
+
     cfg = whole.cfg
     rules = llama_rules()
     ranks = []
     for r in range(tp):
         mesh = VirtualMesh(tp, r)
         blocks = []
+        # The vocabulary-parallel embedding and head: the rank's rows.
+        embed = Embed(cfg.vocab_size, cfg.dim, dtype=cfg.dtype, device=dev)
+        head = Linear(cfg.dim, cfg.vocab_size, dtype=torch.float32,
+                      device=dev)
+        for part, key, attr in ((embed, "embed.embedding", "embedding"),
+                                (head, "lm_head.weight", "weight")):
+            w = getattr(whole.get_submodule(key.rsplit(".", 1)[0]), attr)
+            setattr(part, attr, torch.nn.Parameter(
+                local_shard(w, layout_for(key, w.shape, rules, mesh), mesh),
+                requires_grad=False))
         for i, block in enumerate(whole.layers):
             attn = Attention(cfg.dim, cfg.n_heads // tp, cfg.n_kv_heads // tp,
                              cfg.head_dim, rope_theta=cfg.rope_theta,
@@ -2549,7 +2663,7 @@ def tp_virtual_ranks(torch, dev, whole, tp):
                         local_shard(w, layout_for(key, w.shape, rules, mesh),
                                     mesh), requires_grad=False)
             blocks.append((attn, mlp))
-        ranks.append(blocks)
+        ranks.append((blocks, embed, head))
     return ranks
 
 
@@ -2558,10 +2672,14 @@ def tp_forward(torch, whole, ranks, tokens, positions, caches, *,
     """``whole``'s forward with each layer's attention and MLP run by every
     virtual rank on its shard and their partial sums added in rank order
     where the all-reduce over tp would (in the model's dtype); each rank
-    runs every norm over the whole hidden state.  The caches (one a rank,
-    at its kv heads) advance by the call's tokens."""
+    runs every norm over the whole hidden state.  The embedding is the
+    ranks' vocabulary-parallel lookups summed, the logits each rank's
+    vocabulary joined.  The caches (one a rank, at its kv heads) advance
+    by the call's tokens."""
+    from kubeflow_tpu_torch.models.layers import head_logits
     from kubeflow_tpu_torch.models.llama import NEG_INF
 
+    tp = len(ranks)
     b, s = tokens.shape
     bias = None
     if s == 1:
@@ -2570,25 +2688,66 @@ def tp_forward(torch, whole, ranks, tokens, positions, caches, *,
         visible = (slots <= caches[0].index)[None].expand(b, -1)
         bias = (torch.where(visible, 0.0, NEG_INF).float()
                 + pad_bias).contiguous()
-    x = whole.embed(tokens)
+    x = rank_sum(tp, lambda r: ranks[r][1](tokens))
     for i, block in enumerate(whole.layers):
-        h = None
-        for r, blocks in enumerate(ranks):
-            part = blocks[i][0](block.attn_norm(x), positions,
-                                cache=caches[r], layer=i, bias_rows=bias)
-            h = part if h is None else h + part
-        x = x + h
-        h = None
-        for blocks in ranks:
-            part = blocks[i][1](block.mlp_norm(x))
-            h = part if h is None else h + part
-        x = x + h
+        x = x + rank_sum(tp, lambda r: ranks[r][0][i][0](
+            block.attn_norm(x), positions, cache=caches[r], layer=i,
+            bias_rows=bias))
+        x = x + rank_sum(tp, lambda r: ranks[r][0][i][1](block.mlp_norm(x)))
     for c in caches:
         c.index += s
     normed = [whole.final_norm(x) for _ in ranks][0]
     if logits_at is not None:
         normed = normed[torch.arange(b, device=x.device), logits_at][:, None]
-    return whole.lm_head(normed)[:, -1].float()
+    return rank_cat(torch, tp, lambda r: head_logits(ranks[r][2], normed))[
+        :, -1].float()
+
+
+def vocab_parallel_checks(torch, dev, whole, ranks, tokens):
+    """llama3_8b's whole embedding and f32 head against the virtual ranks'
+    vocabulary-parallel ones: the ranks' lookups of ``tokens`` summed
+    (zeros outside each rank's rows) bit-equal to the whole table's rows;
+    the ranks' logits of TP_HEAD_ROWS hidden rows joined within relative
+    L2 TP_HEAD_TOL of the whole head's; the vocabulary-parallel loss,
+    each rank's max, sum of exponentials and target logit
+    (``train/steps.py`` ``vocab_shard_sums``)
+    combined as its all-reduces combine them, within TP_HEAD_TOL
+    (relative) of ``F.cross_entropy`` over the whole logits."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.models.layers import head_logits
+    from kubeflow_tpu_torch.train.steps import vocab_shard_sums
+
+    tp, cfg = len(ranks), whole.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    hidden = torch.randn(TP_HEAD_ROWS, cfg.dim, generator=gen,
+                         device=dev).to(cfg.dtype)
+    labels = torch.randint(0, cfg.vocab_size, (TP_HEAD_ROWS,),
+                           generator=gen, device=dev)
+    with torch.inference_mode():
+        looked = rank_sum(tp, lambda r: ranks[r][1](tokens))
+        want_rows = whole.embed(tokens)
+        logits = rank_cat(torch, tp, lambda r: head_logits(ranks[r][2],
+                                                           hidden))
+        want = whole.lm_head(hidden)
+        rows = cfg.vocab_size // tp
+        parts = logits.split(rows, dim=-1)
+        m = torch.stack([p.amax(-1) for p in parts]).amax(0)
+        sums = sum(torch.stack(vocab_shard_sums(p, labels, r * rows, m))
+                   for r, p in enumerate(parts))
+        loss = (m + torch.log(sums[0]) - sums[1]).mean().item()
+        want_loss = F.cross_entropy(want, labels).item()
+    out = {"lookup_bit_equal": torch.equal(looked, want_rows),
+           "head_rows": TP_HEAD_ROWS, "vocab_per_rank": rows,
+           "logits_rel_l2": ((logits - want).norm() / want.norm()).item(),
+           "loss": loss, "whole_loss": want_loss,
+           "loss_rel_diff": abs(loss - want_loss) / abs(want_loss),
+           "tol": TP_HEAD_TOL}
+    if (not out["lookup_bit_equal"] or out["logits_rel_l2"] > TP_HEAD_TOL
+            or out["loss_rel_diff"] > TP_HEAD_TOL
+            or not math.isfinite(loss)):
+        raise AssertionError(f"tp_virtual vocabulary-parallel head: {out}")
+    return out
 
 
 def phase_tp_virtual(torch, dev):
@@ -2696,6 +2855,8 @@ def phase_tp_virtual(torch, dev):
                              f"from the f32 model's largest logits")
     row["greedy_equal_f32"] = (chosen == f32.argmax(-1)).float().mean().item()
     row["greedy_max_gap"] = gaps.max().item()
+    row["vocab_parallel"] = vocab_parallel_checks(torch, dev, whole, ranks,
+                                                  prompt)
     del models, whole, ranks, caches, ref
     gc.collect()
     torch.cuda.empty_cache()
@@ -2712,6 +2873,337 @@ def phase_tp_virtual(torch, dev):
     del timer
     row["phase_seconds"] = time.perf_counter() - t_phase
     emit(row)
+    return counts
+
+
+def vit_tp_logits(torch, whole, ranks, images):
+    """``whole``'s ViT forward (training, dropout 0) with each block's
+    attention and MLP run by every virtual rank (``ranks``: ``shard_copy``
+    of ``whole``) and added in rank order, the head's classes joined."""
+    from kubeflow_tpu_torch.models.layers import head_logits
+
+    cfg, tp, b = whole.cfg, len(ranks), images.shape[0]
+    x = images.to(cfg.dtype).permute(0, 3, 1, 2)
+    x = whole.patch_embed(x).flatten(2).transpose(1, 2)
+    cls = whole.cls_token.to(cfg.dtype).expand(b, 1, cfg.dim)
+    x = torch.cat([cls, x], dim=1) + whole.pos_embed.to(cfg.dtype)
+    for i, block in enumerate(whole.blocks):
+        h = block.norm1(x)
+        x = x + rank_sum(tp, lambda r: ranks[r].blocks[i].attn(h))
+        h = block.norm2(x)
+        x = x + rank_sum(tp, lambda r: ranks[r].blocks[i].mlp(h))
+    x = whole.final_norm(x)
+    return rank_cat(torch, tp, lambda r: head_logits(ranks[r].head,
+                                                     x[:, 0]))
+
+
+def bert_tp_logits(torch, whole, ranks, tokens):
+    """``whole``'s BERT forward (no mask: the kernel route) with the token
+    and position lookups, each layer's attention and MLP run by every
+    virtual rank and added in rank order; the pooler and classifier
+    whole (the rules split them over fsdp only)."""
+    tp, (b, s) = len(ranks), tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = (rank_sum(tp, lambda r: ranks[r].tok_embed(tokens))
+         + rank_sum(tp, lambda r: ranks[r].pos_embed(positions))
+         + whole.type_embed(torch.zeros_like(tokens)))
+    x = whole.embed_norm(x)
+    for i, layer in enumerate(whole.layers):
+        h = rank_sum(tp, lambda r: ranks[r].layers[i].attn(x))
+        x = layer.norm1(x + h)
+        h = rank_sum(tp, lambda r: ranks[r].layers[i].mlp(x))
+        x = layer.norm2(x + h)
+    return whole.classifier(torch.tanh(whole.pooler(x[:, 0])))
+
+
+def tp_grads(torch, whole, ranks, rules, loss):
+    """The gradients of ``loss`` by ``whole``'s parameter names: a
+    parameter the ranks computed with gets theirs, joined along its tp
+    split or, replicated (a bias), summed (a column-parallel product's
+    bias gradient is its slice's on each rank; a row-parallel one's
+    bias is rank 0's alone); any other parameter gets ``whole``'s."""
+    from kubeflow_tpu_torch.parallel.sharding import layout_for
+
+    tp = len(ranks)
+    names = [n for n, _ in whole.named_parameters()]
+    own = [dict(rm.named_parameters()) for rm in ranks]
+    flat = [p for _, p in whole.named_parameters()] + [
+        d[n] for d in own for n in names if n in d]
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    got = dict(zip(names, grads[:len(names)]))
+    i = len(names)
+    per_rank = []
+    for d in own:
+        per_rank.append({n: grads[i + j] for j, n in enumerate(
+            [n for n in names if n in d])})
+        i += len(per_rank[-1])
+    out = {}
+    for name, p in whole.named_parameters():
+        parts = [g[name] for g in per_rank if g.get(name) is not None]
+        if not parts:
+            out[name] = got[name]
+            continue
+        dim = layout_for(name, p.shape, rules, VirtualMesh(tp, 0)).axis_dim(
+            "tp")
+        out[name] = (sum(parts) if dim is None
+                     else torch.cat(parts, dim=dim))
+    return out
+
+
+def virtual_tp(whole, rules):
+    """The most virtual tp ranks, at most TP_VIRTUAL, that the rules can
+    split every parameter of ``whole`` over and that divide its heads:
+    bert_base's 30522-token vocabulary splits over 2, not 4 or 3 (the
+    reference's placement refuses those too)."""
+    from kubeflow_tpu_torch.parallel.sharding import layout_for
+
+    for tp in range(TP_VIRTUAL, 0, -1):
+        if whole.cfg.n_heads % tp:
+            continue
+        try:
+            for name, p in whole.named_parameters():
+                layout_for(name, p.shape, rules, VirtualMesh(tp, 0))
+        except ValueError:
+            continue
+        return tp
+    raise AssertionError("unreachable: one rank splits nothing")
+
+
+def tp_encoder_run(torch, dev, name, batch, timer):
+    """``name`` at full width, ENCODER_COMPOSE_LAYERS layers, as
+    ``virtual_tp`` virtual tp ranks (``shard_copy`` by its rules; rank r > 0
+    drops fc2's bias, which the sum over tp adds once): one training
+    forward and backward on the kernel route with the counts at 0 (K2-lse,
+    K3 and K4 exactly once a layer a rank), held against the same f32
+    masters computed whole in bf16 (the kernel route) and in f32: the
+    logits' and all gradients' distance from the f32 model at most
+    COMPOSE_RATIO times the whole bf16 model's, the loss within 1e-2 of
+    the f32 model's.  Then K2-lse, K3 and K4 timed at one rank's heads."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.parallel.sharding import rules_for_model
+
+    t0 = time.perf_counter()
+    overrides = dict(n_layers=ENCODER_COMPOSE_LAYERS)
+    if name == BERT_MODEL:
+        overrides["num_classes"] = BERT_CLASSES
+    whole = create_model(name, device=dev, impl="auto",
+                         dtype=torch.bfloat16, **overrides)
+    with torch.no_grad():
+        whole.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    f32 = create_model(name, device=dev, impl="plain", dtype=torch.float32,
+                       **overrides)
+    f32.load_state_dict(whole.state_dict())
+    whole.requires_grad_(True)
+    f32.requires_grad_(True)
+    rules = rules_for_model(whole)
+    tp = virtual_tp(whole, rules)
+    ranks = [shard_copy(torch, whole, rules, tp, r) for r in range(tp)]
+    blocks = "blocks" if name == VIT_MODEL else "layers"
+    for rm in ranks[1:]:
+        for block in getattr(rm, blocks):
+            block.mlp.fc2.bias = None
+    inputs, labels = batch
+    forward = vit_tp_logits if name == VIT_MODEL else bert_tp_logits
+    out = {}
+    for key, model in (("f32", f32), ("whole", whole)):
+        logits = model(inputs, train=True)
+        loss = F.cross_entropy(logits.float(), labels.long())
+        g = torch.autograd.grad(loss, list(model.parameters()))
+        out[key] = (logits.detach().float(), loss.item(),
+                    torch.cat([t.float().flatten() for t in g]))
+        del g
+    kernels.reset_launch_counts()
+    logits = forward(torch, whole, ranks, inputs)
+    loss = F.cross_entropy(logits.float(), labels.long())
+    grads = tp_grads(torch, whole, ranks, rules, loss)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = encoder_launches(tp * ENCODER_COMPOSE_LAYERS, 1)
+    if counts != want:
+        raise AssertionError(f"tp_virtual {name} launches {counts}, "
+                             f"expected {want}")
+    out["tp"] = (logits.detach().float(), loss.item(), torch.cat(
+        [grads[n].float().flatten() for n, _ in whole.named_parameters()]))
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    row = {"phase": "tp_virtual", "model": name,
+           "n_layers": ENCODER_COMPOSE_LAYERS, "tp": tp,
+           "heads_per_rank": whole.cfg.n_heads // tp,
+           "mlp_per_rank": whole.cfg.mlp_dim // tp,
+           "loss": {k: v[1] for k, v in out.items()}, "launches": counts,
+           "ratio_limit": COMPOSE_RATIO}
+    for what, idx in (("logits", 0), ("all_grads", 2)):
+        e_tp, e_whole = rel(out["tp"][idx], out["f32"][idx]), rel(
+            out["whole"][idx], out["f32"][idx])
+        row[f"{what}_rel_l2_tp_vs_f32"] = e_tp
+        row[f"{what}_rel_l2_whole_vs_f32"] = e_whole
+        if not math.isfinite(e_tp) or e_tp > COMPOSE_RATIO * e_whole:
+            raise AssertionError(f"tp_virtual {name} {what}: the sharded "
+                                 f"route {e_tp} from f32, the whole "
+                                 f"model's {e_whole}")
+    if abs(out["tp"][1] - out["f32"][1]) > 1e-2 * abs(out["f32"][1]):
+        raise AssertionError(f"tp_virtual {name} loss {row['loss']}")
+    h = whole.cfg.n_heads // tp
+    del whole, f32, ranks, out, grads, logits, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s = ENCODER_ATTENTION[name]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    row["timed"] = attention_rows(
+        torch, dev, gen, timer, f"{name} tp{tp} rank", b, s, h, h, 64,
+        causal=False, packed=False,
+        path=f"{name.split('_')[0]} at one tp={tp} rank's heads")
+    row["phase_seconds"] = time.perf_counter() - t0
+    emit(row)
+    return counts
+
+
+def t5_tp_encode(torch, whole, ranks, src, mask):
+    """The encoder of ``whole`` run by the virtual ranks: their
+    vocabulary-parallel lookups summed, each layer's attention (the rank's
+    heads, with its columns of the relative-bias table) and gated MLP
+    added in rank order, every norm run by each rank."""
+    tp, (b, n) = len(ranks), src.shape
+    pad = whole.pad_bias(mask, b, n, src.device)
+    biases = [rm.encoder_rel_bias(n, n) + pad for rm in ranks]
+    x = rank_sum(tp, lambda r: ranks[r].embed(src))
+    for i, block in enumerate(whole.encoder_blocks):
+        x = x + rank_sum(tp, lambda r: ranks[r].encoder_blocks[i].attn(
+            block.attn_norm(x), biases[r]))
+        x = x + rank_sum(tp, lambda r: ranks[r].encoder_blocks[i].mlp(
+            block.mlp_norm(x)))
+    return [whole.encoder_norm(x) for _ in ranks][0]
+
+
+def t5_tp_step(torch, whole, ranks, caches, encoded, tokens, mask):
+    """One cached decoder step of the virtual ranks (each with its
+    ``Seq2SeqCache`` at its heads): the logits [b, vocab] f32, each rank's
+    vocabulary joined."""
+    from kubeflow_tpu_torch.models.layers import head_logits
+    from kubeflow_tpu_torch.models.t5 import NEG_INF
+
+    tp, b = len(ranks), tokens.shape[0]
+    cross = whole.pad_bias(mask, b, encoded.shape[1], encoded.device)
+    step, length = caches[0].index, caches[0].length
+    visible = torch.where(torch.arange(length, device=encoded.device)
+                          <= step, 0.0, NEG_INF)
+    biases = [rm.decoder_rel_bias.at_position(step, length) + visible
+              for rm in ranks]
+    y = rank_sum(tp, lambda r: ranks[r].embed(tokens[:, None]))
+    for i, block in enumerate(whole.decoder_blocks):
+        y = y + rank_sum(tp, lambda r: ranks[r].decoder_blocks[i].self_attn(
+            block.self_attn_norm(y), biases[r], causal=True, cache=caches[r],
+            layer=i))
+        y = y + rank_sum(tp, lambda r: ranks[r].decoder_blocks[i].cross_attn(
+            block.cross_attn_norm(y), cross, kv=encoded, cache=caches[r],
+            layer=i))
+        y = y + rank_sum(tp, lambda r: ranks[r].decoder_blocks[i].mlp(
+            block.mlp_norm(y)))
+    for c in caches:
+        c.index += 1
+    normed = [whole.decoder_norm(y) for _ in ranks][0]
+    return rank_cat(torch, tp, lambda r: head_logits(ranks[r].lm_head,
+                                                     normed))[:, -1].float()
+
+
+def tp_t5_run(torch, dev):
+    """T5_MODEL's width at T5_GRAD_LAYERS encoder and decoder layers (bf16,
+    W_q conditioned as ``t5_conditioned``), as TP_VIRTUAL virtual tp ranks
+    of 4 heads (``shard_copy`` by ``t5_rules``): a b2 source of
+    T5_TP_LENS encoded and T5_TP_STEPS greedy cached decoder steps from
+    BOS with the counts at 0 (K1 exactly once a norm a rank; every
+    attention carries a bias and runs the plain version).  The greedy
+    tokens, teacher-forced through the same weights in f32, must equal
+    the f32 model's choices or lie within AGREE_GAP of its largest logit.
+    Returns the counts."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.ops import cuda as kernels
+    from kubeflow_tpu_torch.parallel.sharding import t5_rules
+
+    tp = TP_VIRTUAL
+    t0 = time.perf_counter()
+    layers = dict(n_encoder_layers=T5_GRAD_LAYERS,
+                  n_decoder_layers=T5_GRAD_LAYERS)
+    whole = create_model(T5_MODEL, device=dev, dtype=torch.bfloat16,
+                         **layers)
+    with torch.no_grad():
+        whole.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
+    t5_conditioned(torch, whole)
+    f32 = create_model(T5_MODEL, device=dev, dtype=torch.float32,
+                       impl="plain", **layers)
+    f32.load_state_dict(whole.state_dict())
+    ranks = [shard_copy(torch, whole, t5_rules(), tp, r) for r in range(tp)]
+    _, src, mask = ragged_batch(torch, dev, whole.cfg.vocab_size, T5_TP_LENS)
+    b = src.shape[0]
+    caches = [rm.new_cache(b, T5_TP_STEPS) for rm in ranks]
+    kernels.reset_launch_counts()
+    tokens = []
+    with torch.inference_mode():
+        encoded = t5_tp_encode(torch, whole, ranks, src, mask)
+        tok = torch.zeros(b, dtype=torch.long, device=dev)
+        for _ in range(T5_TP_STEPS):
+            logits = t5_tp_step(torch, whole, ranks, caches, encoded, tok,
+                                mask)
+            if not torch.isfinite(logits).all():
+                raise AssertionError("tp_virtual t5: non-finite logits")
+            tok = logits.argmax(-1)
+            tokens.append(tok)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {k: tp * n for k, n in t5_launches(whole.cfg,
+                                              T5_TP_STEPS).items()}
+    if counts != want:
+        raise AssertionError(f"tp_virtual t5 launches {counts}, expected "
+                             f"{want}")
+    gen = torch.stack(tokens, dim=1)
+    ref = t5_teacher_forced(torch, f32, src, mask, gen)
+    gaps = ref.amax(-1) - ref.gather(-1, gen[..., None])[..., 0]
+    row = {"phase": "tp_virtual", "model": T5_MODEL,
+           "layers": T5_GRAD_LAYERS, "tp": tp,
+           "heads_per_rank": whole.cfg.n_heads // tp,
+           "ffn_per_rank": whole.cfg.ffn_dim // tp,
+           "source_lens": list(T5_TP_LENS), "decode_steps": T5_TP_STEPS,
+           "cache_heads": caches[0].k[0].shape[2], "launches": counts,
+           "greedy_equal_f32": (gen == ref.argmax(-1)).float().mean().item(),
+           "greedy_max_gap": gaps.max().item(), "gap_limit": AGREE_GAP,
+           "phase_seconds": time.perf_counter() - t0}
+    emit(row)
+    if caches[0].k[0].shape[2] != whole.cfg.n_heads // tp or \
+            gaps.max().item() > AGREE_GAP:
+        raise AssertionError(f"tp_virtual t5: {row}")
+    del whole, f32, ranks, caches, encoded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_tp_families(torch, dev):
+    """The rest of the mesh at one card: the encoders and T5 computed as
+    TP_VIRTUAL virtual tp ranks (``tp_encoder_run``, ``tp_t5_run``).
+    Returns the counts of each run by path."""
+    from kubeflow_tpu_torch.models import bert, vit
+
+    timer = Timer(torch, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    vit_cfg, bert_cfg = vit.CONFIGS[VIT_MODEL], bert.CONFIGS[BERT_MODEL]
+    vit_batch = (torch.randn(VIT_BATCH, vit_cfg.image_size,
+                             vit_cfg.image_size, 3, generator=gen,
+                             device=dev),
+                 torch.randint(0, vit_cfg.num_classes, (VIT_BATCH,),
+                               generator=gen, device=dev))
+    bert_batch = (torch.randint(0, bert_cfg.vocab_size,
+                                (BERT_BATCH, BERT_SEQ), generator=gen,
+                                device=dev),
+                  torch.randint(0, BERT_CLASSES, (BERT_BATCH,),
+                                generator=gen, device=dev))
+    counts = {"tp_virtual_vit": tp_encoder_run(torch, dev, VIT_MODEL,
+                                               vit_batch, timer),
+              "tp_virtual_bert": tp_encoder_run(torch, dev, BERT_MODEL,
+                                                bert_batch, timer)}
+    del timer, vit_batch, bert_batch
+    counts["tp_virtual_t5"] = tp_t5_run(torch, dev)
     return counts
 
 
@@ -4436,6 +4928,168 @@ def phase_resnet(torch, dev):
     return counts, state, step, batch
 
 
+def phase_batch_stats(torch, state, batch):
+    """BatchNorm's global-statistics branch over BN_DATA_RANKS virtual
+    data ranks, at resnet50's widths and compute dtype: one training
+    forward of the resnet phase's model on its b256 batch, and at each
+    norm its input split into the ranks' rows.
+
+    - The ranks' per-channel count, sum and sum of squares
+      (``layers.batch_sums``) added in rank order and finished
+      (``batch_moments``): the mean and biased variance within
+      BN_MERGE_TOL (relative L2) of the whole batch's
+      (``torch.var_mean``).
+    - Each rank runs a copy of the norm under a ``VirtualMesh`` of
+      BN_DATA_RANKS data ranks, so ``BatchNorm.forward`` takes its mesh
+      branch.  The all-reduce over the data axes (``sharding.sum_over``)
+      is replaced for the phase by the rank-order sum of every rank's
+      ``batch_sums``, each computed from that rank's rows in one graph, so
+      one backward of the ranks' summed objective (a seeded upstream
+      gradient) gives each rank the all-reduced gradient of the sums.
+      Every rank's running stats must be bit-equal to rank 0's and within
+      BN_MERGE_TOL of the whole batch's norm in one process
+      (``F.batch_norm``).  The ranks' joined outputs, their input
+      gradient and their summed gradients of scale and bias must be no
+      farther from the same norm in f32 than COMPOSE_RATIO times the
+      one-process norm's distance, or than BN_F32_FLOOR for what both
+      compute in f32.
+
+    The model's running stats are put back after."""
+    from kubeflow_tpu_torch.models.layers import (
+        BatchNorm,
+        batch_moments,
+        batch_sums,
+    )
+    from kubeflow_tpu_torch.parallel import sharding
+    from kubeflow_tpu_torch.parallel.context import global_mesh
+
+    t0 = time.perf_counter()
+    saved = {k: t.clone() for k, t in state.batch_stats.items()}
+    worst = {"mean": 0.0, "var": 0.0, "running": 0.0}
+    ratio = {"y": 0.0, "dx": 0.0, "dscale": 0.0, "dbias": 0.0}
+    seen, unequal = [], []
+    gen = torch.Generator(device=batch[0].device).manual_seed(SEED + 11)
+    real_sum_over = sharding.sum_over
+
+    def norm_copy(mod, dtype):
+        out = BatchNorm(mod.scale.shape[0], dtype=dtype,
+                        device=mod.scale.device)
+        out.load_state_dict(mod.state_dict())
+        return out.requires_grad_(True)
+
+    def grads(mod, x, y, g):
+        (y.float() * g).sum().backward()
+        return x.grad, mod.scale.grad, mod.bias.grad
+
+    class RankSum(torch.autograd.Function):
+        """The all-reduce over the virtual data axis: forward, the
+        rank-order sum of every rank's sums (this rank's own, the others'
+        as ``held``); backward, every rank's cotangent summed in rank order
+        (``cotangents``, read by a first pass)."""
+
+        @staticmethod
+        def forward(ctx, own, r, held):
+            parts = [own if i == r else t for i, t in enumerate(held)]
+            return sum(parts[1:], parts[0])
+
+        @staticmethod
+        def backward(ctx, g):
+            return sum(cotangents[1:], cotangents[0]), None, None
+
+    cotangents = []
+
+    def virtual_ranks(mod, x, g):
+        """The ranks' norms on their rows, summed over the virtual data
+        axis by the harness; their outputs joined, gradients summed."""
+        xs = [part.detach().clone().requires_grad_(True)
+              for part in x.chunk(BN_DATA_RANKS)]
+        held = [batch_sums(part).detach() for part in xs]
+        norms = [norm_copy(mod, mod.dtype) for _ in xs]
+        ys, sums = [], []
+        for r, (norm, part) in enumerate(zip(norms, xs)):
+            def summed(own, groups, r=r):
+                if not groups or not all(isinstance(
+                        grp, sharding.VirtualGroup) for grp in groups):
+                    raise AssertionError(f"batch_stats: groups {groups}")
+                sums.append(RankSum.apply(own, r, held))
+                return sums[-1]
+
+            sharding.sum_over = summed
+            try:
+                with global_mesh(VirtualMesh(1, 0, dp=BN_DATA_RANKS,
+                                             dp_rank=r)):
+                    ys.append(norm(part, train=True))
+            finally:
+                sharding.sum_over = real_sum_over
+        loss = sum((y.float() * gr).sum() for y, gr in zip(
+            ys, g.chunk(BN_DATA_RANKS)))
+        cotangents[:] = torch.autograd.grad(loss, sums, retain_graph=True)
+        loss.backward()
+        y = torch.cat([t.detach() for t in ys])
+        dx = torch.cat([t.grad for t in xs])
+        dscale = sum((n.scale.grad for n in norms[1:]), norms[0].scale.grad)
+        dbias = sum((n.bias.grad for n in norms[1:]), norms[0].bias.grad)
+        return y, dx, dscale, dbias, norms
+
+    def hook(mod, args):
+        x = args[0]
+        merged = sum(batch_sums(part) for part in x.chunk(BN_DATA_RANKS))
+        mean, var = batch_moments(merged)
+        want_var, want_mean = torch.var_mean(
+            x.float(), dim=(0, 2, 3), correction=0)
+        for key, got, want in (("mean", mean, want_mean),
+                               ("var", var, want_var)):
+            scale = max(want.norm().item(), 1e-3 * math.sqrt(want.numel()))
+            worst[key] = max(worst[key], (got - want).norm().item() / scale)
+        with torch.enable_grad():
+            g = torch.randn(x.shape, generator=gen, device=x.device,
+                            dtype=torch.float32).to(mod.dtype).float()
+            out = {}
+            for key, dtype in (("f32", torch.float32), ("one", mod.dtype)):
+                norm = norm_copy(mod, dtype)
+                xi = x.detach().to(dtype).requires_grad_(True)
+                y = norm(xi, train=True)
+                out[key] = (y.detach(),) + grads(norm, xi, y, g) + (norm,)
+            *mesh_out, norms = virtual_ranks(mod, x, g)
+        one = out["one"][-1]
+        for r, norm in enumerate(norms):
+            for buf in ("mean", "var"):
+                got, want = getattr(norm, buf), getattr(one, buf)
+                if not torch.equal(got, getattr(norms[0], buf)):
+                    unequal.append((len(seen), r, buf))
+                worst["running"] = max(worst["running"], rel_l2(got, want))
+        for i, key in enumerate(ratio):
+            e_f32 = out["f32"][i].float()
+            e_one = rel_l2(out["one"][i], e_f32)
+            e_mesh = rel_l2(mesh_out[i], e_f32)
+            ratio[key] = max(ratio[key], e_mesh / max(e_one, BN_F32_FLOOR))
+        seen.append(x.shape[1])
+
+    handles = [m.register_forward_pre_hook(hook)
+               for m in state.module.modules() if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            state.module(batch[0], train=True)
+    finally:
+        for h in handles:
+            h.remove()
+        sharding.sum_over = real_sum_over
+        with torch.no_grad():
+            for k, t in state.batch_stats.items():
+                t.copy_(saved[k])
+    row = {"phase": "batch_stats", "model": RESNET_MODEL,
+           "batch": RESNET_BATCH, "data_ranks": BN_DATA_RANKS,
+           "rows_per_rank": RESNET_BATCH // BN_DATA_RANKS,
+           "norms": len(seen), "rel_l2_worst": worst, "tol": BN_MERGE_TOL,
+           "f32_distance_ratio_worst": ratio, "ratio_limit": COMPOSE_RATIO,
+           "f32_floor": BN_F32_FLOOR, "running_unequal": unequal,
+           "phase_seconds": time.perf_counter() - t0}
+    emit(row)
+    if len(seen) != len(handles) or max(worst.values()) > BN_MERGE_TOL \
+            or max(ratio.values()) > COMPOSE_RATIO or unequal:
+        raise AssertionError(f"batch_stats: {row}")
+
+
 def phase_slow_step(torch, state, step, batch):
     """The loop's slow-step hooks on the ResNet-50 state: the first batch
     arrives SLOW_STALL_SECONDS late with TRAIN_SLOW_STEP_SECONDS at
@@ -4711,6 +5365,7 @@ def phase_image_cli(torch):
             "--steps", str(IMAGE_CLI_STOP), "--checkpoint-dir", broken])
         steps_c, _ = run_trainer(IMAGE_CLI_ARGS + [
             "--steps", str(IMAGE_CLI_STEPS), "--checkpoint-dir", broken])
+        mesh = image_mesh_run(torch, [s["loss"] for s in steps_a])
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = saved
@@ -4745,11 +5400,52 @@ def phase_image_cli(torch):
           "step_seconds": [s["step_seconds"] for s in steps_a],
           "wall_seconds": wall, "batch_stat_tensors": len(stats),
           "rel_l2": diffs, "tol": RESUME_TOL, "bit_equal": bit_equal,
-          "launches": counts, "done": done})
+          "launches": counts, "done": done, "mesh": mesh})
     if set(pa) != set(pb) or not stats or max(diffs.values()) > RESUME_TOL:
         raise AssertionError(f"image CLI resume differs: {diffs}")
     shutil.rmtree(root, ignore_errors=True)
     return counts
+
+
+def image_mesh_run(torch, losses):
+    """``train.run --task image --model resnet50 --distributed --mesh
+    dp=1``: the process group from torchrun's env at world size 1 over
+    NCCL, the state sharded by ``resnet_rules`` and trained by the
+    sharded step with the batch-statistics path, IMAGE_MESH_STEPS steps
+    (the counts at 0: no port kernel); its losses held to the unbroken
+    image-cli run's ``losses`` step by step (MESH_LOSS_TOL and one unit
+    of the printed sixth digit, as the mesh phase).  The group is gone
+    after it."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.ops import cuda as kernels
+
+    argv = IMAGE_CLI_ARGS + ["--steps", str(IMAGE_MESH_STEPS),
+                             "--distributed", "--mesh", "dp=1"]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with env_set(env):
+            steps, done = run_trainer(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    counts = kernels.launch_counts()
+    got = [st["loss"] for st in steps]
+    want = losses[:IMAGE_MESH_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    limits = [MESH_LOSS_TOL
+              + 10.0 ** (math.floor(math.log10(abs(b))) - 5) / abs(b)
+              for b in want]
+    out = {"args": argv, "world_size": 1, "losses": got, "unbroken_losses": want, "loss_rel_diff": rel,
+           "wall_seconds": time.perf_counter() - t0, "launches": counts,
+           "group_destroyed": not dist.is_initialized(), "done": done}
+    if (len(got) != IMAGE_MESH_STEPS or any(counts.values())
+            or any(r > t for r, t in zip(rel, limits))):
+        raise AssertionError(f"image mesh run: {out}")
+    return out
 
 
 def no_proxy_client(base):
@@ -5482,6 +6178,7 @@ def main() -> int:
     serve_mesh_counts = phase_serve_mesh(torch, dev, paged_ref)
     del paged_ref
     tp_virtual_counts = phase_tp_virtual(torch, dev)
+    family_counts = phase_tp_families(torch, dev)
     t5_serve_counts, t5 = phase_t5_serve(torch, dev)
     t5_beam_counts = phase_t5_beam(torch, dev, t5)
     del t5
@@ -5499,6 +6196,7 @@ def main() -> int:
     vit_counts = phase_vit(torch, dev)
     bert_counts = phase_bert(torch, dev)
     resnet_counts, state, step, batch = phase_resnet(torch, dev)
+    phase_batch_stats(torch, state, batch)
     phase_slow_step(torch, state, step, batch)
     del state, step, batch
     gc.collect()
@@ -5516,6 +6214,8 @@ def main() -> int:
                              "beam": beam_counts[name],
                              "serve_mesh": serve_mesh_counts[name],
                              "tp_virtual": tp_virtual_counts[name],
+                             **{path: c[name] for path, c in
+                                family_counts.items()},
                              "t5_serve": t5_serve_counts[name],
                              "t5_beam": t5_beam_counts[name],
                              "t5_grad": t5_grad_counts[name],

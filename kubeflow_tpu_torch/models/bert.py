@@ -7,7 +7,11 @@ blocks, a tanh pooler on the first token and a classifier, both f32.  An
 device (the flash kernel takes no bias, as the reference's biased call
 is XLA).  Without a mask, attention routes through ``cfg.impl``: the
 flash kernels on the card, the plain version on the CPU.  Parameters are
-f32; the blocks compute in ``dtype``.
+f32; the blocks compute in ``dtype``.  Under a mesh every parameter
+``bert_rules`` splits over ``tp`` is computed as its shard
+: attention at ``n_heads / tp`` heads (a padded call's
+plain route too), the MLP's ``fc1`` column- and ``fc2`` row-parallel,
+the token and position tables vocabulary-parallel.
 """
 from __future__ import annotations
 

@@ -13,9 +13,9 @@
   ``torch.Generator``, so a row's stream depends on its generator only.
   A caller (a parity test) may inject the noise instead.  Under a mesh
   every process runs the same calls with the same per-row generators on
-  bit-equal logits (the head is whole on every process, and an
-  all-reduce leaves each the same sum), so every process samples the
-  same token and none is broadcast.
+  bit-equal logits (each rank's vocabulary of the head is gathered over
+  ``tp`` into the whole row, and an all-reduce leaves each the same
+  sum), so every process samples the same token and none is broadcast.
 * **Encoder-decoder** models (T5: ``encode``/``decode``) generate with
   ``generate_seq2seq``: the source is encoded once, then cached decoder
   steps run from BOS.

@@ -29,6 +29,7 @@ from torch import nn
 from kubeflow_tpu_torch import ops
 from kubeflow_tpu_torch.models import quantize
 from kubeflow_tpu_torch.parallel import sharding
+from kubeflow_tpu_torch.parallel.context import get_global_mesh
 
 # flax's truncated-normal initialisers divide the target std by the std
 # of a unit normal truncated to [-2, 2].
@@ -56,13 +57,20 @@ class Linear(nn.Module):
     axis that the reference splits as (out / out_block, out_block), q/k/v
     by heads: its scales are then one per out_block index, not per row.
     With ``bias`` it is flax's ``nn.Dense`` with a bias (zeros at init),
-    added in the compute dtype; without, the bias-free ``DenseGeneral``."""
+    added in the compute dtype; without, the bias-free ``DenseGeneral``.
+
+    Under tensor parallelism W may be a ``tp`` shard
+    (``parallel/sharding.py``): a column-parallel W (this rank's output
+    rows) adds this rank's slice of the replicated bias, and a
+    row-parallel W (this rank's input columns) sums its partial product
+    over ``reduce`` before the bias, which is added once."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  dtype: torch.dtype, param_dtype: Optional[torch.dtype] = None,
                  out_block: int = 0, bias: bool = False, device=None):
         super().__init__()
         self.in_features = in_features
+        self.out_features = out_features
         self.dtype = dtype
         self.out_block = out_block
         self.weight = nn.Parameter(torch.empty(
@@ -108,21 +116,53 @@ class Linear(nn.Module):
                                 self.dtype)
         return w.view(self.qweight.shape)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.dense_weight(), bias)
+    def column_shard(self) -> Optional[sharding.TPShard]:
+        """The ``tp`` shard when W holds this rank's output rows (a
+        column-parallel shard), else None; W is not read (no gather)."""
+        return sharding.tp_shard(sharding.stored(self, "weight"),
+                                 self.out_features)
+
+    def forward(self, x: torch.Tensor, *,
+                reduce: Optional[sharding.TPShard] = None) -> torch.Tensor:
+        w = self.dense_weight()
+        bias = self.bias
+        if bias is not None:
+            bias = sharding.tp_slice(bias, self.column_shard()).to(self.dtype)
+        if reduce is None:
+            return F.linear(x.to(self.dtype), w, bias)
+        y = sharding.reduce_from_tp(F.linear(x.to(self.dtype), w), reduce)
+        return y if bias is None else y + bias
+
+
+def head_logits(head: Linear, x: torch.Tensor, *,
+                gather: bool = True) -> torch.Tensor:
+    """A column-parallel head's output (an ``lm_head``, a classifier's
+    ``head``): whole on one process; under ``tp`` each rank computes the
+    logits of its rows of the head (its vocabulary or class range) and
+    they are gathered over ``tp`` in rank order into the whole row, or
+    with ``gather=False`` returned as they are ([..., out / tp], the
+    vocabulary-parallel loss's input)."""
+    tp = head.column_shard()
+    y = head(sharding.copy_to_tp(x, tp))
+    return sharding.gather_from_tp(y, tp) if gather else y
 
 
 class Embed(nn.Module):
     """Token embedding; flax init variance_scaling(1, fan_in, normal,
     out_axis=0), i.e. normal with std sqrt(1 / features).  Once quantized
     the table is int8 ``qweight`` with one f32 scale a column, and the
-    looked-up rows are dequantized (``embedding`` is then None)."""
+    looked-up rows are dequantized (``embedding`` is then None).
+
+    Vocabulary-parallel under ``tp``: a rank holds the rows of its
+    vocabulary range, looks up the tokens in it, writes zeros for the
+    others, and the rows are summed over ``tp``; the gradient lands on
+    the rank's rows only."""
 
     def __init__(self, num_embeddings: int, features: int, *,
                  dtype: torch.dtype, param_dtype: Optional[torch.dtype] = None,
                  device=None):
         super().__init__()
+        self.num_embeddings = num_embeddings
         self.features = features
         self.dtype = dtype
         self.embedding = nn.Parameter(torch.empty(
@@ -150,7 +190,16 @@ class Embed(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         table = self.embedding     # read once (a read may gather it)
         if table is not None:
-            return F.embedding(tokens, table.to(self.dtype))
+            tp = sharding.tp_shard(table, self.num_embeddings)
+            if tp is None:
+                return F.embedding(tokens, table.to(self.dtype))
+            rows = table.shape[0]
+            local = tokens - tp.rank * rows
+            inside = (local >= 0) & (local < rows)
+            out = F.embedding(torch.where(inside, local, 0),
+                              table.to(self.dtype))
+            return sharding.reduce_from_tp(
+                torch.where(inside[..., None], out, 0), tp)
         # Dequantizing is elementwise, so the looked-up rows alone give
         # the rows of the dequantized table.
         return quantize.dequantize(self.qweight[tokens], self.scale,
@@ -354,6 +403,18 @@ def verify_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 verify_attention.calls = 0
 
 
+def _heads_shard(q_proj: Linear, heads: int,
+                 kv_heads: int) -> Optional[sharding.TPShard]:
+    """The ``tp`` shard of an attention layer whose q/k/v projections hold
+    this rank's heads (their rows) and o_proj the matching input columns
+    (None: whole); ``tp`` must divide the q and kv heads."""
+    tp = q_proj.column_shard()
+    if tp is not None and (heads % tp.size or kv_heads % tp.size):
+        raise ValueError(f"tp={tp.size} must divide n_heads={heads} and "
+                         f"n_kv_heads={kv_heads}")
+    return tp
+
+
 class Attention(nn.Module):
     """Grouped-query self-attention with RoPE over ``ops``.
 
@@ -405,13 +466,7 @@ class Attention(nn.Module):
         # row shards) and o_proj the matching input columns: the heads are
         # counted from the projections, and o_proj's partial sums are
         # summed over tp.
-        tp = sharding.tp_group(sharding.stored(self.q_proj, "weight"),
-                               self.num_heads * self.head_dim)
-        if tp is not None and (self.num_heads % tp.size()
-                               or self.num_kv_heads % tp.size()):
-            raise ValueError(
-                f"tp={tp.size()} must divide n_heads={self.num_heads} and "
-                f"n_kv_heads={self.num_kv_heads}")
+        tp = _heads_shard(self.q_proj, self.num_heads, self.num_kv_heads)
         x = sharding.copy_to_tp(x, tp)
         q = self.q_proj(x).view(b, s, -1, self.head_dim)
         k = self.k_proj(x).view(b, s, -1, self.head_dim)
@@ -442,8 +497,7 @@ class Attention(nn.Module):
                 v_buf[rows, cache_slots] = v[:, 0]
                 out = ops.decode_attention(q, k_buf, v_buf, bias_rows,
                                            impl=self.impl)
-                return sharding.reduce_from_tp(
-                    self.o_proj(out.reshape(b, s, -1)), tp)
+                return self.o_proj(out.reshape(b, s, -1), reduce=tp)
             idx = cache.index
             if idx + s > cache.length:
                 raise ValueError(
@@ -475,8 +529,7 @@ class Attention(nn.Module):
                     q, k_buf[:, :end].contiguous(),
                     v_buf[:, :end].contiguous(), causal=True,
                     impl=self.impl)
-        return sharding.reduce_from_tp(self.o_proj(out.reshape(b, s, -1)),
-                                       tp)
+        return self.o_proj(out.reshape(b, s, -1), reduce=tp)
 
     def _paged(self, q, k, v, cache: PagedKVCache, layer: int,
                view: Optional[PagedView], bias_rows) -> torch.Tensor:
@@ -516,18 +569,16 @@ class SwiGLU(nn.Module):
         super().__init__()
         lin = lambda i, o: Linear(i, o, dtype=dtype, param_dtype=param_dtype,
                                   device=device)
-        self.hidden_dim = hidden_dim
         self.gate_proj = lin(dim, hidden_dim)
         self.up_proj = lin(dim, hidden_dim)
         self.down_proj = lin(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # gate/up column-parallel, down row-parallel under tp (as Attention).
-        tp = sharding.tp_group(sharding.stored(self.gate_proj, "weight"),
-                               self.hidden_dim)
+        tp = self.gate_proj.column_shard()
         x = sharding.copy_to_tp(x, tp)
-        return sharding.reduce_from_tp(
-            self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)), tp)
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x),
+                              reduce=tp)
 
 
 # -- Encoder and convolution blocks (ViT, BERT, ResNet) ------------------------
@@ -536,7 +587,9 @@ class SwiGLU(nn.Module):
 class Mlp(nn.Module):
     """The classic GELU MLP of ViT and BERT (``kubeflow_tpu/models/layers.py``
     ``Mlp``): biased ``fc1``, flax's ``nn.gelu`` (the tanh approximation),
-    biased ``fc2``."""
+    biased ``fc2``.  Under ``tp``, ``fc1`` is column-parallel (this rank's
+    hidden units and their slice of its bias) and ``fc2`` row-parallel
+    (its bias added once, after the sum over ``tp``)."""
 
     def __init__(self, dim: int, hidden_dim: int, *, dtype: torch.dtype,
                  param_dtype: Optional[torch.dtype] = None, device=None):
@@ -547,7 +600,9 @@ class Mlp(nn.Module):
         self.fc2 = lin(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        tp = self.fc1.column_shard()
+        x = sharding.copy_to_tp(x, tp)
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"), reduce=tp)
 
 
 class LayerNorm(nn.Module):
@@ -599,7 +654,8 @@ class EncoderAttention(nn.Module):
     ``:101-120``).  q/k/v/o are bias-free.  A call with ``mask_bias``
     (BERT's key padding, [b, 1, 1, s]) runs the plain attention: the flash
     kernel takes no additive bias, as the reference names ``"xla"`` for
-    its biased calls."""
+    its biased calls.  Under ``tp`` q/k/v are column-parallel (this
+    rank's heads) and o row-parallel, as in ``Attention``."""
 
     def __init__(self, dim: int, num_heads: int, *, dtype: torch.dtype,
                  param_dtype: Optional[torch.dtype] = None,
@@ -622,14 +678,16 @@ class EncoderAttention(nn.Module):
     def forward(self, x: torch.Tensor, *,
                 mask_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, s, _ = x.shape
-        shape = (b, s, self.num_heads, self.head_dim)
+        tp = _heads_shard(self.q_proj, self.num_heads, self.num_heads)
+        x = sharding.copy_to_tp(x, tp)
+        shape = (b, s, -1, self.head_dim)
         q = self.q_proj(x).view(shape)
         k = self.k_proj(x).view(shape)
         v = self.v_proj(x).view(shape)
         out = ops.dot_product_attention(
             q, k, v, bias=mask_bias, softmax_scale=self.softmax_scale,
             impl=self.impl if mask_bias is None else "plain")
-        return self.o_proj(out.reshape(b, s, -1))
+        return self.o_proj(out.reshape(b, s, -1), reduce=tp)
 
 
 @dataclasses.dataclass
@@ -680,7 +738,12 @@ class BiasedAttention(nn.Module):
     head-uniform: a per-head bias must not be collapsed into them (the
     reference refuses the same, ``layers.py:212-227``).  So every call
     runs the plain attention, named at the call site, as the reference's
-    biased calls run XLA's."""
+    biased calls run XLA's.
+
+    Under ``tp`` q/k/v are column-parallel (this rank's heads, and the
+    caller's bias carries the same heads: T5's relative-bias table is
+    split by head alike), o row-parallel, and a ``Seq2SeqCache`` holds
+    the rank's heads."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, *,
                  dtype: torch.dtype, param_dtype: Optional[torch.dtype] = None,
@@ -699,18 +762,21 @@ class BiasedAttention(nn.Module):
         self.o_proj = lin(inner, dim)
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
-        return t.view(t.shape[0], t.shape[1], self.num_heads, self.head_dim)
+        return t.view(t.shape[0], t.shape[1], -1, self.head_dim)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor, *,
                 kv: Optional[torch.Tensor] = None, causal: bool = False,
                 cache: Optional[Seq2SeqCache] = None,
                 layer: int = 0) -> torch.Tensor:
         b, s, _ = x.shape
+        tp = _heads_shard(self.q_proj, self.num_heads, self.num_heads)
+        x = sharding.copy_to_tp(x, tp)
         q = self._heads(self.q_proj(x))
         if kv is not None:
             if causal:
                 raise ValueError("cross-attention is never causal")
             if cache is None or cache.cross_k[layer] is None:
+                kv = sharding.copy_to_tp(kv, tp)
                 k = self._heads(self.k_proj(kv))
                 v = self._heads(self.v_proj(kv))
                 if cache is not None:
@@ -734,7 +800,7 @@ class BiasedAttention(nn.Module):
         out = ops.dot_product_attention(
             q, k, v, causal=causal, bias=bias,
             softmax_scale=self.softmax_scale, impl="plain")
-        return self.o_proj(out.reshape(b, s, -1))
+        return self.o_proj(out.reshape(b, s, -1), reduce=tp)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple:
@@ -829,7 +895,18 @@ class BatchNorm(nn.Module):
     statistics come from ``F.batch_norm`` writing into fresh buffers at
     momentum 1, whose variance (the unbiased one) is scaled by (n - 1) / n.
     Eval normalises by the running stats.  The output is in the compute
-    dtype."""
+    dtype.
+
+    Under a mesh whose data axes hold more than one process (the batch's
+    rows split over them), training normalises by the global batch's
+    statistics, as the reference's jit computes them over the global
+    array: each process's per-channel count, sum and sum of squares
+    (``batch_sums``) are summed over the data axes by one all-reduce
+    whose backward all-reduces their gradients the same way
+    (``sharding.sum_over``), and the mean and biased variance follow as
+    flax computes them, E[x^2] - E[x]^2 (``batch_moments``).  Every
+    process then holds the same running stats.  Not over ``tp`` or
+    ``sp``: their processes hold the same rows."""
 
     momentum = 0.9
     eps = 1e-5
@@ -860,13 +937,47 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.mean, self.var, self.scale,
                                 self.bias, False, 0.0, self.eps)
+        groups = sharding.data_groups(get_global_mesh())
+        m = self.momentum
+        if groups:
+            # One f32 copy feeds the sums and the output, so x's gradient
+            # is summed in f32 and rounded once.
+            xf = x.float()
+            mean, var = batch_moments(sharding.sum_over(batch_sums(xf),
+                                                        groups))
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            inv = torch.rsqrt(var + self.eps) * self.scale
+            y = ((xf - mean.view(shape)) * inv.view(shape)
+                 + self.bias.view(shape)).to(self.dtype)
+            with torch.no_grad():
+                self.mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+            return y
         mean = torch.zeros_like(self.mean)
         var = torch.ones_like(self.var)
         y = F.batch_norm(x, mean, var, self.scale, self.bias, True, 1.0,
                          self.eps)
         n = x.numel() // x.shape[1]
-        m = self.momentum
         with torch.no_grad():
             self.mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
         return y
+
+
+def batch_sums(x: torch.Tensor) -> torch.Tensor:
+    """[3, channels] f32 of channels-first activations: each channel's
+    count, sum and sum of squares over this process's rows (the
+    statistics a data-parallel ``BatchNorm`` sums over the data axes)."""
+    dims = (0,) + tuple(range(2, x.dim()))
+    xf = x.float()
+    s1 = xf.sum(dims)
+    return torch.stack([torch.full_like(s1, x.numel() // x.shape[1]), s1,
+                        (xf * xf).sum(dims)])
+
+
+def batch_moments(sums: torch.Tensor) -> tuple:
+    """``(mean, biased variance)`` per channel from ``batch_sums`` summed
+    over the processes: flax's E[x^2] - E[x]^2, at least 0."""
+    n = sums[0]
+    mean = sums[1] / n
+    return mean, (sums[2] / n - mean * mean).clamp_min(0.0)

@@ -32,6 +32,7 @@ from kubeflow_tpu_torch.models.layers import (
     PagedView,
     RMSNorm,
     SwiGLU,
+    head_logits,
 )
 from kubeflow_tpu_torch.models.moe import MoeMlp
 from kubeflow_tpu_torch.models.registry import register_model
@@ -122,9 +123,6 @@ CONFIGS = {
 
 
 SEQUENCE_PARALLEL = ("ring", "ulysses")
-# The projections models/layers.py runs tensor-parallel (Attention, SwiGLU).
-TP_LOCAL = (r".*(q_proj|k_proj|v_proj|o_proj|gate_proj|up_proj|down_proj)"
-            r"\.weight")
 # The MoE experts models/moe.py computes as their ep shards.
 EP_LOCAL = r".*\.(w_gate|w_up|w_down)"
 
@@ -200,12 +198,6 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.scale.device
 
-    def tp_local(self, name: str) -> bool:
-        """Whether parameter ``name`` is computed with as its ``tp`` shard
-        under a mesh (``parallel/train.py`` then hands it over ungathered
-        on ``tp``): the attention and SwiGLU projections."""
-        return re.fullmatch(TP_LOCAL, name) is not None
-
     def ep_local(self, name: str) -> bool:
         """Whether parameter ``name`` is computed with as its ``ep`` shard
         under a mesh: the MoE experts (``models/moe.py`` sends each
@@ -259,12 +251,15 @@ class Llama(nn.Module):
                 logits_at: Optional[torch.Tensor] = None,
                 return_hidden: bool = False,
                 token_mask: Optional[torch.Tensor] = None,
-                return_aux: bool = False):
+                return_aux: bool = False, vocab_shard: bool = False):
         """Logits [b, s, vocab] f32, or [b, vocab] at the per-row
         positions ``logits_at`` [b] (the head then runs on those rows only),
         or with ``return_hidden`` the final-normed hidden states [b, s, dim]
         without the head (the caller applies it per chunk:
-        ``train/steps.py`` ``chunked_cross_entropy``).
+        ``train/steps.py`` ``chunked_cross_entropy``).  Under ``tp`` the
+        head is vocabulary-parallel: each rank's logits are gathered into
+        the whole vocabulary, or with ``vocab_shard`` returned as they are,
+        [..., vocab / tp] (``train/steps.py``'s vocabulary-parallel loss).
 
         With ``cache``, the call writes its K/V at ``cache.index`` and
         advances it.  A single-token call attends over the whole cache
@@ -334,7 +329,8 @@ class Llama(nn.Module):
         else:
             if logits_at is not None:
                 x = x[torch.arange(b, device=x.device), logits_at][:, None]
-            out = self.lm_head(self.final_norm(x))
+            out = head_logits(self.lm_head, self.final_norm(x),
+                              gather=not vocab_shard)
             if logits_at is not None:
                 out = out[:, 0]
         if not return_aux:

@@ -42,6 +42,15 @@ which compute with their experts as stored, and a second brings the
 results back.  The backward runs the same exchanges in reverse, so an
 expert's gradient is its own process's, summed over every process's
 tokens.
+
+Under ``tp`` a process holds ``f / tp`` of every expert's ffn columns
+(``w_gate``/``w_up`` split on f, ``w_down`` on its rows; the rules'
+``("ep", "fsdp", "tp")``): it computes those columns of the experts it
+holds, and one all-reduce over ``tp`` of the combined [b, s, d] output
+a layer sums the partial products.  The router stays whole on every
+rank; the gates enter the combine through ``copy_to_tp``, so their
+gradient, a sum over the ffn columns, is summed over ``tp`` before it
+reaches the router.
 """
 from __future__ import annotations
 
@@ -114,6 +123,7 @@ class MoeMlp(nn.Module):
                  param_dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         self.n_experts = n_experts
+        self.hidden_dim = hidden_dim
         self.top_k = top_k
         self.capacity_factor = capacity_factor
         self.dtype = dtype
@@ -169,7 +179,9 @@ class MoeMlp(nn.Module):
         rows = torch.arange(b, device=x.device)[:, None, None]
         dest = (r.expert * b + rows) * c + r.slot
         spare = e * b * c
-        xd = x.to(dt)
+        tp = sharding.tp_shard(sharding.stored(self, "w_gate"),
+                               self.hidden_dim, dim=2)
+        xd = sharding.copy_to_tp(x.to(dt), tp)
         src = xd[:, :, None, :].expand(b, s, k, d).reshape(b * s * k, d)
         buf = xd.new_zeros(spare + 1, d).index_copy(
             0, torch.where(r.keep, dest, spare).reshape(-1), src)
@@ -193,8 +205,9 @@ class MoeMlp(nn.Module):
         out = out.reshape(spare, d)
         picked = out.index_select(
             0, torch.where(r.keep, dest, 0).reshape(-1)).view(b, s, k, d)
-        y = (r.gates.to(dt).float()[..., None] * picked.float()).sum(2)
-        return y.to(x.dtype), r.aux
+        gates = sharding.copy_to_tp(r.gates, tp)
+        y = (gates.to(dt).float()[..., None] * picked.float()).sum(2)
+        return sharding.reduce_from_tp(y, tp).to(x.dtype), r.aux
 
 
 def dense_dispatch(moe: MoeMlp, x: torch.Tensor,

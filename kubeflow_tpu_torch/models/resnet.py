@@ -12,7 +12,10 @@ stats are buffers, updated in place by a training forward.  Parameters
 and stats are f32; the convolutions compute in ``dtype`` (bf16 in every
 config but ``resnet_tiny``).  Convolutions, norms and pooling are XLA in
 the reference, not Pallas: here they are library calls, and no kernel of
-the port runs.
+the port runs.  Under a mesh the norms take their statistics over the
+data axes' global batch (``layers.BatchNorm``) and the head, the one
+parameter ``resnet_rules`` splits over ``tp``, is computed as its shard
+(each rank's classes, the logits gathered).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from kubeflow_tpu_torch.models.layers import (
     Conv2d,
     Linear,
     conv_memory_format,
+    head_logits,
     max_pool_same,
 )
 from kubeflow_tpu_torch.models.registry import register_model
@@ -191,7 +195,7 @@ class ResNet(nn.Module):
             x = block(x, train=train)
         # jnp.mean over a bf16 array sums in f32 and rounds the mean to bf16.
         x = x.mean(dim=(2, 3), dtype=torch.float32).to(cfg.dtype)
-        return self.head(x)
+        return head_logits(self.head, x)
 
 
 def _factory(name):

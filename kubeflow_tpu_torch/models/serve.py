@@ -34,9 +34,11 @@ its shards by the family's partition rules (``parallel/sharding.py``):
 Every process runs the same device work in lock step
 (``parallel/lockstep.py``): global rank 0 serves HTTP and takes every
 decision that depends on the clock or a request, the others follow it
-and bind no port.  A dense Llama computes tensor-parallel over ``tp``,
-a Mixtral's experts as their ``ep`` shards; every other weight (and
-every weight of T5) is gathered whole at its use.  The fixed-slot pool
+and bind no port.  Every family computes what the rules split over
+``tp`` as its shards (heads, MLP and expert columns, the
+vocabulary-parallel embedding and head, whose logits are gathered before
+sampling), a Mixtral its experts as their ``ep`` shards; only ``fsdp``
+splits are gathered at their use.  The fixed-slot pool
 shards its slots over the data axes, the paged engine its pool
 positions.  A draft model under a mesh is inert: the fixed-slot pool
 serves (``spec-decode-mesh``).  ``--device cpu`` serves the same over

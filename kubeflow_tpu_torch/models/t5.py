@@ -19,10 +19,14 @@ the decoder over the whole target (training, scoring) or, with a
 ``models/generate.py``).  The parameter names follow the reference's
 tree (``models/convert.state_from_flax`` maps one onto the other).
 
-Served under a mesh (``load_service(mesh_spec=)``), T5 stores its
-weights split by ``parallel.sharding.t5_rules`` and gathers each whole
-at its use (``sharding.GatherAtUse``): every process computes every
-head, so its caches keep all heads.
+Under a mesh (``load_service(mesh_spec=)``, the sharded train step) T5
+stores its weights split by ``parallel.sharding.t5_rules`` and computes
+every ``tp`` split as its shard: the attention at
+``n_heads / tp`` heads with the relative-bias tables' matching columns,
+so a ``Seq2SeqCache`` holds those heads; the gated MLP's ``wi_0``/``wi_1``
+column-parallel and ``wo`` row-parallel; the shared embedding and the
+head vocabulary-parallel (the logits gathered over ``tp`` for sampling
+and beam search).  Only ``fsdp`` splits are gathered at use.
 """
 from __future__ import annotations
 
@@ -40,8 +44,10 @@ from kubeflow_tpu_torch.models.layers import (
     Linear,
     RMSNorm,
     Seq2SeqCache,
+    head_logits,
 )
 from kubeflow_tpu_torch.models.registry import register_model
+from kubeflow_tpu_torch.parallel import sharding
 
 NEG_INF = -1e30
 
@@ -170,7 +176,8 @@ class RelativeBias(nn.Module):
 
 
 class GatedGelu(nn.Module):
-    """``wo(gelu(wi_0(x)) * wi_1(x))``, flax's tanh GELU, bias-free."""
+    """``wo(gelu(wi_0(x)) * wi_1(x))``, flax's tanh GELU, bias-free;
+    under ``tp`` ``wi_0``/``wi_1`` column-parallel, ``wo`` row-parallel."""
 
     def __init__(self, dim: int, hidden_dim: int, *, dtype: torch.dtype,
                  param_dtype: Optional[torch.dtype] = None, device=None):
@@ -182,8 +189,10 @@ class GatedGelu(nn.Module):
         self.wo = lin(hidden_dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.wi_0.column_shard()
+        x = sharding.copy_to_tp(x, tp)
         return self.wo(F.gelu(self.wi_0(x), approximate="tanh")
-                       * self.wi_1(x))
+                       * self.wi_1(x), reduce=tp)
 
 
 def _attention(cfg: T5Config, device) -> BiasedAttention:
@@ -273,13 +282,22 @@ class T5(nn.Module):
             if mod is not self and hasattr(mod, "reset_parameters"):
                 mod.reset_parameters(generator)
 
+    def local_heads(self) -> int:
+        """The heads this process computes: ``n_heads / tp`` under ``tp``."""
+        w = sharding.stored(self.decoder_blocks[0].self_attn.q_proj,
+                            "weight")
+        if w is None:
+            return self.cfg.n_heads
+        return w.shape[0] // self.cfg.head_dim
+
     def new_cache(self, batch: int, length: int) -> Seq2SeqCache:
         """A decode cache of ``length`` self-attention slots a row (the
-        generation's token budget), zeros in the model's dtype."""
+        generation's token budget), zeros in the model's dtype, at this
+        process's heads."""
         cfg = self.cfg
         return Seq2SeqCache.empty(cfg.n_decoder_layers, batch, length,
-                                  cfg.n_heads, cfg.head_dim, dtype=cfg.dtype,
-                                  device=self.device)
+                                  self.local_heads(), cfg.head_dim,
+                                  dtype=cfg.dtype, device=self.device)
 
     @staticmethod
     def pad_bias(source_mask: Optional[torch.Tensor], b: int,
@@ -304,9 +322,11 @@ class T5(nn.Module):
 
     def decode(self, encoded: torch.Tensor, target: torch.Tensor, *,
                source_mask: Optional[torch.Tensor] = None,
-               cache: Optional[Seq2SeqCache] = None) -> torch.Tensor:
+               cache: Optional[Seq2SeqCache] = None,
+               vocab_shard: bool = False) -> torch.Tensor:
         """The decoder stack over a precomputed ``encoded`` source ->
-        logits [b, target_len, vocab] f32.  Without a cache: the whole
+        logits [b, target_len, vocab] f32 (with ``vocab_shard`` under
+        ``tp``, this rank's [..., vocab / tp]).  Without a cache: the whole
         target, causal, with the static relative bias (training,
         scoring).  With a ``Seq2SeqCache``: one token a row at step
         ``cache.index``, which it advances; its bias row, the relative row
@@ -331,12 +351,14 @@ class T5(nn.Module):
             y = block(y, encoded, self_bias, cross_bias, cache=cache, layer=i)
         if cache is not None:
             cache.index += t
-        return self.lm_head(self.decoder_norm(y))
+        return head_logits(self.lm_head, self.decoder_norm(y),
+                           gather=not vocab_shard)
 
     def forward(self, source: torch.Tensor, target: torch.Tensor, *,
-                source_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                source_mask: Optional[torch.Tensor] = None,
+                vocab_shard: bool = False) -> torch.Tensor:
         return self.decode(self.encode(source, source_mask), target,
-                           source_mask=source_mask)
+                           source_mask=source_mask, vocab_shard=vocab_shard)
 
 
 def _factory(name):

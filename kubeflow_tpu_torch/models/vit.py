@@ -7,7 +7,10 @@ a final LayerNorm and an f32 head on the CLS row.  Attention routes
 through ``cfg.impl``: "auto" takes the flash kernels on the card (K2 for
 a forward without autograd, K2-lse with K3 and K4 when training) and the
 plain version on the CPU.  Parameters are f32; the blocks compute in
-``dtype``.
+``dtype``.  Under a mesh every parameter ``vit_rules`` splits over
+``tp`` is computed as its shard: attention at
+``n_heads / tp`` heads, the MLP's ``fc1`` column- and ``fc2``
+row-parallel, the head's classes split, their logits gathered.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from kubeflow_tpu_torch.models.layers import (
     Linear,
     Mlp,
     dropout,
+    head_logits,
 )
 from kubeflow_tpu_torch.models.registry import register_model
 
@@ -131,7 +135,7 @@ class ViT(nn.Module):
         for block in self.blocks:
             x = block(x, train=train, generator=generator)
         x = self.final_norm(x)
-        return self.head(x[:, 0])
+        return head_logits(self.head, x[:, 0])
 
 
 def _factory(name):

@@ -25,23 +25,29 @@ state):
 
 ``parallel/train.py`` keeps each process's shard of every parameter
 (``Layout``) and gathers it for the step; a served model keeps its
-shards too and gathers each at its use (``shard_for_serving``).  A model
-may declare parameters it computes with as their ``tp`` shards
-(``tp_local(name)``): Llama's
-column-parallel q/k/v, gate and up and row-parallel o and down, so a
-block's only ``tp`` collectives are one all-reduce after o_proj and one
-after down_proj (``copy_to_tp`` / ``reduce_from_tp``, run by
-``models/layers.py``); every other parameter is gathered whole over
-``tp`` too.  A MoE model's experts are computed as their ``ep`` shards
-(``ep_local(name)``): ``models/moe.py`` sends each expert's tokens to
-the process that holds it (``expert_all_to_all``).
+shards too and gathers each at its use (``shard_for_serving``), but
+only over the axes the model does not compute along (``local_axes``).
+Every family computes each parameter the rules split over ``tp`` as its
+shard, so nothing is gathered over ``tp``: column-parallel q/k/v,
+``fc1``, gate/up, ``wi_0``/``wi_1`` and row-parallel o, ``fc2``, down,
+``wo`` (a block's ``tp`` collectives are one all-reduce after each
+row-parallel product, ``copy_to_tp`` / ``reduce_from_tp``, run by
+``models/layers.py``), T5's relative-bias
+tables by head, a Mixtral's experts along their ffn columns
+(``models/moe.py``: one all-reduce of a layer's combined output), the
+embeddings vocabulary-parallel and the heads column-parallel with their
+logits gathered (``gather_from_tp``; training's loss takes them
+ungathered, ``train/steps.py`` ``VocabParallelNLL``).  A MoE model's
+experts are computed as their ``ep`` shards too (``ep_local(name)``):
+``models/moe.py`` sends each expert's tokens to the process that holds
+it (``expert_all_to_all``).  Only ``fsdp`` splits are gathered whole.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import re
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -324,11 +330,13 @@ def shard_params(module: torch.nn.Module, mesh, rules: Rules) -> dict:
 
 def local_axes(module: torch.nn.Module, name: str) -> tuple:
     """The mesh axes along which ``module`` computes with its shard of
-    parameter ``name`` (``tp`` for a model's ``tp_local`` parameters,
-    ``ep`` for its ``ep_local`` experts); every other axis of the
-    parameter's layout is gathered at use."""
-    return tuple(a for a, fn in (("tp", "tp_local"), ("ep", "ep_local"))
-                 if hasattr(module, fn) and getattr(module, fn)(name))
+    parameter ``name``: ``tp`` for every parameter (every family computes
+    its ``tp`` splits as shards), and ``ep`` for a MoE model's
+    ``ep_local`` experts; every other axis of the parameter's layout is
+    gathered at use."""
+    ep_local = getattr(module, "ep_local", None)
+    return ("tp", "ep") if ep_local is not None and ep_local(name) \
+        else ("tp",)
 
 
 class GatherAtUse(nn.Module):
@@ -462,18 +470,44 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
-def tp_group(weight: Optional[torch.Tensor], full_rows: int):
-    """The ``tp`` process group when ``weight`` holds fewer rows than the
-    layer's full ``full_rows`` (it is a column-parallel shard), else None.
-    A shard with no active mesh raises."""
-    if weight is None or weight.shape[0] >= full_rows:
+class VirtualGroup:
+    """The ``tp`` group of a mesh whose ranks one process runs one after
+    another, each as the global mesh in turn: the ``tp`` collectives over
+    it (``copy_to_tp``, ``reduce_from_tp``, ``gather_from_tp``,
+    ``all_reduce_max``) do nothing, and the caller combines the ranks'
+    parts itself (adds their partial sums in rank order, joins their
+    outputs)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TPShard:
+    """This process's place on the ``tp`` axis for one parameter it holds
+    as a shard: its coordinate ``rank`` of ``size``, and the axis's
+    process ``group`` (or a ``VirtualGroup``)."""
+
+    group: Any
+    rank: int
+    size: int
+
+
+def tp_shard(weight: Optional[torch.Tensor], full: int,
+             dim: int = 0) -> Optional[TPShard]:
+    """The ``TPShard`` when ``weight`` holds fewer than the layer's
+    ``full`` entries along ``dim`` (it is a ``tp`` shard), else None.  A
+    shard that the active mesh's ``tp`` axis does not cut so, or a mesh
+    without a ``tp`` group, raises."""
+    if weight is None or weight.shape[dim] >= full:
         return None
     mesh = get_global_mesh()
-    if mesh is None or axis_size(mesh, "tp") * weight.shape[0] != full_rows:
+    if mesh is None or axis_size(mesh, "tp") * weight.shape[dim] != full:
         raise RuntimeError(
-            f"a weight of {weight.shape[0]} of {full_rows} rows is a tp "
-            "shard, but the active mesh's tp axis does not split it so")
-    return mesh.get_group("tp")
+            f"a weight of {weight.shape[dim]} of {full} entries along dim "
+            f"{dim} is a tp shard, but the active mesh's tp axis does not "
+            "split it so")
+    group = mesh.get_group("tp")
+    if group is None:
+        raise RuntimeError("the active mesh has no tp process group")
+    return TPShard(group, axis_index(mesh, "tp"), axis_size(mesh, "tp"))
 
 
 def ep_group(local_experts: int, n_experts: int):
@@ -520,9 +554,91 @@ def expert_all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return _AllToAll.apply(x, group)
 
 
-def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+def _group(tp: Optional[TPShard]):
+    """The group to run ``tp``'s collectives over (None: none to run)."""
+    if tp is None or isinstance(tp.group, VirtualGroup):
+        return None
+    return tp.group
+
+
+def copy_to_tp(x: torch.Tensor, tp: Optional[TPShard]) -> torch.Tensor:
+    """The input of column-parallel products: identity forward; the
+    backward sums the gradient over ``tp``."""
+    group = _group(tp)
     return x if group is None else _CopyToTP.apply(x, group)
 
 
-def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+def reduce_from_tp(x: torch.Tensor, tp: Optional[TPShard]) -> torch.Tensor:
+    """Row-parallel partial sums summed over ``tp`` (identity backward)."""
+    group = _group(tp)
     return x if group is None else _ReduceFromTP.apply(x, group)
+
+
+def tp_slice(t: torch.Tensor, tp: Optional[TPShard],
+             dim: int = 0) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of a tensor every ``tp`` rank holds
+    whole (a replicated bias of a column-parallel product): its gradient
+    lands on the chunk only, so the backward sums it over ``tp`` and every
+    rank gets the whole gradient."""
+    if tp is None:
+        return t
+    return copy_to_tp(t, tp).chunk(tp.size, dim=dim)[tp.rank]
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """All-gather forward over ``tp`` along ``dim`` in rank order (each
+    rank's output features); the backward keeps this rank's chunk of the
+    gradient, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return g.chunk(n, dim=ctx.dim)[r].contiguous(), None, None
+
+
+def gather_from_tp(x: torch.Tensor, tp: Optional[TPShard],
+                   dim: int = -1) -> torch.Tensor:
+    """Each ``tp`` rank's chunk along ``dim`` joined in rank order (a
+    column-parallel head's logits)."""
+    group = _group(tp)
+    return x if group is None else _GatherFromTP.apply(x, group, dim)
+
+
+def all_reduce_max(x: torch.Tensor, tp: Optional[TPShard]) -> torch.Tensor:
+    """``x``'s elementwise maximum over ``tp`` (no gradient)."""
+    group = _group(tp)
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    x = x.detach().contiguous().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+class _SumOverGroups(torch.autograd.Function):
+    """All-reduce forward over each of ``groups`` in turn; the backward
+    all-reduces the gradient the same way (every process's objective
+    depends on the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        for group in groups:
+            x = all_reduce_sum(x, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for group in ctx.groups:
+            g = all_reduce_sum(g, group)
+        return g, None
+
+
+def sum_over(x: torch.Tensor, groups: tuple) -> torch.Tensor:
+    """``x`` summed over the processes of ``groups`` (e.g. ``data_groups``),
+    differentiably: the gradient is summed over them too."""
+    return _SumOverGroups.apply(x, tuple(groups)) if groups else x

@@ -5,20 +5,31 @@ Counterpart of ``kubeflow_tpu/parallel/train.py``.  ``shard_train_state``
 keeps each process's shard of every parameter (``sharding.shard_params``:
 ``fsdp`` and the other axes of a rule split it, ``Layout`` records how),
 and the optimizer updates only those shards, so its moments are sharded
-alike.  The step gathers every parameter at its start: whole over every
-axis but ``tp`` and ``ep``, and over those too unless the model computes
-with its shard along them (the model's ``tp_local``, and ``ep_local``
-for the MoE experts, which ``models/moe.py`` computes as their ``ep``
-shards).  So parameters and optimizer
-state are stored sharded, but a step holds whole parameters and
-gradients at its peak, as under ZeRO-1, where the reference's ZeRO-3
-gathers each at its use.  The step runs the one-process grad function of
+alike.  The step gathers every parameter at its start over ``fsdp`` (and
+any other axis the model does not compute along), but not over ``tp``
+or ``ep``: every family computes each parameter the rules split over
+``tp`` as its shard (Megatron's column- and row-parallel products,
+vocabulary-parallel embeddings and heads, a Mixtral's experts' ffn
+columns), and a Mixtral its experts as their ``ep`` shards
+(``ep_local``).  So parameters and optimizer state are
+stored sharded, but a step holds parameters gathered over ``fsdp`` and
+their gradients at its peak, as under ZeRO-1, where the reference's
+ZeRO-3 gathers each at its use.  The step runs the one-process grad function of
 ``train/steps.py`` on the gathered tensors (``params=``), so both paths
 share one loss, and the CUDA kernels see plain tensors.  Each gradient
 then goes back to its parameter's layout: reduce-scattered over the data
 axes that shard the parameter, all-reduced over those that do not (and
 over ``sp`` when the sequence is split), cut to the ``tp`` shard where it
-was gathered whole.  On a mesh of one process nothing is exchanged.
+was gathered whole.  A replicated bias that a column-parallel product
+uses as its slice comes back whole from the backward, which sums it
+over ``tp`` (``sharding.tp_slice``).  On a mesh of one process nothing
+is exchanged.
+
+Batch statistics (ResNet's ``BatchNorm``) are the global batch's: the
+norms sum each process's per-channel sums over the data axes
+(``models/layers.py``), so every process holds the same running stats.
+With ``n_accum`` microbatches, microbatch i is every process's i-th
+chunk of its rows, and its statistics are global over those rows.
 
 The loss is the global mean: the grad function's objective, the mean
 over this process's part of the batch, is scaled before it is
@@ -35,7 +46,6 @@ place.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -206,10 +216,9 @@ def make_sharded_train_step(grad_fn: Callable, state: ShardedTrainState,
     split over ``sp`` too (the grad function's ``sequence``: targets cut
     from the whole sequence first), which needs ``impl="ring"`` or
     ``"ulysses"`` attention; otherwise ``sp`` ranks compute the same rows,
-    as the reference's trainer does.  Batch statistics are not
-    synchronized across a data-parallel mesh (a model with them raises
-    there), and no dropout generator is passed (a grad function with
-    dropout raises)."""
+    as the reference's trainer does.  No dropout generator is passed (a
+    grad function with dropout raises), as the reference's sharded step
+    passes no rng."""
     if not hasattr(grad_fn, "batch_weight"):
         raise TypeError("make_sharded_train_step takes a grad function of "
                         "train/steps.py (it carries .batch_weight)")
@@ -234,11 +243,6 @@ def make_sharded_train_step(grad_fn: Callable, state: ShardedTrainState,
         # Such a model takes each process's chunk of the sequence.
         raise ValueError("impl='ring' or 'ulysses' over sp > 1 needs "
                          "shard_sequence=True")
-    n_data = math.prod(axis_size(mesh, a) for a in data_axes(mesh))
-    if state.batch_stats and n_data > 1:
-        raise NotImplementedError(
-            "batch statistics over a data-parallel mesh are not ported to "
-            "the sharded step; see ROADMAP.md")
     reduce_axes = data_axes(mesh) + (("sp",) if seq else ())
     plans = {name: _plan(module, name, state.layouts[name], reduce_axes)
              for name in state.layouts}
@@ -266,4 +270,6 @@ def make_sharded_train_step(grad_fn: Callable, state: ShardedTrainState,
         return state, {k: torch.stack([m[k] for m in seen]).mean()
                        for k in seen[0]}
 
+    # What each parameter is gathered and reduced over (read by tests).
+    sharded_step.plans = plans
     return sharded_step, batch_sharding(mesh, seq_axis=shard_sequence)

@@ -18,6 +18,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.models.layers import BatchNorm
+from kubeflow_tpu_torch.parallel import sharding
 
 
 class TokenNLL(torch.autograd.Function):
@@ -45,41 +46,105 @@ class TokenNLL(torch.autograd.Function):
         return d.mul_(g[..., None]), None
 
 
-def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return TokenNLL.apply(logits, labels)
+def vocab_shard_sums(logits: torch.Tensor, labels: torch.Tensor,
+                     start: int, m: torch.Tensor) -> tuple:
+    """``(sum of exp(logit - m), the target's logit)`` over one
+    vocabulary shard whose first token is ``start``, ``m`` the rows'
+    largest logit over every shard; the target's logit is 0 where the
+    target lies in another shard.  Summed over the shards they give the
+    whole vocabulary's."""
+    rows = logits.shape[-1]
+    local = labels - start
+    inside = (local >= 0) & (local < rows)
+    picked = logits.gather(-1, torch.where(inside, local, 0)[..., None])
+    return (torch.exp(logits - m[..., None]).sum(dim=-1),
+            torch.where(inside, picked[..., 0], 0.0))
+
+
+class VocabParallelNLL(torch.autograd.Function):
+    """``TokenNLL`` over a vocabulary split over ``tp``: each rank holds
+    f32 logits [..., V / tp] of its vocabulary range and the labels
+    whole.  One all-reduce (max) over ``tp`` gives each row's largest
+    logit, a second (sum) the sum of exponentials and the target's logit,
+    which the rank holding it contributes; the backward writes this
+    rank's d_logits = (softmax - onehot) * g with no exchange (the
+    logits' input sums its gradient over ``tp``, ``copy_to_tp``)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        labels = labels.long()
+        start = tp.rank * logits.shape[-1]
+        m = sharding.all_reduce_max(logits.amax(dim=-1), tp)
+        sums = torch.stack(vocab_shard_sums(logits, labels, start, m))
+        sumexp, ll = sharding.reduce_from_tp(sums, tp)
+        lse = m + torch.log(sumexp)
+        ctx.save_for_backward(logits, labels - start, lse)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, local, lse = ctx.saved_tensors
+        inside = (local >= 0) & (local < logits.shape[-1])
+        d = torch.exp(logits - lse[..., None])
+        d.scatter_add_(-1, torch.where(inside, local, 0)[..., None],
+                       -inside.to(d.dtype)[..., None])
+        return d.mul_(g[..., None]), None, None
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              tp: Optional[sharding.TPShard] = None) -> torch.Tensor:
+    """Per-token NLL; with ``tp`` the logits are this rank's vocabulary
+    shard (``VocabParallelNLL``)."""
+    if tp is None:
+        return TokenNLL.apply(logits, labels)
+    return VocabParallelNLL.apply(logits, labels, tp)
+
+
+def head_shard(module: nn.Module, params: Dict[str, torch.Tensor]
+               ) -> Optional[sharding.TPShard]:
+    """The ``tp`` shard of ``module``'s vocabulary when ``params`` hold a
+    vocabulary-parallel ``lm_head`` (None: whole)."""
+    return sharding.tp_shard(params["lm_head.weight"],
+                             module.cfg.vocab_size)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  weights: Optional[torch.Tensor] = None, *,
+                  tp: Optional[sharding.TPShard] = None) -> torch.Tensor:
     """Mean softmax cross-entropy over integer labels, f32; ``weights``
     (labels' shape) make it a weighted mean (packed rows zero pad and
-    cross-document targets)."""
-    nll = token_nll(logits.float(), labels)
+    cross-document targets); with ``tp`` the logits are this rank's
+    vocabulary shard."""
+    nll = token_nll(logits.float(), labels, tp)
     if weights is None:
         return nll.mean()
     w = weights.float()
     return (nll * w).sum() / w.sum().clamp(min=1.0)
 
 
-def _chunk_nll_sum(hidden, head_weight, labels, weights):
+def _chunk_nll_sum(hidden, head_weight, labels, weights, tp):
     logits = F.linear(hidden.float(), head_weight.float())
-    return (token_nll(logits, labels) * weights).sum()
+    return (token_nll(logits, labels, tp) * weights).sum()
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, head_weight: torch.Tensor,
                           labels: torch.Tensor,
                           weights: Optional[torch.Tensor] = None, *,
-                          chunk: int = 1024) -> torch.Tensor:
+                          chunk: int = 1024,
+                          tp: Optional[sharding.TPShard] = None
+                          ) -> torch.Tensor:
     """Mean next-token cross-entropy without the full logits: the head
     (``head_weight`` [vocab, dim], the port's layout) and the NLL run per
     ``chunk`` positions under ``torch.utils.checkpoint``, so one
     [b, chunk, vocab] f32 tile lives at a time in each direction and the
     backward recomputes each chunk's head (the reference's scan,
     ``steps.py:176-221``).  ``hidden`` [b, s, dim] is the final-normed
-    output (``Llama(..., return_hidden=True)``)."""
+    output (``Llama(..., return_hidden=True)``).  With ``tp`` the head is
+    this rank's vocabulary shard (``VocabParallelNLL``)."""
     b, s, _ = hidden.shape
     if s % chunk:
         raise ValueError(f"seq len {s} not divisible by ce chunk {chunk}")
+    hidden = sharding.copy_to_tp(hidden, tp)
     w = (torch.ones(b, s, device=hidden.device) if weights is None
          else weights.float())
     loss_sum = hidden.new_zeros((), dtype=torch.float32)
@@ -87,7 +152,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, head_weight: torch.Tensor,
         sl = slice(i, i + chunk)
         loss_sum = loss_sum + checkpoint(
             _chunk_nll_sum, hidden[:, sl], head_weight, labels[:, sl],
-            w[:, sl], use_reentrant=False)
+            w[:, sl], tp, use_reentrant=False)
     return loss_sum / w.sum().clamp(min=1.0)
 
 
@@ -162,22 +227,27 @@ def lm_loss(module: nn.Module, params: Dict[str, torch.Tensor],
     count)`` the model runs on that chunk of the sequence, the targets cut
     from the whole (``next_token_inputs``).  With ``with_aux`` returns
     ``(loss, aux)``, aux the MoE load-balancing loss averaged over
-    layers."""
+    layers.  Under ``tp`` (a vocabulary-parallel head in ``params``) the
+    loss is the vocabulary-parallel cross-entropy over each rank's
+    logits, which are never gathered."""
     tokens, segment_ids, targets, weights = next_token_inputs(
         tokens, segment_ids, sequence)
+    tp = head_shard(module, params)
     kwargs = {} if segment_ids is None else {"segment_ids": segment_ids}
     if ce_chunk is not None:
         kwargs["return_hidden"] = True
+    elif tp is not None:
+        kwargs["vocab_shard"] = True
     if with_aux:
         kwargs["return_aux"] = True
     out = torch.func.functional_call(module, params, (tokens,), kwargs)
     if with_aux:
         out, aux = out
     if ce_chunk is None:
-        loss = cross_entropy(out, targets, weights=weights)
+        loss = cross_entropy(out, targets, weights=weights, tp=tp)
     else:
         loss = chunked_cross_entropy(out, params["lm_head.weight"], targets,
-                                     weights, chunk=ce_chunk)
+                                     weights, chunk=ce_chunk, tp=tp)
     return (loss, aux) if with_aux else loss
 
 

@@ -214,10 +214,21 @@ def sharded_steps(rank, world, inp):
             batch = _rows(inp["tokens"], mesh)
             if segments:
                 batch = (batch, _rows(inp["segment_ids"], mesh))
+            grads = None
+            if "grad_dtype" in kw:
+                # This process's own gradients of its rows at the step's
+                # parameters and tp split, in the gradient dtype, whole
+                # over tp (the test sums them as the mesh should).
+                params = {n: state.gather(n, p.detach(),
+                                          sstep.plans[n].gather)
+                          for n, p in state.module.named_parameters()}
+                grads, _ = make_lm_grad_fn(**kw)(state, batch, params=params)
+                grads = {n: state.gather(n, g, ("tp",)).float().numpy()
+                         for n, g in grads.items()}
             state, metrics = sstep(state, batch)
         results[key] = {"loss": float(metrics["loss"]),
                         "params": _full(state),
-                        "batch": (sh.index, sh.count)}
+                        "batch": (sh.index, sh.count), "grads": grads}
     # The rules place every family on fsdp=2 x tp=2 (divisibility).
     mesh = _mesh(fsdp=2, tp=2)
     results["placed"] = {
@@ -615,7 +626,8 @@ def _same_everywhere(*tensors) -> dict:
 
 @case
 def serve_mesh(rank, world, inp):
-    """Llama (and with ``inp["t5"]`` T5) served under ``inp["mesh"]``:
+    """Llama (and with ``inp["t5"]`` T5, with ``inp["mixtral"]`` Mixtral)
+    served under ``inp["mesh"]``:
     the lock path from the reference's params (greedy and seeded), the
     decode of every rank bit-equal, beam search, the fixed-slot pool and
     the paged engine (pipelined and synchronous, with ``num_pages``),
@@ -703,6 +715,12 @@ def serve_mesh(rank, world, inp):
         out["t5"] = _service_run(
             Seq2SeqGenerationService(t5, mesh=mesh, lockstep=ls), leader,
             lambda svc: svc.generate([[5, 9, 2, 7]], max_new_tokens=5))
+    if inp.get("mixtral"):
+        moe = _jax_llama(inp["mixtral"], mesh, "mixtral_debug",
+                         max_seq_len=64)
+        out["mixtral"] = _service_run(
+            GenerationService(moe, mesh=mesh, lockstep=ls), leader,
+            lambda svc: svc.generate([[5, 9, 2, 7]], max_new_tokens=6))
     if inp.get("checkpoint"):
         from kubeflow_tpu_torch.models.serve import load_service
         from kubeflow_tpu_torch.parallel.sharding import (
@@ -870,6 +888,213 @@ def moe_ep(rank, world, inp):
                             slot_len=64, quantum=3)
     out["fixed"] = _engine(sched, ls.leader, reqs)[0]
     return out
+
+# -- every family's tensor-parallel compute, batch statistics over dp ------------
+
+
+FAMILY_MODELS = {"resnet": "resnet_tiny", "vit": "vit_debug",
+                 "bert": "bert_debug", "t5": "t5_debug",
+                 "llama": "llama_debug", "mixtral": "mixtral_debug"}
+
+
+def masked_grad_fn():
+    """A classification grad function whose batch is ``(tokens, labels,
+    attention_mask)``: BERT's padded rows (the reference's step passes no
+    mask, so the test computes the reference's loss with one)."""
+    from kubeflow_tpu_torch.train import steps
+
+    def grad_fn(state, batch, *, params=None, scale=None):
+        tokens, labels, mask = batch
+        params = steps._differentiable(state, params)
+        logits = torch.func.functional_call(
+            state.module, params, (tokens,),
+            {"attention_mask": mask, "train": True})
+        loss = steps.cross_entropy(logits, labels)
+        grads = torch.autograd.grad(loss if scale is None else loss * scale,
+                                    list(params.values()))
+        return dict(zip(params, grads)), {"loss": loss.detach()}
+
+    grad_fn.batch_weight = lambda batch: torch.tensor(
+        float(batch[0].shape[0]))
+    return grad_fn
+
+
+def seq2seq_grad_fn():
+    """T5's teacher-forced grad function over ``(source, target,
+    source_mask)``: the mean cross-entropy of each target token's next
+    (``tests/test_t5.py``'s loss), vocabulary-parallel under tp."""
+    from kubeflow_tpu_torch.train import steps
+
+    def grad_fn(state, batch, *, params=None, scale=None):
+        src, tgt, mask = batch
+        params = steps._differentiable(state, params)
+        logits = torch.func.functional_call(
+            state.module, params, (src, tgt),
+            {"source_mask": mask, "vocab_shard": True})
+        weights = torch.ones(tgt.shape)
+        weights[:, -1] = 0.0
+        loss = steps.cross_entropy(
+            logits, torch.roll(tgt, -1, dims=1), weights,
+            tp=steps.head_shard(state.module, params))
+        grads = torch.autograd.grad(loss if scale is None else loss * scale,
+                                    list(params.values()))
+        return dict(zip(params, grads)), {"loss": loss.detach()}
+
+    grad_fn.batch_weight = lambda batch: torch.tensor(
+        float(batch[1].shape[0] * (batch[1].shape[1] - 1)))
+    return grad_fn
+
+
+def family_state(family, state_np, overrides=None):
+    """A one-process train state of ``family`` on ``state_np`` (name ->
+    numpy): SGD 0.1 with momentum 0.9 for ResNet (the image trainer's),
+    plain SGD at lr 1 for the others, so the update is the gradient:
+    AdamW's first update is near lr * sign(g), which swings with f32
+    summation-order noise wherever a gradient is near its eps (a ViT's
+    k_proj and a packed Llama's v_proj have such elements)."""
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.train import steps
+
+    model = create_model(FAMILY_MODELS[family], device="cpu",
+                         **(overrides or {}))
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in state_np.items()})
+    model.requires_grad_(True)
+    if family == "resnet":
+        opt = steps.sgd(model.parameters(), 0.1, momentum=0.9)
+    else:
+        opt = steps.sgd(model.parameters(), 1.0)
+    return steps.TrainState(model, opt)
+
+
+def family_grad_fn(family, opts):
+    from kubeflow_tpu_torch.train import steps
+
+    if family in ("resnet", "vit"):
+        return steps.make_classification_grad_fn(
+            has_batch_stats=family == "resnet")
+    if family == "bert":
+        return masked_grad_fn()
+    if family == "t5":
+        return seq2seq_grad_fn()
+    return steps.make_lm_grad_fn(**opts)
+
+
+def _stats(state) -> dict:
+    return {k: t.numpy().copy() for k, t in state.batch_stats.items()}
+
+
+@case
+def tp_families(rank, world, inp):
+    """One sharded step per run ``(key, family, batch, mesh axes,
+    options)`` on this process's rows of ``inp["batches"][batch]``: the
+    global loss, the whole updated parameters, the batch stats, and
+    each parameter's gather axes in the step's plan.  Options: the grad
+    function's keywords and ``n_accum``.  With ``inp["walk"]`` (a mesh
+    spec), each family served under it: the axes of every gather-at-use
+    step.  With ``inp["bias"]``, an ``Mlp`` under ``tp`` over the whole
+    world: its output and every parameter's gradient, whole."""
+    from kubeflow_tpu_torch.parallel.context import global_mesh
+    from kubeflow_tpu_torch.parallel.sharding import rules_for_model
+    from kubeflow_tpu_torch.parallel.train import (
+        make_sharded_train_step,
+        shard_train_state,
+    )
+
+    out = {}
+    for key, family, batch_name, axes, opts in inp.get("runs", ()):
+        opts = dict(opts)
+        n_accum = opts.pop("n_accum", 1)
+        fam = inp["families"][family]
+        state = family_state(family, fam["state"], fam.get("overrides"))
+        mesh = _mesh(**axes)
+        rules = rules_for_model(state.module)
+        with global_mesh(mesh):
+            state = shard_train_state(state, mesh, rules)
+            step, _ = make_sharded_train_step(
+                family_grad_fn(family, opts), state, mesh, rules,
+                n_accum=n_accum)
+            batch = tuple(_rows(x, mesh) for x in inp["batches"][batch_name])
+            state, metrics = step(state, batch if len(batch) > 1
+                                  else batch[0])
+        out[key] = {"loss": float(metrics["loss"]), "params": _full(state),
+                    "stats": _stats(state),
+                    "gather": {n: p.gather for n, p in step.plans.items()}}
+    if inp.get("walk"):
+        out["walk"] = _serving_gathers(world, inp["walk"])
+    if inp.get("bias"):
+        out["bias"] = _bias_grads(world, inp["bias"])
+    return out
+
+
+def _serving_gathers(world, spec):
+    """Family -> {parameter: the mesh axes its ``GatherAtUse`` gathers
+    over}, each family built by ``shard_for_serving`` under ``spec``."""
+    from torch.nn.utils import parametrize
+
+    from kubeflow_tpu_torch.models import create_model
+    from kubeflow_tpu_torch.parallel.mesh import AXIS_NAMES, axis_size
+    from kubeflow_tpu_torch.parallel.sharding import (
+        GatherAtUse,
+        rules_for_model,
+        shard_for_serving,
+    )
+    from kubeflow_tpu_torch.train.run import parse_mesh
+
+    mesh = _mesh(**dataclasses.asdict(parse_mesh(spec, world)))
+    groups = [(mesh.get_group(a), a) for a in AXIS_NAMES
+              if axis_size(mesh, a) > 1]
+    axis_of = lambda g: next(a for grp, a in groups if grp is g)
+    out = {}
+    for name in FAMILY_MODELS.values():
+        model = create_model(name, device="meta")
+        shard_for_serving(model, mesh, rules_for_model(model), device="cpu",
+                          seed=0)
+        found = {}
+        for mod_name, mod in model.named_modules():
+            if not parametrize.is_parametrized(mod):
+                continue
+            for pname, plist in mod.parametrizations.items():
+                for p in plist:
+                    if isinstance(p, GatherAtUse):
+                        found[f"{mod_name}.{pname}"] = [
+                            axis_of(g) for g, _ in p.steps]
+        out[name] = found
+    return out
+
+
+def _bias_grads(world, inp):
+    """An ``Mlp`` (biased fc1 column-parallel, fc2 row-parallel) with the
+    whole layer's values, its weights cut to this process's tp shard
+    over tp = world: the output and the gradients of sum(y^2), the
+    weights' gathered over tp."""
+    from kubeflow_tpu_torch.models.layers import Mlp
+    from kubeflow_tpu_torch.parallel.context import global_mesh
+    from kubeflow_tpu_torch.parallel.mesh import axis_index
+    from kubeflow_tpu_torch.parallel.sharding import all_gather_dim
+
+    mesh = _mesh(tp=world)
+    tp = axis_index(mesh, "tp")
+    w = {k: torch.from_numpy(v) for k, v in inp["params"].items()}
+    d, f = w["fc1.weight"].shape[1], w["fc1.weight"].shape[0]
+    mlp = Mlp(d, f, dtype=torch.float32)
+    local = dict(w, **{"fc1.weight": w["fc1.weight"].chunk(world)[tp],
+                       "fc2.weight": w["fc2.weight"].chunk(world, 1)[tp]})
+    for name, t in local.items():
+        mod, attr = name.split(".")
+        setattr(getattr(mlp, mod), attr,
+                torch.nn.Parameter(t.clone(), requires_grad=True))
+    with global_mesh(mesh):
+        y = mlp(torch.from_numpy(inp["x"]))
+    grads = dict(zip(local, torch.autograd.grad(
+        (y ** 2).sum(), [getattr(getattr(mlp, n.split(".")[0]),
+                                 n.split(".")[1]) for n in local])))
+    group = mesh.get_group("tp")
+    grads["fc1.weight"] = all_gather_dim(grads["fc1.weight"], group, 0)
+    grads["fc2.weight"] = all_gather_dim(grads["fc2.weight"], group, 1)
+    return {"y": y.detach().numpy(),
+            "grads": {k: g.numpy() for k, g in grads.items()}}
+
 
 if __name__ == "__main__":
     _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]),

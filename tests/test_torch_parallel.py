@@ -230,29 +230,59 @@ def _one_process(params, tokens, *, segments=None, n_accum=1, **kw):
                                     for k, p in model.named_parameters()}
 
 
-def _per_process_bf16(params, tokens, n_data):
-    """The update a mesh makes from bf16 gradients: each of the
-    ``n_data`` processes' rows gives its own bf16 gradient (the one-process
-    grad function on those rows), the mesh sums them in f32.  (One process
-    rounds the whole batch's gradient once instead, so an element whose
-    rows' terms cancel may round elsewhere there; the reference's mesh
-    sums bf16 partial gradients too.)"""
-    def fresh():
-        model = create_model("llama_debug", device="cpu",
-                             param_dtype=torch.float32, **DEBUG)
-        model.load_state_dict({k: torch.from_numpy(v)
-                               for k, v in params.items()})
-        return TrainState(model.requires_grad_(True),
-                          _optimizer(model.parameters()))
+def _fresh_state(params):
+    model = create_model("llama_debug", device="cpu",
+                         param_dtype=torch.float32, **DEBUG)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in params.items()})
+    return TrainState(model.requires_grad_(True),
+                      _optimizer(model.parameters()))
 
+
+def _bf16_step(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at each element's magnitude (8 bits of
+    significand; the smallest normal's spacing at 0)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7).astype(np.float32)
+
+
+def _per_process_bf16(params, tokens, results, key):
+    """The update a mesh makes from bf16 gradients, against an independent
+    baseline.  Each data process's rows give its own bf16 gradient, which
+    it computed at its tp split (``results``' ``grads``, one process a data
+    index); the mesh sums them in f32.  (One process rounds the whole
+    batch's gradient once instead, so an element whose rows' terms cancel
+    may round elsewhere there; the reference's mesh sums bf16 partial
+    gradients too.)  Each process's gradients are held here, element by
+    element, to the one-process grad function's bf16 gradients of the
+    same rows with the whole model: within one bf16 step of the larger
+    magnitude (the tp split sums the f32 terms in another order before
+    they are rounded, so a value may round to its neighbour), plus 16 f32
+    steps of the tensor's largest magnitude (that order's noise, which
+    decides the rounding of an element whose terms cancel).  The update
+    returned is made from the world's gradients, as its mesh sums them."""
     grad_fn = make_lm_grad_fn(grad_dtype=torch.bfloat16)
+    per = {r[key]["batch"]: r[key]["grads"] for r in results}
+    n_data = len(per)
+    chunks = np.split(tokens, n_data)
+    for (index, count), grads in per.items():
+        assert count == n_data
+        want, _ = grad_fn(_fresh_state(params),
+                          torch.from_numpy(chunks[index].copy()))
+        for name, g in grads.items():
+            w = want[name].float().numpy()
+            # One bf16 step, and the f32 sums' order noise that the
+            # rounding carries: 16 f32 steps of the tensor's largest.
+            tol = (_bf16_step(np.maximum(np.abs(g), np.abs(w)))
+                   + 16 * np.finfo(np.float32).eps * np.abs(w).max())
+            worst = (np.abs(g - w) - tol).max()
+            assert worst <= 0, (key, index, name, worst)
+    state = _fresh_state(params)
     total = None
-    for rows in np.split(tokens, n_data):
-        grads, _ = grad_fn(fresh(), torch.from_numpy(rows.copy()))
-        grads = {k: g.float() / n_data for k, g in grads.items()}
+    for grads in per.values():
+        grads = {k: torch.from_numpy(g) / n_data for k, g in grads.items()}
         total = grads if total is None else {
             k: total[k] + g for k, g in grads.items()}
-    state = fresh()
     state.apply_gradients(total)
     return {k: p.detach().numpy() for k, p in state.module.named_parameters()}
 
@@ -276,8 +306,9 @@ def test_sharded_step_matches_the_reference_and_one_process(tmp_path):
     the global loss within 1e-4 of the reference's one-device step
     (``tests/test_parallel.py:243-258``, ``:385``) and of the port's
     one-process step, the updated parameters within 1e-5 of the port's
-    one-process step (bf16 gradients: of its grad function's bf16
-    gradients of each process's rows, summed, ``_per_process_bf16``)."""
+    one-process step (bf16 gradients: of each data process's bf16
+    gradients of its rows, summed, each held to the one-process grad
+    function's on the same rows, ``_per_process_bf16``)."""
     state, tokens, params = _setup()
     seg = _segments()
     results = run_world("sharded_steps", 4, tmp_path, {
@@ -296,8 +327,7 @@ def test_sharded_step_matches_the_reference_and_one_process(tmp_path):
             assert abs(got - float(want["loss"])) < LOSS_TOL, key
         loss, one = _one_process(params, tokens, segments=segments, **opts)
         if "grad_dtype" in opts:
-            bf16 = _per_process_bf16(params, tokens,
-                                     results[0][key]["batch"][1])
+            bf16 = _per_process_bf16(params, tokens, results, key)
         assert abs(results[0][key]["loss"] - loss) < LOSS_TOL, key
         for r in results:
             assert r[key]["loss"] == results[0][key]["loss"]
@@ -472,6 +502,9 @@ TRAIN_ARGV = {
     "lm": ["--model", "llama_debug", "--batch", "4", "--seq", "32"],
     "image": ["--task", "image", "--model", "vit_debug", "--batch", "4",
               "--image-size", "32", "--num-classes", "10", "--lr", "0.1"],
+    # The reference's default image model, with batch statistics.
+    "resnet": ["--task", "image", "--model", "resnet_tiny", "--batch", "4",
+               "--image-size", "16", "--num-classes", "10", "--lr", "0.1"],
 }
 
 
@@ -497,7 +530,8 @@ def _drawn_together(task, args, n):
 @pytest.mark.parametrize("task", sorted(TRAIN_ARGV))
 def test_train_run_distributed_dp2_on_cpu(tmp_path, task):
     """``train.run --distributed --mesh dp=2 --device cpu`` at world size 2
-    (torchrun's env), the LM and the image task: both processes log the
+    (torchrun's env), the LM and the image task (a ViT, and ResNet, whose
+    batch statistics are the global batch's): both processes log the
     same global losses, and the first equals the one-process step's loss
     on the batch they drew together."""
     from kubeflow_tpu_torch.train import run as trainer

@@ -85,8 +85,8 @@ def _lock(svc, requests):
 @pytest.fixture(scope="module")
 def reference(devices8):
     """The reference's llama_debug and t5_debug services, unsharded and
-    under ``tp=2,fsdp=4`` on its 8 virtual devices: their params and the
-    greedy tokens of ``ROWS``.  Each is built as its ``load_service``
+    under ``tp=2,fsdp=4`` on its 8 virtual devices, and its mixtral_debug
+    service unsharded: their params and the greedy tokens of ``ROWS``.  Each is built as its ``load_service``
     builds it (``model.init`` from seed 0, jitted here; the sharded ones
     on the same params by ``shard_params``)."""
     from kubeflow_tpu.models import create_model as jax_model
@@ -107,6 +107,8 @@ def reference(devices8):
 
     llama = jax_model("llama_debug", max_seq_len=64)
     params, sharded = init(llama)
+    mixtral = jax_model("mixtral_debug", max_seq_len=64)
+    mixtral_params, _ = init(mixtral)
     t5 = jax_model("t5_debug")
     t5_params, t5_sharded = init(t5, jnp.ones((1, 4), jnp.int32))
     return {
@@ -115,6 +117,9 @@ def reference(devices8):
         "spmd": JaxService(llama, sharded, mesh=mesh).generate(
             ROWS, max_new_tokens=6),
         "rows_index": REQUESTS.index((ROWS, 6, 0.0, None, 0)),
+        "mixtral": _tree(mixtral_params),
+        "mixtral_greedy": JaxService(mixtral, mixtral_params).generate(
+            ROWS, max_new_tokens=6),
         "t5": _tree(t5_params),
         "t5_plain": JaxSeq2Seq(t5, t5_params).generate(ROWS,
                                                        max_new_tokens=5),
@@ -203,8 +208,9 @@ def test_tp_meshes_serve_the_reference_tokens(tmp_path, reference,
                                               unsharded):
     """World 2, ``tp=2``: the lock path, the fixed-slot pool and the paged
     engine (pool_shards 1: a tp-only mesh has no data axis to split the
-    pool over, and is not a fallback), beam search, T5, and a checkpoint
-    written by the port's trainer, restored slice by slice.
+    pool over, and is not a fallback), beam search, T5 and Mixtral (each
+    against the reference's tokens), and a checkpoint written by the
+    port's trainer, restored slice by slice.
 
     World 4, ``tp=2,fsdp=2``: the same tokens; the fixed pool's slots
     split over fsdp (each process steps its own two), the paged pool's
@@ -228,7 +234,7 @@ def test_tp_meshes_serve_the_reference_tokens(tmp_path, reference,
             "mesh": "tp=2", "llama": reference["llama"],
             "requests": REQUESTS, "prefix_requests": PREFIX_REQUESTS,
             "num_pages": 33, "late": LATE, "t5": reference["t5"],
-            "checkpoint": str(ckpt)})
+            "mixtral": reference["mixtral"], "checkpoint": str(ckpt)})
         results4 = four.result({
             "mesh": "tp=2,fsdp=2", "llama": reference["llama"],
             "requests": REQUESTS, "prefix_requests": PREFIX_REQUESTS,
@@ -241,11 +247,15 @@ def test_tp_meshes_serve_the_reference_tokens(tmp_path, reference,
         assert r["slices_equal"]
         # q/k/v/o, gate/up/down, the embedding and the head are cut.
         assert len(r["sliced"]) == 2 * 7 + 2
+    # T5 and Mixtral computed as their tp shards (heads, MLP and expert
+    # columns, the vocabulary-parallel embedding and head).
     assert lead["t5"] == unsharded["t5"] == reference["t5_plain"] \
         == reference["t5_spmd"]
+    assert lead["mixtral"] == reference["mixtral_greedy"]
     assert lead["checkpoint_tokens"] == want_ckpt
     for r in results[1:]:
         assert r["t5"] == [lead["t5"]]
+        assert r["mixtral"] == [lead["mixtral"]]
         assert r["checkpoint_tokens"] == [want_ckpt]
 
     results = results4
