@@ -107,6 +107,18 @@ Between 6c and 7 (llama3_8b is freed after beam):
    ``generate``, the best beam rescored on the search's route and by
    one teacher-forced forward no worse than 1 beam's within
    BEAM_SCORE_TOL a token, ms a step.
+6d1a. platform_serve: the port's GPU pod pieces on this card.  The
+   accelerator table's product is this card's name; ``serving_deployment``
+   for llama3_8b at one GPU asks for one ``nvidia.com/gpu`` on that
+   product.  Its container's command and env run as a subprocess as the
+   kubelet would start them (``python`` this interpreter, ``--port`` a
+   free port): /readyz, then request A, whose tokens are held to the same
+   request through the same default paged engine in this process (equal,
+   or the teacher-forced gap), and whose attention calls the child's
+   /metrics counts on the kernel route; then the same Deployment with
+   ``mesh="tp=1"``, its command under ``parallel/launch.py`` (NCCL at
+   world size 1), token-equal to the first.  Each child is stopped with
+   SIGTERM, its exit status and every process under it checked.
 6d2. t5_serve: ``load_service("t5_large")`` (24 + 24 layers, d1024,
    random bf16 weights from seed 0, W_q scaled as T5 initialises it:
    ``t5_conditioned``) over HTTP through the wire client
@@ -199,6 +211,13 @@ After 11:
    state sharded by llama_rules and trained by the sharded step; losses
    against the train phase's (MESH_LOSS_TOL), exact launches a step,
    step seconds and peak memory; the group destroyed after it.
+11b. platform_job: ``job_worker_container`` for one slice of one host of
+   one GPU over a template running ``train.run`` with MESH_ARGS cut to
+   PLATFORM_JOB_STEPS steps, ``KFT_CHECKPOINT_DIR`` a new directory under
+   ``build/checkpoints``: its command (under the launcher) and env run as
+   a subprocess, worker 0's name resolved to 127.0.0.1; it exits 0, its
+   losses equal 11a's first steps within MESH_LOSS_TOL, its checkpoint
+   lands, and the directory is removed.
 Within 3, K2 at the dense-cache chunk's shape (b2, q 300 over k 812).
 Within 7, the attention kernels at ViT-B/16's and BERT-base's shapes
 (b64 s197 and b32 s128, h12, d64, non-causal), timed; and K1 at
@@ -218,6 +237,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -425,6 +445,18 @@ MESH_ARGS = TRAIN_ARGS + ["--distributed", "--mesh", "fsdp=1"]
 # as VARIANT_TOL's chunked head.  A step that applied no update or a wrong
 # one moves the loss by more (the train phase's 5 updates move it ~1e-3).
 MESH_LOSS_TOL = 1e-5
+
+# The platform phase: the port's GPU pod pieces (``platform/gpu/pods.py``)
+# for one GPU of this card, each container's command and env run as a
+# subprocess the way the kubelet would start it.  A replica must answer
+# /readyz within PLATFORM_READY_S of its start (llama3_8b built on the
+# card from the seed, the default paged engine's pool, one warm
+# generate); a job's worker runs PLATFORM_JOB_STEPS steps of MESH_ARGS
+# and its final checkpoint within PLATFORM_JOB_S.
+PLATFORM_ACCELERATOR = "h100-80gb"
+PLATFORM_READY_S = 300.0
+PLATFORM_JOB_STEPS = 2
+PLATFORM_JOB_S = 600.0
 
 # The int8 phase: llama3_8b from the same seed, weight-only int8
 # (load_service(quantize="int8")), the schedule requests through the paged
@@ -3947,7 +3979,8 @@ def phase_mesh(torch, train):
     state sharded by llama_rules and trained by the sharded step.  The
     group is gone after it.  Losses held to the train phase's step by step
     (MESH_LOSS_TOL), launches a step equal to the train phase's, step
-    seconds and peak memory beside it.  Returns the launch counts."""
+    seconds and peak memory beside it.  Returns the launch counts and the
+    losses."""
     import torch.distributed as dist
 
     from kubeflow_tpu_torch.models.llama import CONFIGS
@@ -4003,7 +4036,7 @@ def phase_mesh(torch, train):
           "group_destroyed": not dist.is_initialized(), "done": done})
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, losses
 
 
 def run_trainer(argv):
@@ -6115,6 +6148,317 @@ def phase_t5_grad(torch, dev):
     return counts
 
 
+def nvidia_smi_name_power() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def kubelet_env(container, ordinal=0, resolve=None):
+    """This process's environment with ``container``'s env over it, as the
+    kubelet sets it: the pod-index fieldRef becomes ``ordinal`` and every
+    name in ``resolve`` (worker hostnames, which no DNS answers here)
+    becomes its address wherever it stands in a value."""
+    env = dict(os.environ)
+    for e in container.get("env", []):
+        if "valueFrom" in e:
+            path = e["valueFrom"]["fieldRef"]["fieldPath"]
+            if path != "metadata.labels['apps.kubernetes.io/pod-index']":
+                raise AssertionError(f"unresolvable fieldRef {path}")
+            env[e["name"]] = str(ordinal)
+        else:
+            value = e["value"]
+            for name, addr in (resolve or {}).items():
+                value = value.replace(name, addr)
+            env[e["name"]] = value
+    return env
+
+
+def pod_command(command, port=None):
+    """``command`` as this machine runs it: each ``python`` is this
+    interpreter, and with ``port`` the server's ``--port`` is it."""
+    cmd = [sys.executable if c == "python" else c for c in command]
+    if port is not None:
+        cmd[cmd.index("--port") + 1] = str(port)
+    return cmd
+
+
+def process_tree(pid):
+    """The pids under ``pid`` (from /proc), children before theirs."""
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        try:
+            tids = os.listdir(f"/proc/{p}/task")
+        except FileNotFoundError:
+            continue
+        for tid in tids:
+            try:
+                with open(f"/proc/{p}/task/{tid}/children") as f:
+                    kids = [int(k) for k in f.read().split()]
+            except FileNotFoundError:
+                continue
+            out += kids
+            todo += kids
+    return out
+
+
+class Pod:
+    """One container's command run as the kubelet would start it, its
+    output in a temporary file; ``stop`` ends it and everything it
+    started."""
+
+    def __init__(self, command, env, what):
+        self.what = what
+        self.log = tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            command, cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=env, stdout=self.log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+
+    def output(self) -> str:
+        self.log.seek(0)
+        return self.log.read()
+
+    def fail(self, why):
+        tail = self.output()[-6000:]
+        self.stop()
+        raise AssertionError(f"{self.what}: {why}\n{tail}")
+
+    def wait(self, timeout):
+        """The exit code of a run to its end within ``timeout``."""
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.fail(f"still running after {timeout} s")
+
+    def stop(self):
+        """SIGTERM, then the exit status; a process left under it after
+        30 s is killed, and the stop then fails."""
+        tree = process_tree(self.proc.pid)
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(timeout=30)
+        deadline = time.monotonic() + 30
+        left = [p for p in tree if os.path.exists(f"/proc/{p}")]
+        while left and time.monotonic() < deadline:
+            time.sleep(0.2)
+            left = [p for p in left if os.path.exists(f"/proc/{p}")]
+        for p in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(p, signal.SIGKILL)
+        self.log.close()
+        if left:
+            raise AssertionError(f"{self.what}: processes {left} outlived "
+                                 "their launcher")
+        return rc
+
+
+def served_request_a(pod, port, body, what):
+    """Wait for the replica's /readyz, then request A once, with the
+    attention route counters read from its /metrics before and after.
+    Returns (seconds to ready, tokens, request seconds, counter rises)."""
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + PLATFORM_READY_S
+    while True:
+        if pod.proc.poll() is not None:
+            pod.fail(f"exited {pod.proc.returncode} before it was ready")
+        try:
+            status, ready = http(base, "/readyz", timeout=PLATFORM_READY_S)
+            if status == 200 and ready.get("ready"):
+                break
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            pod.fail(f"not ready within {PLATFORM_READY_S} s")
+        time.sleep(0.5)
+    ready_s = time.perf_counter() - pod.t0
+    names = {i: f'attention_kernel_calls_total{{impl="{i}"}}'
+             for i in ("kernel", "plain")}
+    _, before = http(base, "/metrics")
+    t0 = time.perf_counter()
+    status, out = http(base, "/v1/generate", body)
+    request_s = time.perf_counter() - t0
+    _, after = http(base, "/metrics")
+    rose = {i: metric_value(after, n) - metric_value(before, n)
+            for i, n in names.items()}
+    if status != 200 or rose["kernel"] <= 0 or rose["plain"] != 0:
+        pod.fail(f"request A: {status}, attention calls by route {rose}")
+    return ready_s, out["tokens"], request_s, rose
+
+
+def phase_platform_serve(torch, dev, model, tol):
+    """The serving replica as the platform's Deployment starts it: the
+    accelerator table against this card; then ``serving_deployment``'s
+    container for llama3_8b on one GPU run as a subprocess (``python``
+    this interpreter, ``--port`` a free port, nothing else edited):
+    /readyz, then request A, its tokens held to the same request through
+    the same engine in this process (token equality, or the teacher-forced
+    gap ``tol``), the route counter on its /metrics; then the same with
+    ``mesh="tp=1"``, its command under the launcher (NCCL at world size 1,
+    rank 0 serving HTTP), whose tokens equal the first replica's.  Each
+    replica is stopped and its exit status reported."""
+    from kubeflow_tpu_torch.models.serve import GenerationService
+    from kubeflow_tpu_torch.platform.gpu import ACCELERATORS, pods, slice_spec
+
+    smi = nvidia_smi_name_power()
+    acc = ACCELERATORS[PLATFORM_ACCELERATOR]
+    card = smi.split(",")[0].strip()
+    if acc.product != card.replace(" ", "-"):
+        raise AssertionError(f"{PLATFORM_ACCELERATOR}'s product "
+                             f"{acc.product!r} is not this card, {card!r}")
+    spec = slice_spec(PLATFORM_ACCELERATOR, 1)
+
+    def deployment(mesh):
+        dep = pods.serving_deployment(
+            ns="smoke", name="llama", revision=1, replicas=1,
+            model="llama3_8b", spec=spec, image="kubeflow-tpu-torch",
+            mesh=mesh)
+        pod = dep["spec"]["template"]["spec"]
+        container = pod["containers"][0]
+        want = {"nvidia.com/gpu": "1"}
+        if (container["resources"] != {"limits": want, "requests": want}
+                or pod["nodeSelector"] != {"nvidia.com/gpu.product":
+                                           acc.product}):
+            raise AssertionError(f"platform: deployment asks {pod}")
+        return container
+
+    body = schedule_bodies(torch, dev, model.cfg.vocab_size)["A"]
+    # The same request through the same engine (the service's default
+    # paged engine at its default geometry) in this process.
+    service = GenerationService(model)
+    server, thread, base = http_server(service, "llama3_8b")
+    try:
+        http(base, "/readyz")
+        t0 = time.perf_counter()
+        _, ref = http(base, "/v1/generate", body)
+        ref_s = time.perf_counter() - t0
+    finally:
+        stop_server(service, server, thread)
+    # The server's app holds the service and its 8.6 GB pool.
+    del service, server, thread
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+
+    rows, tokens = [], None
+    for mesh in (None, "tp=1"):
+        container = deployment(mesh)
+        port = free_port()
+        cmd = pod_command(container["command"], port)
+        what = f"platform_serve{' mesh ' + mesh if mesh else ''}"
+        pod = Pod(cmd, kubelet_env(container), what)
+        try:
+            ready_s, got, request_s, rose = served_request_a(pod, port, body,
+                                                             what)
+        except BaseException:
+            pod.stop()
+            raise
+        if pod.proc.poll() is not None:
+            pod.fail(f"exited {pod.proc.returncode} while serving")
+        rc = pod.stop()
+        if mesh is None:
+            agree = agreement(torch, dev, model, body, got, ref["tokens"],
+                              tol, what)
+            tokens = got
+        elif got != tokens:
+            raise AssertionError(f"{what}: tokens differ from the replica "
+                                 "without a mesh")
+        else:
+            agree = {"equal_to_replica_without_mesh": True}
+        rows.append({
+            "phase": "platform_serve", "model": "llama3_8b", "mesh": mesh,
+            "command": container["command"], "run_as": cmd,
+            "env": {e["name"]: e["value"] for e in container["env"]},
+            "seconds_to_ready": ready_s, "request_a_seconds": request_s,
+            "in_process_request_a_seconds": ref_s,
+            "agreement_with_in_process": agree,
+            "attention_calls_by_route": rose,
+            "exit_status_after_sigterm": rc,
+            "parent_memory_allocated_bytes": resident,
+            "nvidia_smi": smi})
+    for row in rows:
+        emit(row)
+
+
+def phase_platform_job(torch, mesh_losses):
+    """A job's worker as the platform's StatefulSet starts it:
+    ``job_worker_container`` for one slice of one host of one GPU over a
+    template running ``train.run`` with MESH_ARGS cut to
+    PLATFORM_JOB_STEPS steps, ``KFT_CHECKPOINT_DIR`` a new directory; its
+    command (under the launcher) and env run as a subprocess, worker 0's
+    name resolved to 127.0.0.1.  It exits 0, its losses equal the mesh
+    phase's first steps within MESH_LOSS_TOL (and the printed digits),
+    and its checkpoint is in the directory."""
+    from kubeflow_tpu_torch.platform.gpu import pods, slice_spec
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+
+    smi = nvidia_smi_name_power()
+    argv = list(MESH_ARGS)
+    i = argv.index("--steps") + 1
+    n_steps = min(int(argv[i]), PLATFORM_JOB_STEPS)
+    argv[i] = str(n_steps)
+    pod_spec = {"containers": [{
+        "name": "trainer", "image": "kubeflow-tpu-torch",
+        "command": ["python", "-m", "kubeflow_tpu_torch.train.run", *argv]}]}
+    ckpt = tempfile.mkdtemp(prefix="platform-job-", dir=checkpoint_root())
+    try:
+        container = pods.job_worker_container(
+            pod_spec, ns="smoke", name="train",
+            spec=slice_spec(PLATFORM_ACCELERATOR, 1), checkpoint_dir=ckpt)
+        worker0 = "train-0.train-workers.smoke.svc.cluster.local"
+        emit({"phase": "platform_hosts", "resolved": {worker0: "127.0.0.1"},
+              "why": "no cluster DNS on this machine; nothing else of the "
+                     "built spec is edited"})
+        cmd = pod_command(container["command"])
+        pod = Pod(cmd, kubelet_env(container, 0, {worker0: "127.0.0.1"}),
+                  "platform_job")
+        rc = pod.wait(PLATFORM_JOB_S)
+        wall_s = time.perf_counter() - pod.t0
+        out = pod.output()
+        pod.stop()
+        steps = []
+        for line in out.splitlines():
+            if "train_step " in line:
+                kv = dict(p.split("=", 1)
+                          for p in line[line.index("train_step "):].split()[1:])
+                steps.append({k: float(v) for k, v in kv.items()})
+        losses = [st["loss"] for st in steps]
+        want = mesh_losses[:n_steps]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        limits = [MESH_LOSS_TOL
+                  + 10.0 ** (math.floor(math.log10(abs(b))) - 5) / abs(b)
+                  for b in want]
+        latest = CheckpointManager(ckpt).latest_step()
+        if (rc != 0 or len(losses) != n_steps
+                or any(r > t for r, t in zip(rel, limits))
+                or latest != n_steps or f"done: step {n_steps}" not in out):
+            raise AssertionError(
+                f"platform_job: exit {rc}, losses {losses} against the mesh "
+                f"phase's {want} ({rel}), checkpoint step {latest}\n"
+                + out[-6000:])
+        ckpt_lines = [ln[ln.index("checkpoint step="):]
+                      for ln in out.splitlines() if "checkpoint step=" in ln]
+        emit({"phase": "platform_job", "model": TRAIN_MODEL,
+              "command": container["command"], "run_as": cmd,
+              "env": {e["name"]: e.get("value", e.get("valueFrom"))
+                      for e in container["env"]},
+              "exit_code": rc, "losses": losses, "mesh_phase_losses": want,
+              "loss_rel_diff": rel, "loss_tol": MESH_LOSS_TOL,
+              "step_seconds": [st["step_seconds"] for st in steps],
+              "checkpoint_step": latest, "checkpoint_line": ckpt_lines[-1:],
+              "wall_seconds": wall_s, "nvidia_smi": smi})
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 SOURCES = {
     "rms_norm": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
                  "kubeflow_tpu/ops/pallas/rms_norm.py:53"),
@@ -6169,6 +6513,7 @@ def main() -> int:
         torch, dev, model, fixed, tol, fixed_quantum)
     int8_counts = phase_int8(torch, dev, model, paged_http)
     beam_counts = phase_beam(torch, dev, model)
+    phase_platform_serve(torch, dev, model, tol)
     # The card cannot hold llama3_8b (17.1 GB) beside the Mixtral phases'
     # 24.0 GB and the training phases.
     paged_ref["fixed"] = fixed
@@ -6191,7 +6536,8 @@ def main() -> int:
     phase_train_compose(torch, dev)
     phase_train_variants(torch, dev)
     train_counts, train = phase_train(torch)
-    mesh_counts = phase_mesh(torch, train)
+    mesh_counts, mesh_losses = phase_mesh(torch, train)
+    phase_platform_job(torch, mesh_losses)
     phase_checkpoint(torch, dev)
     vit_counts = phase_vit(torch, dev)
     bert_counts = phase_bert(torch, dev)

@@ -55,7 +55,10 @@ Endpoints:
                             -> {"tokens": [[...]]}
                             headers X-KFT-Priority (interactive|standard|
                             batch) and X-KFT-Deadline-Seconds
-  GET  /metrics             Prometheus text
+  GET  /metrics             Prometheus text: the app's series, then the
+                            process's compute series
+                            (``telemetry/compute.py``: the attention
+                            route counter, device memory)
   GET  /debug/traces        recent request span trees (?n=, ?trace_id=,
                             which also matches a trace's causal_trace_id)
   GET  /debug/profile       folded stacks of the registered sampling
@@ -97,6 +100,7 @@ from kubeflow_tpu_torch.models.scheduler import (
 )
 from kubeflow_tpu_torch.parallel.lockstep import WorldBroken
 from kubeflow_tpu_torch.telemetry import causal, profiler
+from kubeflow_tpu_torch.telemetry import compute as ctel  # /metrics
 from kubeflow_tpu_torch.telemetry.metrics import Counter, Gauge, Histogram, Registry
 from kubeflow_tpu_torch.telemetry.serve import (
     ServeTelemetry,
@@ -808,8 +812,10 @@ def create_app(service, *, model_name: str = "model",
 
     @app.route("/metrics")
     def metrics(request):
+        # The compute series are the process's: a pod's scraper reads
+        # which attention route the replica ran from here.
         return 200, {"Content-Type": "text/plain; version=0.0.4"}, \
-            registry.render().encode()
+            (registry.render() + ctel.render()).encode()
 
     @app.route("/v1/model")
     def model_info(request):

@@ -5,17 +5,19 @@ Counterpart of ``kubeflow_tpu/parallel/dist.py``.  The platform injects
 its worker env (``TPU_WORKER_ID``, ``TPU_WORKER_HOSTNAMES``, the
 ``MEGASCALE_*`` block; ``parallel/envspec.py``); ``process_grid`` turns it
 into the rendezvous address, the world size and this process's rank, as
-the reference computes them for ``jax.distributed.initialize``.  Without
-that env, torchrun's (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
-``MASTER_ADDR``, ``MASTER_PORT``) is read instead: PyTorch's form of the
-discovery ``jax.distributed`` does on its own.
+the reference computes them for ``jax.distributed.initialize``.
+torchrun's env (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``) is PyTorch's form of the discovery ``jax.distributed``
+does on its own.
 
-One process drives one GPU: the platform env names one process a host,
-so a host with several cards runs under torchrun's env (several cards a
-host under the platform env wait for the GPU seams of ROADMAP.md).
-``initialize_from_env`` joins over NCCL for ``device_type="cuda"`` and
-over gloo only for ``"cpu"``; it never moves to the other when one is
-missing.
+One process drives one GPU.  The platform env names one process a host;
+a host with G GPUs runs ``parallel/launch.py``, which reads that env as
+its node grid and starts G processes under torchrun's static rendezvous.
+Each of them carries both envs, and its own (torchrun's) describes the
+world it is in, so ``initialize_from_env`` reads torchrun's first and
+the platform's only without it.  ``initialize_from_env`` joins over NCCL
+for ``device_type="cuda"`` and over gloo only for ``"cpu"``; it never
+moves to the other when one is missing.
 """
 from __future__ import annotations
 
@@ -116,22 +118,24 @@ def initialize_from_env(*, device_type: str = "cuda",
     """Join the deployment's process group: ``init_process_group`` over
     NCCL (``device_type="cuda"``, after ``torch.cuda.set_device(LOCAL_RANK
     or 0)``) or gloo (``"cpu"``), at ``tcp://{coordinator}:{port}`` with
-    the grid's world size and rank.  The platform's env takes precedence
-    (``process_grid``); without it torchrun's is read.  Returns True when
-    it joined, False for a single process (no such env, or the platform
-    env of one host).  Raises when CUDA is asked for without a card."""
+    the grid's world size and rank.  A process a launcher started
+    (torchrun's ``WORLD_SIZE`` set) joins the world torchrun's env
+    describes, even beside the platform's env; otherwise the platform's is
+    read (``process_grid``).  Returns True when it joined, False for a
+    single process (no such env, or the platform env of one host).
+    Raises when CUDA is asked for without a card."""
     if device_type not in BACKENDS:
         raise ValueError(f"device_type must be one of {sorted(BACKENDS)}, "
                          f"got {device_type!r}")
-    grid = process_grid(coordinator_port=coordinator_port)
-    local_rank = 0
-    if grid is None:
-        run = torchrun_grid()
-        if run is None:
-            return False
+    run = torchrun_grid()
+    if run is not None:
         address, world, rank, local_rank = run
     else:
+        grid = process_grid(coordinator_port=coordinator_port)
+        if grid is None:
+            return False
         address, world, rank = grid
+        local_rank = 0
     if device_type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("initialize_from_env(device_type='cuda') but "

@@ -34,8 +34,10 @@ GRIDS = {
 
 def test_envspec_constants_and_parser_equal_the_reference():
     names = [n for n in dir(jax_envspec) if n.startswith("ENV_")]
-    assert names and names == [n for n in dir(envspec)
-                               if n.startswith("ENV_")]
+    # The port adds one name, the GPUs of a host a launcher reads.
+    assert names and names == [n for n in dir(envspec) if n.startswith(
+        "ENV_") and n != "ENV_KFT_GPUS_PER_HOST"]
+    assert envspec.ENV_KFT_GPUS_PER_HOST == "KFT_GPUS_PER_HOST"
     for n in names + ["DEFAULT_COORDINATOR_PORT"]:
         assert getattr(envspec, n) == getattr(jax_envspec, n), n
     environ = {getattr(envspec, n): f"value-{i}"
@@ -94,6 +96,33 @@ def test_initialize_from_env_without_a_grid_or_a_card(monkeypatch):
     # No card here: CUDA is asked for and refused, never swapped for gloo.
     with pytest.raises(RuntimeError, match="is_available"):
         dist.initialize_from_env(device_type="cuda")
+
+
+def test_initialize_from_env_prefers_the_launchers_env(monkeypatch):
+    """A process a launcher started carries torchrun's env beside the
+    platform's host env: it joins torchrun's world (rank 3 of 4 here),
+    not the platform's grid of hosts (process 1 of 2)."""
+    calls = []
+    monkeypatch.setattr(dist.dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    platform = {"TPU_WORKER_ID": "1", "TPU_WORKER_HOSTNAMES": "h0,h1"}
+    torchrun = {"RANK": "3", "WORLD_SIZE": "4", "LOCAL_RANK": "1",
+                "MASTER_ADDR": "h0", "MASTER_PORT": "4321"}
+    for k in ("MEGASCALE_NUM_SLICES", "MEGASCALE_SLICE_ID"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in {**platform, **torchrun}.items():
+        monkeypatch.setenv(k, v)
+    assert dist.initialize_from_env(device_type="cpu", coordinator_port=1)
+    for k in torchrun:
+        monkeypatch.delenv(k)
+    assert dist.initialize_from_env(device_type="cpu", coordinator_port=1)
+    assert calls == [
+        ("gloo", {"init_method": "tcp://h0:4321", "world_size": 4,
+                  "rank": 3}),
+        ("gloo", {"init_method": "tcp://h0:1", "world_size": 2,
+                  "rank": 1})]
+    # The slice identity still comes from the platform's env.
+    assert dist.num_slices() == 1 and dist.elastic_slices() == (1, 1)
 
 
 def _free_port() -> int:

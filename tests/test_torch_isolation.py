@@ -55,11 +55,16 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.parallel.ulysses",
     "kubeflow_tpu_torch.parallel.pipeline",
     "kubeflow_tpu_torch.parallel.lockstep",
+    "kubeflow_tpu_torch.parallel.launch",
+    "kubeflow_tpu_torch.platform.gpu.topology",
+    "kubeflow_tpu_torch.platform.gpu.pods",
+    "kubeflow_tpu_torch.platform.k8s.quota",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
     """The modules that save and serve a trained model, the replica's
-    telemetry and the parallel package import with JAX, the JAX package
-    and the serving libraries blocked, and pull none of them in."""
+    telemetry, the parallel package and the platform's GPU seams import
+    with JAX, the JAX package and the serving libraries blocked, and pull
+    none of them in."""
     path = REPO / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = REPO / module.replace(".", "/") / "__init__.py"

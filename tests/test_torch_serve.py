@@ -91,6 +91,26 @@ def test_health_ready_model_and_metrics(server):
     assert "serve_time_to_first_token_seconds_count" in text
 
 
+def test_metrics_carry_the_attention_route(server):
+    """/metrics renders the process's compute series after the app's: a
+    request's attention calls show on its route (plain on the CPU)."""
+    base, _ = server
+
+    def calls(text, impl):
+        name = f'attention_kernel_calls_total{{impl="{impl}"}} '
+        return sum(float(line.rsplit(" ", 1)[1])
+                   for line in text.splitlines() if line.startswith(name))
+
+    before = _call(base, "/metrics")[1]
+    _call(base, "/v1/generate", {"tokens": [[7, 8, 9]], "max_new_tokens": 2})
+    after = _call(base, "/metrics")[1]
+    assert "# TYPE attention_kernel_calls_total counter" in after
+    assert calls(after, "plain") > calls(before, "plain")
+    assert calls(after, "kernel") == calls(before, "kernel") == 0
+    assert after.index("serve_output_tokens_total") < \
+        after.index("attention_kernel_calls_total")
+
+
 def test_traces_carry_request_spans(server):
     base, _ = server
     _call(base, "/v1/generate", {"tokens": [[4, 5]], "max_new_tokens": 2})
