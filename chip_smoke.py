@@ -119,6 +119,27 @@ Between 6c and 7 (llama3_8b is freed after beam):
    ``mesh="tp=1"``, its command under ``parallel/launch.py`` (NCCL at
    world size 1), token-equal to the first.  Each child is stopped with
    SIGTERM, its exit status and every process under it checked.
+6d1b. platform_notebook: the notebook's control plane around this card.
+   In the port's in-memory API server (``FakeKube``): a namespace, an
+   h100-80gb node (its product this card's name), a ResourceQuota of
+   one ``nvidia.com/gpu`` and ``gpu_pod_default``.  The Notebook ``nb``
+   with ``spec.gpu {h100-80gb, 1 GPU}`` is reconciled: a StatefulSet of
+   1 replica asking one GPU as limit and request on the product, its env
+   block, the Service, the headless Service and the VirtualService.  Pod
+   ``nb-0`` from its template (pod index 0, the PodDefault's opt-in
+   label) goes through ``mutate_admission_review`` and its JSON patch,
+   and is admitted; a second notebook's 1-GPU pod is refused with the
+   apiserver's "exceeded quota" words; ``nb-0`` marked ready gives
+   ``readyReplicas`` 1.  Then ``nb-0``'s main container runs as a
+   subprocess with the patched env (pod index 0) and ``python -c
+   NOTEBOOK_CELL`` for the image's command: llama_1b4 (24 layers, seed
+   0) on the card, ``generate`` of one NOTEBOOK_PROMPT-token prompt and
+   NOTEBOOK_NEW tokens, whose tokens equal the same cell run in this
+   process, with exact launches (K2 a layer, K5 a layer a decode step,
+   K1 2L+1 a forward) and the attention route counter at one kernel call
+   a layer and no plain call.  Deleting the Notebooks removes every
+   child by the cascade.  Reconcile ms, the cell's seconds and its
+   generate's ms are printed beside the card's name and power limit.
 6d2. t5_serve: ``load_service("t5_large")`` (24 + 24 layers, d1024,
    random bf16 weights from seed 0, W_q scaled as T5 initialises it:
    ``t5_conditioned``) over HTTP through the wire client
@@ -212,12 +233,16 @@ After 11:
    against the train phase's (MESH_LOSS_TOL), exact launches a step,
    step seconds and peak memory; the group destroyed after it.
 11b. platform_job: ``job_worker_container`` for one slice of one host of
-   one GPU over a template running ``train.run`` with MESH_ARGS cut to
-   PLATFORM_JOB_STEPS steps, ``KFT_CHECKPOINT_DIR`` a new directory under
-   ``build/checkpoints``: its command (under the launcher) and env run as
-   a subprocess, worker 0's name resolved to 127.0.0.1; it exits 0, its
-   losses equal 11a's first steps within MESH_LOSS_TOL, its checkpoint
-   lands, and the directory is removed.
+   one GPU over a template running ``train.run`` with MESH_ARGS at
+   PLATFORM_JOB_MAX_STEPS steps, ``KFT_CHECKPOINT_DIR`` a new directory
+   under ``build/checkpoints``: its command (under the launcher) and env
+   run as a subprocess, worker 0's name resolved to 127.0.0.1, and the
+   launcher is sent SIGTERM once step PLATFORM_JOB_STEPS has logged (a
+   preempted pod).  It drains and exits 0, printing the step it stopped
+   at; its losses equal 11a's first steps within MESH_LOSS_TOL; its one
+   checkpoint is at that step; the directory is removed.  The drain's
+   seconds (SIGTERM to exit) are printed beside the reference
+   controller's 30 s grace, a finding and not a failure when longer.
 Within 3, K2 at the dense-cache chunk's shape (b2, q 300 over k 812).
 Within 7, the attention kernels at ViT-B/16's and BERT-base's shapes
 (b64 s197 and b32 s128, h12, d64, non-causal), timed; and K1 at
@@ -451,12 +476,74 @@ MESH_LOSS_TOL = 1e-5
 # subprocess the way the kubelet would start it.  A replica must answer
 # /readyz within PLATFORM_READY_S of its start (llama3_8b built on the
 # card from the seed, the default paged engine's pool, one warm
-# generate); a job's worker runs PLATFORM_JOB_STEPS steps of MESH_ARGS
-# and its final checkpoint within PLATFORM_JOB_S.
+# generate); a job's worker is preempted once PLATFORM_JOB_STEPS steps
+# of MESH_ARGS (at most PLATFORM_JOB_MAX_STEPS) have logged, and drains
+# to its checkpoint within PLATFORM_JOB_S of its start.  The reference's
+# job controller gives a preempted gang PREEMPTION_GRACE_S to checkpoint
+# (kubeflow_tpu/platform/controllers/tpujob.py:84-87).
 PLATFORM_ACCELERATOR = "h100-80gb"
 PLATFORM_READY_S = 300.0
 PLATFORM_JOB_STEPS = 2
+PLATFORM_JOB_MAX_STEPS = 1000
 PLATFORM_JOB_S = 600.0
+PREEMPTION_GRACE_S = 30.0
+
+# The notebook phase: the Notebook's pod runs one cell on the card,
+# NOTEBOOK_CELL (``python -c`` in place of the image's Jupyter, which is
+# not on this machine): NOTEBOOK_MODEL at full width and depth from
+# SEED, one prompt of NOTEBOOK_PROMPT tokens drawn from SEED, greedy
+# ``generate`` of NOTEBOOK_NEW tokens after one warm-up, then a generate
+# of one token (the prefill alone) timed on its own.  The cell must end
+# within NOTEBOOK_CELL_S.
+NOTEBOOK_MODEL = "llama_1b4"
+NOTEBOOK_PROMPT = 128
+NOTEBOOK_NEW = 8
+NOTEBOOK_CELL_S = 300.0
+NOTEBOOK_CELL = """
+import json, sys, time
+import torch
+from kubeflow_tpu_torch.models.generate import generate
+from kubeflow_tpu_torch.models.serve import load_service
+from kubeflow_tpu_torch.ops import cuda as kernels
+from kubeflow_tpu_torch.telemetry import compute as ctel
+
+
+def run(name, seed, prompt_len, new_tokens, device="cuda"):
+    seed, prompt_len, new_tokens = int(seed), int(prompt_len), int(new_tokens)
+    t0 = time.perf_counter()
+    model = load_service(name, device=device, seed=seed,
+                         use_scheduler=False).model
+    gen = torch.Generator().manual_seed(seed)
+    prompt = torch.randint(1, model.cfg.vocab_size, (1, prompt_len),
+                           generator=gen).to(device)
+    generate(model, prompt, max_new_tokens=new_tokens)   # warm-up
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    kernels.reset_launch_counts()
+    routes = {i: ctel.attention_impl_calls(i) for i in ("kernel", "plain")}
+    t1 = time.perf_counter()
+    out = generate(model, prompt, max_new_tokens=new_tokens)
+    sync()
+    generate_ms = (time.perf_counter() - t1) * 1e3
+    launches = kernels.launch_counts()
+    routes = {i: ctel.attention_impl_calls(i) - v for i, v in routes.items()}
+    # The prefill alone: a generate of one token runs no decode step.
+    t2 = time.perf_counter()
+    generate(model, prompt, max_new_tokens=1)
+    sync()
+    prefill_ms = (time.perf_counter() - t2) * 1e3
+    return {"tokens": out.tolist(), "launches": launches, "routes": routes,
+            "n_layers": model.cfg.n_layers, "generate_ms": generate_ms,
+            "prefill_ms": prefill_ms,
+            "decode_step_ms": (generate_ms - prefill_ms) / (new_tokens - 1),
+            "cell_seconds_in_process": time.perf_counter() - t0,
+            "device": (torch.cuda.get_device_name(0) if device == "cuda"
+                       else device)}
+
+
+if __name__ == "__main__":
+    print("CELL " + json.dumps(run(*sys.argv[1:])), flush=True)
+"""
 
 # The int8 phase: llama3_8b from the same seed, weight-only int8
 # (load_service(quantize="int8")), the schedule requests through the paged
@@ -692,10 +779,6 @@ def phase_build():
 def phase_kernels(torch, dev, timer):
     """Each kernel against its plain version; returns the summary row per
     kernel (the shape the serving path calls it at most often)."""
-    import torch.nn.functional as F
-
-    from kubeflow_tpu_torch.ops.cuda import rms_norm as k1
-
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf)
@@ -710,24 +793,7 @@ def phase_kernels(torch, dev, timer):
     d = 4096
     scale = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)).float()
     for nrows, where in ((4 * 512, "prefill"), (4, "decode")):
-        x = rnd(nrows, d)
-        got = k1.rms_norm(x, scale, eps=1e-5)
-        want = k1.plain_rms_norm(x.float(), scale, eps=1e-5)
-        tol = KERNEL_TOL["rms_norm"]
-        err, share = check_close("rms_norm", got, want, tol)
-        nbytes = nrows * d * 4 + d * 4
-        flops = 4 * nrows * d
-        bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
-        row = {"kernel": "rms_norm", "shape": [nrows, d], "path": where,
-               "max_abs_err": err, "tol": tol, "tol_share": share,
-               "kernel_ms": timer(lambda: k1.rms_norm(x, scale, eps=1e-5)),
-               "plain_ms": timer(lambda: k1.plain_rms_norm(x, scale,
-                                                           eps=1e-5)),
-               "library_ms": timer(lambda: F.rms_norm(
-                   x, (d,), weight=scale.to(bf), eps=1e-5)),
-               "same_bytes_ms": timer(lambda: got.copy_(x)),
-               "bound_ms": bms, "bound_by": by}
-        emit(add_rates(row, flops, timer.floor_ms))
+        row = k1_row(torch, timer, rnd(nrows, d), scale, where)
         if where == "decode":
             rows["rms_norm"] = row
 
@@ -758,6 +824,34 @@ def phase_kernels(torch, dev, timer):
             rows["flash_decode"] = row
     emit(add_rates(*pool_decode_row(torch, dev, gen, timer)))
     return rows
+
+
+def k1_row(torch, timer, x, scale, path):
+    """K1 over bf16 rows ``x`` [rows, d] and f32 ``scale`` [d] against
+    its plain version, timed beside its bound, a copy of the same bytes
+    and ``F.rms_norm``; emitted and returned."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.cuda import rms_norm as k1
+
+    nrows, d = x.shape
+    got = k1.rms_norm(x, scale, eps=1e-5)
+    want = k1.plain_rms_norm(x.float(), scale, eps=1e-5)
+    tol = KERNEL_TOL["rms_norm"]
+    err, share = check_close("rms_norm", got, want, tol)
+    nbytes = nrows * d * 4 + d * 4
+    flops = 4 * nrows * d
+    bms, by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
+    row = {"kernel": "rms_norm", "shape": [nrows, d], "path": path,
+           "max_abs_err": err, "tol": tol, "tol_share": share,
+           "kernel_ms": timer(lambda: k1.rms_norm(x, scale, eps=1e-5)),
+           "plain_ms": timer(lambda: k1.plain_rms_norm(x, scale, eps=1e-5)),
+           "library_ms": timer(lambda: F.rms_norm(
+               x, (d,), weight=scale.to(torch.bfloat16), eps=1e-5)),
+           "same_bytes_ms": timer(lambda: got.copy_(x)),
+           "bound_ms": bms, "bound_by": by}
+    emit(add_rates(row, flops, timer.floor_ms))
+    return row
 
 
 def k2_row(torch, dev, rnd, timer, b, s, h, kvh, hd, seg=None, path=None):
@@ -6388,23 +6482,251 @@ def phase_platform_serve(torch, dev, model, tol):
         emit(row)
 
 
+def notebook_launches(n_layers, new_tokens):
+    """A greedy ``generate`` of one row: K2 a layer at the prefill, K5 a
+    layer at each later token, K1 2L+1 a forward."""
+    return {"rms_norm": (2 * n_layers + 1) * new_tokens, "rms_norm_bwd": 0,
+            "flash_attention_fwd": n_layers, "flash_attention_fwd_lse": 0,
+            "flash_attention_dq": 0, "flash_attention_dkv": 0,
+            "flash_decode": n_layers * (new_tokens - 1)}
+
+
+def phase_platform_notebook(torch, dev):
+    """The notebook path of the platform (the docstring's 6d1b): the port's
+    reconciler, PodDefault webhook and quota admission in its in-memory
+    API server, then the notebook pod's main container running one cell
+    on the card.  Returns the cell's launch counts."""
+    import base64
+
+    from kubeflow_tpu_torch.models.llama import CONFIGS as LLAMA_CONFIGS
+    from kubeflow_tpu_torch.platform import (
+        FakeKube,
+        NotebookReconciler,
+        Request,
+        gpu_pod_default,
+        mutate_admission_review,
+    )
+    from kubeflow_tpu_torch.platform.gpu import ACCELERATORS
+    from kubeflow_tpu_torch.platform.k8s import errors
+    from kubeflow_tpu_torch.platform.k8s.types import (
+        NOTEBOOK,
+        POD,
+        PODDEFAULT,
+        RESOURCEQUOTA,
+        SERVICE,
+        STATEFULSET,
+        VIRTUALSERVICE,
+        owner_reference,
+    )
+    from kubeflow_tpu_torch.platform.webhook.jsonpatch import apply_patch
+
+    smi = nvidia_smi_name_power()
+    acc = ACCELERATORS[PLATFORM_ACCELERATOR]
+    card = smi.split(",")[0].strip()
+    if acc.product != card.replace(" ", "-"):
+        raise AssertionError(f"{PLATFORM_ACCELERATOR}'s product "
+                             f"{acc.product!r} is not this card, {card!r}")
+    ns, label = "smoke", f"gpu-{PLATFORM_ACCELERATOR}"
+    kube = FakeKube()
+    kube.add_namespace(ns)
+    kube.add_gpu_node("gpu-node-0", accelerator=PLATFORM_ACCELERATOR,
+                      gpus=torch.cuda.device_count())
+    kube.create({"apiVersion": "v1", "kind": "ResourceQuota",
+                 "metadata": {"name": "gpus", "namespace": ns},
+                 "spec": {"hard": {"nvidia.com/gpu": "1"}}})
+    kube.create(gpu_pod_default(ns, PLATFORM_ACCELERATOR, 1))
+
+    def notebook(name):
+        return {"apiVersion": "kubeflow.org/v1beta1", "kind": "Notebook",
+                "metadata": {"name": name, "namespace": ns},
+                "spec": {"gpu": {"accelerator": PLATFORM_ACCELERATOR,
+                                 "gpus": 1},
+                         "template": {"spec": {"containers": [{
+                             "name": name, "image": "kubeflow-tpu-torch",
+                             "ports": [{"containerPort": 8888}]}]}}}}
+
+    reconciler = NotebookReconciler(kube, use_istio=True,
+                                    mirror_min_interval=0)
+    kube.create(notebook("nb"))
+    t0 = time.perf_counter()
+    reconciler.reconcile(Request(ns, "nb"))
+    reconcile_ms = (time.perf_counter() - t0) * 1e3
+    sts = kube.get(STATEFULSET, "nb", ns)
+    pod_spec = sts["spec"]["template"]["spec"]
+    main = pod_spec["containers"][0]
+    one = {"nvidia.com/gpu": "1"}
+    env = {e["name"]: e.get("value", e.get("valueFrom"))
+           for e in main["env"]}
+    want_env = {
+        "NB_PREFIX": f"/notebook/{ns}/nb",
+        "TPU_WORKER_ID": {"fieldRef": {"fieldPath":
+                          "metadata.labels['apps.kubernetes.io/pod-index']"}},
+        "TPU_WORKER_HOSTNAMES": f"nb-0.nb-workers.{ns}.svc.cluster.local",
+        "KFT_GPUS_PER_HOST": "1", "TPU_HOSTS_PER_SLICE": "1"}
+    if (sts["spec"]["replicas"] != 1
+            or main["resources"] != {"limits": one, "requests": one}
+            or pod_spec["nodeSelector"] != {"nvidia.com/gpu.product":
+                                            acc.product}
+            or env != want_env):
+        raise AssertionError(f"platform_notebook: StatefulSet {sts}")
+    children = {g.kind + "/" + o["metadata"]["name"]
+                for g in (SERVICE, VIRTUALSERVICE) for o in kube.list(g, ns)}
+    if children != {"Service/nb", "Service/nb-workers",
+                    f"VirtualService/notebook-{ns}-nb"}:
+        raise AssertionError(f"platform_notebook: children {children}")
+
+    def pod_of(sts):
+        """The StatefulSet controller's pod 0, opted in to the PodDefault,
+        through the webhook."""
+        tmpl = sts["spec"]["template"]
+        name = sts["metadata"]["name"] + "-0"
+        pod = {"apiVersion": "v1", "kind": "Pod",
+               "metadata": {"name": name, "namespace": ns,
+                            "labels": {**tmpl["metadata"]["labels"],
+                                       "apps.kubernetes.io/pod-index": "0",
+                                       label: "true"},
+                            "ownerReferences": [owner_reference(sts)]},
+               "spec": json.loads(json.dumps(tmpl["spec"]))}
+        review = mutate_admission_review(
+            {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+             "request": {"uid": name, "namespace": ns,
+                         "resource": {"resource": "pods"}, "object": pod}},
+            kube.list(PODDEFAULT, ns))["response"]
+        if not review["allowed"] or review.get("patchType") != "JSONPatch":
+            raise AssertionError(f"platform_notebook: webhook {review}")
+        return apply_patch(pod, json.loads(base64.b64decode(
+            review["patch"])))
+
+    pod = pod_of(sts)
+    main = pod["spec"]["containers"][0]
+    if ({"name": "gpu-shm", "mountPath": "/dev/shm"}
+            not in main.get("volumeMounts", [])
+            or f"poddefault.admission.kubeflow.org/poddefault-{label}"
+            not in pod["metadata"]["annotations"]):
+        raise AssertionError(f"platform_notebook: the PodDefault was not "
+                             f"applied: {pod}")
+    kube.create(pod)
+    # A second notebook's pod asks the GPU the quota has no room for.
+    kube.create(notebook("nb2"))
+    reconciler.reconcile(Request(ns, "nb2"))
+    refused = None
+    try:
+        kube.create(pod_of(kube.get(STATEFULSET, "nb2", ns)))
+    except errors.Forbidden as e:
+        refused = str(e)
+    want_refusal = ('pods "nb2-0" is forbidden: exceeded quota: gpus, '
+                    "requested: nvidia.com/gpu=1, used: nvidia.com/gpu=1, "
+                    "limited: nvidia.com/gpu=1")
+    if refused != want_refusal:
+        raise AssertionError(f"platform_notebook: second pod {refused!r}")
+    kube.set_pod_phase(ns, "nb-0", "Running", ready=True)
+    reconciler.reconcile(Request(ns, "nb"))
+    status = kube.get(NOTEBOOK, "nb", ns)["status"]
+    if status.get("readyReplicas") != 1 or status.get("replicas") != 1:
+        raise AssertionError(f"platform_notebook: status {status}")
+
+    # The pod's main container runs the cell on the card.
+    args = [NOTEBOOK_MODEL, str(SEED), str(NOTEBOOK_PROMPT),
+            str(NOTEBOOK_NEW), dev.type]
+    cmd = [sys.executable, "-c", NOTEBOOK_CELL, *args]
+    cell = Pod(cmd, kubelet_env(main, 0), "platform_notebook cell")
+    rc = cell.wait(NOTEBOOK_CELL_S)
+    cell_s = time.perf_counter() - cell.t0
+    out = cell.output()
+    cell.stop()
+    lines = [ln[len("CELL "):] for ln in out.splitlines()
+             if ln.startswith("CELL ")]
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"platform_notebook: the cell exited {rc}\n"
+                             + out[-6000:])
+    got = json.loads(lines[0])
+    ns_cell = {"__name__": "notebook_cell"}
+    exec(NOTEBOOK_CELL, ns_cell)
+    here = ns_cell["run"](*args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Each kernel of the cell against its plain version at the cell's
+    # shapes: K1 over the prefill's rows and a decode step's row, K2 over
+    # the prompt, K5 over the whole cache.
+    cfg = LLAMA_CONFIGS[NOTEBOOK_MODEL]
+    timer = Timer(torch, dev)
+    timer.floor_ms = timer(torch.zeros(1, device=dev).zero_)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    scale = (1.0 + 0.1 * torch.randn(cfg.dim, generator=gen,
+                                     device=dev)).float()
+    kernel_rows = [
+        k1_row(torch, timer, rnd(rows, cfg.dim), scale,
+               f"platform_notebook {where}")
+        for rows, where in ((NOTEBOOK_PROMPT, "prefill"), (1, "decode"))]
+    kernel_rows.append(k2_row(
+        torch, dev, rnd, timer, 1, NOTEBOOK_PROMPT, cfg.n_heads,
+        cfg.n_kv_heads, cfg.head_dim, path="platform_notebook prefill"))
+    kernel_rows.append(k5_row(
+        torch, dev, rnd, timer, 1, NOTEBOOK_PROMPT + NOTEBOOK_NEW,
+        cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        path="platform_notebook decode"))
+    del timer
+    torch.cuda.empty_cache()
+    launches = notebook_launches(got["n_layers"], NOTEBOOK_NEW)
+    if (got["tokens"] != here["tokens"] or len(got["tokens"][0])
+            != NOTEBOOK_NEW or got["launches"] != launches
+            or here["launches"] != launches
+            or got["routes"] != {"kernel": got["n_layers"], "plain": 0}):
+        raise AssertionError(
+            f"platform_notebook: cell {got} against this process's {here}; "
+            f"launches expected {launches}")
+
+    for name in ("nb", "nb2"):
+        kube.delete(NOTEBOOK, name, ns)
+        reconciler.reconcile(Request(ns, name))
+    left = [g.kind + "/" + o["metadata"]["name"]
+            for g in (STATEFULSET, SERVICE, VIRTUALSERVICE, POD)
+            for o in kube.list(g, ns)]
+    used = kube.get(RESOURCEQUOTA, "gpus", ns)["status"]["used"]
+    if left or used != {"nvidia.com/gpu": "0"}:
+        raise AssertionError(f"platform_notebook: after delete {left}, "
+                             f"quota used {used}")
+    emit({"phase": "platform_notebook", "model": NOTEBOOK_MODEL,
+          "reconcile_ms": reconcile_ms, "statefulset_env": env,
+          "pod_labels": pod["metadata"]["labels"],
+          "second_pod_refused": refused, "status": status,
+          "cell_command": ["python", "-c", "<NOTEBOOK_CELL>", *args],
+          "cell_exit": rc, "cell_seconds": cell_s,
+          "cell_generate_ms": got["generate_ms"],
+          "cell_prefill_ms": got["prefill_ms"],
+          "cell_decode_step_ms": got["decode_step_ms"],
+          "in_process_generate_ms": here["generate_ms"],
+          "in_process_prefill_ms": here["prefill_ms"],
+          "in_process_decode_step_ms": here["decode_step_ms"],
+          "tokens": got["tokens"], "tokens_equal_in_process": True,
+          "launches": got["launches"], "attention_routes": got["routes"],
+          "kernels_against_plain": [
+              {k: r[k] for k in ("kernel", "shape", "max_abs_err", "tol")}
+              for r in kernel_rows],
+          "cell_device": got["device"], "nvidia_smi": smi})
+    return got["launches"]
+
+
 def phase_platform_job(torch, mesh_losses):
-    """A job's worker as the platform's StatefulSet starts it:
-    ``job_worker_container`` for one slice of one host of one GPU over a
-    template running ``train.run`` with MESH_ARGS cut to
-    PLATFORM_JOB_STEPS steps, ``KFT_CHECKPOINT_DIR`` a new directory; its
-    command (under the launcher) and env run as a subprocess, worker 0's
-    name resolved to 127.0.0.1.  It exits 0, its losses equal the mesh
-    phase's first steps within MESH_LOSS_TOL (and the printed digits),
-    and its checkpoint is in the directory."""
+    """A job's worker as the platform's StatefulSet starts it, preempted
+    (the docstring's 11b): ``job_worker_container`` for one slice of one
+    host of one GPU over a template running ``train.run`` with MESH_ARGS
+    at PLATFORM_JOB_MAX_STEPS steps, ``KFT_CHECKPOINT_DIR`` a new
+    directory; its command (under the launcher) and env run as a
+    subprocess, worker 0's name resolved to 127.0.0.1, and SIGTERM sent
+    to the launcher once step PLATFORM_JOB_STEPS has logged.  It drains
+    and exits 0; its losses equal the mesh phase's first steps within
+    MESH_LOSS_TOL (and the printed digits); its one checkpoint is at the
+    step it says it stopped at.  The drain's seconds stand beside the
+    reference's PREEMPTION_GRACE_S."""
     from kubeflow_tpu_torch.platform.gpu import pods, slice_spec
     from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
 
     smi = nvidia_smi_name_power()
     argv = list(MESH_ARGS)
-    i = argv.index("--steps") + 1
-    n_steps = min(int(argv[i]), PLATFORM_JOB_STEPS)
-    argv[i] = str(n_steps)
+    argv[argv.index("--steps") + 1] = str(PLATFORM_JOB_MAX_STEPS)
     pod_spec = {"containers": [{
         "name": "trainer", "image": "kubeflow-tpu-torch",
         "command": ["python", "-m", "kubeflow_tpu_torch.train.run", *argv]}]}
@@ -6420,7 +6742,20 @@ def phase_platform_job(torch, mesh_losses):
         cmd = pod_command(container["command"])
         pod = Pod(cmd, kubelet_env(container, 0, {worker0: "127.0.0.1"}),
                   "platform_job")
-        rc = pod.wait(PLATFORM_JOB_S)
+        deadline = pod.t0 + PLATFORM_JOB_S
+        trigger = f"train_step step={PLATFORM_JOB_STEPS} "
+        while trigger not in pod.output():
+            if pod.proc.poll() is not None:
+                pod.fail(f"exited {pod.proc.returncode} before step "
+                         f"{PLATFORM_JOB_STEPS}")
+            if time.perf_counter() > deadline:
+                pod.fail(f"no step {PLATFORM_JOB_STEPS} within "
+                         f"{PLATFORM_JOB_S} s")
+            time.sleep(0.1)
+        t_sig = time.perf_counter()
+        pod.proc.send_signal(signal.SIGTERM)
+        rc = pod.wait(max(deadline - t_sig, 60.0))
+        drain_s = time.perf_counter() - t_sig
         wall_s = time.perf_counter() - pod.t0
         out = pod.output()
         pod.stop()
@@ -6430,30 +6765,41 @@ def phase_platform_job(torch, mesh_losses):
                 kv = dict(p.split("=", 1)
                           for p in line[line.index("train_step "):].split()[1:])
                 steps.append({k: float(v) for k, v in kv.items()})
+        stopped = [int(ln.split()[3].rstrip(":")) for ln in out.splitlines()
+                   if ln.startswith("preempted at step ")
+                   and ln.endswith(": checkpoint saved")]
         losses = [st["loss"] for st in steps]
-        want = mesh_losses[:n_steps]
+        n_held = min(len(losses), len(mesh_losses))
+        want = mesh_losses[:n_held]
         rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
         limits = [MESH_LOSS_TOL
                   + 10.0 ** (math.floor(math.log10(abs(b))) - 5) / abs(b)
                   for b in want]
-        latest = CheckpointManager(ckpt).latest_step()
-        if (rc != 0 or len(losses) != n_steps
+        latest = CheckpointManager(ckpt).all_steps()
+        at = stopped[0] if len(stopped) == 1 else None
+        if (rc != 0 or at is None or at < PLATFORM_JOB_STEPS
+                or len(losses) != at or n_held < PLATFORM_JOB_STEPS
                 or any(r > t for r, t in zip(rel, limits))
-                or latest != n_steps or f"done: step {n_steps}" not in out):
+                or latest != [at] or f"done: step {at}" not in out):
             raise AssertionError(
-                f"platform_job: exit {rc}, losses {losses} against the mesh "
-                f"phase's {want} ({rel}), checkpoint step {latest}\n"
-                + out[-6000:])
+                f"platform_job: exit {rc}, stopped at {stopped}, losses "
+                f"{losses} against the mesh phase's {want} ({rel}), "
+                f"checkpoint steps {latest}\n" + out[-6000:])
         ckpt_lines = [ln[ln.index("checkpoint step="):]
                       for ln in out.splitlines() if "checkpoint step=" in ln]
         emit({"phase": "platform_job", "model": TRAIN_MODEL,
               "command": container["command"], "run_as": cmd,
               "env": {e["name"]: e.get("value", e.get("valueFrom"))
                       for e in container["env"]},
-              "exit_code": rc, "losses": losses, "mesh_phase_losses": want,
-              "loss_rel_diff": rel, "loss_tol": MESH_LOSS_TOL,
+              "exit_code": rc, "sigterm_after_step": PLATFORM_JOB_STEPS,
+              "stopped_at_step": at, "losses": losses,
+              "mesh_phase_losses": want, "loss_rel_diff": rel,
+              "loss_tol": MESH_LOSS_TOL,
               "step_seconds": [st["step_seconds"] for st in steps],
-              "checkpoint_step": latest, "checkpoint_line": ckpt_lines[-1:],
+              "checkpoint_steps": latest, "checkpoint_line": ckpt_lines[-1:],
+              "drain_seconds": drain_s,
+              "reference_grace_seconds": PREEMPTION_GRACE_S,
+              "drain_over_grace": drain_s > PREEMPTION_GRACE_S,
               "wall_seconds": wall_s, "nvidia_smi": smi})
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
@@ -6514,6 +6860,7 @@ def main() -> int:
     int8_counts = phase_int8(torch, dev, model, paged_http)
     beam_counts = phase_beam(torch, dev, model)
     phase_platform_serve(torch, dev, model, tol)
+    notebook_counts = phase_platform_notebook(torch, dev)
     # The card cannot hold llama3_8b (17.1 GB) beside the Mixtral phases'
     # 24.0 GB and the training phases.
     paged_ref["fixed"] = fixed
@@ -6558,6 +6905,7 @@ def main() -> int:
                              "paged": paged_counts[name],
                              "int8": int8_counts[name],
                              "beam": beam_counts[name],
+                             "platform_notebook": notebook_counts[name],
                              "serve_mesh": serve_mesh_counts[name],
                              "tp_virtual": tp_virtual_counts[name],
                              **{path: c[name] for path, c in

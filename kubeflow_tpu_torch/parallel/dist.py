@@ -146,3 +146,34 @@ def initialize_from_env(*, device_type: str = "cuda",
                             init_method=f"tcp://{address}",
                             world_size=world, rank=rank, **kwargs)
     return True
+
+
+class AgreedStop:
+    """A stop flag that every process of the world agrees on: ``is_set``
+    is the MAX of each process's own ``event`` over a gloo group, so all
+    of them see the same answer at the same step boundary.  A preempted
+    gang's processes each get their SIGTERM at their own moment; deciding
+    alone, one stops and enters its checkpoint's collectives while another
+    enters the next step's, and both wait for ever.
+
+    ``is_set`` is a collective: every process calls it at the same point
+    (the loop's top).  Once it answers True it answers True without one,
+    and ``stopped`` says whether it ever did.  Construct it on every
+    process at the same point (``dist.new_group`` is collective)."""
+
+    def __init__(self, event):
+        self.event = event
+        self.stopped = False
+        # On the host, whatever backend the device work uses: the answer
+        # is read by the host, and a gloo reduce never waits for the
+        # device's queue.
+        self._group = dist.new_group(backend="gloo")
+        self._flag = torch.zeros(1, dtype=torch.int32)
+
+    def is_set(self) -> bool:
+        if not self.stopped:
+            self._flag.fill_(int(self.event.is_set()))
+            dist.all_reduce(self._flag, op=dist.ReduceOp.MAX,
+                            group=self._group)
+            self.stopped = bool(self._flag.item())
+        return self.stopped

@@ -1,21 +1,27 @@
 """ResourceQuota math for GPU workloads: quantities, a pod's usage, the
-GPUs a namespace has left and a notebook's declared usage.
+admission check, a quota's ``status.used``, the GPUs a namespace has
+left and a notebook's declared usage.
 
-The port's copy of the helpers of the reference's
-``kubeflow_tpu/platform/k8s/quota.py`` that the GPU budget needs
-(``parse_quantity``, ``usage_key``, ``pod_quota_usage``, ``scale_usage``,
-``add_usage``, ``effective_used``), with ``gpu_remaining`` in place of
-``tpu_remaining`` and ``notebook_gpu_usage`` in place of the spawner's
-``_notebook_usage`` (``kubeflow_tpu/platform/apps/jupyter/app.py:251-278``).
-Every function is read-only over what it is handed and returns fresh
-dicts.
+The port's copy of the reference's ``kubeflow_tpu/platform/k8s/quota.py``
+(``parse_quantity``, ``format_quantity``, ``validate_hard``,
+``usage_key``, ``pod_quota_usage``, ``scale_usage``, ``add_usage``,
+``Violation``, ``find_violation``, ``live_usage``, ``quota_status``,
+``effective_used``), with ``gpu_remaining`` in place of ``tpu_remaining``
+and ``notebook_gpu_usage`` in place of the spawner's ``_notebook_usage``
+(``kubeflow_tpu/platform/apps/jupyter/app.py:251-278``).  The in-memory
+API server (``testing/fake.py``) admits pods with it.  A pod that does
+not request a constrained resource counts 0 toward it (the real quota
+plugin refuses such a pod outright), as in the reference.  Every
+function is read-only over what it is handed, so frozen cache views may
+be passed, and returns fresh dicts.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 from kubeflow_tpu_torch.platform.gpu.topology import RESOURCE_GPU
+from kubeflow_tpu_torch.platform.k8s.types import Resource, deep_get
 
 _BINARY = {"Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40,
            "Pi": 2**50, "Ei": 2**60}
@@ -25,17 +31,6 @@ _DECIMAL = {"n": 1e-9, "u": 1e-6, "m": 1e-3, "k": 1e3, "M": 1e6,
 # quota's spec.hard means the same, through ``usage_key``).
 GPU_REQUESTS = f"requests.{RESOURCE_GPU}"
 GPU_LIMITS = f"limits.{RESOURCE_GPU}"
-
-
-def deep_get(obj, *path: str, default=None):
-    """``obj[path[0]][path[1]]...``, or ``default`` where a step is
-    missing or not a mapping."""
-    cur = obj
-    for p in path:
-        if not isinstance(cur, dict) or p not in cur:
-            return default
-        cur = cur[p]
-    return cur
 
 
 def parse_quantity(q) -> float:
@@ -63,6 +58,38 @@ def parse_quantity(q) -> float:
         else:
             return finite(value * _DECIMAL[s[-1]])
     return finite(float(s))
+
+
+def _memory_like(key: str) -> bool:
+    return key.rsplit(".", 1)[-1] in ("memory", "storage", "ephemeral-storage")
+
+
+def format_quantity(v: float, key: str = "") -> str:
+    """A base-unit float as a canonical quantity string: integers plain
+    ("16"), memory-like resources (by the quota ``key``) in exact binary
+    multiples ("2Gi"), sub-unit values in millis ("500m").  Counted
+    resources (GPUs, pods) stay decimal."""
+    if _memory_like(key) and v >= 2**10 and v == int(v):
+        for suffix in ("Ei", "Pi", "Ti", "Gi", "Mi", "Ki"):
+            mult = _BINARY[suffix]
+            if int(v) % mult == 0:
+                return f"{int(v) // mult}{suffix}"
+    if v == int(v):
+        return str(int(v))
+    return f"{int(round(v * 1000))}m"
+
+
+def validate_hard(hard: Dict[str, object]) -> None:
+    """Refuse a malformed ``spec.hard`` quantity, as the apiserver does
+    when a ResourceQuota is created: a typo'd quota must not turn every
+    later pod admission into a parse error."""
+    for key, val in (hard or {}).items():
+        try:
+            parse_quantity(val)
+        except (ValueError, TypeError):
+            raise ValueError(
+                f"invalid quantity {val!r} for {key} in spec.hard"
+            ) from None
 
 
 def usage_key(hard_key: str) -> str:
@@ -115,6 +142,79 @@ def add_usage(*usages: Dict[str, float]) -> Dict[str, float]:
     for usage in usages:
         for k, v in usage.items():
             out[k] = out.get(k, 0.0) + v
+    return out
+
+
+class Violation(Exception):
+    """One quota constraint the incoming workload would exceed."""
+
+    def __init__(self, quota_name: str, hard_key: str, requested: float,
+                 used: float, hard: float):
+        self.quota_name, self.hard_key = quota_name, hard_key
+        self.requested, self.used, self.hard = requested, used, hard
+        super().__init__(self.message())
+
+    @property
+    def remaining(self) -> float:
+        return max(0.0, self.hard - self.used)
+
+    def message(self) -> str:
+        """The apiserver's denial, for clients that match on 'exceeded
+        quota:'."""
+        k = self.hard_key
+        return (
+            f"exceeded quota: {self.quota_name}, "
+            f"requested: {k}={format_quantity(self.requested, k)}, "
+            f"used: {k}={format_quantity(self.used, k)}, "
+            f"limited: {k}={format_quantity(self.hard, k)}"
+        )
+
+
+def find_violation(
+    quotas: Iterable[Resource], usage: Dict[str, float],
+    used_override: Optional[Dict[str, Dict[str, float]]] = None,
+) -> Optional[Violation]:
+    """The first constraint ``usage`` would exceed across ``quotas``, else
+    None.  ``used`` comes from each quota's ``status.used``;
+    ``used_override`` maps a quota's name to a live usage map."""
+    for q in quotas:
+        qname = deep_get(q, "metadata", "name", default="") or ""
+        hard = deep_get(q, "spec", "hard", default={}) or {}
+        used_map = deep_get(q, "status", "used", default={}) or {}
+        if used_override and qname in used_override:
+            live = used_override[qname]
+            used_map = {k: live.get(usage_key(k), 0.0) for k in hard}
+        for hard_key, hard_val in hard.items():
+            delta = usage.get(usage_key(hard_key), 0.0)
+            if delta <= 0:
+                continue
+            used = parse_quantity(used_map.get(hard_key, 0.0) or 0.0)
+            limit = parse_quantity(hard_val)
+            if used + delta > limit:
+                return Violation(qname, hard_key, delta, used, limit)
+    return None
+
+
+def live_usage(pods: Iterable[Resource]) -> Dict[str, float]:
+    """The summed footprint of the pods that are not terminal."""
+    live = [p for p in pods
+            if deep_get(p, "status", "phase", default="")
+            not in ("Succeeded", "Failed")]
+    return add_usage(*[pod_quota_usage(p) for p in live]) if live else {}
+
+
+def quota_status(quotas: Iterable[Resource], pods: Iterable[Resource] = (),
+                 *, totals: Optional[Dict[str, float]] = None
+                 ) -> List[Tuple[Resource, Dict[str, str]]]:
+    """(quota, fresh ``status.used``) pairs from the live pods, or from a
+    precomputed ``totals`` usage map."""
+    total = live_usage(pods) if totals is None else totals
+    out = []
+    for q in quotas:
+        hard = deep_get(q, "spec", "hard", default={}) or {}
+        used = {k: format_quantity(total.get(usage_key(k), 0.0), k)
+                for k in hard}
+        out.append((q, used))
     return out
 
 

@@ -1,13 +1,21 @@
-"""Causal trace context of a replica: W3C traceparent parsing and the
-thread's current context, standard library only.
+"""Causal trace context: W3C traceparent parsing, the thread's current
+context, the context an object carries, and the span store of journeys.
+Standard library only.
 
-The port's copy of the part of ``kubeflow_tpu/telemetry/causal.py`` that a
-serving replica uses (``:62-205``): a caller's ``traceparent`` header is
-parsed by the app (``models/serve.py``), installed as the request
-thread's current context with ``use``, and linked into the request trace
-as ``causal_trace_id``/``causal_span_id`` (``telemetry/serve.py``).  The
-object annotations, admission minting, span store and journeys of the
-reference are control-plane work and are not ported.
+The port's copy of ``kubeflow_tpu/telemetry/causal.py`` without the
+lazy context factory, the watch-lag gate and the journey merge, which
+belong to the controller runtime.  A serving replica parses a caller's
+``traceparent`` header (``models/serve.py``), installs it as the
+request thread's current context with ``use`` and links it into the
+request trace as ``causal_trace_id``/``causal_span_id``
+(``telemetry/serve.py``).  The control plane rides the context on the
+objects: a platform CR is stamped at first admission
+(``mint_on_admission``, the ``kubeflow.org/traceparent`` and
+``kubeflow.org/tracestate`` annotations), the children a reconciler
+writes through ``platform/runtime/apply.py`` get a child context of
+the reconcile's (``stamp_child``), and each child write's round trip
+is a ``write_rtt`` span in the process's store (``record_write``,
+``journey``).
 
 Ids are a per-process random block plus a counter: one ``secrets`` read a
 process, ids unique within it by the counter and across processes by the
@@ -15,18 +23,34 @@ random block.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import re
 import secrets
 import threading
+import time
 from contextlib import contextmanager
-from typing import Optional
+from typing import Dict, List, Optional
 
+from kubeflow_tpu_torch import config
+
+TRACEPARENT_ANNOTATION = "kubeflow.org/traceparent"
+TRACESTATE_ANNOTATION = "kubeflow.org/tracestate"
 TRACEPARENT_HEADER = "traceparent"
+
+# A context-free object of the platform's own API group (a Notebook) is
+# a journey's root, minted at first admission; core kinds are stamped by
+# ``platform/runtime/apply.py`` from their parent's context.
+MINT_API_GROUP = "kubeflow.org"
+
+# The span store's size (spans, one ring a process) and its off switch.
+JOURNEY_BUFFER_SIZE = config.env_int("JOURNEY_BUFFER_SIZE", 8192)
+ENABLED = not config.env_bool("JOURNEY_DISABLE", False)
 
 _TRACEPARENT_RE = re.compile(
     r"^[0-9a-f]{2}-([0-9a-f]{32})-([0-9a-f]{16})-[0-9a-f]{2}$")
+_TS_RE = re.compile(r"kft=ts:([0-9.]+)")
 
 _rand = secrets.token_bytes(24)
 _trace_base = int.from_bytes(_rand[:16], "big")
@@ -107,3 +131,165 @@ def use(ctx: Optional[TraceContext]):
         yield ctx
     finally:
         set_current(prev)
+
+
+# -- the object annotation contract ------------------------------------------
+
+
+def _annotations(obj) -> Dict:
+    md = obj.get("metadata") if hasattr(obj, "get") else None
+    if md is None:
+        return {}
+    return md.get("annotations") or {}
+
+
+def from_object(obj) -> Optional[TraceContext]:
+    """The context an object carries, with its stamp time; reads only, so
+    a frozen cache view will do."""
+    ann = _annotations(obj)
+    ctx = parse_traceparent(ann.get(TRACEPARENT_ANNOTATION))
+    if ctx is None:
+        return None
+    m = _TS_RE.search(ann.get(TRACESTATE_ANNOTATION) or "")
+    if m is not None:
+        try:
+            return dataclasses.replace(ctx, stamped_ts=float(m.group(1)))
+        except ValueError:
+            pass
+    return ctx
+
+
+def stamp(obj, ctx: Optional[TraceContext] = None) -> Optional[TraceContext]:
+    """Write ``ctx`` (default: a fresh mint) into the object's annotations
+    with the stamp's wall time.  Returns the stamped context; None when
+    the object is immutable (a frozen view)."""
+    if ctx is None:
+        ctx = mint()
+    ctx = dataclasses.replace(ctx, stamped_ts=round(time.time(), 6))
+    try:
+        ann = obj.setdefault("metadata", {}).setdefault("annotations", {})
+        ann[TRACEPARENT_ANNOTATION] = ctx.to_traceparent()
+        ann[TRACESTATE_ANNOTATION] = f"kft=ts:{ctx.stamped_ts}"
+    except (TypeError, AttributeError):
+        return None
+    return ctx
+
+
+def stamp_child(obj) -> Optional[TraceContext]:
+    """Stamp an object a reconciler writes: a child of the current
+    (reconcile) context when one is installed, else the first-admission
+    rule."""
+    cur = current()
+    if cur is not None:
+        return stamp(obj, child(cur))
+    return mint_on_admission(obj)
+
+
+def mint_on_admission(obj) -> Optional[TraceContext]:
+    """First-admission minting, as the API server's create path runs it:
+    an object that carries a context keeps it; a context-free object of
+    ``MINT_API_GROUP`` is stamped from the current context or a fresh
+    mint; other groups pass untouched."""
+    existing = from_object(obj)
+    if existing is not None:
+        return existing
+    api = obj.get("apiVersion", "") if hasattr(obj, "get") else ""
+    if not str(api).startswith(MINT_API_GROUP + "/"):
+        return None
+    cur = current()
+    return stamp(obj, child(cur) if cur is not None else mint())
+
+
+def annotations_of(obj) -> Dict[str, str]:
+    """The two causal annotations an object carries (for patches that
+    restamp beside a generated-hash annotation)."""
+    ann = _annotations(obj)
+    return {k: ann[k] for k in (TRACEPARENT_ANNOTATION,
+                                TRACESTATE_ANNOTATION) if k in ann}
+
+
+# -- the span store -----------------------------------------------------------
+
+
+class SpanStore:
+    """A bounded store of causal spans; a journey is a scan of the ring by
+    trace id."""
+
+    def __init__(self, maxlen: int = JOURNEY_BUFFER_SIZE):
+        self._lock = threading.Lock()
+        self._spans: collections.deque = collections.deque(
+            maxlen=max(int(maxlen), 16))
+
+    def record(self, name: str, *, trace_id: str,
+               span_id: Optional[str] = None,
+               parent_span_id: Optional[str] = None,
+               segment: Optional[str] = None,
+               start_ts: float, end_ts: float, **attrs) -> dict:
+        span = {
+            "name": name,
+            "trace_id": trace_id,
+            "span_id": span_id or new_span_id(),
+            "start_ts": round(start_ts, 6),
+            "end_ts": round(end_ts, 6),
+            "duration_ms": round(max(end_ts - start_ts, 0.0) * 1e3, 3),
+        }
+        if parent_span_id:
+            span["parent_span_id"] = parent_span_id
+        if segment:
+            span["segment"] = segment
+        if attrs:
+            span.update(attrs)
+        with self._lock:
+            self._spans.append(span)
+        return span
+
+    def journey(self, trace_id: str) -> List[dict]:
+        with self._lock:
+            spans = [dict(s) for s in self._spans
+                     if s["trace_id"] == trace_id]
+        spans.sort(key=lambda s: (s["start_ts"], s["end_ts"]))
+        return spans
+
+
+
+STORE = SpanStore()
+
+
+def record(name: str, *, trace_id: str, **kwargs) -> Optional[dict]:
+    """Record one span into the process's store (nothing when
+    ``JOURNEY_DISABLE`` is set), and mark the thread as acting
+    (``consume_mark``)."""
+    if not ENABLED:
+        return None
+    _local.mark = True
+    return STORE.record(name, trace_id=trace_id, **kwargs)
+
+
+def mark_thread() -> None:
+    """Set the acting mark on this thread (a fan-out carries a pool
+    thread's mark back to the thread that submitted it)."""
+    _local.mark = True
+
+
+def consume_mark() -> bool:
+    """True when this thread recorded a span since the last call."""
+    marked = getattr(_local, "mark", False)
+    _local.mark = False
+    return marked
+
+
+def journey(trace_id: str) -> List[dict]:
+    return STORE.journey(trace_id)
+
+
+def record_write(verb: str, kind: str, name: str, start_ts: float, *,
+                 ok: bool = True, **attrs) -> None:
+    """A child write's round trip against the current context: segment
+    ``write_rtt``, parented on the reconcile's span."""
+    ctx = current()
+    if ctx is None:
+        return
+    record(f"k8s.{verb}", trace_id=ctx.trace_id,
+           parent_span_id=ctx.span_id, segment="write_rtt",
+           start_ts=start_ts, end_ts=time.time(), kind=kind, object=name,
+           ok=ok, **attrs)

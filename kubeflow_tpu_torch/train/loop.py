@@ -84,7 +84,8 @@ def train_loop(state, step_fn: Callable, batches, cfg: LoopConfig, *,
     resuming.  ``batches`` is an iterable, or a callable taking the start
     step.  ``eval_fn(state, batch) -> metrics`` runs every
     ``cfg.eval_every`` steps over ``eval_batches()``.  ``stop`` (a
-    ``threading.Event``) is checked between steps; the loop then exits and
+    ``threading.Event``, or ``parallel/dist.py``'s ``AgreedStop`` in a
+    world of processes) is checked between steps; the loop then exits and
     saves.  Returns ``(state, history)``: one ``{"step": n, ...}`` entry
     per log step with the metrics, ``step_seconds``, ``steps_per_sec``,
     ``tokens_per_sec`` and, given the FLOPs, ``mfu``; and one per eval

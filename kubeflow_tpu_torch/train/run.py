@@ -29,7 +29,9 @@ reference's axes over the processes:
 
 The state is then sharded by the model family's partition rules and
 trained by the sharded step (``parallel/train.py``), each process drawing
-its rows of the global batch.  ``--mesh auto`` factors the process count
+its rows of the global batch.  A SIGTERM stops every process at the same
+step (``parallel/dist.py`` ``AgreedStop``), where they save one
+checkpoint.  ``--mesh auto`` factors the process count
 (``default_mesh_config``); one process without ``--distributed`` trains
 unsharded.
 """
@@ -330,6 +332,10 @@ def main(argv: Optional[list] = None) -> int:
                   "(shrunk; will grow back via checkpoint-restart)",
                   flush=True)
     stop = threading.Event()
+    # The loop's stop: this process's SIGTERM alone, or, in a world of
+    # more than one process, the world's agreement on it (the same step
+    # everywhere).
+    check = stop
     replaced = {}
     try:
         n = meshes.world_size()
@@ -341,15 +347,19 @@ def main(argv: Optional[list] = None) -> int:
                 if dist.is_initialized() else None)
         shape = dict(zip(meshes.AXIS_NAMES, config.axis_sizes()))
         print(f"devices={n} mesh={shape} device={device}", flush=True)
+        if joined and n > 1:
+            from kubeflow_tpu_torch.parallel.dist import AgreedStop
+
+            check = AgreedStop(stop)
         replaced = install_preemption_handler(stop)
         with global_mesh(mesh):
-            state, history = train(args, device, stop, mesh)
+            state, history = train(args, device, check, mesh)
     finally:
         for sig, handler in replaced.items():
             signal.signal(sig, handler)
         if joined:
             dist.destroy_process_group()
-    if stop.is_set():
+    if check.stopped if check is not stop else stop.is_set():
         print(f"preempted at step {state.step}: checkpoint saved"
               if args.checkpoint_dir else
               f"preempted at step {state.step} (no checkpoint dir)",

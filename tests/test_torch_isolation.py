@@ -14,7 +14,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "kubeflow_tpu_torch"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "kubeflow_tpu", "werkzeug",
-           "prometheus_client")
+           "prometheus_client", "yaml")
 
 
 def test_every_module_imports_with_jax_and_reference_blocked():
@@ -59,12 +59,30 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.platform.gpu.topology",
     "kubeflow_tpu_torch.platform.gpu.pods",
     "kubeflow_tpu_torch.platform.k8s.quota",
+    "kubeflow_tpu_torch.platform",
+    "kubeflow_tpu_torch.platform.k8s.types",
+    "kubeflow_tpu_torch.platform.k8s.errors",
+    "kubeflow_tpu_torch.platform.config",
+    "kubeflow_tpu_torch.platform.runtime",
+    "kubeflow_tpu_torch.platform.runtime.metrics",
+    "kubeflow_tpu_torch.platform.runtime.events",
+    "kubeflow_tpu_torch.platform.runtime.flight",
+    "kubeflow_tpu_torch.platform.runtime.apply",
+    "kubeflow_tpu_torch.platform.runtime.controller",
+    "kubeflow_tpu_torch.platform.testing.fake",
+    "kubeflow_tpu_torch.platform.apis.notebook",
+    "kubeflow_tpu_torch.platform.apis.poddefault",
+    "kubeflow_tpu_torch.platform.controllers.notebook",
+    "kubeflow_tpu_torch.platform.webhook.jsonpatch",
+    "kubeflow_tpu_torch.platform.webhook.mutate",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
     """The modules that save and serve a trained model, the replica's
-    telemetry, the parallel package and the platform's GPU seams import
-    with JAX, the JAX package and the serving libraries blocked, and pull
-    none of them in."""
+    telemetry, the parallel package, the platform's GPU seams and its
+    notebook control plane (API types, the in-memory API server, the
+    reconciler, the webhook, the runtime) import with JAX, the JAX
+    package, the serving libraries and yaml blocked, and pull none of
+    them in."""
     path = REPO / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = REPO / module.replace(".", "/") / "__init__.py"

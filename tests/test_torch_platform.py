@@ -1,8 +1,9 @@
 """The platform's GPU seams (``kubeflow_tpu_torch/platform/``,
 ``parallel/envspec.py``'s blocks and ``parallel/launch.py``) against the
 JAX package's TPU counterparts: the slice math, the node scans, the
-quota, the pod pieces the controllers build, the env's round trip to a
-launcher's ranks, and one launcher world over gloo.
+quota with its admission in the in-memory API server, the pod pieces the
+controllers build, the env's round trip to a launcher's ranks, and one
+launcher world over gloo.
 
 Every comparison is exact (the pieces are integers, strings and dicts);
 the gloo world has a hard 60 s limit."""
@@ -34,7 +35,16 @@ from kubeflow_tpu.platform.tpu import topology as tpu_topology
 from kubeflow_tpu.platform.web.crud_backend import AuthContext
 from kubeflow_tpu_torch.parallel import envspec, launch
 from kubeflow_tpu_torch.platform.gpu import pods, topology
+from kubeflow_tpu_torch.platform.apis import notebook as nbapi
+from kubeflow_tpu_torch.platform.k8s import errors as port_errors
 from kubeflow_tpu_torch.platform.k8s import quota
+from kubeflow_tpu_torch.platform.k8s.types import NOTEBOOK as PORT_NOTEBOOK
+from kubeflow_tpu_torch.platform.k8s.types import (
+    POD,
+    RESOURCEQUOTA,
+    STATEFULSET,
+)
+from kubeflow_tpu_torch.platform.testing import FakeKube as PortKube
 from test_torch_multirank import REPO, wait_all, worker_env
 
 H100 = "h100-80gb"
@@ -329,6 +339,238 @@ def test_notebook_gpu_usage_equals_the_reference():
         assert got == _renamed(usage_of(nb)), (n, slices)
 
 
+# -- quota admission ----------------------------------------------------------
+
+
+def _gpu_pod(name, gpus=None, cpu="1", phase=None, init=None):
+    res = {"requests": {"cpu": cpu}}
+    if gpus is not None:
+        res["limits"] = {GPU_KEY: str(gpus)}
+    pod = {"apiVersion": "v1", "kind": "Pod",
+           "metadata": {"name": name, "namespace": "user1",
+                        "labels": {"notebook-name": name.rsplit("-", 1)[0]}},
+           "spec": {"containers": [{"name": "c", "resources": res}]}}
+    if init is not None:
+        pod["spec"]["initContainers"] = [
+            {"name": "i", "resources": {"limits": {GPU_KEY: str(init)}}}]
+    if phase is not None:
+        pod["status"] = {"phase": phase}
+    return pod
+
+
+def test_quota_formatting_and_validation_equal_the_reference():
+    for v, key in [(16, GPU_KEY), (0.5, "cpu"), (2**31, "requests.memory"),
+                   (2**31 + 1, "memory"), (1536, "limits.memory"),
+                   (1024, GPU_KEY), (3 * 2**40, "requests.storage"),
+                   (0.0, "pods"), (1.25, "cpu")]:
+        assert quota.format_quantity(v, key) == \
+            jax_quota.format_quantity(v, key)
+    quota.validate_hard({GPU_KEY: "8", "memory": "1Gi", "cpu": "500m"})
+    for bad in [{GPU_KEY: "lots"}, {"cpu": ""}, {"memory": "nan"},
+                {GPU_KEY: None}]:
+        with pytest.raises(ValueError) as got:
+            quota.validate_hard(bad)
+        with pytest.raises(ValueError) as want:
+            jax_quota.validate_hard(bad)
+        assert str(got.value) == str(want.value)
+
+
+GPU_QUOTAS = {
+    "bare": [_quota("q", {GPU_KEY: "8"}, {GPU_KEY: "6"})],
+    "requests": [_quota("q", {f"requests.{GPU_KEY}": "8"},
+                        {f"requests.{GPU_KEY}": "7"})],
+    "limits": [_quota("q", {f"limits.{GPU_KEY}": "4"})],
+    "pods-and-cpu": [_quota("a", {"pods": "2", "cpu": "3"},
+                            {"pods": "1", "cpu": "2500m"}),
+                     _quota("b", {GPU_KEY: "64"})],
+    "none": [],
+}
+
+
+@pytest.mark.parametrize("name", sorted(GPU_QUOTAS))
+def test_find_violation_and_status_equal_the_reference(name):
+    quotas = GPU_QUOTAS[name]
+    pods_in = [_gpu_pod("a-0", 2), _gpu_pod("b-0", 1, cpu="500m"),
+               _gpu_pod("c-0", 4, phase="Succeeded"),
+               _gpu_pod("d-0", init=8), _gpu_pod("e-0", phase="Failed")]
+    assert quota.live_usage(pods_in) == jax_quota.live_usage(pods_in)
+    totals = quota.live_usage(pods_in)
+    for incoming in pods_in + [_gpu_pod("f-0", 1), _gpu_pod("g-0", 16)]:
+        usage = quota.pod_quota_usage(incoming)
+        for override in (None, {q["metadata"]["name"]: totals
+                                for q in quotas}):
+            got = quota.find_violation(quotas, usage, used_override=override)
+            want = jax_quota.find_violation(quotas, usage,
+                                            used_override=override)
+            assert (got is None) == (want is None)
+            if got is not None:
+                assert (got.message(), got.remaining, got.quota_name,
+                        got.hard_key) == (want.message(), want.remaining,
+                                          want.quota_name, want.hard_key)
+                assert str(got).startswith("exceeded quota: ")
+    assert quota.quota_status(quotas, pods_in) == \
+        jax_quota.quota_status(quotas, pods_in)
+    assert quota.quota_status(quotas, totals={GPU_KEY: 3.0}) == \
+        jax_quota.quota_status(quotas, totals={GPU_KEY: 3.0})
+
+
+def _kube_script(kube, errors_mod):
+    """One sequence of API calls; returns what each answered (objects
+    without server-minted fields, or the error's class and message)."""
+    out = []
+
+    def call(fn, *a, **kw):
+        try:
+            obj = fn(*a, **kw)
+        except errors_mod.ApiError as e:
+            out.append((type(e).__name__, e.status, str(e)))
+            return None
+        if isinstance(obj, dict):
+            obj = copy.deepcopy(obj)
+            for k in ("uid", "creationTimestamp"):
+                obj.get("metadata", {}).pop(k, None)
+        out.append(obj)
+        return obj
+
+    call(kube.add_namespace, "user1")
+    call(kube.create, _gpu_pod("nowhere-0", 1) | {"metadata": {
+        "name": "x", "namespace": "gone"}})
+    call(kube.create, _quota("bad", {GPU_KEY: "lots"}))
+    call(kube.create, _quota("gpus", {GPU_KEY: "4", "pods": "3"}))
+    call(kube.create, _gpu_pod("a-0", 2))
+    call(kube.create, _gpu_pod("b-0", 2))
+    call(kube.create, _gpu_pod("c-0", 1))                 # over the GPUs
+    call(kube.create, _gpu_pod("c-0", 1), dry_run=True)
+    call(kube.create, _gpu_pod("d-0") | {"spec": {"containers": [
+        {"name": "c", "resources": {"limits": {"cpu": "junk"}}}]}})
+    call(kube.get, RESOURCEQUOTA, "gpus", "user1")
+    call(kube.patch, POD, "b-0", {"spec": {"containers": [
+        {"name": "c", "resources": {"limits": {GPU_KEY: "3"}}}]}}, "user1")
+    call(kube.patch, POD, "b-0", [{"op": "add",
+                                   "path": "/metadata/labels/x",
+                                   "value": "1"}], "user1",
+         patch_type="json")
+    call(kube.set_pod_phase, "user1", "a-0", "Succeeded")  # frees 2
+    call(kube.create, _gpu_pod("c-0", 1))
+    call(kube.create, _gpu_pod("e-0"))            # the third live pod
+    call(kube.get, RESOURCEQUOTA, "gpus", "user1")
+    call(kube.patch, RESOURCEQUOTA, "gpus",
+         {"spec": {"hard": {GPU_KEY: "x"}}}, "user1")
+    call(kube.delete, POD, "b-0", "user1")
+    call(kube.get, RESOURCEQUOTA, "gpus", "user1")
+    stale = call(kube.get, POD, "c-0", "user1")
+    call(kube.update, stale)
+    call(kube.update, stale)                              # a stale write
+    owner = call(kube.create, {"apiVersion": "apps/v1",
+                               "kind": "StatefulSet",
+                               "metadata": {"name": "s",
+                                            "namespace": "user1"}})
+    uid = kube.get(STATEFULSET, "s", "user1")["metadata"]["uid"]
+    child = _gpu_pod("s-0") | {}
+    child["metadata"]["ownerReferences"] = [{"uid": uid, "name": "s"}]
+    call(kube.create, child)
+    call(kube.delete, STATEFULSET, "s", "user1")          # cascades
+    call(kube.list, POD, "user1")
+    call(kube.list, POD, "user1", label_selector={"notebook-name": "c"})
+    call(kube.get, RESOURCEQUOTA, "gpus", "user1")
+    return out
+
+
+def test_fake_kube_admission_equals_the_reference():
+    """The port's in-memory API server answers a script of calls as the
+    reference's does: namespaces, quota validation, admission with the
+    apiserver's message, dry runs, resizes, JSON patches, terminal
+    phases releasing quota, stale writes and the cascade on delete."""
+    from kubeflow_tpu.platform.k8s import errors as jax_errors
+
+    got = _kube_script(PortKube(), port_errors)
+    want = _kube_script(FakeKube(), jax_errors)
+    refusals = [r for r in got if isinstance(r, tuple)]
+    assert [r[0] for r in refusals] == [
+        "NotFound", "Invalid", "Forbidden", "Forbidden", "Invalid",
+        "Forbidden", "Invalid", "Conflict"]
+    assert refusals[2][2] == (
+        'pods "c-0" is forbidden: exceeded quota: gpus, requested: '
+        'nvidia.com/gpu=1, used: nvidia.com/gpu=4, limited: '
+        'nvidia.com/gpu=4')
+    assert got == want
+
+
+def test_fake_kube_watch_and_gpu_node_equal_the_reference():
+    from kubeflow_tpu_torch.platform.gpu.topology import gpus_on_nodes
+    from kubeflow_tpu_torch.platform.k8s.types import NODE
+
+    port, ref = PortKube(), FakeKube()
+    streams = []
+    for kube in (port, ref):
+        kube.add_namespace("user1")
+        kube.create(_gpu_pod("a-0", 1))
+        streams.append(kube.watch(POD, "user1"))
+        kube.create(_gpu_pod("b-0", 1))
+        kube.delete(POD, "a-0", "user1")
+    for events in zip(*[[next(s) for _ in range(3)] for s in streams]):
+        (t1, o1), (t2, o2) = events
+        assert (t1, o1["metadata"]["name"]) == (t2, o2["metadata"]["name"])
+    port.add_gpu_node("g0")
+    port.add_gpu_node("g1", gpus=4)
+    assert gpus_on_nodes(port.list(NODE)) == {"h100-80gb": [4, 8]}
+    assert topology.gpu_capacity(port.list(NODE)) == 12
+
+
+def test_namespace_gpu_budget_equals_gpu_remaining():
+    """``namespace_gpu_budget`` is ``quota.gpu_remaining`` over the
+    namespace's quotas with the running notebooks' declared GPUs and
+    their pods' usage, and equals the reference's
+    ``namespace_tpu_budget`` of the same notebooks and pods."""
+    from kubeflow_tpu.platform.apis import notebook as jax_nbapi
+
+    def nb(name, gpus=None, stopped=False, tpu=None):
+        out = {"apiVersion": "kubeflow.org/v1beta1", "kind": "Notebook",
+               "metadata": {"name": name, "namespace": "user1"},
+               "spec": {"template": {"spec": {"containers": [
+                   {"name": name}]}}}}
+        if gpus:
+            out["spec"]["gpu"] = {"accelerator": H100, "gpus": gpus}
+        if tpu:
+            out["spec"]["tpu"] = {"accelerator": "v5e", "topology": tpu}
+        if stopped:
+            out["metadata"]["annotations"] = {nbapi.STOP_ANNOTATION: "t"}
+        return out
+
+    port, ref = PortKube(), FakeKube()
+    for kube in (port, ref):
+        kube.add_namespace("user1")
+    assert nbapi.namespace_gpu_budget(port, "user1") is None
+    hard = {GPU_KEY: "32"}
+    port.create(_quota("q", hard))
+    ref.create(_quota("q", {TPU_KEY: "32"}))
+    for name, gpus, topo, stopped in [("a", 16, "4x4", False),
+                                      ("b", 8, "2x4", True),
+                                      ("c", 1, "1x1", False),
+                                      ("d", None, None, False)]:
+        port.create(nb(name, gpus, stopped))
+        ref.create(nb(name, stopped=stopped, tpu=topo))
+    # Pods: one of a running notebook, one of the stopped one (still
+    # terminating), one of no notebook.
+    for kube, key in ((port, GPU_KEY), (ref, TPU_KEY)):
+        for pod_name, n in [("a-0", 8), ("b-0", 8), ("job-0", 4)]:
+            pod = _gpu_pod(pod_name)
+            pod["spec"]["containers"][0]["resources"]["limits"] = {
+                key: str(n)}
+            kube.create(pod)
+    running = [o for o in port.list(PORT_NOTEBOOK, "user1")
+               if not nbapi.is_stopped(o)]
+    declared = sum(nbapi.declared_gpus(o) for o in running)
+    pod_used = nbapi.running_notebook_pod_usage(port, "user1", running).get(
+        f"requests.{GPU_KEY}", 0.0)
+    want = quota.gpu_remaining(port.list(RESOURCEQUOTA, "user1"),
+                               declared=declared, workload_pod_used=pod_used)
+    assert (declared, pod_used) == (17.0, 8.0)
+    got = nbapi.namespace_gpu_budget(port, "user1")
+    assert got == want == jax_nbapi.namespace_tpu_budget(ref, "user1")
+    assert got == {"hard": 32, "used": 29, "remaining": 3}
+
+
 # -- pod pieces ---------------------------------------------------------------
 
 
@@ -542,10 +784,9 @@ def _kubelet_env(container, ordinal, address=None):
 @pytest.mark.parametrize("hosts", [1, 2])
 @pytest.mark.parametrize("gpus", [1, 2, 8])
 def test_launcher_ranks_round_trip(slices, hosts, gpus):
-    """Every pod's env through ``launch_grid`` and torchrun's static rank
-    rule: the global ranks 0..S*H*G-1 once each, pod (s, i) holding
-    [(s*H+i)*G, (s*H+i+1)*G), at the reference's coordinator and process
-    id."""
+    """Every pod's env through ``launch_grid`` and ``worker_envs``: the
+    global ranks 0..S*H*G-1 once each, pod (s, i) holding [(s*H+i)*G,
+    (s*H+i+1)*G), at the reference's coordinator and process id."""
     acc = topology.GpuAccelerator("test", "TEST", gpus, 80)
     spec = topology.GpuSliceSpec(acc, gpus * hosts, hosts, gpus, slices)
     port = 4321
@@ -567,7 +808,13 @@ def test_launcher_ranks_round_trip(slices, hosts, gpus):
             else:
                 assert (f"{addr}:{mport}", nnodes, node_rank) == want
                 assert addr == "job-0.job-workers.ns.svc.cluster.local"
-            got = [node_rank * nproc + local for local in range(nproc)]
+            envs = launch.worker_envs((addr, mport, nnodes, node_rank,
+                                       nproc))
+            got = [int(e["RANK"]) for e in envs]
+            assert [e["LOCAL_RANK"] for e in envs] == [
+                str(local) for local in range(nproc)]
+            assert {e["WORLD_SIZE"] for e in envs} == {
+                str(slices * hosts * gpus)}
             first = (s * hosts + i) * gpus
             assert got == list(range(first, first + gpus))
             ranks += got
@@ -587,17 +834,17 @@ def test_launch_grid_defaults_and_refusals():
         with pytest.raises(ValueError, match="KFT_GPUS_PER_HOST"):
             launch.gpus_per_host(bad)
     assert launch.gpus_per_host({"KFT_GPUS_PER_HOST": "8"}) == 8
-    assert launch.torchrun_args(("a", 1, 2, 1, 8), ["python", "x"]) == [
-        "--nnodes", "2", "--node-rank", "1", "--nproc-per-node", "8",
-        "--master-addr", "a", "--master-port", "1", "--no-python",
-        "python", "x"]
+    envs = launch.worker_envs(("a", 1, 2, 1, 8))
+    assert len(envs) == 8
+    assert envs[3] == {"MASTER_ADDR": "a", "MASTER_PORT": "1",
+                       "WORLD_SIZE": "16", "RANK": "11", "LOCAL_RANK": "3"}
 
 
 def test_launcher_refuses_without_the_gpus(monkeypatch, capsys):
     """``--device cuda`` (the default) on a host without the GPUs stops,
     as does a pod without KFT_GPUS_PER_HOST or a command; nothing is
     started."""
-    monkeypatch.setattr(launch, "torchrun_args", None)   # never reached
+    monkeypatch.setattr(launch, "supervise", None)   # never reached
     for gpus, args, said in [
             ("1", ["--", "true"], "has 0 CUDA device"),
             (None, ["--device", "cpu", "--", "true"], "KFT_GPUS_PER_HOST"),
@@ -615,16 +862,20 @@ def test_launcher_refuses_without_the_gpus(monkeypatch, capsys):
 # -- one launcher world over gloo ---------------------------------------------
 
 CHILD = textwrap.dedent("""
-    import datetime, os
+    import datetime, os, sys
     import torch, torch.distributed as td
     from kubeflow_tpu_torch.parallel import dist
     assert dist.initialize_from_env(
         device_type="cpu", timeout=datetime.timedelta(seconds=50))
     t = torch.tensor([float(td.get_rank())])
     td.all_reduce(t)
-    print("RANK", os.environ["TPU_WORKER_ID"], td.get_rank(),
-          td.get_world_size(), os.environ["LOCAL_RANK"], int(t.item()),
-          flush=True)
+    # One write a line: under unbuffered output (PYTHONUNBUFFERED) print
+    # writes the text and the newline apart, and the launcher's processes
+    # share one pipe.
+    sys.stdout.write(" ".join(str(v) for v in (
+        "RANK", os.environ["TPU_WORKER_ID"], td.get_rank(),
+        td.get_world_size(), os.environ["LOCAL_RANK"], int(t.item()))) + "\\n")
+    sys.stdout.flush()
     td.destroy_process_group()
 """)
 
