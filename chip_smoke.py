@@ -232,17 +232,35 @@ After 11:
    state sharded by llama_rules and trained by the sharded step; losses
    against the train phase's (MESH_LOSS_TOL), exact launches a step,
    step seconds and peak memory; the group destroyed after it.
-11b. platform_job: ``job_worker_container`` for one slice of one host of
-   one GPU over a template running ``train.run`` with MESH_ARGS at
-   PLATFORM_JOB_MAX_STEPS steps, ``KFT_CHECKPOINT_DIR`` a new directory
-   under ``build/checkpoints``: its command (under the launcher) and env
-   run as a subprocess, worker 0's name resolved to 127.0.0.1, and the
-   launcher is sent SIGTERM once step PLATFORM_JOB_STEPS has logged (a
-   preempted pod).  It drains and exits 0, printing the step it stopped
-   at; its losses equal 11a's first steps within MESH_LOSS_TOL; its one
-   checkpoint is at that step; the directory is removed.  The drain's
-   seconds (SIGTERM to exit) are printed beside the reference
-   controller's 30 s grace, a finding and not a failure when longer.
+11b. platform_job: the job controller around this card.  In the port's
+   ``FakeKube``: namespace ``smoke``, an h100-80gb node of one GPU (its
+   product this card's name) and a ResourceQuota of one
+   ``nvidia.com/gpu``.  GPUJob ``train`` (priority 100, one GPU,
+   ``checkpointDir`` a new directory under ``build/checkpoints``, a
+   template running ``train.run`` with MESH_ARGS at
+   PLATFORM_JOB_TOTAL_STEPS steps) is reconciled by ``GPUJobReconciler``
+   into StatefulSet ``train`` (1 replica, one GPU as limit and request,
+   the product's selector, the launcher's command, ``KFT_CHECKPOINT_DIR``,
+   ``terminationGracePeriodSeconds`` the job grace) and Service
+   ``train-workers``.  The phase plays the kubelet: a StatefulSet's pod
+   is created from its template and its container runs as a subprocess
+   (worker 0's name resolved to 127.0.0.1); a deleted StatefulSet's pod
+   gets SIGTERM and at most its grace before a kill, which fails the
+   phase; an exited pod is marked Succeeded or Failed by its exit code.
+   Once step PLATFORM_JOB_STEPS of ``train`` has logged, GPUJob
+   ``urgent`` (priority 200, one GPU, MESH_ARGS at PLATFORM_URGENT_STEPS
+   steps) is created: it waits Queued while ``train`` is Preempting and
+   drains (both reconciled every PLATFORM_RECONCILE_S), ``train``'s pod
+   exits 0 within the grace, the controller frees its GPU on the pod's
+   exit (not on the deadline) and ``urgent`` is admitted and runs to
+   Succeeded, its losses 11a's first two.  ``train`` is re-admitted in
+   its next generation, resumes from its checkpoint one step past where
+   it stopped, its losses 11a's through step 6 (MESH_LOSS_TOL), and ends
+   Succeeded at its last step with the quota's use back to 0.  Each
+   reconcile's ms, the drain's seconds beside the grace and the
+   reference's 30 s, the checkpoint's snapshot and write seconds, and the
+   wall seconds of ``urgent`` and of the resumed pod to its first step
+   are printed beside the card's name and power limit.
 Within 3, K2 at the dense-cache chunk's shape (b2, q 300 over k 812).
 Within 7, the attention kernels at ViT-B/16's and BERT-base's shapes
 (b64 s197 and b32 s128, h12, d64, non-causal), timed; and K1 at
@@ -256,6 +274,7 @@ line is the result, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import io
 import json
@@ -476,16 +495,21 @@ MESH_LOSS_TOL = 1e-5
 # subprocess the way the kubelet would start it.  A replica must answer
 # /readyz within PLATFORM_READY_S of its start (llama3_8b built on the
 # card from the seed, the default paged engine's pool, one warm
-# generate); a job's worker is preempted once PLATFORM_JOB_STEPS steps
-# of MESH_ARGS (at most PLATFORM_JOB_MAX_STEPS) have logged, and drains
-# to its checkpoint within PLATFORM_JOB_S of its start.  The reference's
-# job controller gives a preempted gang PREEMPTION_GRACE_S to checkpoint
+# generate).  The job phase: GPUJob "train" (MESH_ARGS at
+# PLATFORM_JOB_TOTAL_STEPS steps) is preempted by GPUJob "urgent"
+# (MESH_ARGS at PLATFORM_URGENT_STEPS steps) once step PLATFORM_JOB_STEPS
+# has logged, and resumes from its checkpoint after "urgent" ends; each
+# pod must end within PLATFORM_JOB_S of its start, and the jobs are
+# reconciled every PLATFORM_RECONCILE_S.  The reference's job controller
+# gives a preempted gang PREEMPTION_GRACE_S to checkpoint
 # (kubeflow_tpu/platform/controllers/tpujob.py:84-87).
 PLATFORM_ACCELERATOR = "h100-80gb"
 PLATFORM_READY_S = 300.0
 PLATFORM_JOB_STEPS = 2
-PLATFORM_JOB_MAX_STEPS = 1000
+PLATFORM_JOB_TOTAL_STEPS = 10
+PLATFORM_URGENT_STEPS = 2
 PLATFORM_JOB_S = 600.0
+PLATFORM_RECONCILE_S = 1.0
 PREEMPTION_GRACE_S = 30.0
 
 # The notebook phase: the Notebook's pod runs one cell on the card,
@@ -6314,8 +6338,14 @@ class Pod:
             start_new_session=True)
 
     def output(self) -> str:
-        self.log.seek(0)
-        return self.log.read()
+        # pread, not seek and read: the process writes through the same
+        # open file, so moving its offset would let its next line land
+        # over the start of the log.
+        fd, chunks, at = self.log.fileno(), [], 0
+        while chunk := os.pread(fd, 1 << 20, at):
+            chunks.append(chunk)
+            at += len(chunk)
+        return b"".join(chunks).decode(errors="replace")
 
     def fail(self, why):
         tail = self.output()[-6000:]
@@ -6709,100 +6739,380 @@ def phase_platform_notebook(torch, dev):
     return got["launches"]
 
 
+def train_step_lines(out):
+    """The ``train_step`` lines of a trainer's output, as dicts of floats."""
+    steps = []
+    for line in out.splitlines():
+        if "train_step " in line:
+            kv = dict(p.split("=", 1)
+                      for p in line[line.index("train_step "):].split()[1:])
+            steps.append({k: float(v) for k, v in kv.items()})
+    return steps
+
+
+def loss_limits(want):
+    """MESH_LOSS_TOL, plus one unit of the sixth digit the trainer prints,
+    relative to each of ``want``."""
+    return [MESH_LOSS_TOL
+            + 10.0 ** (math.floor(math.log10(abs(b))) - 5) / abs(b)
+            for b in want]
+
+
+def kernel_launch_line(out, what):
+    """The trainer's ``kernel_launches`` line in ``out``: {kernel: count}."""
+    for line in out.splitlines():
+        if "kernel_launches " in line:
+            return {k: int(v) for k, v in (
+                p.split("=", 1) for p in
+                line[line.index("kernel_launches "):].split()[1:])}
+    raise AssertionError(f"{what}: no kernel_launches line\n{out[-3000:]}")
+
+
+# The trainer's lines whose first sight a job pod's run keeps, in seconds
+# from its start: the process group joined, the first step logged.
+JOB_MARKS = ("devices=", "train_step ")
+
+
+class JobPods:
+    """The containers of the platform_job phase: ``work`` is
+    ``GpuJobGangSim``'s work, one call a gang generation of a one-host
+    job.  It runs the container of the sim's pod ``<job>-0`` as a
+    subprocess (``kubelet_env``, ``pod_command``, ``resolve`` for the
+    worker names), sends it SIGTERM when the sim sets ``stop`` (the
+    StatefulSet is gone) and kills it, failing the phase, after the pod's
+    ``terminationGracePeriodSeconds``; it returns when the process exits
+    0 and raises otherwise, so the sim marks the pod Succeeded or Failed.
+    Each run is kept in ``runs`` by (job, generation)."""
+
+    def __init__(self, kube, ns, resolve):
+        self.kube, self.ns, self.resolve = kube, ns, resolve
+        self.runs = {}
+
+    def work(self, job, generation, stop):
+        from kubeflow_tpu_torch.platform.k8s.types import POD
+
+        spec = self.kube.get(POD, f"{job}-0", self.ns)["spec"]
+        container = spec["containers"][0]
+        pod = Pod(pod_command(container["command"]),
+                  kubelet_env(container, 0, self.resolve),
+                  f"platform_job {job}-0 generation {generation}")
+        run = self.runs[(job, generation)] = {
+            "pod": pod, "rc": None, "sigterm_at": None, "exit_at": None,
+            "grace": spec["terminationGracePeriodSeconds"], "seen_s": {}}
+        while True:
+            rc = pod.proc.poll()
+            now = time.perf_counter()
+            if rc is not None:
+                break
+            out = pod.output()
+            for mark in JOB_MARKS:
+                if mark not in run["seen_s"] and mark in out:
+                    run["seen_s"][mark] = now - pod.t0
+            if stop.is_set() and run["sigterm_at"] is None:
+                pod.proc.send_signal(signal.SIGTERM)
+                run["sigterm_at"] = now
+            if (run["sigterm_at"] is not None
+                    and now - run["sigterm_at"] > run["grace"]):
+                os.killpg(pod.proc.pid, signal.SIGKILL)
+                pod.fail(f"killed, still running {run['grace']} s after "
+                         "SIGTERM")
+            if now - pod.t0 > PLATFORM_JOB_S:
+                pod.fail(f"still running after {PLATFORM_JOB_S} s")
+            time.sleep(0.1)
+        run.update(exit_at=now, wall_s=now - pod.t0, output=pod.output())
+        run["rc"] = pod.stop()
+        if rc != 0:
+            raise AssertionError(f"{pod.what} exited {rc}\n"
+                                 + run["output"][-6000:])
+
+    def close(self):
+        """Stop every process still running (a phase that failed)."""
+        for run in list(self.runs.values()):
+            if run["rc"] is None:
+                run["rc"] = run["pod"].stop()
+
+
 def phase_platform_job(torch, mesh_losses):
-    """A job's worker as the platform's StatefulSet starts it, preempted
-    (the docstring's 11b): ``job_worker_container`` for one slice of one
-    host of one GPU over a template running ``train.run`` with MESH_ARGS
-    at PLATFORM_JOB_MAX_STEPS steps, ``KFT_CHECKPOINT_DIR`` a new
-    directory; its command (under the launcher) and env run as a
-    subprocess, worker 0's name resolved to 127.0.0.1, and SIGTERM sent
-    to the launcher once step PLATFORM_JOB_STEPS has logged.  It drains
-    and exits 0; its losses equal the mesh phase's first steps within
-    MESH_LOSS_TOL (and the printed digits); its one checkpoint is at the
-    step it says it stopped at.  The drain's seconds stand beside the
-    reference's PREEMPTION_GRACE_S."""
-    from kubeflow_tpu_torch.platform.gpu import pods, slice_spec
+    """The job controller around this card (the docstring's 11b): GPUJob
+    ``train`` reconciled by ``GPUJobReconciler`` into its gang, preempted
+    by GPUJob ``urgent`` in two phases, resumed from its checkpoint; this
+    process runs the controller, its queue and ``FakeKube``, and
+    ``GpuJobGangSim`` plays the kubelet with ``JobPods``'s work; the pods
+    train on the card.  Returns the pods' launch counts, summed."""
+    from kubeflow_tpu_torch.models.llama import CONFIGS
+    from kubeflow_tpu_torch.platform import (
+        FakeKube,
+        GPUJobReconciler,
+        GpuJobGangSim,
+        Request,
+    )
+    from kubeflow_tpu_torch.platform.apis import gpujob as jobapi
+    from kubeflow_tpu_torch.platform.gpu import ACCELERATORS, pods
+    from kubeflow_tpu_torch.platform.k8s import quota
+    from kubeflow_tpu_torch.platform.k8s.types import (
+        GPUJOB,
+        RESOURCEQUOTA,
+        SERVICE,
+        STATEFULSET,
+    )
     from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
 
+    ns = "smoke"
     smi = nvidia_smi_name_power()
-    argv = list(MESH_ARGS)
-    argv[argv.index("--steps") + 1] = str(PLATFORM_JOB_MAX_STEPS)
-    pod_spec = {"containers": [{
-        "name": "trainer", "image": "kubeflow-tpu-torch",
-        "command": ["python", "-m", "kubeflow_tpu_torch.train.run", *argv]}]}
+    acc = ACCELERATORS[PLATFORM_ACCELERATOR]
+    card = smi.split(",")[0].strip()
+    if acc.product != card.replace(" ", "-"):
+        raise AssertionError(f"{PLATFORM_ACCELERATOR}'s product "
+                             f"{acc.product!r} is not this card, {card!r}")
+    kube = FakeKube()
+    kube.add_namespace(ns)
+    kube.add_gpu_node("gpu-0", accelerator=PLATFORM_ACCELERATOR, gpus=1)
+    kube.create({"apiVersion": "v1", "kind": "ResourceQuota",
+                 "metadata": {"name": "gpus", "namespace": ns},
+                 "spec": {"hard": {"requests.nvidia.com/gpu": "1"}}})
+
+    def gpujob(name, priority, steps, checkpoint_dir=None):
+        argv = list(MESH_ARGS)
+        argv[argv.index("--steps") + 1] = str(steps)
+        job = {"apiVersion": "kubeflow.org/v1alpha1", "kind": "GPUJob",
+               "metadata": {"name": name, "namespace": ns},
+               "spec": {"gpu": {"accelerator": PLATFORM_ACCELERATOR,
+                                "gpus": 1},
+                        "priority": priority,
+                        "template": {"spec": {"containers": [{
+                            "name": "trainer", "image": "kubeflow-tpu-torch",
+                            "command": ["python", "-m",
+                                        "kubeflow_tpu_torch.train.run",
+                                        *argv]}]}}}}
+        if checkpoint_dir:
+            job["spec"]["checkpointDir"] = checkpoint_dir
+        kube.create(job)
+
+    rec = GPUJobReconciler(kube)
+    reconcile_ms = []
+
+    def reconcile(*names):
+        for name in names:
+            t0 = time.perf_counter()
+            rec.reconcile(Request(ns, name))
+            reconcile_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def status(name):
+        return kube.get(GPUJOB, name, ns).get("status") or {}
+
+    worker0 = "train-0.train-workers.smoke.svc.cluster.local"
+    urgent0 = "urgent-0.urgent-workers.smoke.svc.cluster.local"
+    jobs = JobPods(kube, ns, {worker0: "127.0.0.1", urgent0: "127.0.0.1"})
+    sim = GpuJobGangSim(kube, ns, work=jobs.work)
     ckpt = tempfile.mkdtemp(prefix="platform-job-", dir=checkpoint_root())
-    try:
-        container = pods.job_worker_container(
-            pod_spec, ns="smoke", name="train",
-            spec=slice_spec(PLATFORM_ACCELERATOR, 1), checkpoint_dir=ckpt)
-        worker0 = "train-0.train-workers.smoke.svc.cluster.local"
-        emit({"phase": "platform_hosts", "resolved": {worker0: "127.0.0.1"},
-              "why": "no cluster DNS on this machine; nothing else of the "
-                     "built spec is edited"})
-        cmd = pod_command(container["command"])
-        pod = Pod(cmd, kubelet_env(container, 0, {worker0: "127.0.0.1"}),
-                  "platform_job")
-        deadline = pod.t0 + PLATFORM_JOB_S
-        trigger = f"train_step step={PLATFORM_JOB_STEPS} "
-        while trigger not in pod.output():
-            if pod.proc.poll() is not None:
-                pod.fail(f"exited {pod.proc.returncode} before step "
-                         f"{PLATFORM_JOB_STEPS}")
+
+    def wait_until(cond, what, names, check=None):
+        """Every 0.1 s: fail on a pod's failure, ``check()``, and end on
+        ``cond()``; reconcile ``names`` every PLATFORM_RECONCILE_S."""
+        deadline = time.perf_counter() + PLATFORM_JOB_S
+        next_reconcile = 0.0
+        while True:
+            if sim.errors:
+                raise sim.errors[0]
+            if check is not None:
+                check()
+            if cond():
+                return
+            if time.perf_counter() >= next_reconcile:
+                reconcile(*names)
+                next_reconcile = time.perf_counter() + PLATFORM_RECONCILE_S
+                if cond():
+                    return
             if time.perf_counter() > deadline:
-                pod.fail(f"no step {PLATFORM_JOB_STEPS} within "
-                         f"{PLATFORM_JOB_S} s")
+                raise AssertionError(
+                    f"platform_job: no {what} within {PLATFORM_JOB_S} s: "
+                    + json.dumps({n: status(n) for n in names}))
             time.sleep(0.1)
-        t_sig = time.perf_counter()
-        pod.proc.send_signal(signal.SIGTERM)
-        rc = pod.wait(max(deadline - t_sig, 60.0))
-        drain_s = time.perf_counter() - t_sig
-        wall_s = time.perf_counter() - pod.t0
-        out = pod.output()
-        pod.stop()
-        steps = []
-        for line in out.splitlines():
-            if "train_step " in line:
-                kv = dict(p.split("=", 1)
-                          for p in line[line.index("train_step "):].split()[1:])
-                steps.append({k: float(v) for k, v in kv.items()})
-        stopped = [int(ln.split()[3].rstrip(":")) for ln in out.splitlines()
+
+    try:
+        gpujob("train", 100, PLATFORM_JOB_TOTAL_STEPS, ckpt)
+        reconcile("train")
+        sts = kube.get(STATEFULSET, "train", ns)
+        pod_spec = sts["spec"]["template"]["spec"]
+        main = pod_spec["containers"][0]
+        env = {e["name"]: e.get("value") for e in main["env"]}
+        one = {"nvidia.com/gpu": "1"}
+        if (sts["spec"]["replicas"] != 1
+                or main["resources"] != {"limits": one, "requests": one}
+                or pod_spec["nodeSelector"]
+                != {"nvidia.com/gpu.product": acc.product,
+                    "nvidia.com/gpu.count": "1"}
+                or main["command"][:len(pods.LAUNCHER)] != pods.LAUNCHER
+                or env.get("KFT_CHECKPOINT_DIR") != ckpt
+                or pod_spec["terminationGracePeriodSeconds"]
+                != pods.JOB_GRACE_S
+                or rec.preemption_grace != pods.JOB_GRACE_S):
+            raise AssertionError(f"platform_job: StatefulSet {sts}")
+        kube.get(SERVICE, "train-workers", ns)
+        gen0 = ("train", 0)
+        wait_until(lambda: status("train").get("phase") == "Running",
+                   "Running train", ["train"])
+        if status("train").get("allocatedSlices") != 1:
+            raise AssertionError(f"platform_job: {status('train')}")
+        trigger = f"train_step step={PLATFORM_JOB_STEPS} "
+        wait_until(lambda: gen0 in jobs.runs
+                   and trigger in jobs.runs[gen0]["pod"].output(),
+                   f"step {PLATFORM_JOB_STEPS} of train", ["train"])
+
+        # The preemption: urgent waits while train drains.
+        gpujob("urgent", 200, PLATFORM_URGENT_STEPS)
+        reconcile("urgent", "train")
+        held = (status("urgent").get("phase"), status("train").get("phase"),
+                status("train").get("reason"))
+        if held != ("Queued", "Preempting", "Preempted") or \
+                kube.list(STATEFULSET, ns):
+            raise AssertionError(f"platform_job: preemption {held}")
+        preempted_at = status("train")["preemption"]["at"]
+        freed = {}
+
+        def drain_check():
+            if jobs.runs[gen0]["rc"] is None and (
+                    status("urgent").get("allocatedSlices") is not None
+                    or status("train").get("phase") != "Preempting"):
+                raise AssertionError(
+                    "platform_job: train's GPU freed while its pod drains: "
+                    + json.dumps([status("train"), status("urgent")]))
+            if not freed and status("train").get("phase") == "Queued":
+                freed.update(status=status("train"), at=time.time())
+
+        wait_until(lambda: status("urgent").get("allocatedSlices") == 1,
+                   "admission of urgent", ["urgent", "train"], drain_check)
+        victim = jobs.runs[gen0]
+        drain_s = victim["exit_at"] - victim["sigterm_at"]
+        if (victim["rc"] != 0 or drain_s >= victim["grace"]
+                or freed["status"].get("reason") != "Preempted"
+                or freed["at"] - preempted_at >= rec.preemption_grace):
+            raise AssertionError(
+                f"platform_job: drain exit {victim['rc']} in {drain_s} s, "
+                f"freed {freed}\n" + victim["output"][-6000:])
+
+        # The preemptor, then the resume.
+        wait_until(lambda: status("urgent").get("phase") == "Succeeded",
+                   "urgent's end", ["urgent", "train"])
+        urgent = jobs.runs[("urgent", 0)]
+        urgent_losses = [st["loss"] for st in
+                         train_step_lines(urgent["output"])]
+        wait_until(lambda: status("train").get("phase") == "Succeeded",
+                   "train's end", ["train", "urgent"])
+        gen1 = jobs.runs[("train", 1)]
+        used = kube.get(RESOURCEQUOTA, "gpus", ns)["status"]["used"]
+        stopped = [int(ln.split()[3].rstrip(":"))
+                   for ln in victim["output"].splitlines()
                    if ln.startswith("preempted at step ")
                    and ln.endswith(": checkpoint saved")]
-        losses = [st["loss"] for st in steps]
-        n_held = min(len(losses), len(mesh_losses))
-        want = mesh_losses[:n_held]
-        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
-        limits = [MESH_LOSS_TOL
-                  + 10.0 ** (math.floor(math.log10(abs(b))) - 5) / abs(b)
-                  for b in want]
-        latest = CheckpointManager(ckpt).all_steps()
         at = stopped[0] if len(stopped) == 1 else None
-        if (rc != 0 or at is None or at < PLATFORM_JOB_STEPS
-                or len(losses) != at or n_held < PLATFORM_JOB_STEPS
+        before = [st["loss"] for st in train_step_lines(victim["output"])]
+        resumed = train_step_lines(gen1["output"])
+        mesh_at = {i + 1: b for i, b in enumerate(mesh_losses)}
+        held = ([(i + 1, a) for i, a in enumerate(before)]
+                + [(int(st["step"]), st["loss"]) for st in resumed])
+        held = [(step, a, mesh_at[step]) for step, a in held
+                if step in mesh_at]
+        held += [(i + 1, a, mesh_at[i + 1])
+                 for i, a in enumerate(urgent_losses)]
+        rel = [abs(a - b) / abs(b) for _, a, b in held]
+        limits = loss_limits([b for _, _, b in held])
+        steps_on_disk = CheckpointManager(ckpt).all_steps()
+        if (at is None or at < PLATFORM_JOB_STEPS or len(before) != at
+                or at >= len(mesh_losses)
+                or [int(st["step"]) for st in resumed]
+                != list(range(at + 1, PLATFORM_JOB_TOTAL_STEPS + 1))
+                or len(urgent_losses) != PLATFORM_URGENT_STEPS
+                or urgent["rc"] != 0 or gen1["rc"] != 0
                 or any(r > t for r, t in zip(rel, limits))
-                or latest != [at] or f"done: step {at}" not in out):
+                or f"done: step {PLATFORM_JOB_TOTAL_STEPS}"
+                not in gen1["output"]
+                or status("train").get("generation") != 1
+                or steps_on_disk != [at, PLATFORM_JOB_TOTAL_STEPS]
+                or kube.list(STATEFULSET, ns)
+                or quota.parse_quantity(
+                    used.get("requests.nvidia.com/gpu", 0)) != 0):
             raise AssertionError(
-                f"platform_job: exit {rc}, stopped at {stopped}, losses "
-                f"{losses} against the mesh phase's {want} ({rel}), "
-                f"checkpoint steps {latest}\n" + out[-6000:])
-        ckpt_lines = [ln[ln.index("checkpoint step="):]
-                      for ln in out.splitlines() if "checkpoint step=" in ln]
+                f"platform_job: stopped at {stopped}, losses {before} then "
+                f"{resumed}, urgent {urgent_losses}, against the mesh "
+                f"phase's {mesh_losses} ({rel}), checkpoint steps "
+                f"{steps_on_disk}, quota used {used}, train "
+                f"{status('train')}\n" + gen1["output"][-6000:])
+        # Each pod's trainer launched its kernels exactly a step's worth
+        # for each step it ran.
+        per_step = train_launches_per_step(CONFIGS[TRAIN_MODEL])
+        runs_launches, launches = {}, {}
+        for what, run, n in (("train_0", victim, at),
+                             ("urgent_0", urgent, PLATFORM_URGENT_STEPS),
+                             ("train_1", gen1,
+                              PLATFORM_JOB_TOTAL_STEPS - at)):
+            got = kernel_launch_line(run["output"], f"platform_job {what}")
+            want = {k: c * n for k, c in per_step.items()}
+            if got != want:
+                raise AssertionError(f"platform_job: {what} launched {got}, "
+                                     f"expected {want}")
+            runs_launches[what] = got
+            for k, c in got.items():
+                launches[k] = launches.get(k, 0) + c
+        saves = {}
+        for what, run in (("preempted", victim), ("resumed", gen1)):
+            lines = [ln[ln.index("checkpoint step="):]
+                     for ln in run["output"].splitlines()
+                     if "checkpoint step=" in ln]
+            kv = dict(p.split("=", 1) for p in lines[-1].split()[1:])
+            saves[what] = {k: float(v) for k, v in kv.items()}
         emit({"phase": "platform_job", "model": TRAIN_MODEL,
-              "command": container["command"], "run_as": cmd,
+              "command": main["command"], "run_as":
+              pod_command(main["command"]),
               "env": {e["name"]: e.get("value", e.get("valueFrom"))
-                      for e in container["env"]},
-              "exit_code": rc, "sigterm_after_step": PLATFORM_JOB_STEPS,
-              "stopped_at_step": at, "losses": losses,
-              "mesh_phase_losses": want, "loss_rel_diff": rel,
-              "loss_tol": MESH_LOSS_TOL,
-              "step_seconds": [st["step_seconds"] for st in steps],
-              "checkpoint_steps": latest, "checkpoint_line": ckpt_lines[-1:],
+                      for e in main["env"]},
+              "termination_grace_seconds": pods.JOB_GRACE_S,
+              "launcher_shutdown_timeout_seconds":
+              pods.JOB_GRACE_S - pods.JOB_KILL_MARGIN_S,
+              "resolved": {worker0: "127.0.0.1", urgent0: "127.0.0.1"},
+              "reconcile_ms": reconcile_ms,
+              "reconciles": len(reconcile_ms),
+              "reconcile_ms_median": statistics.median(reconcile_ms),
+              "sigterm_after_step": PLATFORM_JOB_STEPS,
+              "stopped_at_step": at, "exit_code": victim["rc"],
               "drain_seconds": drain_s,
+              "grace_seconds": victim["grace"],
               "reference_grace_seconds": PREEMPTION_GRACE_S,
-              "drain_over_grace": drain_s > PREEMPTION_GRACE_S,
-              "wall_seconds": wall_s, "nvidia_smi": smi})
+              "drain_over_reference_grace": drain_s > PREEMPTION_GRACE_S,
+              "freed_after_preemption_seconds": freed["at"] - preempted_at,
+              "freed_by": "pod exit",
+              "checkpoint": saves,
+              "snapshot_seconds": saves["preempted"]["snapshot_seconds"],
+              "write_seconds": saves["preempted"]["write_seconds"],
+              "urgent_losses": urgent_losses,
+              "urgent_wall_seconds": urgent["wall_s"],
+              "train_losses": before + [st["loss"] for st in resumed],
+              "resumed_at_step": int(resumed[0]["step"]),
+              "resumed_generation": status("train")["generation"],
+              "resumed_seconds_to_first_step": gen1["seen_s"]["train_step "],
+              "seconds_to_line_by_pod": {
+                  what: run["seen_s"] for what, run in (
+                      ("train_0", victim), ("urgent_0", urgent),
+                      ("train_1", gen1))},
+              "resumed_wall_seconds": gen1["wall_s"],
+              "mesh_phase_losses": mesh_losses,
+              "held_steps": [step for step, _, _ in held],
+              "loss_rel_diff": rel, "loss_tol": MESH_LOSS_TOL,
+              "step_seconds": [st["step_seconds"] for st in
+                               train_step_lines(victim["output"])
+                               + resumed],
+              "checkpoint_steps": steps_on_disk,
+              "launches": launches, "launches_by_pod": runs_launches,
+              "launches_per_step": per_step,
+              "quota_used_after": used,
+              "phases": {n: status(n)["phase"] for n in ("train",
+                                                         "urgent")},
+              "nvidia_smi": smi})
     finally:
+        jobs.close()
+        sim.close()
         shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
 
 
 SOURCES = {
@@ -6831,70 +7141,88 @@ TRAIN_KERNELS = ("rms_norm_bwd", "flash_attention_fwd_lse",
                  "flash_attention_dq", "flash_attention_dkv")
 
 
+# Each phase's wall seconds, by its function's name, in the order run.
+PHASE_SECONDS = {}
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its wall seconds kept in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        PHASE_SECONDS[phase.__name__] = time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
 
     import kubeflow_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    phase_device(torch)
+    t0 = time.perf_counter()
+
+    timed(phase_device, torch)
     dev = torch.device("cuda")
-    phase_build()
+    timed(phase_build)
     timer = Timer(torch, dev)
-    rows = phase_kernels(torch, dev, timer)
-    phase_edges(torch, dev)
-    rows.update(phase_train_kernels(torch, dev, timer))
-    ring_counts = phase_ring(torch, dev, timer)
-    ulysses_counts = phase_ulysses(torch, dev, timer)
-    phase_encoder_kernels(torch, dev, timer)
-    phase_t5_kernels(torch, dev, timer)
-    phase_train_edges(torch, dev)
+    rows = timed(phase_kernels, torch, dev, timer)
+    timed(phase_edges, torch, dev)
+    rows.update(timed(phase_train_kernels, torch, dev, timer))
+    ring_counts = timed(phase_ring, torch, dev, timer)
+    ulysses_counts = timed(phase_ulysses, torch, dev, timer)
+    timed(phase_encoder_kernels, torch, dev, timer)
+    timed(phase_t5_kernels, torch, dev, timer)
+    timed(phase_train_edges, torch, dev)
     del timer
     torch.cuda.empty_cache()
-    phase_compose(torch, dev)
-    serve_counts, model = phase_serve(torch, dev)
-    phase_profile(torch, dev, model)
-    schedule_counts, fixed, tol, fixed_quantum = phase_schedule(
-        torch, dev, model)
-    paged_counts, paged_http, paged_ref = phase_paged(
-        torch, dev, model, fixed, tol, fixed_quantum)
-    int8_counts = phase_int8(torch, dev, model, paged_http)
-    beam_counts = phase_beam(torch, dev, model)
-    phase_platform_serve(torch, dev, model, tol)
-    notebook_counts = phase_platform_notebook(torch, dev)
+    timed(phase_compose, torch, dev)
+    serve_counts, model = timed(phase_serve, torch, dev)
+    timed(phase_profile, torch, dev, model)
+    schedule_counts, fixed, tol, fixed_quantum = timed(
+        phase_schedule, torch, dev, model)
+    paged_counts, paged_http, paged_ref = timed(
+        phase_paged, torch, dev, model, fixed, tol, fixed_quantum)
+    int8_counts = timed(phase_int8, torch, dev, model, paged_http)
+    beam_counts = timed(phase_beam, torch, dev, model)
+    timed(phase_platform_serve, torch, dev, model, tol)
+    notebook_counts = timed(phase_platform_notebook, torch, dev)
     # The card cannot hold llama3_8b (17.1 GB) beside the Mixtral phases'
     # 24.0 GB and the training phases.
     paged_ref["fixed"] = fixed
     del model, fixed
     gc.collect()
     torch.cuda.empty_cache()
-    serve_mesh_counts = phase_serve_mesh(torch, dev, paged_ref)
+    serve_mesh_counts = timed(phase_serve_mesh, torch, dev, paged_ref)
     del paged_ref
-    tp_virtual_counts = phase_tp_virtual(torch, dev)
-    family_counts = phase_tp_families(torch, dev)
-    t5_serve_counts, t5 = phase_t5_serve(torch, dev)
-    t5_beam_counts = phase_t5_beam(torch, dev, t5)
+    tp_virtual_counts = timed(phase_tp_virtual, torch, dev)
+    family_counts = timed(phase_tp_families, torch, dev)
+    t5_serve_counts, t5 = timed(phase_t5_serve, torch, dev)
+    t5_beam_counts = timed(phase_t5_beam, torch, dev, t5)
     del t5
     gc.collect()
     torch.cuda.empty_cache()
-    t5_grad_counts = phase_t5_grad(torch, dev)
-    phase_moe_layer(torch, dev)
-    moe_counts = phase_moe_serve(torch, dev)
-    moe_train_counts = phase_moe_train(torch, dev)
-    phase_train_compose(torch, dev)
-    phase_train_variants(torch, dev)
-    train_counts, train = phase_train(torch)
-    mesh_counts, mesh_losses = phase_mesh(torch, train)
-    phase_platform_job(torch, mesh_losses)
-    phase_checkpoint(torch, dev)
-    vit_counts = phase_vit(torch, dev)
-    bert_counts = phase_bert(torch, dev)
-    resnet_counts, state, step, batch = phase_resnet(torch, dev)
-    phase_batch_stats(torch, state, batch)
-    phase_slow_step(torch, state, step, batch)
+    t5_grad_counts = timed(phase_t5_grad, torch, dev)
+    timed(phase_moe_layer, torch, dev)
+    moe_counts = timed(phase_moe_serve, torch, dev)
+    moe_train_counts = timed(phase_moe_train, torch, dev)
+    timed(phase_train_compose, torch, dev)
+    timed(phase_train_variants, torch, dev)
+    train_counts, train = timed(phase_train, torch)
+    mesh_counts, mesh_losses = timed(phase_mesh, torch, train)
+    job_counts = timed(phase_platform_job, torch, mesh_losses)
+    timed(phase_checkpoint, torch, dev)
+    vit_counts = timed(phase_vit, torch, dev)
+    bert_counts = timed(phase_bert, torch, dev)
+    resnet_counts, state, step, batch = timed(phase_resnet, torch, dev)
+    timed(phase_batch_stats, torch, state, batch)
+    timed(phase_slow_step, torch, state, step, batch)
     del state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
-    phase_image_cli(torch)
+    timed(phase_image_cli, torch)
+    emit({"phase": "wall", "phase_seconds": PHASE_SECONDS,
+          "total_seconds": time.perf_counter() - t0,
+          "nvidia_smi": nvidia_smi_name_power()})
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1],
@@ -6919,6 +7247,7 @@ def main() -> int:
                              "ring": ring_counts[name],
                              "ulysses": ulysses_counts[name],
                              "mesh": mesh_counts[name],
+                             "platform_job": job_counts[name],
                              "resnet": resnet_counts[name],
                              "vit": vit_counts[name],
                              "bert": bert_counts[name]},

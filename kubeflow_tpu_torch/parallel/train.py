@@ -64,7 +64,10 @@ from kubeflow_tpu_torch.parallel.sharding import (
     reduce_scatter_dim,
     shard_params,
 )
-from kubeflow_tpu_torch.train.checkpoint import optimizer_state_by_name
+from kubeflow_tpu_torch.train.checkpoint import (
+    host_snapshot,
+    optimizer_state_by_name,
+)
 from kubeflow_tpu_torch.train.steps import TrainState, split_microbatches
 
 
@@ -88,21 +91,41 @@ class ShardedTrainState(TrainState):
                 t = all_gather_dim(t, self.mesh.get_group(axis), dim)
         return t
 
-    def full_state(self) -> tuple:
+    def full_state(self, buffers: Optional[dict] = None, *,
+                   to_host: bool = True) -> Optional[tuple]:
         """``(params, optimizer state by name)``, whole and on the CPU:
         the module's state dict and ``checkpoint.optimizer_state_by_name``
-        with every shard gathered.  Every process must call it."""
+        with every shard gathered.  Every process must call it; one that
+        writes nothing passes ``to_host=False``, takes part in the
+        gathers and gets None.
+
+        Each gathered CUDA tensor is copied to the host once
+        (``checkpoint.host_snapshot``): with ``buffers``, the caller's
+        store, into its pinned buffers without waiting, and the device
+        is waited for once before the dicts are returned; what is
+        returned is then valid until the next copy into ``buffers``.  A
+        CPU tensor is cloned.  Nothing returned aliases the module or the
+        optimizer, so training may go on in place."""
         params = {}
         for name, t in self.module.state_dict().items():
             if name in self.layouts:
                 t = self.gather(name, t)
-            params[name] = t.detach().cpu().clone()
+            if to_host:
+                params[name] = host_snapshot(buffers, f"params/{name}", t)
         optim = optimizer_state_by_name(self.module, self.optimizer)
         for name, per in optim["state"].items():
-            optim["state"][name] = {
-                k: (v if not isinstance(v, torch.Tensor) else
-                    (self.gather(name, v) if v.ndim else v).cpu().clone())
-                for k, v in per.items()}
+            per = {k: (self.gather(name, v)
+                       if isinstance(v, torch.Tensor) and v.ndim else v)
+                   for k, v in per.items()}
+            if to_host:
+                optim["state"][name] = {
+                    k: (host_snapshot(buffers, f"optim/{name}/{k}", v)
+                        if isinstance(v, torch.Tensor) else v)
+                    for k, v in per.items()}
+        if not to_host:
+            return None
+        if any(t.is_cuda for t in self.module.parameters()):
+            torch.cuda.synchronize()
         return params, optim
 
     def load_full_state(self, params: dict, optim: Optional[dict]) -> tuple:

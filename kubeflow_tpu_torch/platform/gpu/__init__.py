@@ -1,5 +1,6 @@
 from kubeflow_tpu_torch.platform.gpu.topology import (
     ACCELERATORS,
+    LABEL_GPU_COUNT,
     LABEL_GPU_PRODUCT,
     RESOURCE_GPU,
     GpuAccelerator,
@@ -12,6 +13,7 @@ from kubeflow_tpu_torch.platform.gpu.topology import (
 
 __all__ = [
     "ACCELERATORS",
+    "LABEL_GPU_COUNT",
     "LABEL_GPU_PRODUCT",
     "RESOURCE_GPU",
     "GpuAccelerator",

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 from kubeflow_tpu_torch.parallel import envspec
+from kubeflow_tpu_torch.parallel.launch import SHUTDOWN_TIMEOUT_S
 from kubeflow_tpu_torch.platform.gpu.topology import GpuSliceSpec
 
 LAUNCHER = ["python", "-m", "kubeflow_tpu_torch.parallel.launch", "--"]
@@ -30,6 +31,14 @@ DEFAULT_SERVE_PORT = 8080
 LABEL_SERVICE_NAME = "inferenceservice-name"
 LABEL_REVISION = "inferenceservice-revision"
 ENV_SERVE_REVISION = "KFT_SERVE_REVISION"
+# Seconds a job's worker has from SIGTERM to its exit: the launcher's
+# own wait for its processes to checkpoint (SHUTDOWN_TIMEOUT_S) and a
+# margin to kill and reap what still runs after it.  It is the worker
+# pod's terminationGracePeriodSeconds and the job controller's default
+# preemption grace, so neither the kubelet nor the queue cuts a save
+# the launcher still waits for.
+JOB_KILL_MARGIN_S = 30
+JOB_GRACE_S = SHUTDOWN_TIMEOUT_S + JOB_KILL_MARGIN_S
 
 
 def slice_sts_name(name: str, slice_idx: int) -> str:

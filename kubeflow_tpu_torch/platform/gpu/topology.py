@@ -7,7 +7,9 @@ it outgrows one, and scheduling it means:
 
 * per-pod GPU limits  (``nvidia.com/gpu: gpus_per_pod``)
 * a node selector     (``nvidia.com/gpu.product``, the label NVIDIA's GPU
-                       feature discovery writes on each GPU node)
+                       feature discovery writes on each GPU node; a
+                       job's pods also select ``nvidia.com/gpu.count``,
+                       the node pool the job queue charges them to)
 * replica count       (one pod per host, StatefulSet ordinal = worker id)
 * worker env          (``parallel/envspec.py`` ``gpu_bootstrap_env``)
 
@@ -25,6 +27,8 @@ from typing import Dict, Optional, Tuple
 
 RESOURCE_GPU = "nvidia.com/gpu"
 LABEL_GPU_PRODUCT = "nvidia.com/gpu.product"
+# The node's GPU count, written by the same feature discovery.
+LABEL_GPU_COUNT = "nvidia.com/gpu.count"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +76,18 @@ class GpuSliceSpec:
 
     def node_selectors(self) -> Dict[str, str]:
         return {LABEL_GPU_PRODUCT: self.accelerator.product}
+
+    @property
+    def pool(self) -> Tuple[str, int]:
+        """``(product, GPUs a node)``: the node pool a job's pods run in,
+        one pod a node taking all of its GPUs (``gpu_pool_hosts``), as a
+        TPU slice runs in the node pool of its topology."""
+        return (self.accelerator.product, self.gpus_per_pod)
+
+    def pool_selectors(self) -> Dict[str, str]:
+        """The node selector of a job's pods: the nodes of ``pool``."""
+        return {LABEL_GPU_PRODUCT: self.accelerator.product,
+                LABEL_GPU_COUNT: str(self.gpus_per_pod)}
 
     def pod_resources(self) -> Dict[str, str]:
         return {RESOURCE_GPU: str(self.gpus_per_pod)}
@@ -145,11 +161,18 @@ def gpus_on_nodes(nodes) -> Dict[str, list]:
 
 def gpu_pool_hosts(nodes) -> Dict[Tuple[str, int], int]:
     """{(product, GPUs a node): hosts}: the pools a job queue admits
-    against (the reference's ``JobQueue.set_nodes``)."""
+    against (the reference's ``JobQueue.set_nodes``), keyed by the two
+    labels a job's pods select (``GpuSliceSpec.pool_selectors``).  A node
+    counts where it has GPU capacity and both labels."""
     out: Dict[Tuple[str, int], int] = {}
     for node in nodes or ():
-        product, count = _node_gpus(node)
-        if not product or not count:
+        product, capacity = _node_gpus(node)
+        labels = (node.get("metadata") or {}).get("labels") or {}
+        try:
+            count = int(labels.get(LABEL_GPU_COUNT) or 0)
+        except (TypeError, ValueError):
+            count = 0
+        if not product or not capacity or count < 1:
             continue
         out[(product, count)] = out.get((product, count), 0) + 1
     return out

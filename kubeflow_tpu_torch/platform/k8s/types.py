@@ -72,6 +72,7 @@ PROFILE = GVK("kubeflow.org", "v1", "Profile", "profiles", namespaced=False)
 PODDEFAULT = GVK("kubeflow.org", "v1alpha1", "PodDefault", "poddefaults")
 TENSORBOARD = GVK("tensorboard.kubeflow.org", "v1alpha1", "Tensorboard", "tensorboards")
 TPUJOB = GVK("kubeflow.org", "v1alpha1", "TPUJob", "tpujobs")
+GPUJOB = GVK("kubeflow.org", "v1alpha1", "GPUJob", "gpujobs")
 INFERENCESERVICE = GVK("kubeflow.org", "v1alpha1", "InferenceService",
                        "inferenceservices")
 
@@ -80,7 +81,7 @@ WELL_KNOWN: tuple[GVK, ...] = (
     PVC, RESOURCEQUOTA, STATEFULSET, PODDISRUPTIONBUDGET, DEPLOYMENT,
     ROLEBINDING, CLUSTERROLE, STORAGECLASS, LEASE, VIRTUALSERVICE,
     AUTHORIZATIONPOLICY, NOTEBOOK, PROFILE, PODDEFAULT, TENSORBOARD, TPUJOB,
-    INFERENCESERVICE,
+    GPUJOB, INFERENCESERVICE,
 )
 
 

@@ -1,5 +1,6 @@
-"""The control plane's metrics that the notebook path writes, on the
-port's own registry (``telemetry/metrics.py``; no ``prometheus_client``).
+"""The control plane's metrics that the notebook and job paths write, on
+the port's own registry (``telemetry/metrics.py``; no
+``prometheus_client``).
 
 The port's copy of the series of ``kubeflow_tpu/platform/runtime/
 metrics.py`` that the notebook reconciler, the event recorder and the
@@ -7,14 +8,22 @@ flight pool write: notebook creations and their failures, the
 spawn-to-ready histogram, the event recorder's outcomes, the flights
 fanned out, and the scrape-time fleet gauges (``notebook_running`` and
 ``gpus_requested`` per namespace, in place of the reference's
-``tpu_chips_requested``).  ``render()`` is the ``/metrics`` page.
+``tpu_chips_requested``).  And those the GPUJob reconciler and its
+queue write, the reference's ``tpujob_*`` as ``gpujob_*``: gang
+restarts, preemptions by reason, the queue wait at admission, the queue
+depth per profile, the slices allocated, and the scrape-time job fleet
+gauges (``gpujob_jobs{phase}``, ``gpujob_slices_ready`` and
+``gpujob_slices`` per namespace).  ``render()`` is the ``/metrics``
+page.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Tuple
 
 from kubeflow_tpu_torch.telemetry.metrics import (
     Counter,
+    Gauge,
     Histogram,
     Registry,
     ScrapeGauge,
@@ -98,6 +107,108 @@ ScrapeGauge(
 def register_fleet_collector(client) -> None:
     """Point the fleet gauges at ``client`` (None unhooks them)."""
     _fleet_collector.client = client
+
+
+gpujob_restarts_total = Counter(
+    "gpujob_restarts_total",
+    "whole-gang GPUJob restarts (any worker pod failure tears down and "
+    "recreates every slice)", registry=registry)
+gpujob_queue_depth = Gauge(
+    "gpujob_queue_depth",
+    "GPUJobs parked Queued waiting for quota/pool capacity, per profile "
+    "namespace", ["profile"], registry=registry)
+gpujob_queue_wait_seconds = Histogram(
+    "gpujob_queue_wait_seconds",
+    "Seconds a GPUJob waited in the admission queue before its gang was "
+    "granted capacity (observed at admission; re-admissions after a "
+    "preemption measure from the Queued transition)",
+    buckets=(0.5, 1, 5, 15, 60, 300, 1800, 7200), registry=registry)
+gpujob_preemptions_total = Counter(
+    "gpujob_preemptions_total",
+    "GPUJob gangs preempted, by reason: 'priority' (a higher-priority "
+    "head waiter claimed the GPUs) or 'capacity' (the node pool shrank "
+    "under the gang).  Both ride the SIGTERM-checkpoint path",
+    ["reason"], registry=registry)
+gpujob_slices_allocated = Gauge(
+    "gpujob_slices_allocated",
+    "GPU slices currently granted to admitted GPUJob gangs, fleet-wide "
+    "(the jobqueue ledger's allocation tally)", registry=registry)
+
+_queue_depth_lock = threading.Lock()
+_queue_depth_namespaces: set = set()
+
+
+def set_gpujob_queue_depth(depths: Dict[str, int]) -> None:
+    """Refresh the per-profile queue-depth gauge from one ledger snapshot,
+    zeroing namespaces that drained (a vanished label would read as a
+    frozen last value on dashboards)."""
+    global _queue_depth_namespaces
+    with _queue_depth_lock:
+        stale = _queue_depth_namespaces - set(depths)
+        _queue_depth_namespaces = set(depths)
+    for ns in stale:
+        gpujob_queue_depth.labels(profile=ns).set(0)
+    for ns, depth in depths.items():
+        gpujob_queue_depth.labels(profile=ns).set(depth)
+
+
+class GpuJobFleetCollector:
+    """The scrape-time GPUJob fleet gauges: jobs per lifecycle phase
+    fleet-wide and the per-namespace slice readiness summed from job
+    statuses, one GPUJob list a scrape.  The client is swappable
+    (``register_gpujob_collector``), as the notebook fleet collector's."""
+
+    def __init__(self):
+        self.client = None
+
+    def read(self) -> Tuple[Dict[str, int], Dict[str, Tuple[int, int]]]:
+        """(jobs by phase, namespace -> (ready workers, workers)); empty
+        without a client or when the list fails."""
+        from kubeflow_tpu_torch.platform.k8s.types import GPUJOB, namespace_of
+
+        client = self.client
+        by_phase: Dict[str, int] = {}
+        per_ns: Dict[str, Tuple[int, int]] = {}
+        if client is None:
+            return by_phase, per_ns
+        try:
+            jobs = client.list(GPUJOB, None)
+        except Exception:  # noqa: BLE001 — a scrape must not fail
+            return by_phase, per_ns
+        for job in jobs:
+            status = job.get("status") or {}
+            phase = status.get("phase") or "Pending"
+            by_phase[phase] = by_phase.get(phase, 0) + 1
+            ns = namespace_of(job) or ""
+            n_ready, n_total = per_ns.get(ns, (0, 0))
+            for s in status.get("slices") or []:
+                n_ready += int(s.get("ready", 0) or 0)
+                n_total += int(s.get("total", 0) or 0)
+            per_ns[ns] = (n_ready, n_total)
+        return by_phase, per_ns
+
+
+_gpujob_collector = GpuJobFleetCollector()
+ScrapeGauge(
+    "gpujob_jobs", "GPUJobs by lifecycle phase",
+    lambda: [((p,), n) for p, n in
+             sorted(_gpujob_collector.read()[0].items())],
+    ["phase"], registry=registry)
+ScrapeGauge(
+    "gpujob_slices_ready", "ready GPUJob slice workers, per namespace",
+    lambda: [((ns,), r) for ns, (r, _) in
+             sorted(_gpujob_collector.read()[1].items())],
+    ["namespace"], registry=registry)
+ScrapeGauge(
+    "gpujob_slices", "expected GPUJob slice workers, per namespace",
+    lambda: [((ns,), t) for ns, (_, t) in
+             sorted(_gpujob_collector.read()[1].items())],
+    ["namespace"], registry=registry)
+
+
+def register_gpujob_collector(client) -> None:
+    """Point the GPUJob fleet gauges at ``client`` (None unhooks them)."""
+    _gpujob_collector.client = client
 
 
 def render() -> str:

@@ -612,11 +612,13 @@ class FakeKube:
 
     def add_gpu_node(self, name: str, *, accelerator: str = "h100-80gb",
                      gpus: Optional[int] = None) -> Resource:
-        """Fake GPU node: the product label NVIDIA's GPU feature discovery
-        writes and ``nvidia.com/gpu`` capacity, what ``gpu/topology.py``
-        scans (``gpus`` defaults to the accelerator's full host)."""
+        """Fake GPU node: the product and count labels NVIDIA's GPU
+        feature discovery writes and ``nvidia.com/gpu`` capacity, what
+        ``gpu/topology.py`` scans (``gpus`` defaults to the accelerator's
+        full host)."""
         from kubeflow_tpu_torch.platform.gpu import (
             ACCELERATORS,
+            LABEL_GPU_COUNT,
             LABEL_GPU_PRODUCT,
             RESOURCE_GPU,
         )
@@ -628,7 +630,8 @@ class FakeKube:
             "kind": "Node",
             "metadata": {
                 "name": name,
-                "labels": {LABEL_GPU_PRODUCT: acc.product},
+                "labels": {LABEL_GPU_PRODUCT: acc.product,
+                           LABEL_GPU_COUNT: str(gpus)},
             },
             "status": {
                 "capacity": {RESOURCE_GPU: str(gpus), "cpu": "208",

@@ -36,8 +36,11 @@ The port's train step updates the state in place (``train/steps.py``),
 so ``save`` takes its snapshot on the caller's thread before it returns:
 device tensors are copied into pinned host buffers (kept for the next
 save) on the caller's stream, which orders the copy before any later
-update; CPU tensors are cloned.  A background thread waits for the copy,
-then writes the files; ``wait`` joins it and raises what it raised.
+update; CPU tensors are cloned (``host_snapshot``).  A background thread
+waits for the copy, then writes the files; ``wait`` joins it and raises
+what it raised.  A sharded state's ``full_state`` copies its gathered
+tensors the same way, once each, into the same buffers, on the process
+that writes, and waits for the device itself.
 """
 from __future__ import annotations
 
@@ -130,6 +133,26 @@ def _rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def host_snapshot(buffers: Optional[Dict[str, torch.Tensor]], key: str,
+                  t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` that training in place cannot change: a CPU tensor
+    cloned; a CUDA tensor copied once to the host, into the pinned buffer
+    ``buffers[key]`` without waiting (made on the first save and kept for
+    the next; the caller waits for the device before it reads the copy)
+    or, with no ``buffers``, into a new tensor."""
+    t = t.detach()
+    if t.device.type != "cuda":
+        return t.clone()
+    if buffers is None:
+        return t.cpu()
+    buf = buffers.get(key)
+    if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buffers[key] = buf
+    buf.copy_(t, non_blocking=True)
+    return buf
+
+
 def is_sharded(state) -> bool:
     """Whether ``state`` holds shards over a mesh
     (``parallel/train.py`` ``ShardedTrainState``)."""
@@ -210,15 +233,7 @@ class CheckpointManager:
     # -- save -------------------------------------------------------------
 
     def _snapshot(self, key: str, t: torch.Tensor) -> torch.Tensor:
-        t = t.detach()
-        if t.device.type != "cuda":
-            return t.clone()
-        buf = self._host.get(key)
-        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host[key] = buf
-        buf.copy_(t, non_blocking=True)
-        return buf
+        return host_snapshot(self._host, key, t)
 
     def save(self, step: int, state, *, force: bool = False) -> bool:
         """Snapshot ``state`` (a ``TrainState``: module, optimizer, step)
@@ -237,9 +252,11 @@ class CheckpointManager:
         t0 = time.perf_counter()
         event = None
         if is_sharded(state):
-            params, optim = state.full_state()
+            # Every process gathers; only the one that writes copies.
             if _rank() != 0:
+                state.full_state(to_host=False)
                 return True
+            params, optim = state.full_state(self._host)
         else:
             params = {name: self._snapshot(f"params/{name}", t)
                       for name, t in state.module.state_dict().items()}

@@ -364,6 +364,13 @@ def main(argv: Optional[list] = None) -> int:
               if args.checkpoint_dir else
               f"preempted at step {state.step} (no checkpoint dir)",
               flush=True)
+    if device.type == "cuda":
+        from kubeflow_tpu_torch.ops import cuda as kernels
+
+        # What the run launched of the port's kernels (``ops/cuda``).
+        print("kernel_launches " + " ".join(
+            f"{k}={v}" for k, v in kernels.launch_counts().items()),
+            flush=True)
     if history:
         last = history[-1]
         print(f"done: step {last['step']} "

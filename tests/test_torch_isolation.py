@@ -73,6 +73,11 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.platform.apis.notebook",
     "kubeflow_tpu_torch.platform.apis.poddefault",
     "kubeflow_tpu_torch.platform.controllers.notebook",
+    "kubeflow_tpu_torch.platform.apis.gpujob",
+    "kubeflow_tpu_torch.platform.apis.inferenceservice",
+    "kubeflow_tpu_torch.platform.runtime.jobqueue",
+    "kubeflow_tpu_torch.platform.controllers.gpujob",
+    "kubeflow_tpu_torch.platform.testing.jobsim",
     "kubeflow_tpu_torch.platform.webhook.jsonpatch",
     "kubeflow_tpu_torch.platform.webhook.mutate",
 ])

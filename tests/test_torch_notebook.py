@@ -586,13 +586,17 @@ def test_crd_manifest_has_the_gpu_block():
 
 
 def test_types_equal_the_reference():
-    """The GVK table and the object helpers are the reference's."""
+    """The GVK table and the object helpers are the reference's; the table
+    has the port's GPUJob beside the reference's TPUJob."""
     from kubeflow_tpu_torch.platform.k8s import types
 
+    want = [(g.group, g.version, g.kind, g.plural, g.namespaced)
+            for g in jax_types.WELL_KNOWN]
+    at = want.index(("kubeflow.org", "v1alpha1", "TPUJob", "tpujobs", True))
+    want.insert(at + 1, ("kubeflow.org", "v1alpha1", "GPUJob", "gpujobs",
+                         True))
     assert [(g.group, g.version, g.kind, g.plural, g.namespaced)
-            for g in types.WELL_KNOWN] == [
-        (g.group, g.version, g.kind, g.plural, g.namespaced)
-        for g in jax_types.WELL_KNOWN]
+            for g in types.WELL_KNOWN] == want
     for kind in ["NetworkPolicy", "Ingress", "Endpoints", "Gateway", "Key"]:
         assert types.pluralize(kind) == jax_types.pluralize(kind)
     for api, kind in [("v1", "Pod"), ("x.io/v2", "Thing")]:

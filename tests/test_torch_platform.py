@@ -162,6 +162,8 @@ def _relabelled(node):
         cap[GPU_KEY] = cap.pop(TPU_KEY)
     acc = labels.get(tpu_topology.LABEL_ACCELERATOR)
     new = {topology.LABEL_GPU_PRODUCT: PRODUCT[acc]} if acc else {}
+    new[topology.LABEL_GPU_COUNT] = CHIPS[
+        labels[tpu_topology.LABEL_TOPOLOGY]]
     return {"apiVersion": "v1", "kind": "Node",
             "metadata": {"name": node["metadata"]["name"], "labels": new},
             "status": {"capacity": cap}}
@@ -205,7 +207,8 @@ def test_node_scans_equal_the_reference():
 def test_gpus_on_nodes_skips_what_offers_nothing():
     def node(cap, product="NVIDIA-H100-80GB-HBM3"):
         return {"metadata": {"labels": {topology.LABEL_GPU_PRODUCT:
-                                        product}},
+                                        product,
+                                        topology.LABEL_GPU_COUNT: str(cap)}},
                 "status": {"capacity": {GPU_KEY: cap}}}
 
     nodes = [node("8"), node("0"), node("junk"), node(""), node(4),
@@ -214,6 +217,10 @@ def test_gpus_on_nodes_skips_what_offers_nothing():
     assert topology.gpu_pool_hosts(nodes) == {
         ("NVIDIA-H100-80GB-HBM3", 8): 1, ("NVIDIA-H100-80GB-HBM3", 4): 1,
         ("NVIDIA-L4", 2): 1}
+    # A node no job's pods can select (no count label) is in no pool.
+    del nodes[0]["metadata"]["labels"][topology.LABEL_GPU_COUNT]
+    assert topology.gpu_pool_hosts(nodes) == {
+        ("NVIDIA-H100-80GB-HBM3", 4): 1, ("NVIDIA-L4", 2): 1}
 
 
 # -- quota --------------------------------------------------------------------
