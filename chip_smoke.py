@@ -261,6 +261,35 @@ After 11:
    reference's 30 s, the checkpoint's snapshot and write seconds, and the
    wall seconds of ``urgent`` and of the resumed pod to its first step
    are printed beside the card's name and power limit.
+11c. platform_manager: the controller runtime around this card.  One
+   ``Manager`` with leader election (its Lease's holder checked before
+   any child exists) runs the notebook, culling and job controllers from
+   watches over ``FakeKube`` (namespace ``smoke``, one h100-80gb node of
+   one GPU, a ResourceQuota of one ``requests.nvidia.com/gpu``,
+   ``gpu_pod_default``); the culler shares the notebook controller's
+   Notebook informer, stops a notebook PLATFORM_IDLE_MINUTES after its
+   kernel's last activity, probes every PLATFORM_CHECK_MINUTES with the
+   port's ``default_prober`` (its cluster-DNS URL mapped to the pod's
+   local port).  Notebook ``nb`` (one GPU) is reconciled from the
+   watch; the phase plays the StatefulSet controller and the kubelet:
+   pod ``nb-0`` through the webhook, its process ``python -c
+   NOTEBOOK_KERNELS``, a stand-in for Jupyter's kernels API that runs
+   NOTEBOOK_CELL on the card (``busy``, then ``idle`` since the cell's
+   end).  GPUJob ``train`` (one GPU, MESH_ARGS at MANAGER_JOB_STEPS
+   steps) waits Queued on the quota (``gpujob_queue_depth`` 1).  While
+   the cell runs the notebook is never stopped and its last-activity
+   annotation moves; after it, the culler stops it within the idle
+   window plus two check periods, the notebook controller scales it to
+   0, the pod is deleted and its process exits 0 on SIGTERM, its pid
+   leaves nvidia-smi's compute processes and the quota's use is 0; the
+   job is admitted within its queue poll plus one reconcile, its gang
+   runs as in 11b, its losses 11a's first MANAGER_JOB_STEPS within
+   MESH_LOSS_TOL; both pods' launches exact; K1, K2 and K5 held at the
+   cell's shapes.  After ``stop`` the controllers' threads end, the
+   collectors and the queue's debug registry are unhooked, one cull,
+   no dead letter and no watch restart counted.  The seconds of each
+   step of the story, the reconciles, probes and work-queue adds per
+   controller are printed beside the card's name and power limit.
 Within 3, K2 at the dense-cache chunk's shape (b2, q 300 over k 812).
 Within 7, the attention kernels at ViT-B/16's and BERT-base's shapes
 (b64 s197 and b32 s128, h12, d64, non-causal), timed; and K1 at
@@ -568,6 +597,67 @@ def run(name, seed, prompt_len, new_tokens, device="cuda"):
 if __name__ == "__main__":
     print("CELL " + json.dumps(run(*sys.argv[1:])), flush=True)
 """
+
+# The manager phase: the notebook's pod is a stand-in for Jupyter's
+# kernels API (``python -c NOTEBOOK_KERNELS <port> <cell args>``): a
+# standard-library HTTP server on ``$NB_PREFIX/api/kernels`` answering
+# one kernel in Jupyter's JSON shape, ``busy`` while NOTEBOOK_CELL runs
+# on the card and ``idle`` after, its ``last_activity`` the cell's end;
+# it prints the cell's ``CELL`` line and serves until SIGTERM, then
+# exits 0.  The culler stops the notebook PLATFORM_IDLE_MINUTES after
+# that end, probing every PLATFORM_CHECK_MINUTES; GPUJob ``train``
+# (MESH_ARGS at MANAGER_JOB_STEPS steps) waits Queued behind it.
+PLATFORM_IDLE_MINUTES = 0.1
+PLATFORM_CHECK_MINUTES = 0.02
+MANAGER_JOB_STEPS = 2
+KUBELET_FINALIZER = "kubelet.smoke/container-running"
+NOTEBOOK_KERNELS = """
+import datetime, http.server, json, os, signal, sys, threading, time
+
+CELL = %r
+
+
+def stamp(t):
+    return datetime.datetime.fromtimestamp(
+        t, datetime.timezone.utc).strftime("%%Y-%%m-%%dT%%H:%%M:%%S.%%fZ")
+
+
+kernel = {"id": "0b1e7a2c", "name": "python3", "connections": 1,
+          "execution_state": "busy", "last_activity": stamp(time.time())}
+path = os.environ["NB_PREFIX"] + "/api/kernels"
+
+
+class Kernels(http.server.BaseHTTPRequestHandler):
+    def do_GET(self):
+        if self.path != path:
+            self.send_error(404)
+            return
+        body = json.dumps([dict(kernel)]).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *args):
+        pass
+
+
+stop = threading.Event()
+signal.signal(signal.SIGTERM, lambda *_: stop.set())
+server = http.server.ThreadingHTTPServer(("127.0.0.1", int(sys.argv[1])),
+                                         Kernels)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+print("SERVING", flush=True)
+cell = {"__name__": "notebook_cell"}
+exec(CELL, cell)
+out = cell["run"](*sys.argv[2:])
+end = time.time()
+kernel.update(execution_state="idle", last_activity=stamp(end))
+print("CELL " + json.dumps(dict(out, cell_end=end)), flush=True)
+stop.wait()
+server.shutdown()
+""" % NOTEBOOK_CELL
 
 # The int8 phase: llama3_8b from the same seed, weight-only int8
 # (load_service(quantize="int8")), the schedule requests through the paged
@@ -6521,34 +6611,56 @@ def notebook_launches(n_layers, new_tokens):
             "flash_decode": n_layers * (new_tokens - 1)}
 
 
+def notebook_pod(kube, ns, sts, label, what):
+    """The StatefulSet controller's pod 0 of ``sts``, opted in to the
+    PodDefault ``label``, through the webhook and its JSON patch."""
+    import base64
+
+    from kubeflow_tpu_torch.platform import mutate_admission_review
+    from kubeflow_tpu_torch.platform.k8s.types import PODDEFAULT, owner_reference
+    from kubeflow_tpu_torch.platform.webhook.jsonpatch import apply_patch
+
+    tmpl = sts["spec"]["template"]
+    name = sts["metadata"]["name"] + "-0"
+    pod = {"apiVersion": "v1", "kind": "Pod",
+           "metadata": {"name": name, "namespace": ns,
+                        "labels": {**tmpl["metadata"]["labels"],
+                                   "apps.kubernetes.io/pod-index": "0",
+                                   label: "true"},
+                        "ownerReferences": [owner_reference(sts)]},
+           "spec": json.loads(json.dumps(tmpl["spec"]))}
+    review = mutate_admission_review(
+        {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+         "request": {"uid": name, "namespace": ns,
+                     "resource": {"resource": "pods"}, "object": pod}},
+        kube.list(PODDEFAULT, ns))["response"]
+    if not review["allowed"] or review.get("patchType") != "JSONPatch":
+        raise AssertionError(f"{what}: webhook {review}")
+    return apply_patch(pod, json.loads(base64.b64decode(review["patch"])))
+
+
 def phase_platform_notebook(torch, dev):
     """The notebook path of the platform (the docstring's 6d1b): the port's
     reconciler, PodDefault webhook and quota admission in its in-memory
     API server, then the notebook pod's main container running one cell
     on the card.  Returns the cell's launch counts."""
-    import base64
-
     from kubeflow_tpu_torch.models.llama import CONFIGS as LLAMA_CONFIGS
     from kubeflow_tpu_torch.platform import (
         FakeKube,
         NotebookReconciler,
         Request,
         gpu_pod_default,
-        mutate_admission_review,
     )
     from kubeflow_tpu_torch.platform.gpu import ACCELERATORS
     from kubeflow_tpu_torch.platform.k8s import errors
     from kubeflow_tpu_torch.platform.k8s.types import (
         NOTEBOOK,
         POD,
-        PODDEFAULT,
         RESOURCEQUOTA,
         SERVICE,
         STATEFULSET,
         VIRTUALSERVICE,
-        owner_reference,
     )
-    from kubeflow_tpu_torch.platform.webhook.jsonpatch import apply_patch
 
     smi = nvidia_smi_name_power()
     acc = ACCELERATORS[PLATFORM_ACCELERATOR]
@@ -6606,26 +6718,7 @@ def phase_platform_notebook(torch, dev):
         raise AssertionError(f"platform_notebook: children {children}")
 
     def pod_of(sts):
-        """The StatefulSet controller's pod 0, opted in to the PodDefault,
-        through the webhook."""
-        tmpl = sts["spec"]["template"]
-        name = sts["metadata"]["name"] + "-0"
-        pod = {"apiVersion": "v1", "kind": "Pod",
-               "metadata": {"name": name, "namespace": ns,
-                            "labels": {**tmpl["metadata"]["labels"],
-                                       "apps.kubernetes.io/pod-index": "0",
-                                       label: "true"},
-                            "ownerReferences": [owner_reference(sts)]},
-               "spec": json.loads(json.dumps(tmpl["spec"]))}
-        review = mutate_admission_review(
-            {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
-             "request": {"uid": name, "namespace": ns,
-                         "resource": {"resource": "pods"}, "object": pod}},
-            kube.list(PODDEFAULT, ns))["response"]
-        if not review["allowed"] or review.get("patchType") != "JSONPatch":
-            raise AssertionError(f"platform_notebook: webhook {review}")
-        return apply_patch(pod, json.loads(base64.b64decode(
-            review["patch"])))
+        return notebook_pod(kube, ns, sts, label, "platform_notebook")
 
     pod = pod_of(sts)
     main = pod["spec"]["containers"][0]
@@ -7115,6 +7208,381 @@ def phase_platform_job(torch, mesh_losses):
     return launches
 
 
+def gpu_pids():
+    """The pids nvidia-smi lists as compute processes on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return {int(p) for p in out.split() if p.strip().isdigit()}
+
+
+def phase_platform_manager(torch, dev, mesh_losses):
+    """The controller runtime around this card (the docstring's 11c): one
+    leader-elected ``Manager`` runs the notebook, culling and job
+    controllers from watches; the notebook's pod runs the cell on the
+    card behind the stand-in kernels API and goes idle; the culler stops
+    it; its pod leaves the card; GPUJob ``train``, Queued behind it, is
+    admitted and trains on the same card.  Returns the two pods' launch
+    counts, summed."""
+    from kubeflow_tpu_torch.models.llama import CONFIGS as LLAMA_CONFIGS
+    from kubeflow_tpu_torch.platform import (
+        FakeKube,
+        GpuJobGangSim,
+        Manager,
+        culling_controller,
+        default_prober,
+        gpu_pod_default,
+        gpujob_controller,
+        notebook_controller,
+    )
+    from kubeflow_tpu_torch.platform.apis import gpujob as jobapi
+    from kubeflow_tpu_torch.platform.apis import notebook as nbapi
+    from kubeflow_tpu_torch.platform.gpu import ACCELERATORS
+    from kubeflow_tpu_torch.platform.k8s import quota
+    from kubeflow_tpu_torch.platform.k8s.types import (
+        GPUJOB,
+        LEASE,
+        NOTEBOOK,
+        POD,
+        RESOURCEQUOTA,
+        SERVICE,
+        STATEFULSET,
+    )
+    from kubeflow_tpu_torch.platform.runtime import jobqueue, metrics
+
+    smi = nvidia_smi_name_power()
+    acc = ACCELERATORS[PLATFORM_ACCELERATOR]
+    card = smi.split(",")[0].strip()
+    if acc.product != card.replace(" ", "-"):
+        raise AssertionError(f"{PLATFORM_ACCELERATOR}'s product "
+                             f"{acc.product!r} is not this card, {card!r}")
+    ns, label = "smoke", f"gpu-{PLATFORM_ACCELERATOR}"
+    kube = FakeKube()
+    kube.add_namespace("kubeflow")   # the leader's Lease
+    kube.add_namespace(ns)
+    kube.add_gpu_node("gpu-node-0", accelerator=PLATFORM_ACCELERATOR,
+                      gpus=1)
+    kube.create({"apiVersion": "v1", "kind": "ResourceQuota",
+                 "metadata": {"name": "gpus", "namespace": ns},
+                 "spec": {"hard": {"requests.nvidia.com/gpu": "1"}}})
+    kube.create(gpu_pod_default(ns, PLATFORM_ACCELERATOR, 1))
+
+    # The prober is the port's own, behind a map that sends the culler's
+    # cluster-DNS URL to the pod's local port.
+    port = free_port()
+    probes = {"busy": 0, "idle": 0, "none": 0}
+    urls = {}
+
+    def prober(url):
+        kernels = default_prober(urls.get(url, url), timeout=2.0)
+        state = ("none" if not kernels
+                 else kernels[0].get("execution_state"))
+        probes[state] = probes.get(state, 0) + 1
+        return kernels
+
+    culled_before = metrics.notebook_culling_total.sample()
+    dead_before = {c: metrics.reconcile_dead_letter_total.sample(
+        controller=c) or 0 for c in ("notebook-controller",
+                                     "culling-controller",
+                                     "gpujob-controller")}
+    restarts = metrics.informer_watch_restarts_total
+    restarts_before = sum(v for v in (restarts.sample(kind=k) or 0 for k in (
+        "Notebook", "Pod", "StatefulSet", "Service", "PodDisruptionBudget",
+        "Event", "VirtualService", "GPUJob", "ResourceQuota", "Node",
+        "InferenceService")))
+
+    mgr = Manager(kube, leader_election=True)
+    nb_ctrl = mgr.add(notebook_controller(kube, use_istio=True,
+                                          mirror_min_interval=0))
+    cull_ctrl = mgr.add(culling_controller(
+        kube, notebook_informer=nb_ctrl.informers[NOTEBOOK], prober=prober,
+        idle_minutes=PLATFORM_IDLE_MINUTES,
+        check_period_minutes=PLATFORM_CHECK_MINUTES))
+    job_ctrl = mgr.add(gpujob_controller(kube))
+    culler = cull_ctrl.reconciler
+    urls[culler.kernels_url(ns, "nb")] = (
+        f"http://127.0.0.1:{port}{nbapi.nb_prefix(ns, 'nb')}/api/kernels")
+    worker0 = f"train-0.train-workers.{ns}.svc.cluster.local"
+    jobs = JobPods(kube, ns, {worker0: "127.0.0.1"})
+    sim = None
+    cell = None
+    t_start = time.perf_counter()
+
+    def wait_until(cond, what, timeout, check=None):
+        deadline = time.perf_counter() + timeout
+        while True:
+            if sim is not None and sim.errors:
+                raise sim.errors[0]
+            if check is not None:
+                check()
+            got = cond()
+            if got:
+                return got
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"platform_manager: no {what} within "
+                                     f"{timeout} s")
+            time.sleep(0.05)
+
+    def job_status():
+        return kube.get(GPUJOB, "train", ns).get("status") or {}
+
+    def annotations():
+        return kube.get(NOTEBOOK, "nb", ns)["metadata"].get(
+            "annotations") or {}
+
+    try:
+        mgr.start()
+        wait_until(lambda: mgr.is_leader, "leadership", 30)
+        leader_s = time.perf_counter() - t_start
+        holder = kube.get(LEASE, "kubeflow-tpu-controller-leader",
+                          "kubeflow")["spec"]["holderIdentity"]
+        children = [g.kind for g in (STATEFULSET, SERVICE, POD)
+                    if kube.list(g, ns)]
+        if holder != mgr.elector.identity or children:
+            raise AssertionError(f"platform_manager: lease holder {holder} "
+                                 f"against {mgr.elector.identity}, "
+                                 f"children {children}")
+
+        # The notebook: the controller writes its StatefulSet from the
+        # watch; the phase plays the StatefulSet controller and the kubelet.
+        kube.create({
+            "apiVersion": "kubeflow.org/v1beta1", "kind": "Notebook",
+            "metadata": {"name": "nb", "namespace": ns},
+            "spec": {"gpu": {"accelerator": PLATFORM_ACCELERATOR, "gpus": 1},
+                     "template": {"spec": {"containers": [{
+                         "name": "nb", "image": "kubeflow-tpu-torch",
+                         "ports": [{"containerPort": 8888}]}]}}}})
+        sts = wait_until(
+            lambda: next((s for s in kube.list(STATEFULSET, ns)
+                          if s["spec"]["replicas"] == 1), None),
+            "notebook StatefulSet", 30)
+        pod = notebook_pod(kube, ns, sts, label, "platform_manager")
+        # The kubelet's hold: a deleted pod stays, terminating, until its
+        # process has exited (graceful deletion).
+        pod["metadata"]["finalizers"] = [KUBELET_FINALIZER]
+        kube.create(pod)
+        main = pod["spec"]["containers"][0]
+        args = [NOTEBOOK_MODEL, str(SEED), str(NOTEBOOK_PROMPT),
+                str(NOTEBOOK_NEW), dev.type]
+        cell = Pod([sys.executable, "-c", NOTEBOOK_KERNELS, str(port),
+                    *args], kubelet_env(main, 0), "platform_manager cell")
+        wait_until(lambda: cell.proc.poll() is not None
+                   or "SERVING" in cell.output(), "kernels API", 120)
+        if cell.proc.poll() is not None:
+            cell.fail("exited before serving")
+        kube.set_pod_phase(ns, "nb-0", "Running", ready=True)
+
+        # The queued job: the notebook holds the quota's one GPU.
+        argv = list(MESH_ARGS)
+        argv[argv.index("--steps") + 1] = str(MANAGER_JOB_STEPS)
+        kube.create({
+            "apiVersion": "kubeflow.org/v1alpha1", "kind": "GPUJob",
+            "metadata": {"name": "train", "namespace": ns},
+            "spec": {"gpu": {"accelerator": PLATFORM_ACCELERATOR, "gpus": 1},
+                     "template": {"spec": {"containers": [{
+                         "name": "trainer", "image": "kubeflow-tpu-torch",
+                         "command": ["python", "-m",
+                                     "kubeflow_tpu_torch.train.run",
+                                     *argv]}]}}}})
+        queued = wait_until(lambda: job_status().get("phase") == "Queued"
+                            and job_status(), "Queued train", 30)
+        depth = metrics.gpujob_queue_depth.sample(profile=ns)
+        if (queued.get("reason") != jobqueue.REASON_QUOTA or depth != 1
+                or kube.list(STATEFULSET, ns, label_selector={
+                    jobapi.LABEL_GPUJOB_NAME: "train"})):
+            raise AssertionError(f"platform_manager: train {queued}, "
+                                 f"queue depth {depth}")
+        sim = GpuJobGangSim(kube, ns, work=jobs.work)
+
+        # While the cell runs: no stop, and the last activity moves.
+        activity, pid_listed = set(), None
+
+        def busy_check():
+            nonlocal pid_listed
+            ann = annotations()
+            if nbapi.STOP_ANNOTATION in ann:
+                raise AssertionError("platform_manager: the notebook was "
+                                     f"stopped while its cell ran: {ann}")
+            if nbapi.LAST_ACTIVITY_ANNOTATION in ann:
+                activity.add(ann[nbapi.LAST_ACTIVITY_ANNOTATION])
+            if pid_listed is None and "CELL " in cell.output():
+                pid_listed = cell.proc.pid in gpu_pids()
+            if cell.proc.poll() is not None:
+                cell.fail(f"exited {cell.proc.returncode} during the cell")
+
+        wait_until(lambda: "CELL " in cell.output(), "cell", NOTEBOOK_CELL_S,
+                   busy_check)
+        busy_check()
+        cell_s = time.perf_counter() - cell.t0
+        got = json.loads(next(ln[len("CELL "):] for ln in
+                              cell.output().splitlines()
+                              if ln.startswith("CELL ")))
+        if len(activity) < 2:
+            raise AssertionError("platform_manager: the last activity did "
+                                 f"not move while the cell ran: {activity}")
+
+        # The cull: within the idle window plus two check periods of the
+        # kernel's last activity, then the scale to 0 through the watch.
+        window = (PLATFORM_IDLE_MINUTES + 2 * PLATFORM_CHECK_MINUTES) * 60
+        wait_until(lambda: nbapi.STOP_ANNOTATION in annotations(), "cull",
+                   window + 30)
+        stopped_at = time.time()
+        cull_s = stopped_at - got["cell_end"]
+        if not PLATFORM_IDLE_MINUTES * 60 <= cull_s <= window:
+            raise AssertionError(f"platform_manager: culled {cull_s} s after "
+                                 f"the last activity, outside "
+                                 f"[{PLATFORM_IDLE_MINUTES * 60}, {window}]")
+        wait_until(lambda: kube.get(STATEFULSET, "nb", ns)["spec"][
+            "replicas"] == 0, "scale to 0", 30)
+        if job_status().get("phase") != "Queued":
+            raise AssertionError(f"platform_manager: {job_status()}")
+
+        # The pod leaves: deleted (terminating), SIGTERM, its exit, then
+        # the kubelet lets the object go; the card and the quota free.
+        kube.delete(POD, "nb-0", ns)
+        cell_pid = cell.proc.pid
+        cell_rc = cell.stop()
+        exited_at = time.time()
+        cell, exit_s = None, exited_at - stopped_at
+        if cell_rc != 0:
+            raise AssertionError(f"platform_manager: the notebook pod "
+                                 f"exited {cell_rc}")
+        terminating = kube.get(POD, "nb-0", ns)
+        terminating["metadata"]["finalizers"] = []
+        kube.update(terminating)
+        used = kube.get(RESOURCEQUOTA, "gpus", ns)["status"]["used"]
+        if quota.parse_quantity(used.get("requests.nvidia.com/gpu", 0)):
+            raise AssertionError(f"platform_manager: quota used {used}")
+        wait_until(lambda: cell_pid not in gpu_pids(),
+                   "pid gone from nvidia-smi", 10)
+
+        # The job: admitted within its poll plus one reconcile, then its
+        # gang trains on the card.
+        admit_limit = max(job_ctrl.reconciler.queue_poll, 2.0) \
+            + PLATFORM_RECONCILE_S
+        wait_until(lambda: job_status().get("allocatedSlices") == 1,
+                   "admission of train", admit_limit)
+        admitted_at = time.perf_counter()
+        admit_s = time.time() - exited_at
+        wait_until(lambda: kube.list(STATEFULSET, ns, label_selector={
+            jobapi.LABEL_GPUJOB_NAME: "train"}), "train's gang", 30)
+        wait_until(lambda: job_status().get("phase") == "Succeeded",
+                   "train's end", PLATFORM_JOB_S)
+        run = jobs.runs[("train", 0)]
+        first_step_s = (run["pod"].t0 + run["seen_s"]["train_step "]
+                        - admitted_at)
+        losses = [st["loss"] for st in train_step_lines(run["output"])]
+        want = mesh_losses[:MANAGER_JOB_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        if (run["rc"] != 0 or len(losses) != MANAGER_JOB_STEPS
+                or any(r > t for r, t in zip(rel, loss_limits(want)))):
+            raise AssertionError(
+                f"platform_manager: train exited {run['rc']}, losses "
+                f"{losses} against the mesh phase's {want} ({rel})\n"
+                + run["output"][-6000:])
+
+        # Exact launches: the cell's a generate's, the worker's a step's
+        # for each step.
+        cell_want = notebook_launches(got["n_layers"], NOTEBOOK_NEW)
+        per_step = train_launches_per_step(LLAMA_CONFIGS[TRAIN_MODEL])
+        job_got = kernel_launch_line(run["output"], "platform_manager train")
+        job_want = {k: c * MANAGER_JOB_STEPS for k, c in per_step.items()}
+        if (got["launches"] != cell_want or job_got != job_want
+                or got["routes"] != {"kernel": got["n_layers"],
+                                     "plain": 0}):
+            raise AssertionError(
+                f"platform_manager: launches {got['launches']} (cell, "
+                f"expected {cell_want}) and {job_got} (train, expected "
+                f"{job_want}), routes {got['routes']}")
+    finally:
+        mgr.stop()
+        jobs.close()
+        if sim is not None:
+            sim.close()
+        if cell is not None:
+            cell.stop()
+
+    # Teardown: the controllers stopped, their hooks unhooked, and the
+    # counters agree with what happened.
+    deadline = time.monotonic() + 10
+    while any(t.is_alive() for c in mgr.controllers for t in c._threads) \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    alive = [t.name for c in mgr.controllers for t in c._threads
+             if t.is_alive()]
+    culled = metrics.notebook_culling_total.sample() - culled_before
+    dead = {c: (metrics.reconcile_dead_letter_total.sample(controller=c)
+                or 0) - n for c, n in dead_before.items()}
+    watch_restarts = sum(v for v in (restarts.sample(kind=k) or 0 for k in (
+        "Notebook", "Pod", "StatefulSet", "Service", "PodDisruptionBudget",
+        "Event", "VirtualService", "GPUJob", "ResourceQuota", "Node",
+        "InferenceService"))) - restarts_before
+    if (not all(c.stopped for c in mgr.controllers) or alive
+            or mgr.is_leader or jobqueue.debug_snapshot() is not None
+            or metrics._fleet_collector.client is not None
+            or metrics._gpujob_collector.client is not None
+            or culled != 1 or any(dead.values()) or watch_restarts):
+        raise AssertionError(
+            f"platform_manager: after stop, threads {alive}, leader "
+            f"{mgr.is_leader}, culled {culled}, dead letters {dead}, watch "
+            f"restarts {watch_restarts}")
+    queues = {c.name: {
+        "adds": metrics.workqueue_adds_total.sample(name=c.name),
+        "retries": metrics.workqueue_retries_total.sample(name=c.name) or 0}
+        for c in mgr.controllers}
+
+    # Each kernel of the cell against its plain version at its shapes.
+    cfg = LLAMA_CONFIGS[NOTEBOOK_MODEL]
+    timer = Timer(torch, dev)
+    timer.floor_ms = timer(torch.zeros(1, device=dev).zero_)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    scale = (1.0 + 0.1 * torch.randn(cfg.dim, generator=gen,
+                                     device=dev)).float()
+    kernel_rows = [
+        k1_row(torch, timer, rnd(rows, cfg.dim), scale,
+               f"platform_manager {where}")
+        for rows, where in ((NOTEBOOK_PROMPT, "prefill"), (1, "decode"))]
+    kernel_rows.append(k2_row(
+        torch, dev, rnd, timer, 1, NOTEBOOK_PROMPT, cfg.n_heads,
+        cfg.n_kv_heads, cfg.head_dim, path="platform_manager prefill"))
+    kernel_rows.append(k5_row(
+        torch, dev, rnd, timer, 1, NOTEBOOK_PROMPT + NOTEBOOK_NEW,
+        cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        path="platform_manager decode"))
+    del timer
+    torch.cuda.empty_cache()
+    launches = {k: got["launches"][k] + job_got[k] for k in job_got}
+    emit({"phase": "platform_manager", "lease_holder": holder,
+          "seconds_to_leadership": leader_s,
+          "reconciles": {c.name: c.reconcile_count for c in mgr.controllers},
+          "workqueues": queues,
+          "cell_seconds": cell_s, "cell_generate_ms": got["generate_ms"],
+          "probes": probes,
+          "last_activity_stamps_while_busy": len(activity),
+          "idle_minutes": PLATFORM_IDLE_MINUTES,
+          "check_period_minutes": PLATFORM_CHECK_MINUTES,
+          "seconds_last_activity_to_stop": cull_s,
+          "seconds_stop_to_pod_exit": exit_s,
+          "seconds_exit_to_admission": admit_s,
+          "admission_limit_seconds": admit_limit,
+          "seconds_admission_to_first_step": first_step_s,
+          "cell_pid_listed_by_nvidia_smi": pid_listed,
+          "quota_used_after_exit": used,
+          "train_losses": losses, "mesh_phase_losses": want,
+          "loss_rel_diff": rel, "loss_tol": MESH_LOSS_TOL,
+          "train_wall_seconds": run["wall_s"],
+          "launches_by_pod": {"cell": got["launches"], "train": job_got},
+          "launches": launches, "culled": culled,
+          "dead_letters": dead, "watch_restarts": watch_restarts,
+          "kernels_against_plain": [
+              {k: r[k] for k in ("kernel", "shape", "max_abs_err", "tol")}
+              for r in kernel_rows],
+          "nvidia_smi": smi})
+    return launches
+
+
 SOURCES = {
     "rms_norm": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
                  "kubeflow_tpu/ops/pallas/rms_norm.py:53"),
@@ -7210,6 +7678,7 @@ def main() -> int:
     train_counts, train = timed(phase_train, torch)
     mesh_counts, mesh_losses = timed(phase_mesh, torch, train)
     job_counts = timed(phase_platform_job, torch, mesh_losses)
+    manager_counts = timed(phase_platform_manager, torch, dev, mesh_losses)
     timed(phase_checkpoint, torch, dev)
     vit_counts = timed(phase_vit, torch, dev)
     bert_counts = timed(phase_bert, torch, dev)
@@ -7248,6 +7717,7 @@ def main() -> int:
                              "ulysses": ulysses_counts[name],
                              "mesh": mesh_counts[name],
                              "platform_job": job_counts[name],
+                             "platform_manager": manager_counts[name],
                              "resnet": resnet_counts[name],
                              "vit": vit_counts[name],
                              "bert": bert_counts[name]},

@@ -5,6 +5,20 @@ pattern, culling_controller.go:385-391 / notebook_controller.go:203,427,
 reference's knob registry serves its /debug/knobs page, which the port
 does not have yet.  The compute side's readers stay in
 ``kubeflow_tpu_torch/config.py``.
+
+The controller runtime's knobs, the reference's names and defaults,
+each read through these helpers where it is used:
+
+* ``CONTROLLER_MAX_RETRIES`` (15), ``CONTROLLER_STUCK_SECONDS`` (300),
+  ``CONTROLLER_WORKERS`` (4) and ``CONTROLLER_WORKERS_<NAME>``:
+  ``runtime/controller.py``;
+* ``TRACE_SLOW_RECONCILE_SECONDS`` (1), ``TRACE_DISABLE`` and
+  ``TRACE_BUFFER_SIZE`` (64): ``runtime/trace.py``;
+* ``CULL_IDLE_TIME`` (1440 minutes), ``IDLENESS_CHECK_PERIOD`` (1
+  minute), ``CULL_PROBE_TIMEOUT_SECONDS`` (10),
+  ``CULL_PROBE_BUDGET_SECONDS`` (0, no budget), ``CLUSTER_DOMAIN``
+  (``cluster.local``) and ``DEV`` (probe through a local kubectl
+  proxy): ``controllers/culling.py``.
 """
 from __future__ import annotations
 

@@ -42,10 +42,13 @@ reference's:
 Terminal phases are sticky, and a finished gang's StatefulSets are deleted
 so the GPUs free at once (pods are left for log retrieval).
 
-The reconciler runs bare on a client (``reconcile(Request(ns, name))``):
-every read is a live client read and the queue rebuilds from lists.  The
-informer caches and ``make_controller`` wait for the port's controller
-runtime.
+``make_controller`` drives the reconciler from watches: pods and
+StatefulSets are read from indexed informer caches, and the queue's
+ledger is fed by its own informers on GPUJobs, quotas, nodes and
+InferenceServices; a GPUJob delta wakes the keys that can act on it
+(``JobQueue.kick_requests``).  A reconciler built bare on a client
+(``reconcile(Request(ns, name))``) reads the client, and its queue
+rebuilds from lists each reconcile.
 """
 from __future__ import annotations
 
@@ -97,16 +100,22 @@ class _SliceNameConflict(Exception):
 
 class GPUJobReconciler(Reconciler):
     def __init__(self, client, *, cluster_domain: Optional[str] = None,
+                 informers: Optional[dict] = None,
                  queue: Optional[jq.JobQueue] = None,
                  preemption_grace: Optional[float] = None,
                  queue_poll: Optional[float] = None):
         self.client = client
+        # GVK -> Informer (make_controller wires them): pod and
+        # StatefulSet reads come from the indexed caches.  Absent, reads
+        # go to the client.
+        self.informers: dict = informers or {}
         self.recorder = EventRecorder(client, "gpujob-controller")
         self.flights = shared_pool()
         self.cluster_domain = cluster_domain or config.env(
             "CLUSTER_DOMAIN", "cluster.local")
-        # The admission ledger; by default one that rebuilds from the
-        # client's lists for every decision.
+        # The admission ledger: make_controller passes an informer-fed
+        # one; by default one that rebuilds from the client's lists for
+        # every decision.
         self.queue = queue if queue is not None else jq.JobQueue(client)
         self.preemption_grace = (
             preemption_grace if preemption_grace is not None
@@ -115,21 +124,27 @@ class GPUJobReconciler(Reconciler):
         self.queue_poll = (queue_poll if queue_poll is not None
                            else DEFAULT_QUEUE_POLL_S)
 
-    # -- reads ----------------------------------------------------------------
+    # -- cache-backed reads ---------------------------------------------------
 
     def _cached_get(self, gvk, name: str, ns: str) -> Optional[Resource]:
-        """One object by key, None when it is not found (the reference
-        reads a cache here when its informers are wired)."""
-        try:
-            return self.client.get(gvk, name, ns)
-        except errors.NotFound:
-            return None
+        from kubeflow_tpu_torch.platform.runtime.informer import (
+            cache_or_client_get,
+        )
+
+        return cache_or_client_get(self.informers.get(gvk), self.client,
+                                   gvk, name, ns)
 
     def _pods_of(self, ns: str, name: str) -> List[Resource]:
+        inf = self.informers.get(POD)
+        if inf is not None:
+            return inf.index_list("gpujob", f"{ns}/{name}")
         return self.client.list(
             POD, ns, label_selector={jobapi.LABEL_GPUJOB_NAME: name})
 
     def _stses_of(self, ns: str, name: str) -> List[Resource]:
+        inf = self.informers.get(STATEFULSET)
+        if inf is not None:
+            return inf.index_list("gpujob", f"{ns}/{name}")
         return self.client.list(
             STATEFULSET, ns,
             label_selector={jobapi.LABEL_GPUJOB_NAME: name})
@@ -166,8 +181,9 @@ class GPUJobReconciler(Reconciler):
                 self._teardown_gang(ns, name, delete_pods=False)
             return None
 
-        # Read-your-writes for the ledger: rebuild it from lists, then
-        # fold in THIS job's live truth.
+        # Read-your-writes for the ledger: the clientless queue rebuilds
+        # from lists; the informer-fed one just folds in THIS job's live
+        # truth (our own status writes may outrun the watch stream).
         self.queue.ensure_fresh()
         self.queue.observe(job)
         spec = jobapi.gpu_slice(job)
@@ -225,8 +241,10 @@ class GPUJobReconciler(Reconciler):
         current, stale = self._split_by_generation(pods, generation)
         # Stragglers of a torn-down generation: GC opportunistically so
         # they never pollute the new gang's aggregation.  Worker names are
-        # REUSED across generations (StatefulSet ordinals), so re-check
-        # the generation on a fresh GET before the delete.
+        # REUSED across generations (StatefulSet ordinals), so a lagging
+        # informer cache can present a just-recreated current-generation
+        # pod under a stale object: re-check the generation on a fresh GET
+        # before the delete.
         for pod in stale:
             pod_name = name_of(pod)
             try:
@@ -238,7 +256,7 @@ class GPUJobReconciler(Reconciler):
             live_gen = deep_get(live, "metadata", "labels",
                                 jobapi.LABEL_GENERATION)
             if live_gen == str(generation):
-                continue  # the name already belongs to this gang
+                continue  # cache lag: the name already belongs to this gang
             try:
                 self.client.delete(POD, pod_name, ns)
             except errors.ApiError:
@@ -822,7 +840,7 @@ class GPUJobReconciler(Reconciler):
         return out
 
 
-# -- watch mappers ------------------------------------------------------------
+# -- watch mappers / indexers -------------------------------------------------
 
 
 def pods_to_gpujob_requests(obj: Resource) -> List[Request]:
@@ -832,3 +850,114 @@ def pods_to_gpujob_requests(obj: Resource) -> List[Request]:
     if not job:
         return []
     return [Request(deep_get(obj, "metadata", "namespace", default=""), job)]
+
+
+def _job_label_index(obj: Resource) -> List[str]:
+    labels = deep_get(obj, "metadata", "labels", default={}) or {}
+    job = labels.get(jobapi.LABEL_GPUJOB_NAME)
+    ns = deep_get(obj, "metadata", "namespace", default="")
+    return [f"{ns}/{job}"] if job else []
+
+
+def make_controller(client, **kwargs):
+    """The GPUJob controller: the reconciler's informers on GPUJobs, pods,
+    StatefulSets and Services, and the queue's own on GPUJobs, quotas,
+    nodes and InferenceServices feeding its ledger; every GPUJob delta
+    wakes the keys the new state lets act (``kick_requests``).  A quota
+    or node change only updates the ledger: a Queued job's poll
+    (``requeue_after``) admits it.  The collector and the debug registry
+    are hooked for the controller's life."""
+    from kubeflow_tpu_torch.platform.k8s.types import (
+        INFERENCESERVICE,
+        NODE,
+        RESOURCEQUOTA,
+    )
+    from kubeflow_tpu_torch.platform.runtime import Controller
+    from kubeflow_tpu_torch.platform.runtime.informer import Informer
+
+    informers = {
+        GPUJOB: Informer(client, GPUJOB),
+        POD: Informer(client, POD, indexers={"gpujob": _job_label_index}),
+        STATEFULSET: Informer(client, STATEFULSET,
+                              indexers={"gpujob": _job_label_index}),
+        SERVICE: Informer(client, SERVICE),
+    }
+    # The ledger's feed stays out of the controller's informer dict: the
+    # queue is one priority-then-FIFO order over every job, quota, node
+    # and InferenceService (serving's GPUs are declared charges on the
+    # same quota), and its informers live with the controller's on_start
+    # and on_stop.
+    queue = jq.JobQueue()
+    queue.informer_backed = True
+    queue_informers = {
+        GPUJOB: Informer(client, GPUJOB),
+        RESOURCEQUOTA: Informer(client, RESOURCEQUOTA),
+        NODE: Informer(client, NODE),
+        INFERENCESERVICE: Informer(client, INFERENCESERVICE),
+    }
+
+    def _on_job_delta(etype, obj):
+        if etype == "DELETED":
+            queue.forget(deep_get(obj, "metadata", "namespace",
+                                  default="") or "",
+                         name_of(obj))
+        else:
+            queue.observe(obj)
+
+    queue_informers[GPUJOB].add_handler(_on_job_delta)
+
+    def _on_service_delta(etype, obj):
+        ns = deep_get(obj, "metadata", "namespace", default="") or ""
+        if etype == "DELETED":
+            queue.forget_service(ns, name_of(obj))
+        else:
+            queue.observe_service(obj)
+
+    queue_informers[INFERENCESERVICE].add_handler(_on_service_delta)
+    queue_informers[RESOURCEQUOTA].add_handler(
+        lambda _e, _o: queue.set_quotas(
+            queue_informers[RESOURCEQUOTA].list()))
+    queue_informers[NODE].add_handler(
+        lambda _e, _o: queue.set_nodes(queue_informers[NODE].list()))
+
+    reconciler = GPUJobReconciler(client, informers=informers,
+                                  queue=queue, **kwargs)
+
+    def on_start():
+        metrics.register_gpujob_collector(client)
+        jq.register_debug_queue(queue)
+        for informer in queue_informers.values():
+            informer.start()
+        for informer in queue_informers.values():
+            # Best effort: an unsynced ledger admits permissively until
+            # its feed lands, never a failed start.
+            informer.wait_for_sync(30.0)
+
+    def on_stop():
+        metrics.register_gpujob_collector(None)
+        jq.register_debug_queue(None)
+        for informer in queue_informers.values():
+            informer.stop()
+
+    ctrl = Controller(
+        "gpujob-controller",
+        reconciler,
+        primary=GPUJOB,
+        owns=[STATEFULSET, SERVICE],
+        watches=[(POD, pods_to_gpujob_requests)],
+        informers=informers,
+        on_start=on_start,
+        on_stop=on_stop,
+        resync_period=300.0,
+    )
+
+    def _kick(_etype, obj):
+        # The capacity-change fan-out: a job delta wakes the head waiters
+        # (admission), the preemption targets (yield) and the shrunk
+        # gangs (grow-back).  The Queued job's poll is the guarantee; this
+        # is the latency path.
+        for ns, name in queue.kick_requests():
+            ctrl.queue.add(Request(ns, name))
+
+    queue_informers[GPUJOB].add_handler(_kick)
+    return ctrl

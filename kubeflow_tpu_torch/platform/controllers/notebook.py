@@ -19,9 +19,12 @@ the reference's (reference notebook_controller.go:89-225 / 361-565):
 * Stop/start (``kubeflow-resource-stopped``) scales the whole slice to 0
   and back atomically — all workers, one replicas field.
 
-The reconciler runs bare on a client (``reconcile(Request(ns, name))``):
-every read is a live client read.  The informer caches and
-``make_controller`` wait for the port's controller runtime.
+``make_controller`` drives the reconciler from watches: every watched
+kind is sourced from an informer (``runtime/informer.py``), and the
+reconcile reads pods, StatefulSets, events and its children from the
+same indexed caches.  A reconciler built bare on a client
+(``reconcile(Request(ns, name))``) reads the client instead, with the
+same results.
 """
 from __future__ import annotations
 
@@ -69,8 +72,16 @@ class NotebookReconciler(Reconciler):
                  istio_gateway: Optional[str] = None,
                  cluster_domain: Optional[str] = None,
                  add_fsgroup: Optional[bool] = None,
-                 mirror_min_interval: Optional[float] = None):
+                 mirror_min_interval: Optional[float] = None,
+                 informers: Optional[dict] = None):
         self.client = client
+        # GVK -> Informer (make_controller wires them): the reads of pods,
+        # StatefulSets, events and children come from the indexed caches,
+        # O(matches) instead of a LIST a reconcile.  Absent, reads go to
+        # the client.  The cache is updated before the controller's
+        # informer-sourced mappers enqueue, so a reconcile triggered by a
+        # delta sees it.
+        self.informers: dict = informers or {}
         self.recorder = EventRecorder(client, "notebook-controller")
         # Bounded shared fan-out for independent secondary writes: the
         # slice StatefulSets and the Service/headless-Service/PDB/
@@ -96,31 +107,47 @@ class NotebookReconciler(Reconciler):
             else self.MIRROR_MIN_INTERVAL_SECONDS
         )
 
-    # -- reads ----------------------------------------------------------------
+    # -- cache-backed reads ---------------------------------------------------
 
     def _cached_get(self, gvk, name: str, ns: str) -> Optional[Resource]:
-        """One object by key, None when it is not found (the reference
-        reads a cache here when its informers are wired)."""
-        try:
-            return self.client.get(gvk, name, ns)
-        except errors.NotFound:
-            return None
+        """One object by key: a read-only cache view when the kind's
+        informer is wired and synced, a live GET otherwise; None when it
+        is not found.  A writer thaws first; a create against a lagging
+        cache's None gets AlreadyExists and re-reads at the call site."""
+        from kubeflow_tpu_torch.platform.runtime.informer import (
+            cache_or_client_get,
+        )
+
+        return cache_or_client_get(self.informers.get(gvk), self.client,
+                                   gvk, name, ns)
 
     def _pods_of(self, ns: str, name: str) -> List[Resource]:
-        """This notebook's worker pods (label-selector LIST)."""
+        """This notebook's worker pods: the indexed cache when wired, a
+        label-selector LIST otherwise."""
+        inf = self.informers.get(POD)
+        if inf is not None:
+            return inf.index_list("notebook", f"{ns}/{name}")
         return self.client.list(
             POD, ns, label_selector={nbapi.LABEL_NOTEBOOK_NAME: name}
         )
 
     def _stses_of(self, ns: str, name: str) -> List[Resource]:
-        """This notebook's slice StatefulSets, for stale-slice GC."""
+        """This notebook's slice StatefulSets, for stale-slice GC.  From a
+        cache this is safe: a slice missing from a lagging cache is only
+        skipped this pass, never deleted for its absence."""
+        inf = self.informers.get(STATEFULSET)
+        if inf is not None:
+            return inf.index_list("notebook", f"{ns}/{name}")
         return self.client.list(
             STATEFULSET, ns,
             label_selector={nbapi.LABEL_NOTEBOOK_NAME: name})
 
     def _events_involving(self, ns: str, kind: str, name: str) -> List[Resource]:
-        """Events on one involved object: a field-selected LIST
-        (involvedObject.* is apiserver-indexed for Events)."""
+        """Events on one involved object: the indexed cache, or a field-
+        selected LIST (involvedObject.* is apiserver-indexed for Events)."""
+        inf = self.informers.get(EVENT)
+        if inf is not None:
+            return inf.index_list("involved", f"{ns}/{kind}/{name}")
         return self.client.list(
             EVENT, ns,
             field_selector={"involvedObject.kind": kind,
@@ -129,6 +156,9 @@ class NotebookReconciler(Reconciler):
     def _pod_events_of_sts(self, ns: str, sts_name: str) -> List[Resource]:
         """Events on ANY worker pod ``<sts>-<ordinal>`` of one StatefulSet,
         including pods that no longer exist."""
+        inf = self.informers.get(EVENT)
+        if inf is not None:
+            return inf.index_list("involved", f"{ns}/Pod-of/{sts_name}")
         out = []
         for ev in self.client.list(EVENT, ns):
             io = ev.get("involvedObject") or {}
@@ -138,6 +168,15 @@ class NotebookReconciler(Reconciler):
             if prefix == sts_name and ordinal.isdigit():
                 out.append(ev)
         return out
+
+    def _get_event(self, name: str, ns: str) -> Resource:
+        inf = self.informers.get(EVENT)
+        if inf is not None:
+            obj = inf.get(name, ns)
+            if obj is None:
+                raise errors.NotFound(f'events "{name}" not found in "{ns}"')
+            return obj
+        return self.client.get(EVENT, name, ns)
 
     # -- reconcile -----------------------------------------------------------
 
@@ -738,8 +777,7 @@ class NotebookReconciler(Reconciler):
         one GET of the durable marker Event per cold key (then memory takes
         over), instead of an unthrottled full event list per notebook."""
         try:
-            marker = self.client.get(
-                EVENT, name + self.MIRROR_MARKER_SUFFIX, ns)
+            marker = self._get_event(name + self.MIRROR_MARKER_SUFFIX, ns)
         except errors.ApiError:
             return None
         t = parse_timestamp(marker.get("lastTimestamp"))
@@ -895,3 +933,77 @@ def events_to_notebook_requests(obj: Resource) -> List[Request]:
                 reqs.append(Request(ns, stripped))
             return reqs
     return []
+
+
+def _pod_notebook_index(pod: Resource) -> List[str]:
+    labels = deep_get(pod, "metadata", "labels", default={}) or {}
+    nb = labels.get(nbapi.LABEL_NOTEBOOK_NAME)
+    ns = deep_get(pod, "metadata", "namespace", default="")
+    return [f"{ns}/{nb}"] if nb else []
+
+
+def _event_involved_index(ev: Resource) -> List[str]:
+    io = ev.get("involvedObject") or {}
+    kind, name = io.get("kind"), io.get("name")
+    ns = deep_get(ev, "metadata", "namespace", default="")
+    if not (kind and name):
+        return []
+    keys = [f"{ns}/{kind}/{name}"]
+    if kind == "Pod":
+        # Pod events are also filed under their StatefulSet (the name
+        # without its ordinal), so the mirror pass reads every worker's
+        # events in one lookup, a deleted pod's included.
+        prefix, _, ordinal = name.rpartition("-")
+        if prefix and ordinal.isdigit():
+            keys.append(f"{ns}/Pod-of/{prefix}")
+    return keys
+
+
+def make_controller(client, **kwargs):
+    """The notebook controller: every watched kind from an informer
+    cache (the reference's notebook_controller.go:684-733 sources), the
+    reconciler reading the same caches, the fleet gauges hooked for the
+    controller's life, and a resync every 300 s."""
+    from kubeflow_tpu_torch.platform.runtime import Controller
+    from kubeflow_tpu_torch.platform.runtime.informer import Informer
+
+    informers = {
+        NOTEBOOK: Informer(client, NOTEBOOK),
+        POD: Informer(client, POD,
+                      indexers={"notebook": _pod_notebook_index}),
+        STATEFULSET: Informer(client, STATEFULSET,
+                              indexers={"notebook": _pod_notebook_index}),
+        SERVICE: Informer(client, SERVICE),
+        PODDISRUPTIONBUDGET: Informer(client, PODDISRUPTIONBUDGET),
+        EVENT: Informer(client, EVENT,
+                        indexers={"involved": _event_involved_index}),
+    }
+    # The VirtualService kind exists only on Istio clusters, and a cache
+    # that cannot sync is fatal at start: its informer and its owns-watch
+    # follow USE_ISTIO, resolved once and handed to the reconciler so the
+    # two cannot disagree.
+    use_istio = kwargs.get("use_istio")
+    if use_istio is None:
+        use_istio = config.env_bool("USE_ISTIO", True)
+    kwargs["use_istio"] = use_istio
+    owns = [STATEFULSET, SERVICE, PODDISRUPTIONBUDGET]
+    if use_istio:
+        informers[VIRTUALSERVICE] = Informer(client, VIRTUALSERVICE)
+        owns.append(VIRTUALSERVICE)
+    return Controller(
+        "notebook-controller",
+        NotebookReconciler(client, informers=informers, **kwargs),
+        primary=NOTEBOOK,
+        owns=owns,
+        watches=[
+            (POD, pods_to_notebook_requests),
+            (EVENT, events_to_notebook_requests),
+        ],
+        informers=informers,
+        # The fleet gauges list over this client at scrape time, for as
+        # long as the controller runs.
+        on_start=lambda: metrics.register_fleet_collector(client),
+        on_stop=lambda: metrics.register_fleet_collector(None),
+        # The safety net for drift no watch covers.
+        resync_period=300.0,
+    )

@@ -114,28 +114,32 @@ class FlightPool:
             return []
         if n == 1 or self.size <= 1 or getattr(_local, "in_flight", False):
             return self._run_inline(calls, return_exceptions)
-        from kubeflow_tpu_torch.platform.runtime import metrics
+        from kubeflow_tpu_torch.platform.runtime import metrics, trace
         from kubeflow_tpu_torch.telemetry import causal
 
-        # Carry the submitting reconcile's causal context onto the pool
-        # threads (thread-locals do not cross threads by themselves): a
-        # child created from a flight slot inherits the reconcile's trace
-        # (apply.stamp_child).  The reference carries the write fence and
-        # the reconcile trace on the same carry; the port has neither yet.
+        # Carry the submitting reconcile's causal context and its trace
+        # onto the pool threads (thread-locals do not cross threads by
+        # themselves): a child created from a flight slot inherits the
+        # reconcile's journey (apply.stamp_child), and a span opened in a
+        # slot lands in the reconcile's trace.  The reference carries the
+        # write fence on the same carry; the port has no fence yet.
         cctx = causal.current()
+        submit_trace = trace.current()
         # Marks recorded inside a slot land on the POOL thread's local;
         # collect them so the submitting reconcile still reads as acting.
         slot_marked = [False]
-        if cctx is not None:
-            def _carry(fn, _ctx=cctx):
+        if cctx is not None or submit_trace is not None:
+            def _carry(fn, _ctx=cctx, _tr=submit_trace):
                 def wrapped():
                     causal.set_current(_ctx)
+                    trace.adopt(_tr)
                     try:
                         return fn()
                     finally:
                         if causal.consume_mark():
                             slot_marked[0] = True
                         causal.set_current(None)
+                        trace.adopt(None)
                 return wrapped
 
             calls = [_carry(fn) for fn in calls]

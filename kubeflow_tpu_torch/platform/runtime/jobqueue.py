@@ -47,11 +47,16 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 from kubeflow_tpu_torch.platform.gpu import topology
 from kubeflow_tpu_torch.platform.k8s import quota as quota_mod
-from kubeflow_tpu_torch.platform.k8s.types import Resource, deep_get
+from kubeflow_tpu_torch.platform.k8s.types import (
+    Resource,
+    deep_get,
+    parse_timestamp,
+)
 
 # Structured Unschedulable reasons (status.reason + the REASON printer
 # column + the Unschedulable condition's reason).
@@ -109,11 +114,15 @@ class Decision:
 
 
 class _Entry:
-    __slots__ = ("demand", "alloc")
+    __slots__ = ("demand", "alloc", "queued_at")
 
-    def __init__(self, demand: GangDemand, alloc: Optional[int]):
+    def __init__(self, demand: GangDemand, alloc: Optional[int],
+                 queued_at: Optional[float] = None):
         self.demand = demand
         self.alloc = alloc            # None = waiting; int = admitted slices
+        # Waiting entries only: status.queuedAt (the creationTimestamp
+        # until the park commits), read by the oldest-wait gauge.
+        self.queued_at = queued_at
 
 
 def demand_of(job: Resource) -> Optional[GangDemand]:
@@ -149,15 +158,16 @@ def demand_of(job: Resource) -> Optional[GangDemand]:
 
 
 class JobQueue:
-    """The admission ledger.  Thread-safe; fed incrementally
-    (``observe``/``forget``, ``set_nodes``/``set_quotas``,
-    ``observe_service``/``forget_service``) or rebuilt on demand from a
-    client (``ensure_fresh``, the bare reconciler's path: the informer
-    feed waits for the port's controller runtime).  All decisions are
-    pure functions of the current state."""
+    """The admission ledger.  Thread-safe; fed incrementally from
+    informer deltas (``observe``/``forget``, ``set_nodes``/
+    ``set_quotas``, ``observe_service``/``forget_service``: the path
+    ``controllers/gpujob.py`` ``make_controller`` wires) or rebuilt on
+    demand from a client (``ensure_fresh``, the bare reconciler's path).
+    All decisions are pure functions of the current state."""
 
-    def __init__(self, client=None):
+    def __init__(self, client=None, *, now=time.time):
         self._client = client
+        self._now = now
         self._lock = threading.RLock()
         self._entries: Dict[str, _Entry] = {}
         self._waiting: List[Tuple[Tuple, str]] = []    # sorted (rank, key)
@@ -167,6 +177,7 @@ class JobQueue:
         # O(1)-ish, never a rescan of the queue.
         self._waiting_by_ns: Dict[str, int] = {}
         self._alloc_total = 0
+        self._shrunk: set = set()      # admitted keys with alloc < slices
         # (product, GPUs a node) -> GPU host count, from nodes.
         self._pool_hosts: Dict[Tuple[str, int], int] = {}
         self._ns_quota: Dict[str, float] = {}          # ns -> hard GPUs
@@ -189,6 +200,8 @@ class JobQueue:
         # waiter, or None): the head-of-line check in decide() reads
         # this instead of rescanning the prefix per call.
         self._first_adm_cache: Tuple[int, Optional[Tuple]] = (-1, None)
+        # Fed by informer deltas: ensure_fresh rebuilds nothing.
+        self.informer_backed = False
         # Serializes commit-time admissions within one controller: the
         # confirm() live rebuild + the status commit happen atomically so
         # two workers can never admit two gangs into one free slot off
@@ -199,9 +212,11 @@ class JobQueue:
 
     def ensure_fresh(self) -> None:
         """Rebuild the whole ledger from live lists of the client this
-        queue was built on (a queue without one is fed by its caller)."""
-        if self._client is not None:
-            self.rebuild(self._client)
+        queue was built on.  An informer-backed queue (or one without a
+        client) skips it: its deltas keep the state current."""
+        if self.informer_backed or self._client is None:
+            return
+        self.rebuild(self._client)
 
     def rebuild(self, client) -> None:
         """Rebuild the ledger from live lists over ``client``."""
@@ -244,6 +259,7 @@ class JobQueue:
             self._ns_gpus.clear()
             self._waiting_by_ns.clear()
             self._alloc_total = 0
+            self._shrunk.clear()
             self._svc_gpus.clear()
             self._svc_ns_gpus.clear()
             self.set_nodes(nodes)
@@ -310,11 +326,17 @@ class JobQueue:
         alloc = jobapi.allocated_slices(job)
         if alloc is not None and phase not in jobapi.HOLDING_PHASES:
             alloc = None
+        queued_at = None
+        if alloc is None:
+            queued_at = jobapi.queued_at(job)
+            if queued_at is None:
+                queued_at = parse_timestamp(demand.created)
         cur = self._entries.get(key)
-        if cur is not None and cur.demand == demand and cur.alloc == alloc:
+        if (cur is not None and cur.demand == demand
+                and cur.alloc == alloc and cur.queued_at == queued_at):
             return False
         self._drop_locked(key)
-        self._entries[key] = _Entry(demand, alloc)
+        self._entries[key] = _Entry(demand, alloc, queued_at)
         if alloc is None:
             bisect.insort(self._waiting, (demand.rank, key))
             self._waiting_by_ns[ns] = self._waiting_by_ns.get(ns, 0) + 1
@@ -324,6 +346,8 @@ class JobQueue:
             self._ns_gpus[ns] = (self._ns_gpus.get(ns, 0.0)
                                  + alloc * demand.gpus_per_slice)
             self._alloc_total += alloc
+            if alloc < demand.slices:
+                self._shrunk.add(key)
         return True
 
     def forget(self, namespace: str, name: str) -> None:
@@ -397,6 +421,7 @@ class JobQueue:
                 0.0, self._ns_gpus.get(ns, 0.0)
                 - entry.alloc * entry.demand.gpus_per_slice)
             self._alloc_total = max(0, self._alloc_total - entry.alloc)
+            self._shrunk.discard(key)
         return True
 
     def _bump(self) -> None:
@@ -613,9 +638,50 @@ class JobQueue:
 
     # -- introspection -------------------------------------------------------
 
+    # -- event fan-out + introspection ---------------------------------------
+
+    def kick_requests(self, limit: int = 4) -> List[Tuple[str, str]]:
+        """Keys whose reconciles could act on the current state: the head
+        waiters (admission), the current preemption targets (yield) and
+        the shrunk gangs (grow-back).  The controller maps every GPUJob
+        delta through this, so a capacity change wakes exactly the keys
+        that can use it."""
+        with self._lock:
+            out: List[Tuple[str, str]] = []
+            for _rank, key in self._waiting[:limit]:
+                d = self._entries[key].demand
+                out.append((d.namespace, d.name))
+            for vk in self._targets():
+                ns, _, name = vk.partition("/")
+                out.append((ns, name))
+            for key in list(self._shrunk)[:limit]:
+                e = self._entries.get(key)
+                if e is not None:
+                    out.append((e.demand.namespace, e.demand.name))
+            return out
+
     def depth_by_namespace(self) -> Dict[str, int]:
         with self._lock:
             return dict(self._waiting_by_ns)
+
+    def oldest_wait_by_namespace(self, now: Optional[float] = None
+                                 ) -> Dict[str, float]:
+        """Age of the oldest queued job per profile namespace: the
+        starvation signal that ``gpujob_queue_wait_seconds``, observed
+        only at admission, cannot carry.  Read at scrape time only."""
+        if now is None:
+            now = self._now()
+        out: Dict[str, float] = {}
+        with self._lock:
+            for _rank, key in self._waiting:
+                entry = self._entries[key]
+                if entry.queued_at is None:
+                    continue
+                age = max(0.0, now - entry.queued_at)
+                ns = entry.demand.namespace
+                if age > out.get(ns, -1.0):
+                    out[ns] = age
+        return out
 
     def allocated_total(self) -> int:
         with self._lock:
@@ -684,4 +750,28 @@ class JobQueue:
 
         metrics.set_gpujob_queue_depth(dict(self._waiting_by_ns))
         metrics.gpujob_slices_allocated.set(self._alloc_total)
+
+
+# -- the debug registry: the job controller registers its queue on start and
+#    unhooks it on stop; the reference's /debug/queue page serves the
+#    snapshot, the oldest-wait gauge reads the ages. -------------------------
+
+_debug_queue: Optional[JobQueue] = None
+
+
+def register_debug_queue(queue: Optional[JobQueue]) -> None:
+    global _debug_queue
+    _debug_queue = queue
+
+
+def debug_snapshot() -> Optional[dict]:
+    q = _debug_queue
+    return q.snapshot() if q is not None else None
+
+
+def oldest_queue_waits() -> Optional[Dict[str, float]]:
+    """The oldest-wait gauge's read; None until a job controller
+    registers its queue."""
+    q = _debug_queue
+    return q.oldest_wait_by_namespace() if q is not None else None
 

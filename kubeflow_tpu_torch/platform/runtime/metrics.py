@@ -13,12 +13,18 @@ queue write, the reference's ``tpujob_*`` as ``gpujob_*``: gang
 restarts, preemptions by reason, the queue wait at admission, the queue
 depth per profile, the slices allocated, and the scrape-time job fleet
 gauges (``gpujob_jobs{phase}``, ``gpujob_slices_ready`` and
-``gpujob_slices`` per namespace).  ``render()`` is the ``/metrics``
-page.
+``gpujob_slices`` per namespace), with the scrape-time
+``gpujob_queue_oldest_wait_seconds{profile}`` read from the registered
+queue.  And the controller runtime's: client-go's work-queue series
+(through the ``WorkQueueMetrics`` shim), reconcile latency, errors,
+stuck reconciles and dead letters, the culler's probes and culls, lease
+transitions, and the informers' watch restarts and watch lag.
+``render()`` is the ``/metrics`` page.
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, Tuple
 
 from kubeflow_tpu_torch.telemetry.metrics import (
@@ -37,6 +43,12 @@ notebook_create_total = Counter(
 notebook_create_failed_total = Counter(
     "notebook_create_failed_total", "Failed Notebook creations",
     registry=registry)
+notebook_culling_total = Counter(
+    "notebook_culling_total", "Total notebooks culled for idleness",
+    registry=registry)
+last_culling_timestamp = Gauge(
+    "last_notebook_culling_timestamp_seconds",
+    "Timestamp of the last culling operation", registry=registry)
 notebook_spawn_seconds = Histogram(
     "notebook_spawn_to_ready_seconds",
     "Seconds from Notebook creation to all workers Ready",
@@ -209,6 +221,143 @@ ScrapeGauge(
 def register_gpujob_collector(client) -> None:
     """Point the GPUJob fleet gauges at ``client`` (None unhooks them)."""
     _gpujob_collector.client = client
+
+
+# -- the controller runtime ---------------------------------------------------
+
+_QUEUE_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0,
+                  60.0)
+
+workqueue_adds_total = Counter(
+    "workqueue_adds_total", "Adds handled by workqueue", ["name"],
+    registry=registry)
+workqueue_retries_total = Counter(
+    "workqueue_retries_total", "Rate-limited (backoff) re-adds by workqueue",
+    ["name"], registry=registry)
+workqueue_queue_duration_seconds = Histogram(
+    "workqueue_queue_duration_seconds",
+    "Seconds an item waits in the workqueue before being handed to a "
+    "worker", ["name"], buckets=_QUEUE_BUCKETS, registry=registry)
+workqueue_work_duration_seconds = Histogram(
+    "workqueue_work_duration_seconds",
+    "Seconds processing an item takes (get to done)",
+    ["name"], buckets=_QUEUE_BUCKETS, registry=registry)
+
+
+class WorkQueueMetrics:
+    """The work queue's instrumentation: the queue calls ``on_add``,
+    ``on_retry``, ``on_get`` and ``on_done`` at client-go's points, and
+    the timing state lives here, keyed by request."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._queued_at: Dict[object, float] = {}   # key -> eligible time
+        self._started_at: Dict[object, float] = {}  # key -> worker pickup
+        self._waits: Dict[object, float] = {}       # key -> its queue wait
+        self._adds = workqueue_adds_total.labels(name=name)
+        self._retries = workqueue_retries_total.labels(name=name)
+        self._queue_dur = workqueue_queue_duration_seconds.labels(name=name)
+        self._work_dur = workqueue_work_duration_seconds.labels(name=name)
+
+    def on_add(self, key, *, delay: float = 0.0) -> None:
+        """An accepted add.  The queued-at time is when the item becomes
+        eligible (now + delay), the earliest over deduplicated re-adds,
+        so the queue duration is the wait in a hot queue, not a backoff's
+        sleep."""
+        self._adds.inc()
+        when = time.monotonic() + max(delay, 0.0)
+        with self._lock:
+            cur = self._queued_at.get(key)
+            if cur is None or when < cur:
+                self._queued_at[key] = when
+
+    def on_retry(self, key) -> None:
+        self._retries.inc()
+
+    def on_get(self, key) -> None:
+        now = time.monotonic()
+        with self._lock:
+            when = self._queued_at.pop(key, None)
+            wait = max(0.0, now - when) if when is not None else 0.0
+            self._started_at[key] = now
+            self._waits[key] = wait
+        self._queue_dur.observe(wait)
+
+    def on_done(self, key) -> None:
+        now = time.monotonic()
+        with self._lock:
+            t0 = self._started_at.pop(key, None)
+            self._waits.pop(key, None)
+        if t0 is not None:
+            self._work_dur.observe(now - t0)
+
+    def wait_of(self, key) -> float:
+        """The queue wait of a key being processed (the reconcile trace's
+        ``dequeue`` span)."""
+        with self._lock:
+            return self._waits.get(key, 0.0)
+
+
+controller_runtime_reconcile_time_seconds = Histogram(
+    "controller_runtime_reconcile_time_seconds",
+    "Reconcile latency by controller and outcome "
+    "(success|error|requeue_after|dead_letter)",
+    ["controller", "result"], buckets=_QUEUE_BUCKETS, registry=registry)
+reconcile_errors_total = Counter(
+    "reconcile_errors_total", "Reconcile errors by controller",
+    ["controller"], registry=registry)
+reconcile_stuck_total = Counter(
+    "reconcile_stuck_total",
+    "Reconciles that exceeded the stuck-reconcile deadline "
+    "(the watchdog dumped their trace; they may still be running)",
+    ["controller"], registry=registry)
+reconcile_dead_letter_total = Counter(
+    "reconcile_dead_letter_total",
+    "Keys parked on the dead-letter path after exhausting max retries "
+    "(terminal ReconcileFailed condition written; no more backoff "
+    "requeues until a new event or resync revives the key)",
+    ["controller"], registry=registry)
+culling_probe_failures_total = Counter(
+    "notebook_culling_probe_failures_total",
+    "Idleness probes that errored, timed out or found the probe budget "
+    "spent (the notebook counts as BUSY: never culled on a broken probe)",
+    registry=registry)
+controller_lease_transitions_total = Counter(
+    "controller_lease_transitions_total",
+    "Shard-lease lifecycle events by the sharded coordinator: acquire, "
+    "renew, expire, release, fenced (written by the shard coordinator, "
+    "which the port does not have yet)",
+    ["controller", "reason"], registry=registry)
+informer_watch_restarts_total = Counter(
+    "informer_watch_restarts_total",
+    "Informer watch stream failures/expiries that forced a re-establish",
+    ["kind"], registry=registry)
+informer_watch_lag_seconds = Histogram(
+    "informer_watch_lag_seconds",
+    "API write committed -> watch event delivered, measured once per "
+    "causal stamp at its first delivery (the journey's watch_lag span)",
+    ["kind"], buckets=_QUEUE_BUCKETS, registry=registry)
+informer_watch_lag_overflow_total = Counter(
+    "informer_watch_lag_overflow_total",
+    "watch deliveries whose measured lag exceeded the replay bound "
+    "(causal.WATCH_LAG_MAX_S; one count per stamp): relist replays of "
+    "old stamps, or a watch path degraded past the bound",
+    ["kind"], registry=registry)
+
+
+def _oldest_waits():
+    from kubeflow_tpu_torch.platform.runtime import jobqueue
+
+    return [((ns,), age) for ns, age in
+            sorted((jobqueue.oldest_queue_waits() or {}).items())]
+
+
+ScrapeGauge(
+    "gpujob_queue_oldest_wait_seconds",
+    "age of the oldest GPUJob currently parked Queued, per profile "
+    "namespace (0 series when nothing waits)",
+    _oldest_waits, ["profile"], registry=registry)
 
 
 def render() -> str:

@@ -3,8 +3,7 @@ context, the context an object carries, and the span store of journeys.
 Standard library only.
 
 The port's copy of ``kubeflow_tpu/telemetry/causal.py`` without the
-lazy context factory, the watch-lag gate and the journey merge, which
-belong to the controller runtime.  A serving replica parses a caller's
+journey merge.  A serving replica parses a caller's
 ``traceparent`` header (``models/serve.py``), installs it as the
 request thread's current context with ``use`` and links it into the
 request trace as ``causal_trace_id``/``causal_span_id``
@@ -15,7 +14,12 @@ objects: a platform CR is stamped at first admission
 writes through ``platform/runtime/apply.py`` get a child context of
 the reconcile's (``stamp_child``), and each child write's round trip
 is a ``write_rtt`` span in the process's store (``record_write``,
-``journey``).
+``journey``).  The controller runtime (``platform/runtime/
+controller.py``) measures each stamp's first watch delivery as a
+``watch_lag`` span (``first_lag_observation``, bounded by
+``WATCH_LAG_MAX_S``) and arms a reconcile without a delivered context
+with a lazy factory (``set_lazy``), resolved only when the reconcile
+writes.
 
 Ids are a per-process random block plus a counter: one ``secrets`` read a
 process, ids unique within it by the counter and across processes by the
@@ -46,6 +50,9 @@ MINT_API_GROUP = "kubeflow.org"
 
 # The span store's size (spans, one ring a process) and its off switch.
 JOURNEY_BUFFER_SIZE = config.env_int("JOURNEY_BUFFER_SIZE", 8192)
+# A watch_lag longer than this is a replay of an object stamped long
+# before (a handler's ADDED replay, a relist), not a lag: no span.
+WATCH_LAG_MAX_S = 60.0
 ENABLED = not config.env_bool("JOURNEY_DISABLE", False)
 
 _TRACEPARENT_RE = re.compile(
@@ -104,12 +111,36 @@ _local = threading.local()
 
 
 def current() -> Optional[TraceContext]:
-    """The thread's current context (None when none is installed)."""
+    """The thread's current context (None when none is installed).  A
+    lazy factory (``set_lazy``) resolves here, once, on first use."""
+    ctx = getattr(_local, "ctx", None)
+    if ctx is not None:
+        return ctx
+    factory = getattr(_local, "ctx_factory", None)
+    if factory is not None:
+        _local.ctx_factory = None  # one shot, even when it answers None
+        ctx = factory()
+        _local.ctx = ctx
+    return ctx
+
+
+def current_resolved() -> Optional[TraceContext]:
+    """The current context only if already resolved: never runs a lazy
+    factory (did the reconcile use its context?)."""
     return getattr(_local, "ctx", None)
 
 
 def set_current(ctx: Optional[TraceContext]) -> None:
     _local.ctx = ctx
+    _local.ctx_factory = None
+
+
+def set_lazy(factory) -> None:
+    """Install a zero-argument context factory that ``current`` resolves
+    on its first call, so a reconcile that writes nothing derives no
+    context."""
+    _local.ctx = None
+    _local.ctx_factory = factory
 
 
 def current_traceparent() -> Optional[str]:
@@ -253,6 +284,25 @@ class SpanStore:
 
 
 STORE = SpanStore()
+
+# Stamps whose watch_lag was already recorded in this process (an object
+# is delivered to every controller and on every status bump; only the
+# first delivery measures the lag).  Bounded: half is evicted when full.
+_lag_seen: set = set()
+_lag_lock = threading.Lock()
+
+
+def first_lag_observation(trace_id: str, span_id: str) -> bool:
+    """True once a stamp a process: the watch_lag recording gate."""
+    key = (trace_id, span_id)
+    with _lag_lock:
+        if key in _lag_seen:
+            return False
+        if len(_lag_seen) > 8192:
+            for _ in range(4096):
+                _lag_seen.pop()
+        _lag_seen.add(key)
+        return True
 
 
 def record(name: str, *, trace_id: str, **kwargs) -> Optional[dict]:

@@ -12,7 +12,11 @@ thread fold under the tracer's component (the serving model, ``train``);
 a slow trace's dump names the profile window that covered it
 (``profile_window``).  A trace's ``links`` are merged into its dict: a
 request that came with a ``traceparent`` carries ``causal_trace_id`` and
-``causal_span_id`` (``telemetry/serve.py``).
+``causal_span_id`` (``telemetry/serve.py``), a reconcile the context of
+the watch event that caused it (``platform/runtime/controller.py``).
+A tracer's ``keys`` name the two identity fields of its dicts:
+``("controller", "request")`` for the control plane's reconcile traces
+(``platform/runtime/trace.py``), ``("component", "request")`` elsewhere.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import logging
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from kubeflow_tpu_torch.telemetry import causal, profiler
 
@@ -45,21 +49,31 @@ class Span:
 
 
 class Trace:
-    def __init__(self, component: str, name: str):
+    def __init__(self, component: str, name: str,
+                 keys: Tuple[str, str] = ("component", "request")):
         self.trace_id = causal.new_trace_id()
         self.component = component
         self.name = name
+        self.keys = keys
         self.start_ts = time.time()
         self.t0 = time.perf_counter()
         self.spans: List[Span] = []
         self.result = ""
         self.links: Dict[str, str] = {}
 
+    def add_span(self, name: str, *, duration_s: float,
+                 offset_s: float = 0.0, **attrs) -> Span:
+        """Record a span measured before the trace began (a queue wait)."""
+        sp = Span(name, offset_s, attrs)
+        sp.duration_s = duration_s
+        self.spans.append(sp)
+        return sp
+
     def to_dict(self) -> dict:
         d = {
             "trace_id": self.trace_id,
-            "component": self.component,
-            "request": self.name,
+            self.keys[0]: self.component,
+            self.keys[1]: self.name,
             "start_ts": round(self.start_ts, 3),
             "duration_ms": round((time.perf_counter() - self.t0) * 1e3, 3),
             "result": self.result,
@@ -75,9 +89,11 @@ class Tracer:
     ``slow_message: {...}``."""
 
     def __init__(self, component: str, *, buffer_size: int = 64,
+                 keys: Tuple[str, str] = ("component", "request"),
                  logger: str = "kubeflow_tpu_torch.trace",
                  slow_message: str = "slow trace"):
         self.component = component
+        self.keys = keys
         self.slow_message = slow_message
         self.log = logging.getLogger(logger)
         self._local = threading.local()
@@ -85,17 +101,30 @@ class Tracer:
         self._recent: collections.deque = collections.deque(
             maxlen=buffer_size)
 
-    def begin(self, name: str, *, enabled: bool = True) -> Optional[Trace]:
+    def begin(self, name: str, *, enabled: bool = True,
+              component: Optional[str] = None) -> Optional[Trace]:
         """Start a trace on this thread, dropping any stale one (None when
         not ``enabled``: spans are then no-ops), and point the thread's
-        profile samples at the component."""
-        tr = Trace(self.component, name) if enabled else None
+        profile samples at the component (``component``, else the
+        tracer's)."""
+        component = component or self.component
+        tr = Trace(component, name, self.keys) if enabled else None
         self._local.trace = tr
         if tr is None:
             profiler.clear_active_role()
         else:
-            profiler.set_active_role(self.component)
+            profiler.set_active_role(component)
         return tr
+
+    def current(self) -> Optional[Trace]:
+        return getattr(self._local, "trace", None)
+
+    def adopt(self, tr: Optional[Trace]) -> None:
+        """Install an existing trace as this thread's (a fan-out slot's
+        spans land in the submitting reconcile's trace), its component
+        as the thread's profile role."""
+        self._local.trace = tr
+        profiler.set_active_role(tr.component if tr is not None else None)
 
     @contextmanager
     def span(self, name: str, **attrs):
@@ -141,3 +170,7 @@ class Tracer:
         if n is None:
             return out
         return out[-n:] if n > 0 else []
+
+    def clear(self) -> None:
+        with self._lock:
+            self._recent.clear()

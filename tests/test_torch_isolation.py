@@ -14,7 +14,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "kubeflow_tpu_torch"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "kubeflow_tpu", "werkzeug",
-           "prometheus_client", "yaml")
+           "prometheus_client", "yaml", "requests")
 
 
 def test_every_module_imports_with_jax_and_reference_blocked():
@@ -80,14 +80,20 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.platform.testing.jobsim",
     "kubeflow_tpu_torch.platform.webhook.jsonpatch",
     "kubeflow_tpu_torch.platform.webhook.mutate",
+    "kubeflow_tpu_torch.platform.k8s.client",
+    "kubeflow_tpu_torch.platform.runtime.trace",
+    "kubeflow_tpu_torch.platform.runtime.informer",
+    "kubeflow_tpu_torch.platform.runtime.leader",
+    "kubeflow_tpu_torch.platform.controllers.culling",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
     """The modules that save and serve a trained model, the replica's
     telemetry, the parallel package, the platform's GPU seams and its
-    notebook control plane (API types, the in-memory API server, the
-    reconciler, the webhook, the runtime) import with JAX, the JAX
-    package, the serving libraries and yaml blocked, and pull none of
-    them in."""
+    control plane (API types, the in-memory API server, the reconcilers
+    and the culler, the webhook, the controller runtime with its
+    informers and leader election) import with JAX, the JAX package, the
+    serving libraries, yaml and requests blocked, and pull none of them
+    in."""
     path = REPO / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = REPO / module.replace(".", "/") / "__init__.py"
