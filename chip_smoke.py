@@ -290,6 +290,37 @@ After 11:
    no dead letter and no watch restart counted.  The seconds of each
    step of the story, the reconciles, probes and work-queue adds per
    controller are printed beside the card's name and power limit.
+11d. platform_shards: the sharded HA control plane around this card.
+   A ``ShardedFleet`` of SHARD_REPLICAS replicas over one ``FakeKube``,
+   each a ``Manager`` over its own ``ShardCoordinator`` (SHARD_COUNT
+   shards, leases of SHARD_LEASE_S renewed every SHARD_RENEW_S) and its
+   own ``FencedClient`` (every write logged with its shard's token),
+   running the notebook controller and the culler on its informer (the
+   default idle window, so it never culls, probing every
+   PLATFORM_CHECK_MINUTES; ``nb``'s URL mapped to the pod's local port,
+   no other probe leaves the process).  Namespace ``smoke`` as in 11c;
+   ``fleet`` gets SHARD_WAVE GPU notebooks, played by the fleet's
+   kubelet.  Notebook ``nb`` (one GPU) runs NOTEBOOK_CELL behind the
+   stand-in kernels API; its pod runs, not yet ready, and once the API
+   reports ``busy`` the replica owning ``nb``'s shard is killed (its
+   controllers' threads end, its leases are left to expire); then the
+   kubelet's readiness probe passes.  The dead replica's shards are
+   absorbed within the lease plus four renewals plus 1 s, ``nb``'s shard
+   token rises, the survivor writes ``nb``'s ready status and a culler
+   last-activity patch under the new token, the dead replica writes
+   nothing after its kill, every wave notebook converges within
+   SHARD_WAVE_S with the fencing invariant holding on every write of
+   both namespaces, no survivor dead-letters and none caches the whole
+   keyspace; the cell ends untouched (the StatefulSet's and the pod's
+   uids kept, no signal) with 6d1b's tokens and exact launches, K1, K2
+   and K5 held at its shapes; ``controller_shard_owned`` sums to 1 per
+   shard over the live coordinators, the lease transitions count
+   acquires and renewals and no fence; the pod's process exits 0 on
+   SIGTERM, the quota's use returns to 0, and each survivor's stop
+   releases its leases before it returns.  The shard maps, absorb
+   seconds, tokens, writes checked, wave and cell seconds, reconciles
+   and probes per replica are printed beside the card's name and power
+   limit.
 Within 3, K2 at the dense-cache chunk's shape (b2, q 300 over k 812).
 Within 7, the attention kernels at ViT-B/16's and BERT-base's shapes
 (b64 s197 and b32 s128, h12, d64, non-causal), timed; and K1 at
@@ -610,6 +641,15 @@ if __name__ == "__main__":
 PLATFORM_IDLE_MINUTES = 0.1
 PLATFORM_CHECK_MINUTES = 0.02
 MANAGER_JOB_STEPS = 2
+# The sharded phase: the fleet test's own timings (a 2 s lease renewed
+# every 0.2 s over 8 shards), 3 replicas and the presubmit wave of 200
+# notebooks, which must converge within SHARD_WAVE_S.
+SHARD_REPLICAS = 3
+SHARD_COUNT = 8
+SHARD_LEASE_S = 2.0
+SHARD_RENEW_S = 0.2
+SHARD_WAVE = 200
+SHARD_WAVE_S = 60.0
 KUBELET_FINALIZER = "kubelet.smoke/container-running"
 NOTEBOOK_KERNELS = """
 import datetime, http.server, json, os, signal, sys, threading, time
@@ -6643,7 +6683,7 @@ def phase_platform_notebook(torch, dev):
     """The notebook path of the platform (the docstring's 6d1b): the port's
     reconciler, PodDefault webhook and quota admission in its in-memory
     API server, then the notebook pod's main container running one cell
-    on the card.  Returns the cell's launch counts."""
+    on the card.  Returns the cell's launch counts and its tokens."""
     from kubeflow_tpu_torch.models.llama import CONFIGS as LLAMA_CONFIGS
     from kubeflow_tpu_torch.platform import (
         FakeKube,
@@ -6829,7 +6869,7 @@ def phase_platform_notebook(torch, dev):
               {k: r[k] for k in ("kernel", "shape", "max_abs_err", "tol")}
               for r in kernel_rows],
           "cell_device": got["device"], "nvidia_smi": smi})
-    return got["launches"]
+    return got["launches"], got["tokens"]
 
 
 def train_step_lines(out):
@@ -7583,6 +7623,390 @@ def phase_platform_manager(torch, dev, mesh_losses):
     return launches
 
 
+def phase_platform_shards(torch, dev, notebook_tokens):
+    """The sharded HA control plane around this card (the docstring's
+    11d): a fleet of replicas, each a ``Manager`` over its own shard
+    coordinator and fenced client running the notebook controller and
+    the culler; the replica that owns ``nb``'s shard is killed while the
+    notebook's cell runs on the card, and a survivor takes the shard
+    over while the cell runs on untouched.  Returns the cell's launch
+    counts."""
+    from kubeflow_tpu_torch.models.llama import CONFIGS as LLAMA_CONFIGS
+    from kubeflow_tpu_torch.platform import (
+        ShardedFleet,
+        culling_controller,
+        default_prober,
+        gpu_pod_default,
+        notebook_controller,
+        shard_of,
+    )
+    from kubeflow_tpu_torch.platform.apis import notebook as nbapi
+    from kubeflow_tpu_torch.platform.gpu import ACCELERATORS
+    from kubeflow_tpu_torch.platform.k8s import quota
+    from kubeflow_tpu_torch.platform.k8s.types import (
+        LEASE,
+        NOTEBOOK,
+        POD,
+        RESOURCEQUOTA,
+        STATEFULSET,
+    )
+    from kubeflow_tpu_torch.platform.runtime import metrics
+
+    smi = nvidia_smi_name_power()
+    acc = ACCELERATORS[PLATFORM_ACCELERATOR]
+    card = smi.split(",")[0].strip()
+    if acc.product != card.replace(" ", "-"):
+        raise AssertionError(f"{PLATFORM_ACCELERATOR}'s product "
+                             f"{acc.product!r} is not this card, {card!r}")
+    ns, label = "smoke", f"gpu-{PLATFORM_ACCELERATOR}"
+    port = free_port()
+    local = f"http://127.0.0.1:{port}{nbapi.nb_prefix(ns, 'nb')}/api/kernels"
+    urls = {}
+    probes = {}
+
+    def prober_of(identity):
+        """The culler's prober: ``nb``'s cluster-DNS URL goes to the pod's
+        local port through the port's ``default_prober``; no other URL
+        leaves the process (the wave's notebooks run no server: no
+        answer, which the culler counts as busy)."""
+        counts = probes.setdefault(identity, {"busy": 0, "idle": 0,
+                                              "none": 0})
+
+        def prober(url):
+            if url not in urls:
+                counts["none"] += 1
+                return None
+            kernels = default_prober(urls[url], timeout=2.0)
+            state = ("none" if not kernels
+                     else kernels[0].get("execution_state"))
+            counts[state] = counts.get(state, 0) + 1
+            return kernels
+        return prober
+
+    def controllers(client, *, shards):
+        nb = notebook_controller(client, use_istio=False,
+                                 mirror_min_interval=0, shards=shards)
+        cull = culling_controller(
+            client, notebook_informer=nb.informers[NOTEBOOK],
+            prober=prober_of(shards.identity),
+            check_period_minutes=PLATFORM_CHECK_MINUTES, shards=shards)
+        urls[cull.reconciler.kernels_url(ns, "nb")] = local
+        return [nb, cull]
+
+    transitions = metrics.controller_lease_transitions_total
+    reasons = ("acquire", "renew", "expire", "release", "fenced")
+
+    def lease_counts():
+        return {r: transitions.sample(controller="kubeflow-tpu-ctrlplane",
+                                      reason=r) or 0 for r in reasons}
+
+    counts_before = lease_counts()
+    t_start = time.perf_counter()
+    fleet = ShardedFleet(replicas=SHARD_REPLICAS, num_shards=SHARD_COUNT,
+                         lease_seconds=SHARD_LEASE_S,
+                         renew_seconds=SHARD_RENEW_S,
+                         controller_factory=controllers,
+                         gpu_nodes=SHARD_WAVE // 8)
+    kube = fleet.kube
+    cell = None
+    wave_t0 = wave_s = None
+
+    def wave_check():
+        nonlocal wave_s
+        if wave_s is None and fleet._conv_event.is_set():
+            wave_s = time.perf_counter() - wave_t0
+
+    def wait_until(cond, what, timeout, check=None):
+        deadline = time.perf_counter() + timeout
+        while True:
+            wave_check()
+            if check is not None:
+                check()
+            got = cond()
+            if got:
+                return got
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"platform_shards: no {what} within "
+                                     f"{timeout} s")
+            time.sleep(0.05)
+
+    def writes_of(r, verb, name="nb"):
+        return [w for w in list(r.client.write_log)
+                if w["verb"] == verb and w["kind"] == "Notebook"
+                and w["namespace"] == ns and w["name"] == name]
+
+    try:
+        # The smoke namespace: one h100-80gb node of one GPU, its quota
+        # and the PodDefault.
+        kube.add_namespace(ns)
+        kube.add_gpu_node("gpu-node-0", accelerator=PLATFORM_ACCELERATOR,
+                          gpus=1)
+        kube.create({"apiVersion": "v1", "kind": "ResourceQuota",
+                     "metadata": {"name": "gpus", "namespace": ns},
+                     "spec": {"hard": {"requests.nvidia.com/gpu": "1"}}})
+        kube.create(gpu_pod_default(ns, PLATFORM_ACCELERATOR, 1))
+        map_before = fleet.wait_stable_shard_map(
+            timeout=4 * SHARD_LEASE_S + 15)
+        settle_s = time.perf_counter() - t_start
+
+        # The wave, then the notebook on the card.
+        wave_t0 = time.perf_counter()
+        fleet.create_wave(SHARD_WAVE)
+        kube.create({
+            "apiVersion": "kubeflow.org/v1beta1", "kind": "Notebook",
+            "metadata": {"name": "nb", "namespace": ns},
+            "spec": {"gpu": {"accelerator": PLATFORM_ACCELERATOR, "gpus": 1},
+                     "template": {"spec": {"containers": [{
+                         "name": "nb", "image": "kubeflow-tpu-torch",
+                         "ports": [{"containerPort": 8888}]}]}}}})
+        shard = shard_of(ns, "nb", SHARD_COUNT)
+        owner = next(r for r in fleet.replicas
+                     if shard in r.coordinator.owned())
+        sts = wait_until(
+            lambda: next((s for s in kube.list(STATEFULSET, ns)
+                          if s["spec"]["replicas"] == 1), None),
+            "notebook StatefulSet", 30)
+        pod = notebook_pod(kube, ns, sts, label, "platform_shards")
+        pod["metadata"]["finalizers"] = [KUBELET_FINALIZER]
+        kube.create(pod)
+        main = pod["spec"]["containers"][0]
+        args = [NOTEBOOK_MODEL, str(SEED), str(NOTEBOOK_PROMPT),
+                str(NOTEBOOK_NEW), dev.type]
+        cell = Pod([sys.executable, "-c", NOTEBOOK_KERNELS, str(port),
+                    *args], kubelet_env(main, 0), "platform_shards cell")
+        wait_until(lambda: cell.proc.poll() is not None
+                   or "SERVING" in cell.output(), "kernels API", 120)
+        if cell.proc.poll() is not None:
+            cell.fail("exited before serving")
+        # The container runs; its readiness probe has not passed yet.
+        kube.set_pod_phase(ns, "nb-0", "Running", ready=False)
+        wait_until(lambda: (kube.get(NOTEBOOK, "nb", ns).get("status")
+                            or {}).get("replicas") == 1,
+                   "the owner's status of nb", 30)
+        sts_uid = kube.get(STATEFULSET, "nb", ns)["metadata"]["uid"]
+        pod_uid = kube.get(POD, "nb-0", ns)["metadata"]["uid"]
+
+        # The kill, once the kernels API reports busy.
+        busy = wait_until(
+            lambda: (default_prober(local, timeout=2.0) or [{}])[0].get(
+                "execution_state") == "busy", "a busy kernel", 30)
+        token_before = owner.coordinator.fence_token(shard)
+        kill_start = time.monotonic()
+        fleet.kill(owner.index)
+        kill_t = time.monotonic()
+        cell_at_kill = time.perf_counter() - cell.t0
+        # The kubelet's readiness probe (the kernels API answering)
+        # passes now: only a survivor can write the ready status.
+        kube.set_pod_phase(ns, "nb-0", "Running", ready=True)
+
+        def check():
+            if nbapi.STOP_ANNOTATION in (kube.get(NOTEBOOK, "nb", ns)[
+                    "metadata"].get("annotations") or {}):
+                raise AssertionError("platform_shards: the notebook was "
+                                     "stopped while its cell ran")
+            if cell.proc.poll() is not None:
+                cell.fail(f"exited {cell.proc.returncode} during the cell")
+
+        def new_owner():
+            return next((r for r in fleet.replicas if r.alive
+                         and r.coordinator.owns_shard(shard)), None)
+
+        successor = wait_until(new_owner, "a successor of nb's shard",
+                               SHARD_LEASE_S + 10, check)
+        token_after = successor.coordinator.fence_token(shard)
+        ready = wait_until(
+            lambda: [w for w in writes_of(successor, "patch_status")
+                     if w["token"] == token_after],
+            "the survivor's ready status of nb", 30, check)
+        activity = wait_until(
+            lambda: [w for w in writes_of(successor, "patch")
+                     if w["token"] == token_after],
+            "the survivor's last-activity patch", 30, check)
+        if kube.get(NOTEBOOK, "nb", ns)["status"].get("readyReplicas") != 1:
+            raise AssertionError("platform_shards: nb's status "
+                                 f"{kube.get(NOTEBOOK, 'nb', ns)['status']}")
+        wait_until(lambda: "CELL " in cell.output(), "cell", NOTEBOOK_CELL_S,
+                   check)
+        cell_s = time.perf_counter() - cell.t0
+        got = json.loads(next(ln[len("CELL "):] for ln in
+                              cell.output().splitlines()
+                              if ln.startswith("CELL ")))
+        if not fleet._conv_event.is_set():
+            wait_until(fleet._conv_event.is_set, "the wave's convergence",
+                       max(0.0, SHARD_WAVE_S - (time.perf_counter()
+                                                - wave_t0)))
+        wave_check()
+        if wave_s is None or wave_s > SHARD_WAVE_S:
+            raise AssertionError(f"platform_shards: the wave converged in "
+                                 f"{wave_s} s, over {SHARD_WAVE_S}")
+
+        # The cell is untouched: the same StatefulSet and pod, no signal,
+        # 6d1b's tokens and the exact launches.
+        cell_launches = notebook_launches(got["n_layers"], NOTEBOOK_NEW)
+        if (kube.get(STATEFULSET, "nb", ns)["metadata"]["uid"] != sts_uid
+                or kube.get(POD, "nb-0", ns)["metadata"]["uid"] != pod_uid
+                or cell.proc.poll() is not None
+                or got["tokens"] != notebook_tokens
+                or got["launches"] != cell_launches
+                or got["routes"] != {"kernel": got["n_layers"],
+                                     "plain": 0}):
+            raise AssertionError(
+                f"platform_shards: cell {got} against 6d1b's tokens "
+                f"{notebook_tokens} and launches {cell_launches}; "
+                f"process {cell.proc.poll()}")
+
+        # Absorption, the tokens and the dead replica's silence.
+        map_after = fleet.wait_stable_shard_map(
+            timeout=4 * SHARD_LEASE_S + 15)
+        survivors = [r for r in fleet.replicas if r.alive]
+        crashed = sorted(s for s, a, _, _ in owner.coordinator.ownership_log
+                         if a == "crash")
+        absorb = {}
+        for r in survivors:
+            for s, a, t, _ in r.coordinator.ownership_log:
+                if a == "acquire" and s in crashed and t > kill_start:
+                    absorb[s] = min(absorb.get(s, math.inf), t - kill_start)
+        bound = SHARD_LEASE_S + 4 * SHARD_RENEW_S + 1.0
+        if (not crashed or shard not in crashed or set(absorb) != set(crashed)
+                or max(absorb.values()) > bound
+                or token_before is None or token_after <= token_before):
+            raise AssertionError(
+                f"platform_shards: crashed {crashed}, absorbed {absorb} "
+                f"(bound {bound} s), nb's token {token_before} -> "
+                f"{token_after}")
+        fleet.assert_no_writes_after(owner.index, kill_t)
+        dead_after = [w for w in owner.chaos.write_log if w[0] >= kill_t]
+        kinds = {"Notebook", "StatefulSet", "Service"}
+        checked = fleet.assert_fencing_invariant(kinds=kinds)
+        checked_smoke = fleet.assert_fencing_invariant(kinds=kinds,
+                                                       namespace=ns)
+        before_kill = writes_of(owner, "patch_status")
+        if (checked < SHARD_WAVE or not checked_smoke
+                or not before_kill
+                or any(w["token"] != token_before for w in before_kill)):
+            raise AssertionError(
+                f"platform_shards: {checked} fleet and {checked_smoke} "
+                f"smoke writes checked; the dead owner's status writes "
+                f"{before_kill}")
+        dead_letters = {f"r{r.index}/{c.name}": dict(c.dead_letters)
+                        for r in survivors for c in r.controllers
+                        if c.dead_letters}
+        stats = fleet.cache_stats()
+        cached = {r.index: len(r.controller.informers[NOTEBOOK])
+                  for r in survivors}
+        if dead_letters or any(n >= SHARD_WAVE + 1 for n in cached.values()):
+            raise AssertionError(f"platform_shards: dead letters "
+                                 f"{dead_letters}, cached notebooks {cached}")
+
+        # The metrics: one owner a shard over the live coordinators, the
+        # dead one deregistered, acquires and renewals and no fence.
+        text = metrics.render()
+        owned = {}
+        for line in text.splitlines():
+            if line.startswith("controller_shard_owned{"):
+                s_ = int(line.split('shard="')[1].split('"')[0])
+                owned.setdefault(s_, []).append(float(line.split()[-1]))
+        lease = {r: lease_counts()[r] - counts_before[r] for r in reasons}
+        if (sorted(owned) != list(range(SHARD_COUNT))
+                or any(sum(v) != 1.0 or len(v) != len(survivors)
+                       for v in owned.values())
+                or id(owner.coordinator) in metrics._shard_coords
+                or not lease["acquire"] or not lease["renew"]
+                or lease["fenced"]):
+            raise AssertionError(f"platform_shards: controller_shard_owned "
+                                 f"{owned}, lease transitions {lease}")
+
+        # Teardown: the pod leaves (SIGTERM, exit 0), the quota frees.
+        kube.delete(POD, "nb-0", ns)
+        cell_rc = cell.stop()
+        cell = None
+        if cell_rc != 0:
+            raise AssertionError(f"platform_shards: the notebook pod exited "
+                                 f"{cell_rc}")
+        terminating = kube.get(POD, "nb-0", ns)
+        terminating["metadata"]["finalizers"] = []
+        kube.update(terminating)
+        used = kube.get(RESOURCEQUOTA, "gpus", ns)["status"]["used"]
+        if quota.parse_quantity(used.get("requests.nvidia.com/gpu", 0)):
+            raise AssertionError(f"platform_shards: quota used {used}")
+        reconciles = {f"r{r.index}": {c.name: c.reconcile_count
+                                      for c in r.controllers}
+                      for r in survivors}
+        # Each survivor's graceful stop releases its leases before it
+        # returns.
+        held = {}
+        for r in survivors:
+            fleet.stop_replica(r.index)
+            held[f"r{r.index}"] = sorted(
+                obj["metadata"]["name"]
+                for obj in kube.list(LEASE, "kubeflow")
+                if obj["spec"].get("holderIdentity")
+                == r.coordinator.identity)
+        if any(held.values()):
+            raise AssertionError(f"platform_shards: leases held after stop "
+                                 f"{held}")
+    finally:
+        fleet.close()
+        if cell is not None:
+            cell.stop()
+
+    # Each kernel of the cell against its plain version at its shapes.
+    cfg = LLAMA_CONFIGS[NOTEBOOK_MODEL]
+    timer = Timer(torch, dev)
+    timer.floor_ms = timer(torch.zeros(1, device=dev).zero_)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    scale = (1.0 + 0.1 * torch.randn(cfg.dim, generator=gen,
+                                     device=dev)).float()
+    kernel_rows = [
+        k1_row(torch, timer, rnd(rows, cfg.dim), scale,
+               f"platform_shards {where}")
+        for rows, where in ((NOTEBOOK_PROMPT, "prefill"), (1, "decode"))]
+    kernel_rows.append(k2_row(
+        torch, dev, rnd, timer, 1, NOTEBOOK_PROMPT, cfg.n_heads,
+        cfg.n_kv_heads, cfg.head_dim, path="platform_shards prefill"))
+    kernel_rows.append(k5_row(
+        torch, dev, rnd, timer, 1, NOTEBOOK_PROMPT + NOTEBOOK_NEW,
+        cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        path="platform_shards decode"))
+    del timer
+    torch.cuda.empty_cache()
+    emit({"phase": "platform_shards", "replicas": SHARD_REPLICAS,
+          "num_shards": SHARD_COUNT, "lease_seconds": SHARD_LEASE_S,
+          "renew_seconds": SHARD_RENEW_S,
+          "seconds_to_stable_map": settle_s,
+          "shard_map_before": map_before, "shard_map_after": map_after,
+          "nb_shard": shard, "killed": f"r{owner.index}",
+          "cell_seconds_at_kill": cell_at_kill,
+          "kill_join_seconds": kill_t - kill_start,
+          "crashed_shards": crashed,
+          "absorb_seconds": {str(s): t for s, t in sorted(absorb.items())},
+          "absorb_bound_seconds": bound,
+          "nb_token_before": token_before, "nb_token_after": token_after,
+          "successor": f"r{successor.index}",
+          "survivor_status_writes": len(ready),
+          "survivor_activity_patches": len(activity),
+          "writes_checked": checked, "smoke_writes_checked": checked_smoke,
+          "dead_writes_after_kill": len(dead_after),
+          "wave": SHARD_WAVE, "wave_seconds": wave_s,
+          "cache_stats": {f"r{k}": v for k, v in stats.items()},
+          "notebooks_cached": {f"r{k}": v for k, v in cached.items()},
+          "lease_transitions": lease,
+          "cell_seconds": cell_s, "cell_generate_ms": got["generate_ms"],
+          "tokens_equal_platform_notebook": True,
+          "launches": got["launches"],
+          "reconciles": reconciles, "probes": probes,
+          "kernel_busy_at_kill": bool(busy),
+          "quota_used_after_exit": used, "cell_exit": cell_rc,
+          "leases_held_after_stop": held,
+          "kernels_against_plain": [
+              {k: r[k] for k in ("kernel", "shape", "max_abs_err", "tol")}
+              for r in kernel_rows],
+          "nvidia_smi": smi})
+    return got["launches"]
+
+
 SOURCES = {
     "rms_norm": ("kubeflow_tpu_torch/ops/csrc/rms_norm.cu",
                  "kubeflow_tpu/ops/pallas/rms_norm.py:53"),
@@ -7653,7 +8077,8 @@ def main() -> int:
     int8_counts = timed(phase_int8, torch, dev, model, paged_http)
     beam_counts = timed(phase_beam, torch, dev, model)
     timed(phase_platform_serve, torch, dev, model, tol)
-    notebook_counts = timed(phase_platform_notebook, torch, dev)
+    notebook_counts, notebook_tokens = timed(phase_platform_notebook, torch,
+                                             dev)
     # The card cannot hold llama3_8b (17.1 GB) beside the Mixtral phases'
     # 24.0 GB and the training phases.
     paged_ref["fixed"] = fixed
@@ -7679,6 +8104,7 @@ def main() -> int:
     mesh_counts, mesh_losses = timed(phase_mesh, torch, train)
     job_counts = timed(phase_platform_job, torch, mesh_losses)
     manager_counts = timed(phase_platform_manager, torch, dev, mesh_losses)
+    shards_counts = timed(phase_platform_shards, torch, dev, notebook_tokens)
     timed(phase_checkpoint, torch, dev)
     vit_counts = timed(phase_vit, torch, dev)
     bert_counts = timed(phase_bert, torch, dev)
@@ -7718,6 +8144,7 @@ def main() -> int:
                              "mesh": mesh_counts[name],
                              "platform_job": job_counts[name],
                              "platform_manager": manager_counts[name],
+                             "platform_shards": shards_counts[name],
                              "resnet": resnet_counts[name],
                              "vit": vit_counts[name],
                              "bert": bert_counts[name]},

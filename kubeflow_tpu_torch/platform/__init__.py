@@ -21,12 +21,18 @@ made of.
 * ``webhook/``: the PodDefault merge and its AdmissionReview with a
   JSON patch;
 * ``runtime/``: the reconciler's contract, the work queue,
-  ``Controller`` and ``Manager`` with leader election, the informer
-  caches, child writes, events, the fan-out pool, the job queue and the
-  metrics;
+  ``Controller`` and ``Manager`` with leader election or shards, the
+  shard leases with their fencing (``sharding.py``: ``ShardCoordinator``,
+  ``FencedClient``, ``ShardFilter``, ``FencingError``, ``shard_of``),
+  the informer caches, child writes, events, the fan-out pool, the job
+  queue and the metrics;
 * ``testing/fake.py``: ``FakeKube``, the in-memory API server with quota
-  admission and the cascade on delete; ``testing/jobsim.py``:
-  ``GpuJobGangSim``, the kubelet and the training processes of a gang;
+  admission, the cascade on delete and the server-side shard filter;
+  ``testing/jobsim.py``: ``GpuJobGangSim``, the kubelet and the training
+  processes of a gang; ``testing/chaos.py``: ``ChaosKube``, seeded fault
+  injection with a wire log; ``testing/shardfleet.py``:
+  ``ShardedFleet``, replicas over one API server, killed, paused or
+  churned;
 * ``config.py``: the platform's env knobs.
 
 Standard library only (with the port's ``parallel/envspec.py`` and
@@ -43,6 +49,16 @@ runs the notebook, culling and job controllers from watches::
     kube.create(notebook)            # spec.gpu {accelerator, gpus}
     kube.list(STATEFULSET, "ns")     # the children, once reconciled
     mgr.stop()
+
+Sharded HA: replicas each run a ``Manager`` over their own shard
+coordinator and fenced client; a killed replica's shards are absorbed
+within one lease TTL::
+
+    coord = ShardCoordinator(kube, identity="r0")
+    client = FencedClient(kube, coord)
+    mgr = Manager(client, shards=coord)
+    mgr.add(notebook_controller(client, shards=coord))
+    mgr.start()
 
 A reconciler also runs bare on a client::
 
@@ -79,12 +95,22 @@ from kubeflow_tpu_torch.platform.runtime.controller import (
 from kubeflow_tpu_torch.platform.runtime.informer import Informer
 from kubeflow_tpu_torch.platform.runtime.jobqueue import JobQueue
 from kubeflow_tpu_torch.platform.runtime.leader import LeaderElector
+from kubeflow_tpu_torch.platform.runtime.sharding import (
+    FencedClient,
+    FencingError,
+    ShardCoordinator,
+    ShardFilter,
+    shard_of,
+)
 from kubeflow_tpu_torch.platform.testing.fake import FakeKube
 from kubeflow_tpu_torch.platform.testing.jobsim import GpuJobGangSim
+from kubeflow_tpu_torch.platform.testing.shardfleet import ShardedFleet
 from kubeflow_tpu_torch.platform.webhook.mutate import mutate_admission_review
 
-__all__ = ["Controller", "CullingReconciler", "FakeKube", "GPUJobReconciler",
-           "GpuJobGangSim", "Informer", "JobQueue", "LeaderElector",
-           "Manager", "NotebookReconciler", "Request", "culling_controller",
-           "default_prober", "gpu_pod_default", "gpujob_controller",
-           "mutate_admission_review", "notebook_controller"]
+__all__ = ["Controller", "CullingReconciler", "FakeKube", "FencedClient",
+           "FencingError", "GPUJobReconciler", "GpuJobGangSim", "Informer",
+           "JobQueue", "LeaderElector", "Manager", "NotebookReconciler",
+           "Request", "ShardCoordinator", "ShardFilter", "ShardedFleet",
+           "culling_controller", "default_prober", "gpu_pod_default",
+           "gpujob_controller", "mutate_admission_review",
+           "notebook_controller", "shard_of"]

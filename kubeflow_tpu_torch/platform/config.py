@@ -18,7 +18,13 @@ each read through these helpers where it is used:
   minute), ``CULL_PROBE_TIMEOUT_SECONDS`` (10),
   ``CULL_PROBE_BUDGET_SECONDS`` (0, no budget), ``CLUSTER_DOMAIN``
   (``cluster.local``) and ``DEV`` (probe through a local kubectl
-  proxy): ``controllers/culling.py``.
+  proxy): ``controllers/culling.py``;
+* ``CONTROLLER_SHARD_LEASE_SECONDS`` (15), ``CONTROLLER_SHARD_RENEW_SECONDS``
+  (5) and ``CONTROLLER_SHARD_RETRY_SECONDS`` (2), the shard leases'
+  defaults: ``runtime/sharding.py``;
+* ``KF_SHARD_SERVER_FILTER`` (on; ``0`` turns it off, any other value
+  leaves it on): the server-side shard filter of the informers' streams,
+  ``runtime/controller.py``.
 """
 from __future__ import annotations
 

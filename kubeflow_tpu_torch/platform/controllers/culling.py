@@ -334,6 +334,9 @@ def make_controller(client, *, notebook_informer=None, **kwargs):
     from kubeflow_tpu_torch.platform.runtime import Controller
     from kubeflow_tpu_torch.platform.runtime.informer import Informer
 
+    # Sharded HA: the coordinator belongs to the Controller, which
+    # filters the (owned) informer and fences every probe-driven write.
+    shards = kwargs.pop("shards", None)
     # The reconciler reads notebooks from the SAME cache the controller
     # watches through (owned or shared) — zero-copy frozen views instead
     # of one apiserver GET per probe.
@@ -376,4 +379,5 @@ def make_controller(client, *, notebook_informer=None, **kwargs):
         # workers probe concurrently; the workqueue's per-key exclusion
         # keeps the single-reconciler-per-notebook guarantee.
         workers=8,
+        shards=shards,
     )

@@ -875,6 +875,10 @@ def make_controller(client, **kwargs):
     from kubeflow_tpu_torch.platform.runtime import Controller
     from kubeflow_tpu_torch.platform.runtime.informer import Informer
 
+    # Sharded HA: the coordinator filters these informers (a worker pod
+    # is cached iff its job's key is owned) and the FencedClient proves
+    # every gang write against the key's shard lease.
+    shards = kwargs.pop("shards", None)
     informers = {
         GPUJOB: Informer(client, GPUJOB),
         POD: Informer(client, POD, indexers={"gpujob": _job_label_index}),
@@ -882,11 +886,12 @@ def make_controller(client, **kwargs):
                               indexers={"gpujob": _job_label_index}),
         SERVICE: Informer(client, SERVICE),
     }
-    # The ledger's feed stays out of the controller's informer dict: the
-    # queue is one priority-then-FIFO order over every job, quota, node
-    # and InferenceService (serving's GPUs are declared charges on the
-    # same quota), and its informers live with the controller's on_start
-    # and on_stop.
+    # The ledger's feed stays out of the controller's informer dict, and
+    # so unsharded: the queue is one priority-then-FIFO order over every
+    # job, quota, node and InferenceService (serving's GPUs are declared
+    # charges on the same quota), and every replica computes the same
+    # schedule to act on the keys it owns.  Its informers live with the
+    # controller's on_start and on_stop.
     queue = jq.JobQueue()
     queue.informer_backed = True
     queue_informers = {
@@ -949,15 +954,18 @@ def make_controller(client, **kwargs):
         on_start=on_start,
         on_stop=on_stop,
         resync_period=300.0,
+        shards=shards,
     )
 
     def _kick(_etype, obj):
         # The capacity-change fan-out: a job delta wakes the head waiters
         # (admission), the preemption targets (yield) and the shrunk
-        # gangs (grow-back).  The Queued job's poll is the guarantee; this
-        # is the latency path.
+        # gangs (grow-back), of this replica's owned shards.  The Queued
+        # job's poll is the guarantee; this is the latency path.
         for ns, name in queue.kick_requests():
-            ctrl.queue.add(Request(ns, name))
+            req = Request(ns, name)
+            if ctrl._owns(req):
+                ctrl.queue.add(req)
 
     queue_informers[GPUJOB].add_handler(_kick)
     return ctrl

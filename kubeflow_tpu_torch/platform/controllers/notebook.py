@@ -963,9 +963,13 @@ def make_controller(client, **kwargs):
     """The notebook controller: every watched kind from an informer
     cache (the reference's notebook_controller.go:684-733 sources), the
     reconciler reading the same caches, the fleet gauges hooked for the
-    controller's life, and a resync every 300 s."""
+    controller's life, and a resync every 300 s.  ``shards`` (a
+    ``ShardCoordinator``) is the Controller's, not the reconciler's,
+    which sees a refused write as a Conflict."""
     from kubeflow_tpu_torch.platform.runtime import Controller
     from kubeflow_tpu_torch.platform.runtime.informer import Informer
+
+    shards = kwargs.pop("shards", None)
 
     informers = {
         NOTEBOOK: Informer(client, NOTEBOOK),
@@ -1006,4 +1010,11 @@ def make_controller(client, **kwargs):
         on_stop=lambda: metrics.register_fleet_collector(None),
         # The safety net for drift no watch covers.
         resync_period=300.0,
+        shards=shards,
+        # The server-side subscriptions of the watched kinds: a pod by its
+        # notebook-name label (pods_to_notebook_requests' key), an event
+        # by its involved object's name candidates (a superset of what
+        # events_to_notebook_requests resolves).
+        shard_sources={POD: f"label={nbapi.LABEL_NOTEBOOK_NAME}",
+                       EVENT: "involved"},
     )

@@ -1,9 +1,9 @@
 """Controller runtime: watch -> work queue -> level-triggered reconcile.
 
-The port's copy of ``kubeflow_tpu/platform/runtime/controller.py``
-without sharding: the reconciler's contract (``Request``, ``Result``,
-``Reconciler``), the rate-limited work queue, ``Controller`` and
-``Manager`` (the slice of controller-runtime the platform needs).
+The port's copy of ``kubeflow_tpu/platform/runtime/controller.py``:
+the reconciler's contract (``Request``, ``Result``, ``Reconciler``), the
+rate-limited work queue, ``Controller`` and ``Manager`` (the slice of
+controller-runtime the platform needs).
 
 * The work queue is client-go's: pending keys are deduplicated, a key
   handed out by ``get`` stays excluded until ``done`` (re-adds park and
@@ -22,10 +22,18 @@ without sharding: the reconciler's contract (``Request``, ``Result``,
 * A ``Manager`` starts its controllers together, behind a Lease when
   ``leader_election=True`` (``runtime/leader.py``); lost leadership is
   terminal.
+* Sharded HA (``runtime/sharding.py``): with ``shards=`` (a
+  ``ShardCoordinator``) a controller enqueues and reconciles only the
+  keys of the shards its replica owns, filters its informers to them
+  (and, with ``KF_SHARD_SERVER_FILTER`` on, the server's streams too),
+  resyncs a moved range when a shard is acquired, and sets the fence
+  context around each reconcile so the replica's ``FencedClient``
+  proves every write against the key's shard lease.  A ``Manager`` with
+  ``shards=`` starts the coordinator before its controllers and stops
+  it first, which releases the leases for an instant handover.
 
-Threads, not goroutines.  The reference's native work queue and its
-shard coordinator are not ported: the queue is the Python engine, and a
-``Controller`` or ``Manager`` takes no shards.
+Threads, not goroutines.  The reference's native work queue is not
+ported: the queue is the Python engine.
 """
 from __future__ import annotations
 
@@ -219,6 +227,15 @@ def make_workqueue(*, base_delay: float = 0.05, max_delay: float = 30.0,
 EventMapper = Callable[[Resource], List[Request]]
 
 
+def _server_filter_enabled() -> bool:
+    """KF_SHARD_SERVER_FILTER: push each informer's shard subscription to
+    the server (the ``shard_filter`` of list and watch), so a replica's
+    stream carries only its own ranges.  ``0`` turns it off (the full
+    stream, the informer's admit filter alone); any other value leaves
+    it on."""
+    return config.env("KF_SHARD_SERVER_FILTER", "1") != "0"
+
+
 class Controller:
     def __init__(
         self,
@@ -238,6 +255,8 @@ class Controller:
         on_stop: Optional[Callable[[], None]] = None,
         max_retries: Optional[int] = None,
         stuck_deadline: Optional[float] = None,
+        shards=None,
+        shard_sources: Optional[Dict[GVK, Optional[str]]] = None,
     ):
         self.name = name
         self.reconciler = reconciler
@@ -289,8 +308,29 @@ class Controller:
         self._pending_ctx_lock = threading.Lock()
         self._client = None    # set by start(); dead-letter writes need it
         self._recorder = None  # the dead letter's EventRecorder, lazily
+        # Sharded HA: a ShardCoordinator partitions the keyspace across
+        # replicas.  The controller then enqueues only owned keys, drops
+        # unowned keys at dequeue (ownership may move while a key waits),
+        # filters its informers to the owned ranges and resyncs a moved
+        # range on an acquisition.  The write invariant (one replica a
+        # key) is the FencedClient's: this filter is the fast path, the
+        # fence is the proof.
+        self.shards = shards
+        # GVK -> ShardFilter source overriding what _wire_sharding
+        # derives (primary "self", owned kinds "owner=<primary kind>");
+        # ``watches`` kinds stream unfiltered unless named here (their
+        # mappers are Python the server cannot mirror).  None forces a
+        # kind unfiltered.
+        self.shard_sources: Dict[GVK, Optional[str]] = dict(
+            shard_sources or {})
 
     # -- event plumbing ------------------------------------------------------
+
+    def _owns(self, req: Request) -> bool:
+        """The enqueue/dequeue shard filter: an unsharded controller owns
+        every key."""
+        return (self.shards is None
+                or self.shards.owns_key(req.namespace, req.name))
 
     def _primary_mapper(self, obj: Resource) -> List[Request]:
         return [Request(namespace_of(obj) or "", name_of(obj))]
@@ -302,7 +342,7 @@ class Controller:
         return []
 
     def _enqueue(self, obj: Resource, mapper: EventMapper) -> None:
-        reqs = mapper(obj)
+        reqs = [r for r in mapper(obj) if self._owns(r)]
         self._note_event(obj, reqs)
         for req in reqs:
             self.queue.add(req)
@@ -331,7 +371,7 @@ class Controller:
                         "watch_lag", trace_id=ctx.trace_id,
                         parent_span_id=ctx.span_id, segment="watch_lag",
                         start_ts=ctx.stamped_ts, end_ts=now, kind=kind,
-                        controller=self.name)
+                        controller=self.name, **self._replica())
                     metrics.informer_watch_lag_seconds.labels(
                         kind=kind).observe(lag)
                 else:
@@ -341,11 +381,17 @@ class Controller:
                         kind=kind).inc()
         with self._pending_ctx_lock:
             if len(self._pending_ctx) > 8192:
-                # Keys that never dequeue would grow this without bound;
-                # a flush costs a queue_wait span, not correctness.
+                # Keys that never dequeue here (a moved shard, the queue's
+                # dedup) would grow this without bound; a flush costs a
+                # queue_wait span, not correctness.
                 self._pending_ctx.clear()
             for req in reqs:
                 self._pending_ctx[req] = (ctx, now)
+
+    def _replica(self) -> dict:
+        """The ``replica`` attribute of a sharded controller's spans."""
+        return ({"replica": self.shards.identity}
+                if self.shards is not None else {})
 
     def _event_context(self, req: Request):
         """(context, delivery time) parked for a dequeued key, or
@@ -404,20 +450,25 @@ class Controller:
                     self._stop.wait(min(1.0 * 2 ** (failures - 1), 30.0))
 
     def _resync_once(self, client) -> int:
-        """Enqueue every primary key; returns how many.  From the
-        primary's informer when it has synced (its keys only), else one
-        LIST."""
+        """Enqueue every owned primary key; returns how many.  From the
+        primary's informer when it has synced (its keys only: under
+        sharding already the owned ranges, the ownership check a second
+        fence for the window between a release and the refilter), else
+        one LIST."""
         n = 0
         informer = self.informers.get(self.primary)
         if informer is not None and informer.has_synced:
             for ns, name in informer.keys(self.namespace):
-                self.queue.add(Request(ns, name))
-                n += 1
+                req = Request(ns, name)
+                if self._owns(req):
+                    self.queue.add(req)
+                    n += 1
         else:
             for obj in client.list(self.primary, self.namespace):
                 for req in self._primary_mapper(obj):
-                    self.queue.add(req)
-                    n += 1
+                    if self._owns(req):
+                        self.queue.add(req)
+                        n += 1
         return n
 
     def _resync_loop(self, client) -> None:
@@ -447,6 +498,22 @@ class Controller:
         )
         from kubeflow_tpu_torch.platform.runtime import metrics, trace
 
+        if not self._owns(req):
+            # Ownership moved while the key waited (a rebalance, a
+            # handover): the key is another replica's now.  Drop it, with
+            # no retry history to greet it if the shard comes back.
+            self.queue.forget(req)
+            self._key_failures.pop(req, None)
+            with self._pending_ctx_lock:
+                self._pending_ctx.pop(req, None)
+            return
+        if self.shards is not None:
+            from kubeflow_tpu_torch.platform.runtime import sharding
+
+            # The fence context: every write this reconcile makes (inline
+            # or fanned out through a FlightPool) is fenced on this key's
+            # shard by the replica's FencedClient.
+            sharding.set_current_request((req.namespace, req.name))
         # The reconcile's trace: spans opened on this thread attach to it;
         # the dequeue span replays the queue wait the shim observed.
         tr = trace.begin(self.name, f"{req.namespace}/{req.name}")
@@ -510,6 +577,10 @@ class Controller:
                 else:
                     self.queue.add_rate_limited(req)
         finally:
+            if self.shards is not None:
+                from kubeflow_tpu_torch.platform.runtime import sharding
+
+                sharding.set_current_request(None)
             # An event-driven reconcile always lands on the journey; a
             # lazy-context one (a resync, an event on an unstamped
             # object) only when it acted: its factory resolved because a
@@ -529,7 +600,8 @@ class Controller:
                                     else None),
                     segment="reconcile", start_ts=wall0,
                     end_ts=time.time(), controller=self.name,
-                    request=f"{req.namespace}/{req.name}", result=outcome)
+                    request=f"{req.namespace}/{req.name}", result=outcome,
+                    **self._replica())
             causal.set_current(None)
             with self._inflight_lock:
                 self._inflight.pop(req, None)
@@ -659,6 +731,119 @@ class Controller:
                     self.name, req.namespace, req.name,
                     now - entry[0], self.stuck_deadline, dump)
 
+    # -- sharded HA ----------------------------------------------------------
+
+    def _wire_sharding(self, pairs: List[Tuple[GVK, EventMapper]]) -> None:
+        """Point every event-source informer's admit filter at the shard
+        map and subscribe to rebalances.  The filter routes an object
+        through the same mappers as the event path: it is cached iff one
+        request it maps to falls in an owned shard, so the caches hold
+        exactly what this replica's reconciles read (a Pod by its
+        notebook's key, not its own)."""
+        from kubeflow_tpu_torch.platform.runtime.sharding import ShardFilter
+
+        mappers_by_gvk: Dict[GVK, List[EventMapper]] = {}
+        for gvk, mapper in pairs:
+            mappers_by_gvk.setdefault(gvk, []).append(mapper)
+        # The server-side subscription of each kind: the ShardFilter
+        # source that mirrors its key derivation.
+        server_filter = _server_filter_enabled()
+        sources: Dict[GVK, Optional[str]] = {self.primary: "self"}
+        for g in self.owns:
+            sources[g] = f"owner={self.primary.kind}"
+        sources.update(self.shard_sources)
+        for gvk, mappers in mappers_by_gvk.items():
+            informer = self.informers.get(gvk)
+            if informer is None:
+                continue
+
+            def admit(obj, _mappers=tuple(mappers)) -> bool:
+                for mapper in _mappers:
+                    for req in mapper(obj):
+                        if self.shards.owns_key(req.namespace, req.name):
+                            return True
+                return False
+
+            if informer.admit is not None:
+                # First sharer wins: a shared informer (the culler over
+                # the notebook controller's Notebook cache) keeps its
+                # owner's filter, which maps keys identically.
+                log.debug("%s: informer %s already shard-filtered by its "
+                          "owner; keeping that filter", self.name, gvk.kind)
+                continue
+            informer.admit = admit
+            source = sources.get(gvk)
+            if server_filter and source is not None:
+                # Attached only together with admit (the same controller,
+                # the same key derivation): the server must deliver a
+                # superset of what admit takes.  It subscribes owned and
+                # draining shards: a draining shard's deltas flow until
+                # its lease is released.
+                def subscription(_source=source):
+                    shards = frozenset(
+                        self.shards.owned() | self.shards.draining())
+                    if not shards:
+                        # Nothing leased yet: stream unfiltered and let
+                        # admit drop, or the informer would be blind to an
+                        # acquisition racing its first establishment.
+                        return None
+                    return ShardFilter(self.shards.num_shards,
+                                       shards, _source).spec()
+
+                informer.shard_subscription = subscription
+        self.shards.add_listener(self._on_shard_change)
+        self.shards.add_drain_hook(self._shard_quiesced)
+
+    def _shard_quiesced(self, shard: int) -> bool:
+        """The drain hook of a voluntary handover: True when no reconcile
+        of a key in ``shard`` is in flight here.  The coordinator
+        releases a lease only once every controller says so, so a
+        straggler's write never overlaps the acquirer's."""
+        from kubeflow_tpu_torch.platform.runtime.sharding import shard_of
+
+        with self._inflight_lock:
+            return not any(
+                shard_of(r.namespace, r.name, self.shards.num_shards)
+                == shard
+                for r in self._inflight)
+
+    def _on_shard_change(self, acquired: set, released: set) -> None:
+        """The rebalance reaction (on the coordinator's dispatch thread, or
+        on the worker that fenced itself): a release drops the moved
+        ranges from the caches; an acquisition also relists, so the moved
+        range lands and its ADDED deltas enqueue — the only resync a
+        rebalance costs."""
+        if self._stop.is_set():
+            return
+        log.info("%s: shard map changed (acquired=%s released=%s)",
+                 self.name, sorted(acquired), sorted(released))
+        # The event's epoch dedupes an informer shared by two controllers:
+        # one relist a rebalance.
+        token = getattr(self.shards, "current_event_epoch", None)
+        for informer in dict.fromkeys(self.informers.values()):
+            try:
+                informer.refilter(relist=bool(acquired), token=token)
+            except Exception:
+                log.exception("%s: refilter after shard change failed",
+                              self.name)
+        if acquired and self.informers.get(self.primary) is None:
+            # A raw-watch primary has no informer to relist: one LIST,
+            # enqueueing only the acquired ranges.
+            from kubeflow_tpu_torch.platform.runtime.sharding import shard_of
+
+            client = self._client
+            if client is None:
+                return
+            try:
+                for obj in client.list(self.primary, self.namespace):
+                    for req in self._primary_mapper(obj):
+                        if shard_of(req.namespace, req.name,
+                                    self.shards.num_shards) in acquired:
+                            self.queue.add(req)
+            except Exception:
+                log.warning("%s: moved-range list failed (resync will "
+                            "recover)", self.name, exc_info=True)
+
     # -- lifecycle -----------------------------------------------------------
 
     def _spawn(self, target, name: str, *args) -> None:
@@ -674,6 +859,8 @@ class Controller:
             (self.primary, self._primary_mapper)]
         pairs += [(g, self._owner_mapper) for g in self.owns]
         pairs += self.watches
+        if self.shards is not None:
+            self._wire_sharding(pairs)
         for gvk, mapper in pairs:
             informer = self.informers.get(gvk)
             if informer is not None:
@@ -715,6 +902,9 @@ class Controller:
     def stop(self) -> None:
         self._stop.set()
         self.queue.shut_down()
+        if self.shards is not None:
+            self.shards.remove_listener(self._on_shard_change)
+            self.shards.remove_drain_hook(self._shard_quiesced)
         for informer in self._owned_informers.values():
             informer.stop()
         if self._on_stop is not None:
@@ -736,17 +926,29 @@ class Manager:
     coordination.k8s.io Lease and starts its controllers only once it
     leads.  Lost leadership is terminal: the controllers stop and
     ``healthy()`` turns false, so the liveness probe restarts the pod.
+
+    With ``shards=`` (a ``ShardCoordinator`` its controllers share) every
+    replica is active on its own ranges: the coordinator starts before
+    the controllers, so leases land while the caches sync, and stops
+    first, releasing the leases so survivors take over at once.  It
+    excludes ``leader_election``: sharding replaces the single leader.
     """
 
     def __init__(self, client, *, leader_election: bool = False,
                  lease_name: str = "kubeflow-tpu-controller-leader",
                  lease_namespace: str = "kubeflow",
-                 identity: Optional[str] = None):
+                 identity: Optional[str] = None,
+                 shards=None):
         self.client = client
         self.controllers: List[Controller] = []
         self._started = False
         self._lost_leadership = False
         self.elector = None
+        self.shards = shards
+        if shards is not None and leader_election:
+            raise ValueError(
+                "leader_election and shards are mutually exclusive: "
+                "sharding replaces the single-leader model")
         if leader_election:
             from kubeflow_tpu_torch.platform.runtime.leader import (
                 LeaderElector,
@@ -782,12 +984,16 @@ class Manager:
             c.stop()
 
     def start(self) -> None:
+        if self.shards is not None:
+            self.shards.start()
         if self.elector is not None:
             self.elector.start()  # controllers start when the lease lands
         else:
             self._start_controllers()
 
     def stop(self) -> None:
+        if self.shards is not None:
+            self.shards.stop()  # release the leases first: instant handover
         if self.elector is not None:
             self.elector.stop()
         for c in self.controllers:

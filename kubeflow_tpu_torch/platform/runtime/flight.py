@@ -114,23 +114,28 @@ class FlightPool:
             return []
         if n == 1 or self.size <= 1 or getattr(_local, "in_flight", False):
             return self._run_inline(calls, return_exceptions)
-        from kubeflow_tpu_torch.platform.runtime import metrics, trace
+        from kubeflow_tpu_torch.platform.runtime import metrics, sharding, trace
         from kubeflow_tpu_torch.telemetry import causal
 
-        # Carry the submitting reconcile's causal context and its trace
-        # onto the pool threads (thread-locals do not cross threads by
-        # themselves): a child created from a flight slot inherits the
-        # reconcile's journey (apply.stamp_child), and a span opened in a
-        # slot lands in the reconcile's trace.  The reference carries the
-        # write fence on the same carry; the port has no fence yet.
+        # Carry the submitting reconcile's thread-locals onto the pool
+        # threads (thread-locals do not cross threads by themselves), all
+        # three on the same carry: the fence context, so a fanned-out
+        # secondary write fences on the same key as its reconcile's
+        # inline writes; the causal context, so a child created from a
+        # flight slot inherits the reconcile's journey
+        # (apply.stamp_child); and the trace, so a span opened in a slot
+        # lands in the reconcile's trace.
+        fence_req = sharding.current_request()
         cctx = causal.current()
         submit_trace = trace.current()
         # Marks recorded inside a slot land on the POOL thread's local;
         # collect them so the submitting reconcile still reads as acting.
         slot_marked = [False]
-        if cctx is not None or submit_trace is not None:
-            def _carry(fn, _ctx=cctx, _tr=submit_trace):
+        if fence_req is not None or cctx is not None \
+                or submit_trace is not None:
+            def _carry(fn, _req=fence_req, _ctx=cctx, _tr=submit_trace):
                 def wrapped():
+                    sharding.set_current_request(_req)
                     causal.set_current(_ctx)
                     trace.adopt(_tr)
                     try:
@@ -138,6 +143,7 @@ class FlightPool:
                     finally:
                         if causal.consume_mark():
                             slot_marked[0] = True
+                        sharding.set_current_request(None)
                         causal.set_current(None)
                         trace.adopt(None)
                 return wrapped

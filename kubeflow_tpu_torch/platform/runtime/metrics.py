@@ -17,14 +17,17 @@ gauges (``gpujob_jobs{phase}``, ``gpujob_slices_ready`` and
 ``gpujob_queue_oldest_wait_seconds{profile}`` read from the registered
 queue.  And the controller runtime's: client-go's work-queue series
 (through the ``WorkQueueMetrics`` shim), reconcile latency, errors,
-stuck reconciles and dead letters, the culler's probes and culls, lease
-transitions, and the informers' watch restarts and watch lag.
+stuck reconciles and dead letters, the culler's probes and culls, the
+shard coordinator's lease transitions and its scrape-time
+``controller_shard_owned{controller,shard}``, and the informers' watch
+restarts and watch lag.
 ``render()`` is the ``/metrics`` page.
 """
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Dict, Tuple
 
 from kubeflow_tpu_torch.telemetry.metrics import (
@@ -326,8 +329,7 @@ culling_probe_failures_total = Counter(
 controller_lease_transitions_total = Counter(
     "controller_lease_transitions_total",
     "Shard-lease lifecycle events by the sharded coordinator: acquire, "
-    "renew, expire, release, fenced (written by the shard coordinator, "
-    "which the port does not have yet)",
+    "renew, expire, release, fenced",
     ["controller", "reason"], registry=registry)
 informer_watch_restarts_total = Counter(
     "informer_watch_restarts_total",
@@ -344,6 +346,51 @@ informer_watch_lag_overflow_total = Counter(
     "(causal.WATCH_LAG_MAX_S; one count per stamp): relist replays of "
     "old stamps, or a watch path degraded past the bound",
     ["kind"], registry=registry)
+
+
+# id(coordinator) -> weakref, for the scrape-time shard-ownership gauge
+# (controller_shard_owned).  ShardCoordinator.start registers, stop and
+# crash deregister.
+_shard_coords: Dict[int, object] = {}
+_shard_coords_lock = threading.Lock()
+
+
+def register_shard_coordinator(coord) -> None:
+    with _shard_coords_lock:
+        _shard_coords[id(coord)] = weakref.ref(coord)
+
+
+def deregister_shard_coordinator(coord) -> None:
+    with _shard_coords_lock:
+        _shard_coords.pop(id(coord), None)
+
+
+def _shard_owned():
+    """One sample per shard of every registered coordinator: 1 owned, 0
+    not, so a fleet-wide sum per shard above 1 is the double-ownership
+    alarm."""
+    with _shard_coords_lock:
+        refs = dict(_shard_coords)
+    out = []
+    for key, ref in refs.items():
+        coord = ref()
+        if coord is None:
+            with _shard_coords_lock:
+                if _shard_coords.get(key) is ref:
+                    del _shard_coords[key]
+            continue
+        owned = coord.owned()
+        out += [((coord.name, str(shard)), 1.0 if shard in owned else 0.0)
+                for shard in range(coord.num_shards)]
+    return out
+
+
+ScrapeGauge(
+    "controller_shard_owned",
+    "Shard-lease ownership by this replica's coordinator: 1 = owned, 0 = "
+    "not (every shard of every registered coordinator is emitted, so a "
+    "fleet-wide sum per shard > 1 is the double-ownership alarm)",
+    _shard_owned, ["controller", "shard"], registry=registry)
 
 
 def _oldest_waits():

@@ -1,16 +1,18 @@
 """In-memory Kubernetes API: the envtest analogue.
 
 The port's copy of ``kubeflow_tpu/platform/testing/fake.py``
-(``FakeKube``) without the shard filter of the sharded controller
-runtime, which is not ported, and with ``add_gpu_node`` in place of
-``add_tpu_node``.  An in-memory store that implements the KubeClient
+(``FakeKube``) with ``add_gpu_node`` in place of ``add_tpu_node``.  An
+in-memory store that implements the KubeClient
 protocol with the API-server semantics the controllers rely on:
 
 * resourceVersion bumping + optimistic-concurrency conflicts on update
 * status as a separate subresource (update doesn't clobber status and
   update_status doesn't clobber spec)
 * uid/creationTimestamp/generation defaulting on create
-* label-selector list/watch
+* label-selector list/watch, and the shard filter of the sharded
+  controller runtime on list and watch (``runtime/sharding.py``
+  ``ShardFilter``: the server drops what a replica's subscription does
+  not cover before it crosses the stream)
 * watch streams with sequenced events per (gvk, namespace)
 * ownerReference cascade deletion (synchronous — deterministic for tests)
 * namespace existence checks and a pluggable SubjectAccessReview policy
@@ -34,6 +36,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from kubeflow_tpu_torch.platform.k8s import errors
 from kubeflow_tpu_torch.platform.k8s import quota as quota_mod
+from kubeflow_tpu_torch.platform.runtime.sharding import ShardFilter
 from kubeflow_tpu_torch.platform.k8s.types import (
     GVK,
     NAMESPACE,
@@ -84,13 +87,20 @@ class _Store(Dict[Key, Resource]):
 class FakeKube:
     """KubeClient backed by a dict.  Thread-safe."""
 
+    # Server-side shard filtering (runtime/sharding.py ShardFilter): a
+    # watcher/lister may subscribe to a shard range and this server
+    # filters BEFORE the event crosses the stream — the informer
+    # feature-detects this flag before passing ``shard_filter``.
+    supports_shard_filter = True
+
     def __init__(self, *, now: Optional[Callable[[], float]] = None):
         self._objects: _Store = _Store()
         self._lock = threading.RLock()
         self._rv = itertools.count(1)
         self._uid = itertools.count(1)
-        self._watchers: List[tuple] = []  # (gvk, ns, sel, q)
-        # kind -> events broadcast.
+        self._watchers: List[tuple] = []  # (gvk, ns, sel, shard_filter, q)
+        # kind -> events broadcast (before any shard filter): what an
+        # unfiltered replica would have had to decode.
         self.events_emitted: Dict[str, int] = {}
         self._now = now or time.time
         self._latest_rv = "0"  # collection resourceVersion (see list_with_rv)
@@ -133,12 +143,14 @@ class FakeKube:
         gvk = gvk_of(obj)
         self.events_emitted[gvk.kind] = (
             self.events_emitted.get(gvk.kind, 0) + 1)
-        for (wgvk, wns, wsel, q) in list(self._watchers):
+        for (wgvk, wns, wsel, wfilt, q) in list(self._watchers):
             if wgvk.kind != gvk.kind or wgvk.api_version != gvk.api_version:
                 continue
             if wns and namespace_of(obj) != wns:
                 continue
             if wsel and not match_labels(obj, wsel):
+                continue
+            if wfilt is not None and not wfilt.admits(shared):
                 continue
             q.put((event_type, _copy_obj(shared)))
 
@@ -158,7 +170,9 @@ class FakeKube:
             return _copy_obj(self._get_ref(gvk, name, namespace))
 
     def list(self, gvk, namespace=None, *, label_selector=None,
-             field_selector=None) -> List[Resource]:
+             field_selector=None, shard_filter=None) -> List[Resource]:
+        filt = ShardFilter.parse(shard_filter) if isinstance(
+            shard_filter, str) else shard_filter
         with self._lock:
             out = []
             for (_, _, ns, _), obj in self._objects.kind_items(gvk):
@@ -168,14 +182,19 @@ class FakeKube:
                     continue
                 if field_selector and not _match_fields(obj, field_selector):
                     continue
+                if filt is not None and not filt.admits(obj):
+                    continue
                 out.append(_copy_obj(obj))
             return out
 
-    def list_with_rv(self, gvk, namespace=None):
+    def list_with_rv(self, gvk, namespace=None, *, shard_filter=None):
         """List plus the collection resourceVersion, like the real server's
-        listMeta.resourceVersion."""
+        listMeta.resourceVersion.  The RV is GLOBAL even for a
+        shard-filtered (ranged) list — a watch resumed from it must not
+        miss other shards' events."""
         with self._lock:
-            return self.list(gvk, namespace), self._latest_rv
+            return (self.list(gvk, namespace, shard_filter=shard_filter),
+                    self._latest_rv)
 
     def create(self, obj: Resource, *, dry_run: bool = False) -> Resource:
         from kubeflow_tpu_torch.telemetry import causal
@@ -402,7 +421,7 @@ class FakeKube:
                     self._requota(namespace_of(obj))
 
     def watch(self, gvk, namespace=None, *, resource_version=None,
-              label_selector=None,
+              label_selector=None, shard_filter=None,
               stop: Optional[threading.Event] = None
               ) -> Iterator[Tuple[str, Resource]]:
         """NOT a generator: the watcher registers at CALL time, atomically
@@ -412,15 +431,23 @@ class FakeKube:
         gap; a real apiserver replays that window from etcd, which is what
         ``resource_version`` resume does here via the event history).  A
         resume older than the retained window yields a single 410-style
-        ERROR event and ends, like a compacted etcd — callers relist."""
+        ERROR event and ends, like a compacted etcd — callers relist.
+
+        ``shard_filter`` (a ShardFilter spec string) scopes the stream
+        server-side: backlog, history replay and live events are all
+        filtered through it, so a re-subscribe after a shard move
+        replays the moved range's history under the NEW subscription."""
+        filt = ShardFilter.parse(shard_filter) if isinstance(
+            shard_filter, str) else shard_filter
         q: queue.Queue = queue.Queue()
-        entry = (gvk, namespace, label_selector, q)
+        entry = (gvk, namespace, label_selector, filt, q)
         with self._lock:
             if resource_version is None:
                 # List+watch semantics: current state first.
                 backlog = [
                     ("ADDED", obj) for obj in self.list(
-                        gvk, namespace, label_selector=label_selector)
+                        gvk, namespace, label_selector=label_selector,
+                        shard_filter=filt)
                 ]
             else:
                 try:
@@ -451,12 +478,14 @@ class FakeKube:
                     if label_selector and not match_labels(
                             ref, label_selector):
                         continue
+                    if filt is not None and not filt.admits(ref):
+                        continue
                     backlog.append((etype, _copy_obj(ref)))
             self._watchers.append(entry)
         return self._watch_stream(entry, backlog, stop)
 
     def _watch_stream(self, entry, backlog, stop) -> Iterator[Tuple[str, Resource]]:
-        q = entry[3]
+        q = entry[4]
         try:
             for evt in backlog:
                 yield evt

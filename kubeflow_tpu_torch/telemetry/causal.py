@@ -2,8 +2,8 @@
 context, the context an object carries, and the span store of journeys.
 Standard library only.
 
-The port's copy of ``kubeflow_tpu/telemetry/causal.py`` without the
-journey merge.  A serving replica parses a caller's
+The port's copy of ``kubeflow_tpu/telemetry/causal.py``.  A serving
+replica parses a caller's
 ``traceparent`` header (``models/serve.py``), installs it as the
 request thread's current context with ``use`` and links it into the
 request trace as ``causal_trace_id``/``causal_span_id``
@@ -19,7 +19,8 @@ controller.py``) measures each stamp's first watch delivery as a
 ``watch_lag`` span (``first_lag_observation``, bounded by
 ``WATCH_LAG_MAX_S``) and arms a reconcile without a delivered context
 with a lazy factory (``set_lazy``), resolved only when the reconcile
-writes.
+writes.  ``merge_journeys`` joins the journeys of several replicas (a
+sharded fleet's) into one timeline.
 
 Ids are a per-process random block plus a counter: one ``secrets`` read a
 process, ids unique within it by the counter and across processes by the
@@ -343,3 +344,22 @@ def record_write(verb: str, kind: str, name: str, start_ts: float, *,
            parent_span_id=ctx.span_id, segment="write_rtt",
            start_ts=start_ts, end_ts=time.time(), kind=kind, object=name,
            ok=ok, **attrs)
+
+
+def merge_journeys(*span_lists: List[dict]) -> List[dict]:
+    """Join per-replica journey exports (a sharded fleet's) into one
+    timeline: deduplicated by span_id (a span is recorded by exactly one
+    replica, and the same export read twice must not double segments),
+    sorted by time."""
+    seen = set()
+    merged: List[dict] = []
+    for spans in span_lists:
+        for s in spans or []:
+            key = s.get("span_id")
+            if key in seen:
+                continue
+            seen.add(key)
+            merged.append(s)
+    merged.sort(key=lambda s: (s.get("start_ts", 0.0),
+                               s.get("end_ts", 0.0)))
+    return merged

@@ -85,13 +85,17 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.platform.runtime.informer",
     "kubeflow_tpu_torch.platform.runtime.leader",
     "kubeflow_tpu_torch.platform.controllers.culling",
+    "kubeflow_tpu_torch.platform.runtime.sharding",
+    "kubeflow_tpu_torch.platform.testing.chaos",
+    "kubeflow_tpu_torch.platform.testing.shardfleet",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
     """The modules that save and serve a trained model, the replica's
     telemetry, the parallel package, the platform's GPU seams and its
     control plane (API types, the in-memory API server, the reconcilers
     and the culler, the webhook, the controller runtime with its
-    informers and leader election) import with JAX, the JAX package, the
+    informers, leader election and shard leases, the chaos wrapper and
+    the sharded fleet) import with JAX, the JAX package, the
     serving libraries, yaml and requests blocked, and pull none of them
     in."""
     path = REPO / (module.replace(".", "/") + ".py")
