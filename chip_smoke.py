@@ -8,7 +8,11 @@ Phases, each of which raises on failure (exit code 1):
 1. device:  the card's name and power limit (nvidia-smi); fails without
    CUDA.  TF32 is switched off so the plain references run in full f32.
 2. build:   compiles every CUDA kernel of the serving path with nvcc for
-   sm_90a from ``kubeflow_tpu_torch/ops/csrc`` into ``build/kernels``.
+   sm_90a from ``kubeflow_tpu_torch/ops/csrc`` into ``build/kernels``;
+   meanwhile the platform's native engine (``platform/csrc``, g++) into
+   ``build/native``, which must load with all four components (the
+   JSON and merge patch, the work queue, the packer, the wire scanner)
+   active.
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the serving path gives it, timed with CUDA events (median of 25 runs,
    L2 flushed before each), beside its bound and one PyTorch library call
@@ -261,10 +265,14 @@ After 11:
    reference's 30 s, the checkpoint's snapshot and write seconds, and the
    wall seconds of ``urgent`` and of the resumed pod to its first step
    are printed beside the card's name and power limit.
-11c. platform_manager: the controller runtime around this card.  One
-   ``Manager`` with leader election (its Lease's holder checked before
-   any child exists) runs the notebook, culling and job controllers from
-   watches over ``FakeKube`` (namespace ``smoke``, one h100-80gb node of
+11c. platform_manager: the controller runtime around this card, over
+   the wire.  ``FakeKube`` is served over HTTP (``make_transport(kube,
+   "http", watch_window=MANAGER_WATCH_WINDOW_S)``: ``HttpKubeServer`` on
+   127.0.0.1, the port's ``RestKubeClient``), so every watch closes and
+   resumes from its resourceVersion several times in the phase.  One
+   ``Manager`` with leader election over that client (its Lease's holder
+   checked before any child exists) runs the notebook, culling and job
+   controllers from watches (namespace ``smoke``, one h100-80gb node of
    one GPU, a ResourceQuota of one ``requests.nvidia.com/gpu``,
    ``gpu_pod_default``); the culler shares the notebook controller's
    Notebook informer, stops a notebook PLATFORM_IDLE_MINUTES after its
@@ -289,7 +297,20 @@ After 11:
    collectors and the queue's debug registry are unhooked, one cull,
    no dead letter and no watch restart counted.  The seconds of each
    step of the story, the reconciles, probes and work-queue adds per
-   controller are printed beside the card's name and power limit.
+   controller are printed beside the card's name and power limit.  The
+   wire's own checks, read after the flow: the client made gets, lists,
+   watches, creates and updates or patches, none answered 5xx, none
+   failed in transport or at the breaker, none retried, and its circuit
+   is closed; each watched kind's watches were established at least
+   three times a watcher of it (two resumes each); the watch deltas were
+   decoded by the native scanner (none by the Python path) and
+   materialized at most once each; every controller's queue is the
+   native engine's, every
+   engine component is active on /metrics, and the pod's admission patch
+   came from the native diff; the Lease was written over the wire.  A
+   second line prints the requests by verb with their p50 and p99
+   seconds, the watch establishments by kind, the codec's counts and the
+   engine's components.
 11d. platform_shards: the sharded HA control plane around this card.
    A ``ShardedFleet`` of SHARD_REPLICAS replicas over one ``FakeKube``,
    each a ``Manager`` over its own ``ShardCoordinator`` (SHARD_COUNT
@@ -641,6 +662,9 @@ if __name__ == "__main__":
 PLATFORM_IDLE_MINUTES = 0.1
 PLATFORM_CHECK_MINUTES = 0.02
 MANAGER_JOB_STEPS = 2
+# The manager phase's watch window over the wire: every watch the client
+# opens closes after this many seconds and resumes from its version.
+MANAGER_WATCH_WINDOW_S = 5
 # The sharded phase: the fleet test's own timings (a 2 s lease renewed
 # every 0.2 s over 8 shards), 3 replicas and the presubmit wave of 200
 # notebooks, which must converge within SHARD_WAVE_S.
@@ -920,14 +944,35 @@ def phase_device(torch):
 
 def phase_build():
     from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.platform import native
+    from kubeflow_tpu_torch.platform.runtime import metrics
 
+    # The engine's g++ runs while nvcc does.
+    engine = threading.Thread(target=native.preload, name="native-build")
+    engine.start()
     _build.build(force=True, verbose=True)
     _build.library()
+    engine.join()
     usage = [ln.strip() for ln in _build.last_build_log.splitlines()
              if "registers" in ln or "Compiling entry" in ln
              or "spill" in ln]
+    components = native.engine_components()
+    gauges = {c: metrics.native_engine_active.sample(component=c)
+              for c in native.ENGINE_COMPONENTS}
+    if (not native.loaded() or not all(components.values())
+            or set(gauges.values()) != {1.0}):
+        raise AssertionError(f"build: native engine not active "
+                             f"({native.load_error()}): {components}, "
+                             f"gauges {gauges}")
     emit({"phase": "build", "seconds": round(_build.last_build_seconds, 3),
-          "sources": [p.name for p in _build.sources()], "ptxas": usage})
+          "sources": [p.name for p in _build.sources()], "ptxas": usage,
+          "native": {"seconds": native.last_build_seconds,
+                     "cached": native.last_build_cached,
+                     "library": os.path.relpath(
+                         native.LIB_PATH,
+                         os.path.dirname(os.path.abspath(__file__))),
+                     "sources": list(native.SOURCES),
+                     "components": components}})
 
 
 def phase_kernels(torch, dev, timer):
@@ -7256,6 +7301,116 @@ def gpu_pids():
     return {int(p) for p in out.split() if p.strip().isdigit()}
 
 
+def wire_snapshot(metrics, codec):
+    """The wire's counters now: requests by (verb, kind, code), retries by
+    verb, the request-duration histograms by verb, the codec's counts."""
+    from kubeflow_tpu_torch.telemetry.metrics import histogram_snapshot
+
+    requests = metrics.rest_client_requests_total.values()
+    retries = {k[0]: n for k, n in
+               metrics.rest_client_retries_total.values().items()}
+    verbs = {k[0] for k in requests}
+    return {"requests": requests, "retries": retries,
+            "durations": {v: histogram_snapshot(
+                metrics.rest_client_request_duration_seconds, {"verb": v})
+                for v in verbs},
+            "codec": codec.stats()}
+
+
+def watchers_of(mgr, informer_kinds):
+    """The watchers of each kind: every informer that ran
+    (``informer_kinds``, a shared one once), and one watch loop for each
+    source kind of a controller that has no informer for it."""
+    watchers = {}
+    for kind in informer_kinds:
+        watchers[kind] = watchers.get(kind, 0) + 1
+    for c in mgr.controllers:
+        for gvk in [c.primary, *c.owns, *(g for g, _ in c.watches)]:
+            if gvk not in c.informers:
+                watchers[gvk.kind] = watchers.get(gvk.kind, 0) + 1
+    return watchers
+
+
+def wire_checks(metrics, codec, native, mgr, client, before, patch_routes,
+                informer_kinds):
+    """The manager phase's checks of the wire, read after the flow; returns
+    what the phase prints of it."""
+    from kubeflow_tpu_torch.telemetry.metrics import histogram_quantiles
+
+    after = wire_snapshot(metrics, codec)
+    requests = {k: v - before["requests"].get(k, 0)
+                for k, v in after["requests"].items()
+                if v - before["requests"].get(k, 0)}
+    by_verb, by_code, watches = {}, {}, {}
+    for (verb, kind, code), n in requests.items():
+        by_verb[verb] = by_verb.get(verb, 0) + n
+        by_code[code] = by_code.get(code, 0) + n
+        if verb == "watch" and code == "200":
+            watches[kind] = watches.get(kind, 0) + n
+    retries = {v: n - before["retries"].get(v, 0)
+               for v, n in after["retries"].items()
+               if n - before["retries"].get(v, 0)}
+    quantiles = {v: histogram_quantiles(
+        metrics.rest_client_request_duration_seconds, {"verb": v},
+        since=before["durations"].get(v)) for v in by_verb}
+    stats = {k: v - before["codec"][k] for k, v in after["codec"].items()}
+    watchers = watchers_of(mgr, informer_kinds)
+    queues = {c.name: type(c.queue).__name__ for c in mgr.controllers}
+    page = metrics.render()
+    components = {c: f'native_engine_active{{component="{c}"}} 1.0' in page
+                  for c in native.ENGINE_COMPONENTS}
+    lease_writes = sum(n for (verb, kind, code), n in requests.items()
+                       if kind == "Lease" and verb in ("create", "update")
+                       and code in ("200", "201"))
+    bad_codes = {c: n for c, n in by_code.items()
+                 if c in ("<error>", "<circuit-open>") or c.startswith("5")}
+    missing = [v for v in ("get", "list", "watch", "create")
+               if not by_verb.get(v)]
+    if not (by_verb.get("update") or by_verb.get("patch")
+            or by_verb.get("patch_status")):
+        missing.append("update or patch")
+    short = {k: (watches.get(k, 0), n) for k, n in watchers.items()
+             if watches.get(k, 0) < 3 * n}
+    problems = []
+    if missing:
+        problems.append(f"verbs never sent: {missing}")
+    if bad_codes:
+        problems.append(f"failed requests: {bad_codes}")
+    if retries:
+        problems.append(f"retries: {retries}")
+    if client.health()["circuit"] != "closed":
+        problems.append(f"circuit: {client.health()}")
+    if short:
+        problems.append(f"watches established fewer than 3 times a watcher "
+                        f"(established, watchers): {short}")
+    if not (stats["decode_native"] > 0 and stats["decode_python"] == 0
+            and stats["materialize"] <= stats["decode_native"]):
+        problems.append(f"codec: {stats}")
+    if set(queues.values()) != {"NativeWorkQueue"}:
+        problems.append(f"queues: {queues}")
+    if not all(components.values()):
+        problems.append(f"engine components on /metrics: {components}")
+    if patch_routes != {"native": 1, "python": 0}:
+        problems.append(f"admission patch routes: {patch_routes}")
+    if not lease_writes:
+        problems.append("the Lease was never written over the wire")
+    if problems:
+        raise AssertionError("platform_manager over the wire: "
+                             + "; ".join(problems))
+    return {"requests_by_verb": by_verb, "requests_by_code": by_code,
+            "request_seconds_p50_p99": {
+                v: [q[0.5], q[0.99]] for v, q in quantiles.items()},
+            "watches_by_kind": watches, "watchers_by_kind": watchers,
+            "watch_resumes_by_kind": {k: watches.get(k, 0) - n
+                                      for k, n in watchers.items()},
+            "retries": retries, "circuit": client.health(),
+            "codec": stats, "queues": queues,
+            "engine": {"components": components,
+                       "backend": native.backend_info()},
+            "admission_patch_routes": patch_routes,
+            "lease_writes": lease_writes}
+
+
 def phase_platform_manager(torch, dev, mesh_losses):
     """The controller runtime around this card (the docstring's 11c): one
     leader-elected ``Manager`` runs the notebook, culling and job
@@ -7269,10 +7424,13 @@ def phase_platform_manager(torch, dev, mesh_losses):
         FakeKube,
         GpuJobGangSim,
         Manager,
+        codec,
         culling_controller,
         default_prober,
         gpu_pod_default,
         gpujob_controller,
+        make_transport,
+        native,
         notebook_controller,
     )
     from kubeflow_tpu_torch.platform.apis import gpujob as jobapi
@@ -7289,6 +7447,7 @@ def phase_platform_manager(torch, dev, mesh_losses):
         STATEFULSET,
     )
     from kubeflow_tpu_torch.platform.runtime import jobqueue, metrics
+    from kubeflow_tpu_torch.platform.webhook import jsonpatch
 
     smi = nvidia_smi_name_power()
     acc = ACCELERATORS[PLATFORM_ACCELERATOR]
@@ -7331,14 +7490,20 @@ def phase_platform_manager(torch, dev, mesh_losses):
         "Event", "VirtualService", "GPUJob", "ResourceQuota", "Node",
         "InferenceService")))
 
-    mgr = Manager(kube, leader_election=True)
-    nb_ctrl = mgr.add(notebook_controller(kube, use_istio=True,
+    # The controllers' side of the wire: FakeKube served over HTTP, the
+    # port's REST client.  The stand-ins for the kubelet and the
+    # StatefulSet controller play the cluster's side on ``kube`` itself.
+    wire_before = wire_snapshot(metrics, codec)
+    client, server = make_transport(kube, "http",
+                                    watch_window=MANAGER_WATCH_WINDOW_S)
+    mgr = Manager(client, leader_election=True)
+    nb_ctrl = mgr.add(notebook_controller(client, use_istio=True,
                                           mirror_min_interval=0))
     cull_ctrl = mgr.add(culling_controller(
-        kube, notebook_informer=nb_ctrl.informers[NOTEBOOK], prober=prober,
-        idle_minutes=PLATFORM_IDLE_MINUTES,
+        client, notebook_informer=nb_ctrl.informers[NOTEBOOK],
+        prober=prober, idle_minutes=PLATFORM_IDLE_MINUTES,
         check_period_minutes=PLATFORM_CHECK_MINUTES))
-    job_ctrl = mgr.add(gpujob_controller(kube))
+    job_ctrl = mgr.add(gpujob_controller(client))
     culler = cull_ctrl.reconciler
     urls[culler.kernels_url(ns, "nb")] = (
         f"http://127.0.0.1:{port}{nbapi.nb_prefix(ns, 'nb')}/api/kernels")
@@ -7396,7 +7561,10 @@ def phase_platform_manager(torch, dev, mesh_losses):
             lambda: next((s for s in kube.list(STATEFULSET, ns)
                           if s["spec"]["replicas"] == 1), None),
             "notebook StatefulSet", 30)
+        patches = dict(jsonpatch.routes)
         pod = notebook_pod(kube, ns, sts, label, "platform_manager")
+        patch_routes = {k: v - patches[k] for k, v in
+                        jsonpatch.routes.items()}
         # The kubelet's hold: a deleted pod stays, terminating, until its
         # process has exited (graceful deletion).
         pod["metadata"]["finalizers"] = [KUBELET_FINALIZER]
@@ -7534,13 +7702,18 @@ def phase_platform_manager(torch, dev, mesh_losses):
                 f"platform_manager: launches {got['launches']} (cell, "
                 f"expected {cell_want}) and {job_got} (train, expected "
                 f"{job_want}), routes {got['routes']}")
+        # The kinds of the informers that ran, read while they run.
+        informer_kinds = [i.gvk.kind for i in metrics.running_informers()]
     finally:
         mgr.stop()
+        server.stop()
         jobs.close()
         if sim is not None:
             sim.close()
         if cell is not None:
             cell.stop()
+    wire = wire_checks(metrics, codec, native, mgr, client, wire_before,
+                       patch_routes, informer_kinds)
 
     # Teardown: the controllers stopped, their hooks unhooked, and the
     # counters agree with what happened.
@@ -7619,6 +7792,15 @@ def phase_platform_manager(torch, dev, mesh_losses):
           "kernels_against_plain": [
               {k: r[k] for k in ("kernel", "shape", "max_abs_err", "tol")}
               for r in kernel_rows],
+          "nvidia_smi": smi})
+    emit({"phase": "platform_manager_wire",
+          "watch_window_s": MANAGER_WATCH_WINDOW_S, **wire,
+          "seconds": {"to_leadership": leader_s, "cell": cell_s,
+                      "last_activity_to_stop": cull_s,
+                      "stop_to_pod_exit": exit_s,
+                      "exit_to_admission": admit_s,
+                      "admission_to_first_step": first_step_s,
+                      "train_wall": run["wall_s"]},
           "nvidia_smi": smi})
     return launches
 

@@ -1,9 +1,12 @@
 """Sequence packing: variable-length documents into fixed [rows, seq_len]
 token matrices with segment ids.
 
-The port's copy of ``kubeflow_tpu/data/packing.py``, on its pure-Python
-best-fit-decreasing path (the reference may hand the bin packing to a
-native engine; both give the same assignment).  Segment ids start at 1
+The port's copy of ``kubeflow_tpu/data/packing.py``.  The bin packing,
+best fit decreasing, runs in the platform's native engine
+(``platform/csrc/packer.cc`` through ``platform/native.py``) when the
+process has already loaded it, in Python otherwise: the same assignment.
+Packing never builds the engine itself, so a training worker does not
+run ``g++`` or load the control plane to pack.  Segment ids start at 1
 per row; 0 marks padding.  Attention masks cross-segment pairs, and the
 LM step masks cross-document and pad targets out of the loss.
 """
@@ -21,7 +24,17 @@ def pack_documents(lengths: Sequence[int], row_len: int
     ``(row_assignment, row_offset, n_rows)``: document i goes to row
     ``row_assignment[i]`` at slot ``row_offset[i]``.  Raises ValueError if
     a length is < 1 or > row_len."""
+    from kubeflow_tpu_torch.platform import native
+
     lengths = np.asarray(lengths, dtype=np.int64)
+    if native.loaded():
+        return native.native_pack(lengths, row_len)
+    return _pack_python(lengths, row_len)
+
+
+def _pack_python(lengths: np.ndarray, row_len: int
+                 ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The Python best-fit decreasing, the engine's semantic reference."""
     if any(n < 1 or n > row_len for n in lengths):
         raise ValueError(f"invalid document lengths for row_len={row_len}")
     order = sorted(range(len(lengths)), key=lambda i: -int(lengths[i]))

@@ -7,8 +7,13 @@ made of.
   the pod pieces of a notebook, a job's worker and a serving replica
   (``pods.py``);
 * ``k8s/``: unstructured objects and the GVK table (``types.py``), the
-  API's errors (``errors.py``) and the quota math with its admission
-  check (``quota.py``);
+  API's errors (``errors.py``), the quota math with its admission check
+  (``quota.py``), the wire codec with its lazy watch objects
+  (``codec.py``) and ``RestKubeClient`` with its retries, circuit
+  breaker and connection pool on ``http.client`` (``client.py``);
+* ``native.py`` over ``csrc/``: the native engine (the JSON and merge
+  patch, the work queue, the packer and the wire scanner), built with
+  ``g++`` into ``build/native/`` on first use;
 * ``apis/``: the Notebook, GPUJob and InferenceService CRDs with
   ``spec.gpu``, and the PodDefault CRD;
 * ``controllers/notebook.py``: ``NotebookReconciler``, a Notebook into
@@ -32,11 +37,13 @@ made of.
   processes of a gang; ``testing/chaos.py``: ``ChaosKube``, seeded fault
   injection with a wire log; ``testing/shardfleet.py``:
   ``ShardedFleet``, replicas over one API server, killed, paused or
-  churned;
+  churned; ``testing/httpkube.py``: ``HttpKubeServer``, a ``FakeKube``
+  served over HTTP, and ``make_transport``;
 * ``config.py``: the platform's env knobs.
 
 Standard library only (with the port's ``parallel/envspec.py`` and
-``telemetry/``).  Drive it on the CPU: one leader-elected ``Manager``
+``telemetry/``, and ``g++`` for the engine, whose absence leaves the
+Python engines serving).  Drive it on the CPU: one leader-elected ``Manager``
 runs the notebook, culling and job controllers from watches::
 
     kube = FakeKube(); kube.add_namespace("kubeflow")
@@ -60,6 +67,14 @@ within one lease TTL::
     mgr.add(notebook_controller(client, shards=coord))
     mgr.start()
 
+Over the wire, the same controllers run against a ``FakeKube`` served
+over HTTP (or an API server through ``RestKubeClient()``)::
+
+    client, server = make_transport(kube, "http")
+    mgr = Manager(client, leader_election=True)
+    mgr.add(notebook_controller(client, use_istio=False))
+    mgr.start(); ...; mgr.stop(); server.stop()
+
 A reconciler also runs bare on a client::
 
     NotebookReconciler(kube, use_istio=True).reconcile(Request("ns", name))
@@ -71,46 +86,56 @@ minSlices}``) run under the kubelet's stand-in::
     GPUJobReconciler(kube).reconcile(Request("ns", job))
 """
 
-from kubeflow_tpu_torch.platform.apis.poddefault import gpu_pod_default
-from kubeflow_tpu_torch.platform.controllers.culling import (
-    CullingReconciler,
-    default_prober,
-)
-from kubeflow_tpu_torch.platform.controllers.culling import (
-    make_controller as culling_controller,
-)
-from kubeflow_tpu_torch.platform.controllers.gpujob import GPUJobReconciler
-from kubeflow_tpu_torch.platform.controllers.gpujob import (
-    make_controller as gpujob_controller,
-)
-from kubeflow_tpu_torch.platform.controllers.notebook import NotebookReconciler
-from kubeflow_tpu_torch.platform.controllers.notebook import (
-    make_controller as notebook_controller,
-)
-from kubeflow_tpu_torch.platform.runtime.controller import (
-    Controller,
-    Manager,
-    Request,
-)
-from kubeflow_tpu_torch.platform.runtime.informer import Informer
-from kubeflow_tpu_torch.platform.runtime.jobqueue import JobQueue
-from kubeflow_tpu_torch.platform.runtime.leader import LeaderElector
-from kubeflow_tpu_torch.platform.runtime.sharding import (
-    FencedClient,
-    FencingError,
-    ShardCoordinator,
-    ShardFilter,
-    shard_of,
-)
-from kubeflow_tpu_torch.platform.testing.fake import FakeKube
-from kubeflow_tpu_torch.platform.testing.jobsim import GpuJobGangSim
-from kubeflow_tpu_torch.platform.testing.shardfleet import ShardedFleet
-from kubeflow_tpu_torch.platform.webhook.mutate import mutate_admission_review
+import importlib
 
-__all__ = ["Controller", "CullingReconciler", "FakeKube", "FencedClient",
-           "FencingError", "GPUJobReconciler", "GpuJobGangSim", "Informer",
-           "JobQueue", "LeaderElector", "Manager", "NotebookReconciler",
-           "Request", "ShardCoordinator", "ShardFilter", "ShardedFleet",
-           "culling_controller", "default_prober", "gpu_pod_default",
-           "gpujob_controller", "mutate_admission_review",
-           "notebook_controller", "shard_of"]
+# The exports load on first use (PEP 562; a module is named with None): a module that needs one piece
+# of the platform, such as the data layer's packer reaching the native
+# engine, imports that piece alone and not the whole control plane.
+_EXPORTS = {
+    "CircuitBreaker": "k8s.client",
+    "Controller": "runtime.controller",
+    "CullingReconciler": "controllers.culling",
+    "FakeKube": "testing.fake",
+    "FencedClient": "runtime.sharding",
+    "FencingError": "runtime.sharding",
+    "GPUJobReconciler": "controllers.gpujob",
+    "GpuJobGangSim": "testing.jobsim",
+    "HttpKubeServer": "testing.httpkube",
+    "Informer": "runtime.informer",
+    "JobQueue": "runtime.jobqueue",
+    "LeaderElector": "runtime.leader",
+    "Manager": "runtime.controller",
+    "NotebookReconciler": "controllers.notebook",
+    "Request": "runtime.controller",
+    "RestKubeClient": "k8s.client",
+    "ShardCoordinator": "runtime.sharding",
+    "ShardFilter": "runtime.sharding",
+    "ShardedFleet": "testing.shardfleet",
+    "codec": ("k8s.codec", None),
+    "culling_controller": ("controllers.culling", "make_controller"),
+    "default_prober": "controllers.culling",
+    "gpu_pod_default": "apis.poddefault",
+    "gpujob_controller": ("controllers.gpujob", "make_controller"),
+    "make_transport": "testing.httpkube",
+    "mutate_admission_review": "webhook.mutate",
+    "native": ("native", None),
+    "notebook_controller": ("controllers.notebook", "make_controller"),
+    "shard_of": "runtime.sharding",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    where = _EXPORTS.get(name)
+    if where is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module, attr = where if isinstance(where, tuple) else (where, name)
+    mod = importlib.import_module(f"{__name__}.{module}")
+    value = mod if attr is None else getattr(mod, attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

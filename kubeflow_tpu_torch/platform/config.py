@@ -24,7 +24,18 @@ each read through these helpers where it is used:
   defaults: ``runtime/sharding.py``;
 * ``KF_SHARD_SERVER_FILTER`` (on; ``0`` turns it off, any other value
   leaves it on): the server-side shard filter of the informers' streams,
-  ``runtime/controller.py``.
+  ``runtime/controller.py``;
+* ``K8S_CLIENT_TIMEOUT`` (30), ``K8S_CLIENT_TIMEOUT_CONNECT`` (5),
+  ``K8S_CLIENT_RETRIES`` (3), ``K8S_CLIENT_RETRY_BASE`` (0.1),
+  ``K8S_CLIENT_RETRY_CAP`` (5), ``K8S_CLIENT_CB_THRESHOLD`` (5),
+  ``K8S_CLIENT_CB_COOLDOWN`` (10), ``K8S_CLIENT_QPS`` (50; 0 disables the
+  limit), ``K8S_CLIENT_BURST`` (100) and ``K8S_CLIENT_POOL_SIZE`` (32),
+  and the config's ``KUBERNETES_SERVICE_HOST``/``_PORT`` and
+  ``KUBECONFIG``: ``k8s/client.py``;
+* ``KF_NATIVE`` (``1``; ``0`` disables the native engine, any other
+  value keeps it on): ``native.py``; ``KF_WIRE_CODEC`` (``auto``, or
+  ``native`` or ``python``; any other value keeps ``auto``):
+  ``k8s/codec.py``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """create-or-update with content-hash ownership, on a patch-minimal wire.
-The port's copy of ``kubeflow_tpu/platform/runtime/apply.py``, whose
-merge-patch diff is the Python walk alone (the reference's native
-engine is not ported).
+The port's copy of ``kubeflow_tpu/platform/runtime/apply.py``; the
+merge-patch diff runs in the native engine when the wire codec's engine
+is native, the Python walk otherwise.
 
 Raw subtree equality between a generated spec and the live object is
 always-false against a real API server (server-side defaulting), so every
@@ -108,7 +108,18 @@ def _diff(current: Any, desired: Any) -> Any:
 def merge_patch_for(current: Any, desired: Any) -> Optional[dict]:
     """Minimal JSON merge patch turning ``current`` into ``desired`` —
     ``None`` when nothing differs.  Top level must be mappings (merge
-    patches are objects)."""
+    patches are objects).  The diff runs in the native engine when the
+    codec's engine is native (frozen views serialize without a thaw);
+    the Python ``_diff`` is the fallback, counted, and the semantic
+    reference the tests hold the engine to."""
+    from kubeflow_tpu_torch.platform.k8s import codec
+
+    if codec.engine_native():
+        try:
+            return codec.merge_patch_native(current, desired)
+        except (codec.NativeError, TypeError, ValueError):
+            pass  # not JSON-shaped, or the engine refused: the Python walk
+    codec.count_merge_python()
     patch = _diff(current or {}, desired or {})
     if patch is _UNCHANGED:
         return None

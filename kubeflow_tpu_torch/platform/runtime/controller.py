@@ -32,8 +32,11 @@ controller-runtime the platform needs).
   ``shards=`` starts the coordinator before its controllers and stops
   it first, which releases the leases for an instant handover.
 
-Threads, not goroutines.  The reference's native work queue is not
-ported: the queue is the Python engine.
+Threads, not goroutines.  The work queue is the native engine's
+(``platform/native.py`` ``NativeWorkQueue``) when it loads, the Python
+``_WorkQueue`` otherwise, with one interface and one set of series;
+``Manager.start`` loads the engine first, so no watch event pays for
+its build.
 """
 from __future__ import annotations
 
@@ -210,16 +213,23 @@ class _WorkQueue:
 
 
 def make_workqueue(*, base_delay: float = 0.05, max_delay: float = 30.0,
-                   name: Optional[str] = None) -> _WorkQueue:
-    """A work queue; ``name`` turns on the ``workqueue_*`` series
-    labelled ``{name=...}``.  Every key ``get`` returns must be released
-    with ``done(key)``, in a ``finally``: until then the key is never
-    handed out again."""
+                   name: Optional[str] = None):
+    """A work queue: the native engine's ``NativeWorkQueue`` when it
+    loads, else the Python ``_WorkQueue`` (same interface, held equal by
+    the tests).  ``name`` turns on the ``workqueue_*`` series labelled
+    ``{name=...}``, the same from either engine.  Every key ``get``
+    returns must be released with ``done(key)``, in a ``finally``: until
+    then the key is never handed out again."""
+    from kubeflow_tpu_torch.platform import native
+
     shim = None
     if name is not None:
         from kubeflow_tpu_torch.platform.runtime import metrics
 
         shim = metrics.WorkQueueMetrics(name)
+    if native.available():
+        return native.NativeWorkQueue(base_delay=base_delay,
+                                      max_delay=max_delay, metrics=shim)
     return _WorkQueue(base_delay=base_delay, max_delay=max_delay,
                       metrics=shim)
 
@@ -984,6 +994,10 @@ class Manager:
             c.stop()
 
     def start(self) -> None:
+        from kubeflow_tpu_torch.platform import native
+
+        # Build and load the engine now, not on the first event's path.
+        native.preload()
         if self.shards is not None:
             self.shards.start()
         if self.elector is not None:

@@ -1,8 +1,6 @@
 """Shared informer: a list+watch cache with handlers, indexers, a
 periodic relist and the shard filter of the sharded control plane.  The
-port's copy of ``kubeflow_tpu/platform/runtime/informer.py`` without the
-wire codec (``FakeKube`` hands out plain dicts; the REST client and its
-codec are not ported yet).
+port's copy of ``kubeflow_tpu/platform/runtime/informer.py``.
 
 One LIST seeds a thread-safe store, a watch thread applies the deltas,
 resumed from the collection's resourceVersion (a watch ERROR, the 410 of
@@ -14,6 +12,14 @@ store holds reaches no handler.  Indexers file objects under values
 (client-go's ``cache.Indexers``), read back by ``index_list``.  Every
 read is a zero-copy read-only view (``k8s/types.py`` ``FrozenResource``;
 ``thaw`` makes a private copy to write).
+
+Admission is the decode boundary: over ``RestKubeClient`` a watch
+delta arrives as a ``k8s/codec.py`` ``LazyResource``, whose identity
+fields the admit filter and the dedup read without a parse;
+``codec.materialize`` parses the body only once the delta is admitted,
+before it enters the store, so the cache and the handlers hold plain
+dicts and a dropped delta is never fully parsed.  Resyncs read keys
+alone (``keys``) and materialize nothing.
 
 Under sharding (``runtime/sharding.py``) an ``admit`` predicate keeps
 the store to the replica's owned key ranges, relist and deltas alike,
@@ -31,6 +37,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from kubeflow_tpu_torch.platform.k8s import codec
 from kubeflow_tpu_torch.platform.k8s.types import (
     GVK,
     Resource,
@@ -153,6 +160,10 @@ class Informer:
         self._stream_stop = threading.Event()
         self._handlers: List[Handler] = []
         self._thread: Optional[threading.Thread] = None
+        # Monotonic times of the last completed relist (None before the
+        # first) and of start(): informer_last_sync_age_seconds.
+        self.last_sync_monotonic: Optional[float] = None
+        self.started_monotonic: Optional[float] = None
         self._indexers: Dict[str, IndexFunc] = dict(indexers or {})
         # indexer -> value -> {store key: object}, and (indexer, key) ->
         # the values the key is filed under.
@@ -177,6 +188,8 @@ class Informer:
                 "not restartable — build a new one")
         if self._thread is not None and self._thread.is_alive():
             return self
+        self.started_monotonic = time.monotonic()
+        metrics.register_informer(self)
         self._thread = threading.Thread(
             target=self._run, name=f"informer-{self.gvk.kind}", daemon=True)
         self._thread.start()
@@ -185,6 +198,7 @@ class Informer:
     def stop(self) -> None:
         self._stop.set()
         self._stream_stop.set()
+        metrics.deregister_informer(self)
 
     def wait_for_sync(self, timeout: float = 30.0) -> bool:
         return self._synced.wait(timeout)
@@ -305,6 +319,7 @@ class Informer:
     def _relist_locked(self) -> Optional[str]:
         # The ranged relist: the subscription rides the LIST too, so a
         # rebalance re-seeds only the owned ranges.
+        t0 = time.monotonic()
         flt = self._current_filter()
         kw = {} if flt is None else {"shard_filter": flt}
         if hasattr(self.client, "list_with_rv"):
@@ -341,6 +356,9 @@ class Informer:
         for key, obj in old.items():
             if key not in fresh:
                 self._notify(handlers, "DELETED", obj)
+        self.last_sync_monotonic = time.monotonic()
+        metrics.informer_relist_duration_seconds.labels(
+            kind=self.gvk.kind).observe(self.last_sync_monotonic - t0)
         return rv
 
     @staticmethod
@@ -431,6 +449,8 @@ class Informer:
                 # and in-flight reconciles still read these objects.
                 return True
             self.events_admitted += 1
+            # The decode boundary: only an admitted delta is parsed whole.
+            obj = codec.materialize(obj)
             with self._lock:
                 handlers = list(self._handlers)
                 key = self._key(obj)

@@ -20,7 +20,10 @@ queue.  And the controller runtime's: client-go's work-queue series
 stuck reconciles and dead letters, the culler's probes and culls, the
 shard coordinator's lease transitions and its scrape-time
 ``controller_shard_owned{controller,shard}``, and the informers' watch
-restarts and watch lag.
+restarts, watch lag, relist durations and last-sync ages.  And the REST
+client's (``k8s/client.py``): requests by verb, kind and code, their
+latency, retries and the circuit breaker's state and trips; and
+``native_engine_active{component}`` (``platform/native.py``).
 ``render()`` is the ``/metrics`` page.
 """
 from __future__ import annotations
@@ -340,12 +343,102 @@ informer_watch_lag_seconds = Histogram(
     "API write committed -> watch event delivered, measured once per "
     "causal stamp at its first delivery (the journey's watch_lag span)",
     ["kind"], buckets=_QUEUE_BUCKETS, registry=registry)
+informer_relist_duration_seconds = Histogram(
+    "informer_relist_duration_seconds",
+    "Full LIST + store rebuild duration per informer relist",
+    ["kind"], buckets=_QUEUE_BUCKETS, registry=registry)
 informer_watch_lag_overflow_total = Counter(
     "informer_watch_lag_overflow_total",
     "watch deliveries whose measured lag exceeded the replay bound "
     "(causal.WATCH_LAG_MAX_S; one count per stamp): relist replays of "
     "old stamps, or a watch path degraded past the bound",
     ["kind"], registry=registry)
+
+
+# -- the REST client and the native engine ------------------------------------
+
+rest_client_request_duration_seconds = Histogram(
+    "rest_client_request_duration_seconds",
+    "API-server request latency by verb and kind",
+    ["verb", "kind"], buckets=_QUEUE_BUCKETS, registry=registry)
+rest_client_requests_total = Counter(
+    "rest_client_requests_total",
+    "API-server requests by verb, kind, and status code "
+    "(code='<error>' for transport failures, '<circuit-open>' for calls "
+    "the breaker refused)",
+    ["verb", "kind", "code"], registry=registry)
+rest_client_retries_total = Counter(
+    "rest_client_retries_total",
+    "Transparent client-side retries by verb (bounded, idempotent verbs "
+    "and 429s; k8s/client.py's retry policy)",
+    ["verb"], registry=registry)
+rest_client_circuit_state = Gauge(
+    "rest_client_circuit_state",
+    "Client circuit breaker state (0=closed, 1=half-open, 2=open)",
+    registry=registry)
+rest_client_circuit_opens_total = Counter(
+    "rest_client_circuit_opens_total",
+    "Times the client circuit breaker tripped open (consecutive transient "
+    "failures crossed the threshold)",
+    registry=registry)
+native_engine_active = Gauge(
+    "native_engine_active",
+    "Whether the native C++ engine serves this component (1) or the "
+    "Python engine does (0); set at the first load attempt "
+    "(platform/native.py)",
+    ["component"], registry=registry)
+
+
+# id(informer) -> (kind, weakref), for the scrape-time
+# informer_last_sync_age_seconds: Informer.start registers, stop
+# deregisters.  The gauge reports the worst (largest) age per kind, so a
+# wedged informer cannot hide behind a healthy one of its kind.
+_informers: Dict[int, tuple] = {}
+_informers_lock = threading.Lock()
+
+
+def register_informer(informer) -> None:
+    with _informers_lock:
+        _informers[id(informer)] = (informer.gvk.kind,
+                                    weakref.ref(informer))
+
+
+def deregister_informer(informer) -> None:
+    with _informers_lock:
+        _informers.pop(id(informer), None)
+
+
+def running_informers() -> list:
+    """The informers started and not yet stopped in this process."""
+    with _informers_lock:
+        refs = [ref for _kind, ref in _informers.values()]
+    return [i for i in (ref() for ref in refs) if i is not None]
+
+
+def _sync_ages():
+    """Seconds since each kind's informers last completed a relist
+    (counted from start() before the first one)."""
+    now = time.monotonic()
+    ages: Dict[str, float] = {}
+    with _informers_lock:
+        refs = dict(_informers)
+    for key, (kind, ref) in refs.items():
+        informer = ref()
+        if informer is None:
+            with _informers_lock:
+                if _informers.get(key) == (kind, ref):
+                    del _informers[key]
+            continue
+        since = informer.last_sync_monotonic or informer.started_monotonic
+        if since is not None:
+            ages[kind] = max(ages.get(kind, 0.0), now - since)
+    return [((kind,), age) for kind, age in sorted(ages.items())]
+
+
+ScrapeGauge(
+    "informer_last_sync_age_seconds",
+    "Seconds since the informer last completed a full relist",
+    _sync_ages, ["kind"], registry=registry)
 
 
 # id(coordinator) -> weakref, for the scrape-time shard-ownership gauge

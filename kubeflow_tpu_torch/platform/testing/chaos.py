@@ -27,9 +27,8 @@ Determinism: one seeded ``random.Random`` behind a lock — given the same
 call sequence the same faults fire, the reference's schedule draw for
 draw.  Under multithreaded controllers the call ORDER varies run to run,
 so soak tests assert invariants (converged, no duplicates, caches
-consistent), not exact fault placement.  The REST client that the
-reference also storms over a wire is not ported: here ``ChaosKube`` is
-the controller's client itself.
+consistent), not exact fault placement.  The inner client may be the
+store itself or a ``RestKubeClient`` over ``testing/httpkube.py``.
 """
 from __future__ import annotations
 

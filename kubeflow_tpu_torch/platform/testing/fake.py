@@ -353,7 +353,16 @@ class FakeKube:
         """Apply one patch flavor to ``current`` in place (shared by patch
         and patch_status)."""
         if patch_type == "merge" or patch_type == "strategic":
-            _merge_patch(current, patch)
+            from kubeflow_tpu_torch.platform import native
+
+            # loaded(), not available(): never a first build under the
+            # store's lock.  The engines are held equal by the tests.
+            if native.loaded():
+                merged = native.merge_patch_apply(current, patch)
+                current.clear()
+                current.update(merged)
+            else:
+                _merge_patch(current, patch)
         elif patch_type == "json":
             from kubeflow_tpu_torch.platform.webhook.jsonpatch import apply_patch
 

@@ -1,7 +1,8 @@
 """RFC 6902 JSON Patch: apply + diff.  The port's copy of
-``kubeflow_tpu/platform/webhook/jsonpatch.py``, Python only: the
-reference's native engine (``create_patch_fast``) is not ported, and
-nothing here falls back to or from one.
+``kubeflow_tpu/platform/webhook/jsonpatch.py``.  ``create_patch_fast``
+diffs in the native engine (``platform/native.py``) when it loads and
+falls back to the Python ``create_patch``, whose semantics the engine's
+are held to; ``routes`` counts which engine each call took.
 
 The admission webhook responds to the API server with a JSONPatch computed
 from (pod-before, pod-after) — same contract as the reference webhook
@@ -13,7 +14,13 @@ granularity only affects patch size, not semantics).
 from __future__ import annotations
 
 import copy
+import logging
 from typing import Any, Dict, List
+
+log = logging.getLogger("kubeflow_tpu_torch.webhook.jsonpatch")
+
+# create_patch_fast's calls by the engine that computed the patch.
+routes = {"native": 0, "python": 0}
 
 
 class PatchError(Exception):
@@ -113,6 +120,24 @@ def apply_patch_inplace_add(doc: Any, path: str, value: Any) -> None:
             parent.insert(int(last), value)
     else:
         parent[last] = value
+
+
+def create_patch_fast(before: Any, after: Any) -> List[Dict[str, Any]]:
+    """The diff in the native engine when it loads (every admitted pod is
+    diffed, and the engine avoids the recursive Python walk on a large
+    pod spec), else ``create_patch``: the same patch either way."""
+    from kubeflow_tpu_torch.platform import native
+
+    if native.available():
+        try:
+            patch = native.create_patch(before, after)
+            routes["native"] += 1
+            return patch
+        except (native.NativeError, TypeError, ValueError):
+            log.debug("native create_patch failed; falling back to the "
+                      "Python diff", exc_info=True)
+    routes["python"] += 1
+    return create_patch(before, after)
 
 
 def create_patch(before: Any, after: Any, path: str = "") -> List[Dict[str, Any]]:

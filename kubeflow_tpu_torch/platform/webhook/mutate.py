@@ -1,6 +1,7 @@
 """PodDefault mutation: merge PodDefault specs into pods at admission.
 The port's copy of ``kubeflow_tpu/platform/webhook/mutate.py``; the patch
-is the Python ``jsonpatch.create_patch`` and nothing else.
+is ``jsonpatch.create_patch_fast``'s (the native engine's diff, or the
+Python one).
 
 Semantics follow the reference webhook exactly (reference
 admission-webhook/main.go): selection by label selector (:70-95), the
@@ -202,7 +203,9 @@ def mutate_admission_review(review: Resource, pod_defaults: List[Resource]) -> R
     import base64
     import json
 
-    from kubeflow_tpu_torch.platform.webhook.jsonpatch import create_patch
+    from kubeflow_tpu_torch.platform.webhook.jsonpatch import (
+        create_patch_fast as create_patch,
+    )
 
     request = review.get("request", {}) or {}
     uid = request.get("uid", "")

@@ -232,6 +232,25 @@ def mint_on_admission(obj) -> Optional[TraceContext]:
     return stamp(obj, child(cur) if cur is not None else mint())
 
 
+def stamped_copy_on_admission(obj):
+    """``mint_on_admission`` for a caller that must not mutate its input
+    (the REST client serializing a caller's dict or a frozen view): the
+    object itself when no mint applies, else a shallow copy with copied
+    metadata and annotations carrying the stamp."""
+    if from_object(obj) is not None:
+        return obj
+    api = obj.get("apiVersion", "") if hasattr(obj, "get") else ""
+    if not str(api).startswith(MINT_API_GROUP + "/"):
+        return obj
+    out = dict(obj)
+    md = dict(out.get("metadata") or {})
+    md["annotations"] = dict(md.get("annotations") or {})
+    out["metadata"] = md
+    cur = current()
+    stamp(out, child(cur) if cur is not None else mint())
+    return out
+
+
 def annotations_of(obj) -> Dict[str, str]:
     """The two causal annotations an object carries (for patches that
     restamp beside a generated-hash annotation)."""

@@ -68,6 +68,13 @@ class _Metric:
             child = self._children.get(key)
         return None if child is None else child.value
 
+    def values(self) -> Dict[Tuple[str, ...], float]:
+        """A counter's or gauge's value for every label set used so far,
+        keyed by the label values in ``labelnames`` order."""
+        with self._lock:
+            children = list(self._children.items())
+        return {key: child.value for key, child in children}
+
     def _only(self):
         if self.labelnames:
             raise ValueError(f"{self.name} has labels; use .labels()")

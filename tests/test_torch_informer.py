@@ -349,3 +349,17 @@ def test_cache_or_client_reads_fall_back_as_the_reference():
     assert both(scenario) == [
         ["ns1/b1"], ["ns1/b1"], None, ["ns1/b1"], "b1", 2,
         "ServiceUnavailable", "ServiceUnavailable", "Forbidden"]
+
+
+def test_running_informers_lists_started_and_not_stopped():
+    kube = FakeKube()
+    kube.add_namespace("ns1")
+    inf = informer.Informer(kube, types.NOTEBOOK)
+    assert inf not in metrics.running_informers()
+    inf.start()
+    try:
+        assert inf.wait_for_sync(5)
+        assert inf in metrics.running_informers()
+    finally:
+        inf.stop()
+    assert inf not in metrics.running_informers()

@@ -88,6 +88,10 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.platform.runtime.sharding",
     "kubeflow_tpu_torch.platform.testing.chaos",
     "kubeflow_tpu_torch.platform.testing.shardfleet",
+    "kubeflow_tpu_torch.platform.k8s.codec",
+    "kubeflow_tpu_torch.platform.native",
+    "kubeflow_tpu_torch.platform.testing.httpkube",
+    "kubeflow_tpu_torch.data.packing",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
     """The modules that save and serve a trained model, the replica's
@@ -95,7 +99,9 @@ def test_checkpoint_and_scheduler_stand_alone(module):
     control plane (API types, the in-memory API server, the reconcilers
     and the culler, the webhook, the controller runtime with its
     informers, leader election and shard leases, the chaos wrapper and
-    the sharded fleet) import with JAX, the JAX package, the
+    the sharded fleet, the REST client, the wire codec, the native
+    engine's loader and the HTTP server, and the packer on the engine)
+    import with JAX, the JAX package, the
     serving libraries, yaml and requests blocked, and pull none of them
     in."""
     path = REPO / (module.replace(".", "/") + ".py")
@@ -183,3 +189,39 @@ def test_build_dir_is_ignored_by_git():
     assert rel == "build/kernels"
     ignored = (REPO / ".gitignore").read_text().split()
     assert rel + "/" in ignored or rel in ignored
+
+
+def test_native_engine_never_opens_the_reference_library():
+    """The port's engine builds from its own sources and loads its own
+    library: no file it opens, no library it loads and no command it runs
+    names a path under the JAX package's ``kubeflow_tpu/``."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        seen = []
+
+        def audit(event, args):
+            if event in ("open", "ctypes.dlopen", "subprocess.Popen",
+                         "os.listdir", "os.scandir"):
+                seen.append((event, repr(args)))
+
+        sys.addaudithook(audit)
+        from kubeflow_tpu_torch.platform import native
+        from kubeflow_tpu_torch.platform.k8s import codec
+        native.build(force=True)
+        assert native.available(), native.load_error()
+        codec.decode_event(b'{{"type":"ADDED","object":{{}}}}')
+        dlopens = [a for e, a in seen if e == "ctypes.dlopen"
+                   and str({str(REPO)!r}) in a]
+        assert dlopens == [repr((str(native.LIB_PATH),))], dlopens
+        assert not any("libkfnative" in a for e, a in seen)
+        bad = [s for s in seen if {str(REPO / "kubeflow_tpu")!r} + "/"
+               in s[1] or "kubeflow_tpu/_native" in s[1]]
+        assert not bad, bad
+        print(len(seen))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) > 0

@@ -382,3 +382,19 @@ def test_traceparent_links_the_request_trace_like_reference(apps, header):
                 last[0] if app is ref else last[1])["trace_id"]
     else:
         assert links[1] == {"causal_trace_id": None, "causal_span_id": None}
+
+
+def test_metric_values_by_label_set():
+    reg = tmetrics.Registry()
+    requests = tmetrics.Counter("requests_total", "requests",
+                                ["verb", "code"], registry=reg)
+    depth = tmetrics.Gauge("depth", "depth", registry=reg)
+    assert requests.values() == {}
+    requests.labels(verb="get", code="200").inc()
+    requests.labels(verb="get", code="200").inc(2)
+    requests.labels(verb="list", code="500").inc()
+    depth.set(4)
+    assert requests.values() == {("get", "200"): 3.0, ("list", "500"): 1.0}
+    assert depth.values() == {(): 4.0}
+    assert requests.values()[("get", "200")] == \
+        requests.sample(verb="get", code="200")
