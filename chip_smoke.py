@@ -111,18 +111,34 @@ Between 6c and 7 (llama3_8b is freed after beam):
    ``generate``, the best beam rescored on the search's route and by
    one teacher-forced forward no worse than 1 beam's within
    BEAM_SCORE_TOL a token, ms a step.
-6d1a. platform_serve: the port's GPU pod pieces on this card.  The
-   accelerator table's product is this card's name; ``serving_deployment``
-   for llama3_8b at one GPU asks for one ``nvidia.com/gpu`` on that
-   product.  Its container's command and env run as a subprocess as the
-   kubelet would start them (``python`` this interpreter, ``--port`` a
-   free port): /readyz, then request A, whose tokens are held to the same
-   request through the same default paged engine in this process (equal,
-   or the teacher-forced gap), and whose attention calls the child's
-   /metrics counts on the kernel route; then the same Deployment with
-   ``mesh="tp=1"``, its command under ``parallel/launch.py`` (NCCL at
-   world size 1), token-equal to the first.  Each child is stopped with
-   SIGTERM, its exit status and every process under it checked.
+6d1a. platform_serve: the serving front door on this card.  The
+   accelerator table's product is this card's name.  Request A runs
+   through the default paged engine in this process for reference.  In
+   the port's ``FakeKube``: a 1-GPU quota, a 1-GPU node of this card's
+   product, a PodDefault that sets SERVE_PODDEFAULT_ENV in the replica's
+   pods, the PodDefault webhook over HTTPS on a pair the openssl command
+   line makes, a ``Manager`` with the InferenceService controller (a
+   pass every SERVE_SYNC_S), the fleet sim creating the Deployment's
+   pods through the webhook, and the activator.  InferenceService
+   ``llama`` (llama3_8b on one GPU, 0 to 1 replicas, its port a free
+   port, idle window SERVE_IDLE_S) parks at zero, phase Idle.  Request A
+   to the activator's ``/serve/smoke/llama/v1/generate`` is held and
+   stamps ``wake-at``; the controller scales the Deployment to 1; the sim
+   creates the pod, the webhook patches it; its container runs as a
+   subprocess the way the kubelet would start it, the PodDefault's env in
+   its environment; its /readyz (a warm generate) makes it Ready; the
+   controller publishes the endpoint and the activator replays request A:
+   tokens held to the in-process ones (equal, or the teacher-forced gap),
+   the attention calls on the kernel route.  The controller's scrape
+   holds ``generate_requests_total`` >= 1 from the one replica; after the
+   idle window the service parks again, the pod goes and its process
+   exits on SIGTERM.  Then the pair rotates (``write_pair``,
+   ``reload_certs``: no failure, a handshake pinned to the old pair
+   refused), and the same Deployment with ``mesh="tp=1"`` has its pod
+   admitted through the rotated webhook and run under
+   ``parallel/launch.py`` (NCCL at world size 1), token-equal to the
+   first.  The phase prints the hold, the wake, the ready and the
+   park's seconds, the activator's and the webhook's counts.
 6d1b. platform_notebook: the notebook's control plane around this card.
    In the port's in-memory API server (``FakeKube``): a namespace, an
    h100-80gb node (its product this card's name), a ResourceQuota of
@@ -357,6 +373,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
+import importlib.util
 import io
 import json
 import math
@@ -369,6 +386,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -592,6 +610,20 @@ PLATFORM_URGENT_STEPS = 2
 PLATFORM_JOB_S = 600.0
 PLATFORM_RECONCILE_S = 1.0
 PREEMPTION_GRACE_S = 30.0
+
+# The serving front door (platform_serve): InferenceService "llama"
+# (llama3_8b on one GPU, 0 to 1 replicas) parks at zero; request A through
+# the activator wakes it.  Its idle window is cut from the reference's
+# 300 s default (apis/inferenceservice.py DEFAULT_IDLE_SECONDS) to
+# SERVE_IDLE_S and the controller's pass from its 10 s default
+# (controllers/inferenceservice.py DEFAULT_SYNC_S) to SERVE_SYNC_S, so
+# that the park after the request lands within the phase.  The replica's
+# pods are admitted through the webhook over HTTPS, pinned to a pair the
+# openssl command line makes, and a PodDefault sets SERVE_PODDEFAULT_ENV
+# in them.
+SERVE_IDLE_S = 5.0
+SERVE_SYNC_S = 1.0
+SERVE_PODDEFAULT_ENV = ("KFT_SMOKE_PODDEFAULT", "admitted")
 
 # The notebook phase: the Notebook's pod runs one cell on the card,
 # NOTEBOOK_CELL (``python -c`` in place of the image's Jupyter, which is
@@ -6593,19 +6625,239 @@ def served_request_a(pod, port, body, what):
     return ready_s, out["tokens"], request_s, rose
 
 
+def openssl_pair(hosts=("127.0.0.1", "localhost"), cn="kft-webhook"):
+    """A self-signed serving pair from the openssl command line, the pair
+    ``webhook/certs.generate_self_signed`` makes (ECDSA P-256, SHA-256,
+    the hosts as SANs, marked CA so a client can pin it), for a machine
+    without the ``cryptography`` package: (cert PEM, key PEM)."""
+    sans = ",".join(("IP:" if h.replace(".", "").isdigit() else "DNS:") + h
+                    for h in hosts)
+    with tempfile.TemporaryDirectory() as d:
+        cert, key = os.path.join(d, "tls.crt"), os.path.join(d, "tls.key")
+        subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "ec", "-pkeyopt",
+             "ec_paramgen_curve:P-256", "-sha256", "-nodes", "-days", "1",
+             "-keyout", key, "-out", cert, "-subj", f"/CN={cn}",
+             "-addext", f"subjectAltName={sans}",
+             "-addext", "basicConstraints=critical,CA:TRUE"],
+            check=True, capture_output=True, timeout=60)
+        with open(cert, "rb") as f, open(key, "rb") as g:
+            return f.read(), g.read()
+
+
+class AdmittingKube:
+    """The API server's admission step in front of ``FakeKube``: a Pod
+    create is sent to the webhook as an AdmissionReview over HTTPS,
+    verified against ``cafile``, and stored with the review's JSON patch
+    applied.  Every other call goes to the store as it is."""
+
+    def __init__(self, kube, url, cafile):
+        self.kube = kube
+        self.url = url
+        self.cafile = cafile
+        self.admission_ms = []
+
+    def __getattr__(self, name):
+        return getattr(self.kube, name)
+
+    def admit(self, pod):
+        """``pod`` with the webhook's patch applied."""
+        import base64
+        import ssl
+
+        from kubeflow_tpu_torch.platform.webhook.jsonpatch import apply_patch
+
+        meta = pod["metadata"]
+        review = {"apiVersion": "admission.k8s.io/v1",
+                  "kind": "AdmissionReview",
+                  "request": {"uid": meta["name"],
+                              "namespace": meta["namespace"],
+                              "resource": {"resource": "pods"},
+                              "object": pod}}
+        ctx = ssl.create_default_context(cafile=self.cafile)
+        req = urllib.request.Request(
+            self.url + "/apply-poddefault", data=json.dumps(review).encode(),
+            headers={"Content-Type": "application/json"})
+        opener = urllib.request.build_opener(
+            urllib.request.ProxyHandler({}),
+            urllib.request.HTTPSHandler(context=ctx))
+        t0 = time.perf_counter()
+        with opener.open(req, timeout=30) as resp:
+            out = json.load(resp)["response"]
+        self.admission_ms.append((time.perf_counter() - t0) * 1e3)
+        if not out["allowed"] or out.get("patchType") != "JSONPatch":
+            raise AssertionError(f"webhook: {out}")
+        return apply_patch(pod, json.loads(base64.b64decode(out["patch"])))
+
+    def create(self, obj):
+        if obj.get("kind") == "Pod":
+            obj = self.admit(obj)
+        return self.kube.create(obj)
+
+
+class ServeKubelet:
+    """The kubelet of the front door's replica pods, as the fleet sim's
+    ready gate: once the sim has created a pod, its (admitted) main
+    container runs as a subprocess, and the pod is ready when the
+    process's /readyz answers within its readinessProbe's timeout (the
+    kubelet's default, 1 s, when the probe names none; a probe that
+    times out is counted and tried again).  At the first ready answer
+    the process's attention route counters are read from its /metrics,
+    before the endpoint can be published."""
+
+    def __init__(self, kube, ns, port):
+        self.kube = kube
+        self.ns = ns
+        self.base = f"http://127.0.0.1:{port}"
+        self.lock = threading.Lock()
+        self.pods = {}       # pod name -> Pod
+        self.started = {}    # pod name -> perf_counter at start
+        self.ready = {}      # pod name -> (perf_counter, /readyz answer)
+        self.routes = {}     # pod name -> route counters at ready
+        self.probe_timeouts = 0
+
+    def gate(self, svc, revision, ordinal):
+        from kubeflow_tpu_torch.platform.k8s import errors
+        from kubeflow_tpu_torch.platform.k8s.types import POD
+
+        name = f"{svc}-v{revision}-{ordinal}"
+        try:
+            pod = self.kube.get(POD, name, self.ns)
+        except errors.NotFound:
+            return False
+        container = pod["spec"]["containers"][0]
+        timeout = container["readinessProbe"].get("timeoutSeconds", 1)
+        with self.lock:
+            proc = self.pods.get(name)
+            if proc is None:
+                proc = self.pods[name] = Pod(
+                    pod_command(container["command"]),
+                    kubelet_env(container), f"platform_serve pod {name}")
+                self.started[name] = proc.t0
+            if name in self.ready:
+                return True
+        if proc.proc.poll() is not None:
+            raise AssertionError(f"pod {name} exited {proc.proc.returncode}")
+        try:
+            status, ready = http(self.base, "/readyz", timeout=timeout)
+        except TimeoutError:
+            self.probe_timeouts += 1
+            return False
+        except urllib.error.URLError as e:
+            if isinstance(e.reason, TimeoutError):
+                self.probe_timeouts += 1
+            return False
+        except OSError:
+            return False
+        if status != 200 or not ready.get("ready"):
+            return False
+        _, page = http(self.base, "/metrics")
+        with self.lock:
+            self.routes[name] = {
+                i: metric_value(page, f'attention_kernel_calls_total'
+                                      f'{{impl="{i}"}}')
+                for i in ("kernel", "plain")}
+            self.ready[name] = (time.perf_counter(), ready)
+        return True
+
+    def stop(self, name):
+        """SIGTERM the pod's process (its pod is gone): the exit status."""
+        with self.lock:
+            proc = self.pods.pop(name)
+        return proc.stop()
+
+    def stop_all(self):
+        with self.lock:
+            procs = list(self.pods.values())
+            self.pods.clear()
+        for proc in procs:
+            with contextlib.suppress(AssertionError):
+                proc.stop()
+
+
+class Timeline:
+    """The first perf_counter at which each named predicate held, polled
+    every 5 ms in a thread of its own."""
+
+    def __init__(self, checks):
+        self.checks = dict(checks)
+        self.at = {}
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            for name, check in self.checks.items():
+                if name in self.at:
+                    continue
+                try:
+                    if check(self.at):
+                        self.at[name] = time.perf_counter()
+                except Exception as e:  # noqa: BLE001 — reported at wait
+                    self.errors.append(f"{name}: {type(e).__name__}: {e}")
+
+    def wait(self, name, timeout):
+        deadline = time.monotonic() + timeout
+        while name not in self.at:
+            if self.errors:
+                raise AssertionError(f"timeline: {self.errors}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"platform_serve: no {name} within "
+                                     f"{timeout} s; seen {sorted(self.at)}")
+            time.sleep(0.02)
+        return self.at[name]
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
 def phase_platform_serve(torch, dev, model, tol):
-    """The serving replica as the platform's Deployment starts it: the
-    accelerator table against this card; then ``serving_deployment``'s
-    container for llama3_8b on one GPU run as a subprocess (``python``
-    this interpreter, ``--port`` a free port, nothing else edited):
-    /readyz, then request A, its tokens held to the same request through
-    the same engine in this process (token equality, or the teacher-forced
-    gap ``tol``), the route counter on its /metrics; then the same with
-    ``mesh="tp=1"``, its command under the launcher (NCCL at world size 1,
-    rank 0 serving HTTP), whose tokens equal the first replica's.  Each
-    replica is stopped and its exit status reported."""
+    """The serving front door on this card (the docstring's 6d1a).  The
+    accelerator table against this card; request A through the same
+    default paged engine in this process for reference; then in the
+    port's ``FakeKube``: a 1-GPU quota, a 1-GPU node of this card's
+    product, a PodDefault setting SERVE_PODDEFAULT_ENV in the replica's
+    pods, the webhook over HTTPS on an openssl pair, a ``Manager`` with
+    the InferenceService controller (a SERVE_SYNC_S pass), the fleet sim
+    creating pods through the webhook, and the activator.  InferenceService
+    ``llama`` (llama3_8b, one GPU, 0 to 1 replicas, idle window
+    SERVE_IDLE_S) parks at zero; request A through the activator is held,
+    stamps the wake, the controller scales to 1, the pod is admitted and
+    its container runs as a subprocess (the PodDefault's env in its
+    environment), its /readyz makes it Ready, the endpoint is published
+    and request A replays into it: tokens held to the in-process ones
+    (``agreement``), the attention calls on the kernel route.  The
+    controller's scrape holds the replica's request count; idle, the
+    service parks, the pod goes, its process exits on SIGTERM.  Then the
+    pair rotates (``write_pair``, ``reload_certs``; the old pin refused)
+    and the ``mesh="tp=1"`` replica's pod is admitted through the rotated
+    webhook and run under the launcher, token-equal to the first."""
     from kubeflow_tpu_torch.models.serve import GenerationService
+    from kubeflow_tpu_torch.platform import (
+        Activator,
+        EndpointBook,
+        FakeKube,
+        InferenceFleetSim,
+        Manager,
+        create_activator_app,
+        inferenceservice_controller,
+    )
     from kubeflow_tpu_torch.platform.gpu import ACCELERATORS, pods, slice_spec
+    from kubeflow_tpu_torch.platform.k8s import errors
+    from kubeflow_tpu_torch.platform.apis import inferenceservice as svcapi
+    from kubeflow_tpu_torch.platform.k8s.types import (
+        DEPLOYMENT,
+        EVENT,
+        INFERENCESERVICE,
+        POD,
+    )
+    from kubeflow_tpu_torch.platform.runtime import metrics
+    from kubeflow_tpu_torch.platform.webhook import certs
+    from kubeflow_tpu_torch.platform.webhook.server import WebhookServer
+    from kubeflow_tpu_torch.telemetry.tsdb import TSDB
 
     smi = nvidia_smi_name_power()
     acc = ACCELERATORS[PLATFORM_ACCELERATOR]
@@ -6614,19 +6866,14 @@ def phase_platform_serve(torch, dev, model, tol):
         raise AssertionError(f"{PLATFORM_ACCELERATOR}'s product "
                              f"{acc.product!r} is not this card, {card!r}")
     spec = slice_spec(PLATFORM_ACCELERATOR, 1)
+    ns, name, key = "smoke", "llama", "smoke/llama"
 
-    def deployment(mesh):
-        dep = pods.serving_deployment(
-            ns="smoke", name="llama", revision=1, replicas=1,
-            model="llama3_8b", spec=spec, image="kubeflow-tpu-torch",
-            mesh=mesh)
-        pod = dep["spec"]["template"]["spec"]
-        container = pod["containers"][0]
+    def checked(container, pod, what):
         want = {"nvidia.com/gpu": "1"}
         if (container["resources"] != {"limits": want, "requests": want}
                 or pod["nodeSelector"] != {"nvidia.com/gpu.product":
                                            acc.product}):
-            raise AssertionError(f"platform: deployment asks {pod}")
+            raise AssertionError(f"{what}: deployment asks {pod}")
         return container
 
     body = schedule_bodies(torch, dev, model.cfg.vocab_size)["A"]
@@ -6647,44 +6894,303 @@ def phase_platform_serve(torch, dev, model, tol):
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
 
-    rows, tokens = [], None
-    for mesh in (None, "tp=1"):
-        container = deployment(mesh)
-        port = free_port()
-        cmd = pod_command(container["command"], port)
-        what = f"platform_serve{' mesh ' + mesh if mesh else ''}"
-        pod = Pod(cmd, kubelet_env(container), what)
+    pd_name, pd_value = SERVE_PODDEFAULT_ENV
+    kube = FakeKube()
+    for n in ("kubeflow", ns):
+        kube.add_namespace(n)
+    kube.add_gpu_node("gpu-node-0", accelerator=PLATFORM_ACCELERATOR,
+                      gpus=torch.cuda.device_count())
+    kube.create({"apiVersion": "v1", "kind": "ResourceQuota",
+                 "metadata": {"name": "gpus", "namespace": ns},
+                 "spec": {"hard": {"nvidia.com/gpu": "1"}}})
+    kube.create({"apiVersion": "kubeflow.org/v1alpha1", "kind": "PodDefault",
+                 "metadata": {"name": "smoke-env", "namespace": ns},
+                 "spec": {"selector": {"matchLabels": {
+                              pods.LABEL_SERVICE_NAME: name}},
+                          "desc": "the front door's admission check",
+                          "env": [{"name": pd_name, "value": pd_value}]}})
+    port = free_port()
+    certdir = tempfile.mkdtemp(prefix="platform_serve_certs")
+    cert, key_file = certs.write_pair(certdir, *openssl_pair())
+    old_pin = os.path.join(certdir, "old.crt")
+    shutil.copyfile(cert, old_pin)
+    webhook = WebhookServer(kube, host="127.0.0.1", port=0, cert_file=cert,
+                            key_file=key_file)
+    webhook.start()
+    admitting = AdmittingKube(kube, f"https://127.0.0.1:{webhook.port}", cert)
+    kubelet = ServeKubelet(kube, ns, port)
+    sim = InferenceFleetSim(admitting, ns, poll_seconds=0.05,
+                            endpoint_for=lambda *a: kubelet.base,
+                            ready_gate=kubelet.gate)
+    book, tsdb = EndpointBook(), TSDB()
+    mgr = Manager(kube)
+    mgr.add(inferenceservice_controller(kube, book=book, tsdb=tsdb,
+                                        sync_period=SERVE_SYNC_S))
+    act = Activator(kube, book=book, tsdb=tsdb)
+    replays = []
+    forward = act.forward
+
+    def timed_forward(*args):
+        replays.append(time.perf_counter())
+        out = forward(*args)
+        replays.append(time.perf_counter())
+        return out
+
+    act.forward = timed_forward
+    published = []
+
+    def on_publish(k):
+        rec = book.get(k)
+        if k == key and rec is not None and rec.endpoints and not published:
+            published.append(time.perf_counter())
+
+    book.subscribe(on_publish)
+    front = create_activator_app(act).make_server("127.0.0.1", 0)
+    front_thread = threading.Thread(target=front.serve_forever,
+                                    kwargs={"poll_interval": 0.05},
+                                    daemon=True)
+    front_thread.start()
+    pod_name = f"{name}-v1-0"
+
+    def svc():
+        return kube.get(INFERENCESERVICE, name, ns)
+
+    def replicas():
         try:
-            ready_s, got, request_s, rose = served_request_a(pod, port, body,
-                                                             what)
-        except BaseException:
-            pod.stop()
-            raise
-        if pod.proc.poll() is not None:
-            pod.fail(f"exited {pod.proc.returncode} while serving")
-        rc = pod.stop()
-        if mesh is None:
-            agree = agreement(torch, dev, model, body, got, ref["tokens"],
-                              tol, what)
-            tokens = got
-        elif got != tokens:
-            raise AssertionError(f"{what}: tokens differ from the replica "
-                                 "without a mesh")
-        else:
-            agree = {"equal_to_replica_without_mesh": True}
-        rows.append({
-            "phase": "platform_serve", "model": "llama3_8b", "mesh": mesh,
-            "command": container["command"], "run_as": cmd,
-            "env": {e["name"]: e["value"] for e in container["env"]},
-            "seconds_to_ready": ready_s, "request_a_seconds": request_s,
+            return kube.get(DEPLOYMENT, f"{name}-v1", ns)["spec"]["replicas"]
+        except errors.NotFound:
+            return None
+
+    def pod_exists():
+        try:
+            return kube.get(POD, pod_name, ns)
+        except errors.NotFound:
+            return None
+
+    counts = {
+        "replayed": lambda: metrics.activator_proxy_requests_total.sample(
+            outcome="replayed") or 0.0,
+        "shed": lambda: sum(
+            metrics.serve_requests_shed_total.values().values()),
+        "wake_stamps": lambda: (
+            metrics.activator_wake_stamps_total.values()[()]),
+    }
+    before = {k: fn() for k, fn in counts.items()}
+    held_peak = [0.0]
+    timeline = None
+    mgr.start()
+    try:
+        kube.create({
+            "apiVersion": "kubeflow.org/v1alpha1", "kind": "InferenceService",
+            "metadata": {"name": name, "namespace": ns},
+            "spec": {"model": "llama3_8b",
+                     "gpu": {"accelerator": PLATFORM_ACCELERATOR, "gpus": 1},
+                     "port": port,
+                     "replicas": {"min": 0, "max": 1, "initial": 0},
+                     "scale": {"idleSeconds": SERVE_IDLE_S}}})
+        deadline = time.monotonic() + 30
+        while (svc().get("status") or {}).get("phase") != "Idle":
+            if time.monotonic() > deadline:
+                raise AssertionError(f"platform_serve: not parked: "
+                                     f"{svc().get('status')}")
+            time.sleep(0.05)
+        if pod_exists() is not None or replicas() not in (0, None):
+            raise AssertionError("platform_serve: a parked service has pods")
+
+        def held_sampler(_at):
+            # Samples the held gauge's peak on every poll; never "holds".
+            held_peak[0] = max(held_peak[0], metrics.serve_requests_held
+                               .values()[()])
+            return False
+
+        timeline = Timeline({
+            "held": lambda at: metrics.serve_requests_held.values()[()] >= 1,
+            "wake_stamped": lambda at: (
+                svcapi.wake_requested_at(svc()) is not None),
+            "scaled_up": lambda at: (replicas() or 0) >= 1,
+            "pod_created": lambda at: pod_exists() is not None,
+            "scaled_to_zero": lambda at: (bool(published)
+                                          and replicas() == 0),
+            "pod_deleted": lambda at: ("pod_created" in at
+                                       and pod_exists() is None),
+            "held_peak": held_sampler,
+        })
+        t_arrival = time.perf_counter()
+        status, got = http(f"http://127.0.0.1:{front.server_address[1]}",
+                           f"/serve/{ns}/{name}/v1/generate", body,
+                           timeout=PLATFORM_READY_S)
+        t_done = time.perf_counter()
+        if status != 200:
+            raise AssertionError(f"platform_serve: request A {status} {got}")
+        proc = kubelet.pods[pod_name]
+        with open(f"/proc/{proc.proc.pid}/environ", "rb") as f:
+            environ = dict(kv.split(b"=", 1) for kv in f.read().split(b"\0")
+                           if b"=" in kv)
+        if environ.get(pd_name.encode()) != pd_value.encode():
+            raise AssertionError(f"platform_serve: the PodDefault's {pd_name} "
+                                 "is not in the replica's environment")
+        _, page = http(kubelet.base, "/metrics")
+        rose = {i: metric_value(page, f'attention_kernel_calls_total'
+                                      f'{{impl="{i}"}}') - c
+                for i, c in kubelet.routes[pod_name].items()}
+        if rose["kernel"] <= 0 or rose["plain"] != 0:
+            proc.fail(f"request A: attention calls by route {rose}")
+        agree = agreement(torch, dev, model, body, got["tokens"],
+                          ref["tokens"], tol, "platform_serve front door")
+        tokens = got["tokens"]
+        timeline.wait("scaled_to_zero", 60 + SERVE_IDLE_S)
+        timeline.wait("pod_deleted", 60)
+        rc = kubelet.stop(pod_name)
+        scraped = tsdb.instant("generate_requests_total", {"service": key})
+        by_replica = {}
+        for labels, _, v in scraped:
+            by_replica[labels["replica"]] = (
+                by_replica.get(labels["replica"], 0.0) + v)
+        if list(by_replica) != [pod_name] or by_replica[pod_name] < 1:
+            raise AssertionError(f"platform_serve: the controller's scrape "
+                                 f"read generate_requests_total {scraped}")
+        status_after = svc()["status"]
+        if (status_after["phase"] != "Idle" or status_after["replicas"] != 0
+                or sim.errors):
+            raise AssertionError(f"platform_serve: {status_after}, sim "
+                                 f"{sim.errors}")
+        events = sorted((e["reason"], e["message"], e.get("count", 1))
+                        for e in kube.list(EVENT, ns))
+        at = timeline.at
+        got_counts = {k: fn() - before[k] for k, fn in counts.items()}
+        if (got_counts["replayed"] != 1 or got_counts["shed"] != 0
+                or held_peak[0] != 1.0 or got_counts["wake_stamps"] < 1):
+            raise AssertionError(f"platform_serve: activator {got_counts}, "
+                                 f"held at most {held_peak[0]}")
+        front_row = {
+            "phase": "platform_serve", "path": "front_door",
+            "model": "llama3_8b", "nvidia_smi": smi,
+            "hold_seconds": replays[0] - t_arrival,
+            "held_after_arrival_seconds": at["held"] - t_arrival,
+            "wake_stamp_after_arrival_seconds": (
+                at["wake_stamped"] - t_arrival),
+            "wake_to_scale_up_seconds": at["scaled_up"] - at["wake_stamped"],
+            "scale_up_to_pod_seconds": at["pod_created"] - at["scaled_up"],
+            "pod_to_process_seconds": (kubelet.started[pod_name]
+                                       - at["pod_created"]),
+            "seconds_to_ready": (kubelet.ready[pod_name][0]
+                                 - kubelet.started[pod_name]),
+            "first_readyz": kubelet.ready[pod_name][1],
+            "readyz_probe_timeouts": kubelet.probe_timeouts,
+            "ready_to_publish_seconds": (published[0]
+                                         - kubelet.ready[pod_name][0]),
+            "publish_to_replay_seconds": replays[0] - published[0],
+            "request_a_seconds_through_activator": t_done - t_arrival,
+            "request_a_replay_seconds": replays[1] - replays[0],
             "in_process_request_a_seconds": ref_s,
+            "activator": {"held": held_peak[0], **got_counts},
+            "webhook_admissions": len(admitting.admission_ms),
+            "webhook_admission_ms": list(admitting.admission_ms),
+            "scale_to_zero_seconds_after_last_request": (
+                at["scaled_to_zero"] - t_done),
+            "pod_deleted_after_scale_to_zero_seconds": (
+                at["pod_deleted"] - at["scaled_to_zero"]),
+            "exit_status_after_sigterm": rc,
+            "poddefault_env_in_replica": True,
+            "scraped_generate_requests_total": by_replica,
             "agreement_with_in_process": agree,
             "attention_calls_by_route": rose,
-            "exit_status_after_sigterm": rc,
-            "parent_memory_allocated_bytes": resident,
-            "nvidia_smi": smi})
-    for row in rows:
-        emit(row)
+            "events": events, "status": status_after,
+            "command": kube.get(DEPLOYMENT, f"{name}-v1", ns)["spec"][
+                "template"]["spec"]["containers"][0]["command"]}
+        checked(kube.get(DEPLOYMENT, f"{name}-v1", ns)["spec"]["template"][
+            "spec"]["containers"][0],
+            kube.get(DEPLOYMENT, f"{name}-v1", ns)["spec"]["template"][
+                "spec"], "platform_serve front door")
+
+        # Rotation: a new pair goes live; a handshake pinned to the old
+        # one is refused.
+        import ssl
+
+        t0 = time.perf_counter()
+        certs.write_pair(certdir, *openssl_pair())
+        if not webhook.reload_certs() or webhook.reload_failures:
+            raise AssertionError(f"platform_serve: rotation failed "
+                                 f"({webhook.reload_failures} failures)")
+        rotate_s = time.perf_counter() - t0
+        stale = AdmittingKube(kube, admitting.url, old_pin)
+        try:
+            stale.admit(pod_of(pods.serving_deployment(
+                ns=ns, name=name, revision=1, replicas=1, model="llama3_8b",
+                spec=spec, image="kubeflow-tpu-torch"), "pinned-old"))
+        except urllib.error.URLError as e:
+            if not isinstance(e.reason, ssl.SSLError):
+                raise
+        else:
+            raise AssertionError("platform_serve: the old pair still "
+                                 "verifies after the rotation")
+        # The tp=1 replica's pod, admitted through the rotated webhook.
+        dep = pods.serving_deployment(
+            ns=ns, name=name, revision=1, replicas=1, model="llama3_8b",
+            spec=spec, image="kubeflow-tpu-torch", mesh="tp=1")
+        pod = admitting.admit(pod_of(dep, f"{name}-mesh-0"))
+        container = checked(pod["spec"]["containers"][0], pod["spec"],
+                            "platform_serve mesh")
+    finally:
+        if timeline is not None:
+            timeline.stop()
+        mgr.stop()
+        sim.close()
+        kubelet.stop_all()
+        front.shutdown()
+        front.server_close()
+        webhook.stop()
+        shutil.rmtree(certdir, ignore_errors=True)
+    env = {e["name"]: e.get("value") for e in container["env"]}
+    if env.get(pd_name) != pd_value:
+        raise AssertionError(f"platform_serve mesh: env {env}")
+    mesh_port = free_port()
+    cmd = pod_command(container["command"], mesh_port)
+    what = "platform_serve mesh tp=1"
+    pod = Pod(cmd, kubelet_env(container), what)
+    try:
+        ready_s, got, request_s, mesh_rose = served_request_a(
+            pod, mesh_port, body, what)
+    except BaseException:
+        pod.stop()
+        raise
+    if pod.proc.poll() is not None:
+        pod.fail(f"exited {pod.proc.returncode} while serving")
+    mesh_rc = pod.stop()
+    if got != tokens:
+        raise AssertionError(f"{what}: tokens differ from the replica "
+                             "without a mesh")
+    emit(front_row)
+    emit({"phase": "platform_serve", "path": "rotation", "nvidia_smi": smi,
+          "openssl": subprocess.run(["openssl", "version"],
+                                    capture_output=True, text=True,
+                                    timeout=60).stdout.strip(),
+          "cryptography_installed": importlib.util.find_spec(
+              "cryptography") is not None,
+          "rotate_seconds": rotate_s, "reload_failures":
+          webhook.reload_failures, "old_pair_refused": True,
+          "admissions_after_rotation": 1,
+          "webhook_admission_ms": admitting.admission_ms[-1]})
+    emit({"phase": "platform_serve", "model": "llama3_8b", "mesh": "tp=1",
+          "command": container["command"], "run_as": cmd,
+          "env": env, "seconds_to_ready": ready_s,
+          "request_a_seconds": request_s,
+          "in_process_request_a_seconds": ref_s,
+          "agreement_with_in_process": {
+              "equal_to_replica_without_mesh": True},
+          "attention_calls_by_route": mesh_rose,
+          "exit_status_after_sigterm": mesh_rc,
+          "parent_memory_allocated_bytes": resident, "nvidia_smi": smi})
+
+
+def pod_of(deployment, pod_name):
+    """The ReplicaSet's pod ``pod_name`` from ``deployment``'s template."""
+    tmpl = deployment["spec"]["template"]
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": pod_name,
+                         "namespace": deployment["metadata"]["namespace"],
+                         "labels": dict(tmpl["metadata"]["labels"])},
+            "spec": json.loads(json.dumps(tmpl["spec"]))}
 
 
 def notebook_launches(n_layers, new_tokens):

@@ -596,6 +596,7 @@ class Request:
     args: Dict[str, str]
     headers: object  # email.message.Message: case-insensitive .get
     body: bytes
+    method: str = "GET"
 
     def get_json(self):
         """The body as JSON, or None when it is not valid JSON."""
@@ -628,13 +629,16 @@ def failure(message: str, status: int = 400,
 
 
 class App:
-    """Routes (method, path) to handlers ``fn(request) -> Response``; a
-    handler runs with the request's ``traceparent`` header, when it has
-    a valid one, as its thread's current causal context."""
+    """Routes (method, path) to handlers ``fn(request) -> Response``, and
+    a path under a prefix with no route of its own to ``fn(request,
+    rest)`` (``route_prefix``); a handler runs with the request's
+    ``traceparent`` header, when it has a valid one, as its thread's
+    current causal context."""
 
     def __init__(self, name: str):
         self.name = name
         self.routes: Dict[str, Dict[str, Callable]] = {}
+        self.prefix_routes: Dict[str, Dict[str, Callable]] = {}
 
     def route(self, path: str, methods=("GET",)):
         def deco(fn):
@@ -643,11 +647,23 @@ class App:
             return fn
         return deco
 
+    def route_prefix(self, prefix: str, methods=("GET",)):
+        def deco(fn):
+            for m in methods:
+                self.prefix_routes.setdefault(prefix, {})[m] = fn
+            return fn
+        return deco
+
     def handle(self, method: str, target: str, headers,
                body: bytes) -> Response:
         url = urlsplit(target)
         args = {k: v[-1] for k, v in parse_qs(url.query).items()}
-        handlers = self.routes.get(url.path)
+        handlers, extra = self.routes.get(url.path), ()
+        if handlers is None:
+            for prefix, by_method in self.prefix_routes.items():
+                if url.path.startswith(prefix):
+                    handlers, extra = by_method, (url.path[len(prefix):],)
+                    break
         if handlers is None:
             return failure(f"no route {url.path}", 404)
         fn = handlers.get(method)
@@ -657,7 +673,7 @@ class App:
             headers.get(causal.TRACEPARENT_HEADER) if headers else None)
         try:
             with causal.use(ctx):
-                return fn(Request(args, headers, body))
+                return fn(Request(args, headers, body, method), *extra)
         except HttpError as e:
             return failure(e.message, e.status)
         except Exception as e:  # noqa: BLE001 — the server must keep serving

@@ -1,7 +1,7 @@
 """The platform on NVIDIA GPUs: the port's copy of the notebook control
-plane, the culler, the job path and the controller runtime that drives
-them of ``kubeflow_tpu/platform/``, and the GPU seams their pods are
-made of.
+plane, the culler, the job path, the serving front door and the
+controller runtime that drives them of ``kubeflow_tpu/platform/``, and
+the GPU seams their pods are made of.
 
 * ``gpu/``: the accelerator table and slice math (``topology.py``) and
   the pod pieces of a notebook, a job's worker and a serving replica
@@ -23,8 +23,17 @@ made of.
 * ``controllers/gpujob.py``: ``GPUJobReconciler``, a GPUJob into a gang
   of StatefulSets behind a headless Service, admitted, preempted and
   resumed by the queue ledger (``runtime/jobqueue.py`` ``JobQueue``);
+* ``controllers/inferenceservice.py``: ``InferenceServiceReconciler``,
+  a served model into per-revision GPU Deployments behind a Service,
+  rolled by revision hash and autoscaled from its replicas' scraped
+  telemetry (``runtime/autoscale.py``, ``telemetry/fleetscrape.py``
+  into ``telemetry/tsdb.py``), to zero and back;
+* ``activator.py``: the serving front door, which holds a request to a
+  parked service, stamps its wake and replays it into the woken
+  replica, with per-tenant admission and fair-share drain;
 * ``webhook/``: the PodDefault merge and its AdmissionReview with a
-  JSON patch;
+  JSON patch, served over HTTPS with live cert rotation
+  (``server.py``, ``certs.py``);
 * ``runtime/``: the reconciler's contract, the work queue,
   ``Controller`` and ``Manager`` with leader election or shards, the
   shard leases with their fencing (``sharding.py``: ``ShardCoordinator``,
@@ -38,7 +47,8 @@ made of.
   injection with a wire log; ``testing/shardfleet.py``:
   ``ShardedFleet``, replicas over one API server, killed, paused or
   churned; ``testing/httpkube.py``: ``HttpKubeServer``, a ``FakeKube``
-  served over HTTP, and ``make_transport``;
+  served over HTTP, and ``make_transport``; ``testing/servesim.py``:
+  ``InferenceFleetSim``, the pods of an InferenceService's Deployments;
 * ``config.py``: the platform's env knobs.
 
 Standard library only (with the port's ``parallel/envspec.py`` and
@@ -75,6 +85,15 @@ over HTTP (or an API server through ``RestKubeClient()``)::
     mgr.add(notebook_controller(client, use_istio=False))
     mgr.start(); ...; mgr.stop(); server.stop()
 
+The serving front door: the controller publishes ready endpoints into
+the book the activator reads, and the sim plays the Deployments' pods::
+
+    book, tsdb = EndpointBook(), TSDB()
+    mgr.add(inferenceservice_controller(kube, book=book, tsdb=tsdb))
+    sim = InferenceFleetSim(kube, "ns", endpoint_for=url_of)
+    act = Activator(kube, book=book, tsdb=tsdb)
+    server = create_activator_app(act).make_server("127.0.0.1", 0)
+
 A reconciler also runs bare on a client::
 
     NotebookReconciler(kube, use_istio=True).reconcile(Request("ns", name))
@@ -92,15 +111,19 @@ import importlib
 # of the platform, such as the data layer's packer reaching the native
 # engine, imports that piece alone and not the whole control plane.
 _EXPORTS = {
+    "Activator": "activator",
     "CircuitBreaker": "k8s.client",
     "Controller": "runtime.controller",
     "CullingReconciler": "controllers.culling",
+    "EndpointBook": "activator",
     "FakeKube": "testing.fake",
     "FencedClient": "runtime.sharding",
     "FencingError": "runtime.sharding",
     "GPUJobReconciler": "controllers.gpujob",
     "GpuJobGangSim": "testing.jobsim",
     "HttpKubeServer": "testing.httpkube",
+    "InferenceFleetSim": "testing.servesim",
+    "InferenceServiceReconciler": "controllers.inferenceservice",
     "Informer": "runtime.informer",
     "JobQueue": "runtime.jobqueue",
     "LeaderElector": "runtime.leader",
@@ -111,11 +134,16 @@ _EXPORTS = {
     "ShardCoordinator": "runtime.sharding",
     "ShardFilter": "runtime.sharding",
     "ShardedFleet": "testing.shardfleet",
+    "WebhookApp": "webhook.server",
+    "WebhookServer": "webhook.server",
     "codec": ("k8s.codec", None),
+    "create_activator_app": "activator",
     "culling_controller": ("controllers.culling", "make_controller"),
     "default_prober": "controllers.culling",
     "gpu_pod_default": "apis.poddefault",
     "gpujob_controller": ("controllers.gpujob", "make_controller"),
+    "inferenceservice_controller": ("controllers.inferenceservice",
+                                    "make_controller"),
     "make_transport": "testing.httpkube",
     "mutate_admission_review": "webhook.mutate",
     "native": ("native", None),

@@ -30,8 +30,10 @@ one host's GPUs:
 Replica GPUs are charged into the GPUJob admission ledger
 (``runtime/jobqueue.py``) from WATCH STATE — ``gpus_of`` parses
 ``status.replicas`` x one replica's GPUs — so serving and training share
-one quota truth.  The serving controller, its autoscaler and the
-activator are not ported yet: this module is here for that charge.
+one quota truth.  The serving controller
+(``controllers/inferenceservice.py``) reconciles it, its autoscaler
+(``runtime/autoscale.py``) sizes it and the activator
+(``platform/activator.py``) wakes it.
 
 A replica's Deployment is ``gpu/pods.py`` ``serving_deployment`` over
 these fields (``model_of``, ``port_of``, ``checkpoint_dir_of``,

@@ -399,6 +399,20 @@ class JobQueue:
                 self._svc_ns_gpus.pop(namespace, None)
             self._bump()
 
+    def service_headroom(self, namespace: str, *,
+                         own_gpus: float = 0.0) -> float:
+        """Free GPUs in ``namespace`` for a serving scale-up: quota hard
+        minus the effective commitment (admitted gangs + other services +
+        stored live pods), with the caller's own current charge counted
+        as free to itself.  ``inf`` when the namespace has no GPU
+        quota."""
+        with self._lock:
+            hard = self._ns_quota.get(namespace)
+            if hard is None:
+                return float("inf")
+            return max(0.0, hard - self._ns_effective_used(
+                namespace, own_gpus=own_gpus))
+
     def _drop_locked(self, key: str) -> bool:
         entry = self._entries.pop(key, None)
         if entry is None:

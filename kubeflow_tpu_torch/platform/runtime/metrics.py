@@ -23,8 +23,15 @@ shard coordinator's lease transitions and its scrape-time
 restarts, watch lag, relist durations and last-sync ages.  And the REST
 client's (``k8s/client.py``): requests by verb, kind and code, their
 latency, retries and the circuit breaker's state and trips; and
-``native_engine_active{component}`` (``platform/native.py``).
-``render()`` is the ``/metrics`` page.
+``native_engine_active{component}`` (``platform/native.py``).  And the
+serving front door's: the InferenceService controller's scale events,
+cold starts, rollouts and scrape errors with the scrape-time
+``inferenceservice_services{phase}``, ``inferenceservice_replicas`` and
+``inferenceservice_ready_replicas`` per namespace; the activator's held
+requests, sheds, per-tenant first-byte seconds, proxy outcomes and wake
+stamps; and the fleet scrape's errors, samples, targets and the TSDB's
+evictions (``telemetry/fleetscrape.py``).  ``render()`` is the
+``/metrics`` page.
 """
 from __future__ import annotations
 
@@ -498,6 +505,149 @@ ScrapeGauge(
     "age of the oldest GPUJob currently parked Queued, per profile "
     "namespace (0 series when nothing waits)",
     _oldest_waits, ["profile"], registry=registry)
+
+
+# -- the serving front door (controllers/inferenceservice.py, activator.py)
+
+
+class InferenceServiceFleetCollector:
+    """The scrape-time InferenceService gauges: services per lifecycle
+    phase fleet-wide, and target and ready replicas per namespace summed
+    from statuses (the target is the serving side of the GPU ledger's
+    charge: replicas x one replica's GPUs), one InferenceService list a
+    scrape.  The client is swappable
+    (``register_inferenceservice_collector``)."""
+
+    def __init__(self):
+        self.client = None
+
+    def read(self) -> Tuple[Dict[str, int], Dict[str, Tuple[int, int]]]:
+        """(services by phase, namespace -> (target replicas, ready
+        replicas)); empty without a client or when the list fails."""
+        from kubeflow_tpu_torch.platform.k8s.types import (
+            INFERENCESERVICE,
+            namespace_of,
+        )
+
+        client = self.client
+        by_phase: Dict[str, int] = {}
+        per_ns: Dict[str, Tuple[int, int]] = {}
+        if client is None:
+            return by_phase, per_ns
+        try:
+            items = client.list(INFERENCESERVICE, None)
+        except Exception:  # noqa: BLE001 — a scrape must not fail
+            return by_phase, per_ns
+        for svc in items:
+            status = svc.get("status") or {}
+            phase = status.get("phase") or "Pending"
+            by_phase[phase] = by_phase.get(phase, 0) + 1
+            ns = namespace_of(svc) or ""
+            n_target, n_ready = per_ns.get(ns, (0, 0))
+            per_ns[ns] = (
+                n_target + int(status.get("replicas", 0) or 0),
+                n_ready + int(status.get("readyReplicas", 0) or 0))
+        return by_phase, per_ns
+
+
+_inferenceservice_collector = InferenceServiceFleetCollector()
+ScrapeGauge(
+    "inferenceservice_services", "InferenceServices by lifecycle phase",
+    lambda: [((p,), n) for p, n in
+             sorted(_inferenceservice_collector.read()[0].items())],
+    ["phase"], registry=registry)
+ScrapeGauge(
+    "inferenceservice_replicas",
+    "target model-server replicas, per namespace (the GPU ledger's "
+    "charge is this times one replica's GPUs)",
+    lambda: [((ns,), t) for ns, (t, _) in
+             sorted(_inferenceservice_collector.read()[1].items())],
+    ["namespace"], registry=registry)
+ScrapeGauge(
+    "inferenceservice_ready_replicas",
+    "serving-revision replicas Ready, per namespace",
+    lambda: [((ns,), r) for ns, (_, r) in
+             sorted(_inferenceservice_collector.read()[1].items())],
+    ["namespace"], registry=registry)
+
+
+def register_inferenceservice_collector(client) -> None:
+    """Point the InferenceService gauges at ``client`` (None unhooks
+    them; wired to the serving controller's start and stop)."""
+    _inferenceservice_collector.client = client
+
+
+inferenceservice_scale_events_total = Counter(
+    "inferenceservice_scale_events_total",
+    "autoscaler width changes by direction: 'up' (target tracking), "
+    "'down' (cooldown-limited), 'to_zero' (idle window elapsed)",
+    ["direction"], registry=registry)
+inferenceservice_cold_starts_total = Counter(
+    "inferenceservice_cold_starts_total",
+    "scale-from-zero wakes (activator annotation or traffic observed "
+    "while parked at zero)", registry=registry)
+inferenceservice_rollouts_total = Counter(
+    "inferenceservice_rollouts_total",
+    "revision rollouts started (pod-spec-affecting spec change hashed "
+    "to a new revision)", registry=registry)
+inferenceservice_scrape_errors_total = Counter(
+    "inferenceservice_scrape_errors_total",
+    "replica /metrics scrapes that failed, by reason: 'timeout' / "
+    "'connect' (a down or unreachable replica, absent from that "
+    "autoscaling pass; an all-fail pass holds width) vs 'parse' (the "
+    "replica answered garbage)",
+    ["reason"], registry=registry)
+serve_requests_held = Gauge(
+    "serve_requests_held",
+    "requests currently parked in the activator's per-service hold "
+    "queues, waiting for a scaled-to-zero service to wake",
+    registry=registry)
+serve_requests_shed_total = Counter(
+    "serve_requests_shed_total",
+    "activator requests refused, by tenant and reason: 'tenant-bucket' "
+    "(429, token bucket empty), 'slo-shed' (429, admission surcharge "
+    "past the TTFT SLO knee drained the bucket), 'hold-overflow' (503, "
+    "per-service hold queue full), 'wake-timeout' (503, wake deadline "
+    "expired mid-hold), 'deadline' (504, the request's own "
+    "X-KFT-Deadline-Seconds expired while held)",
+    ["tenant", "reason"], registry=registry)
+serve_tenant_ttft_seconds = Histogram(
+    "serve_tenant_ttft_seconds",
+    "activator-observed seconds to a replica's response, per tenant",
+    ["tenant"], buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0),
+    registry=registry)
+activator_proxy_requests_total = Counter(
+    "activator_proxy_requests_total",
+    "requests through the activator data path, by outcome: 'ok' "
+    "(forwarded, 2xx/4xx passthrough), 'replayed' (held across a cold "
+    "start, then served), 'shed' (refused with a structured 429/503/"
+    "504), 'error' (replay budget exhausted or backend unreachable)",
+    ["outcome"], registry=registry)
+activator_wake_stamps_total = Counter(
+    "activator_wake_stamps_total",
+    "wake-at annotation stamps written by the activator (first stamp "
+    "and periodic re-stamps while requests stay held)",
+    registry=registry)
+fleetscrape_scrape_errors_total = Counter(
+    "fleetscrape_scrape_errors_total",
+    "fleet scrapes that failed, by bounded reason: 'timeout' (socket "
+    "stall), 'connect' (unreachable/refused/hook failure), 'parse' "
+    "(page fetched but unparseable)",
+    ["reason"], registry=registry)
+fleetscrape_samples_total = Counter(
+    "fleetscrape_samples_total",
+    "samples written into the in-process TSDB by the fleet scrape",
+    registry=registry)
+fleetscrape_targets = Gauge(
+    "fleetscrape_targets",
+    "scrape targets discovered on the most recent discovery pass",
+    registry=registry)
+kft_tsdb_series_evicted_total = Counter(
+    "kft_tsdb_series_evicted_total",
+    "series evicted from the fleet TSDB at its max_series bound "
+    "(oldest-last-sample first); a climbing rate means the store is "
+    "undersized for the fleet (KFT_TSDB_MAX_SERIES)",
+    registry=registry)
 
 
 def render() -> str:

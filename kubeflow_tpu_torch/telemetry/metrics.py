@@ -9,12 +9,16 @@ when the registry renders.  The histogram quantile helpers
 (``histogram_snapshot``, ``quantile_from_buckets``,
 ``histogram_quantiles``) are the port's copy of
 ``kubeflow_tpu/telemetry/metrics.py``'s, over this module's histograms.
+``parse_text`` reads an exposition page back into samples, where the
+reference reads it with ``prometheus_client.parser``.
 """
 from __future__ import annotations
 
 import math
+import re
 import threading
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 
 def _fmt(v: float) -> str:
@@ -296,3 +300,189 @@ def histogram_quantiles(hist: Histogram, match: Dict[str, str],
     if since is not None:
         buckets = {le: c - since.get(le, 0.0) for le, c in buckets.items()}
     return {q: quantile_from_buckets(buckets, q) for q in qs}
+
+
+# -- reading a page back ------------------------------------------------------
+
+_METRIC_NAME = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_UNESCAPE = re.compile(r'\\[\\n"]')
+_UNESCAPED = {"\\\\": "\\", "\\n": "\n", '\\"': '"'}
+
+Sample = Tuple[str, Dict[str, str], float]
+
+
+def _escaped(s: str, at: int) -> bool:
+    """Whether the character at ``at`` follows an odd run of
+    backslashes."""
+    n = 0
+    while at - 1 - n >= 0 and s[at - 1 - n] == "\\":
+        n += 1
+    return n % 2 == 1
+
+
+def _find_unquoted(s: str, chars: str, start: int = 0) -> int:
+    """The first index at or after ``start`` of one of ``chars`` outside
+    a double-quoted string, or -1."""
+    quoted = False
+    for i in range(start, len(s)):
+        c = s[i]
+        if c == '"' and not _escaped(s, i):
+            quoted = not quoted
+        if not quoted and c in chars:
+            return i
+    return -1
+
+
+def _closing_quote(s: str) -> int:
+    """The index of the first unescaped ``"`` after ``s[0]``."""
+    at = 1
+    while at < len(s):
+        at = s.index('"', at)  # ValueError: never closed
+        if not _escaped(s, at):
+            break
+        at += 1
+    return at
+
+
+def _unquote(s: str) -> Tuple[str, bool]:
+    s = s.strip()
+    quoted = False
+    if s.startswith('"'):
+        if len(s) == 1 or not s.endswith('"'):
+            raise ValueError("missing close quote")
+        s, quoted = s[1:-1], True
+    return _UNESCAPE.sub(lambda m: _UNESCAPED[m.group(0)], s), quoted
+
+
+def _parse_labels(body: str) -> Dict[str, str]:
+    """``a="x",b="y"`` (a trailing comma allowed; a term without ``=``
+    names the metric as ``__name__``; an empty value term is skipped)."""
+    labels: Dict[str, str] = {}
+    rest = body.strip()
+    while rest:
+        if rest[0] == ",":
+            rest = rest[1:]
+            if not rest:
+                break
+            if rest[0] == ",":
+                raise ValueError(f"invalid labels {body!r}: two commas")
+        at = _find_unquoted(rest, "=,}")
+        if at >= 0 and rest[at] == "=":
+            name_term, rest = rest[:at], rest[at + 1:]
+            at = _find_unquoted(rest, ",}")
+        else:
+            name_term = "__name__"
+        at = len(rest) if at < 0 else at
+        term, rest = rest[:at].strip(), rest[at:].strip()
+        if not term:
+            continue
+        name, quoted = _unquote(name_term)
+        if not quoted and not _METRIC_NAME.match(name):
+            raise ValueError(f"invalid label name in {body!r}")
+        if term[0] != '"' or _closing_quote(term) != len(term) - 1:
+            raise ValueError(f"invalid label value in {body!r}")
+        if name.startswith("__") and name != "__name__":
+            raise ValueError(f"reserved label name in {body!r}")
+        if name in labels:
+            raise ValueError(f"duplicate label {name!r} in {body!r}")
+        labels[name] = _unquote(term)[0]
+    return labels
+
+
+def _number(s: str) -> float:
+    if s != s.strip() or "_" in s:
+        raise ValueError(f"invalid value {s!r}")
+    try:
+        return int(s)
+    except ValueError:
+        return float(s)
+
+
+def _parse_sample(line: str) -> Tuple[str, Dict[str, str], float]:
+    brace = _find_unquoted(line, "{")
+    if brace < 0 or " # " in line[:brace]:
+        end = _find_unquoted(line, " \t")
+        name = line[:end].strip()
+        if not _METRIC_NAME.match(name):
+            raise ValueError(f"invalid metric name in {line!r}")
+        labels, rest = {}, line[end + 1:]
+    else:
+        name = line[:brace].strip()
+        close = _find_unquoted(line[brace:], "}") + brace
+        labels = _parse_labels(line[brace + 1:close])
+        if not name:
+            if "__name__" not in labels:
+                raise ValueError(f"no metric name in {line!r}")
+            name = labels.pop("__name__")
+        elif "__name__" in labels:
+            raise ValueError(f"metric name given twice in {line!r}")
+        rest = line[close + 1:]
+    rest = rest.lstrip()
+    sep = " " if " " in rest else "\t"
+    fields = [f.strip() for f in rest.split(sep) if f.strip()]
+    if not fields:
+        return name, labels, float(rest)  # raises: no value
+    if len(fields) > 1:
+        _number(fields[-1])  # a timestamp, checked and not kept
+    return name, labels, _number(fields[0])
+
+
+_SUFFIXES = {"summary": ("_count", "_sum", ""),
+             "histogram": ("_count", "_sum", "_bucket")}
+_KINDS = frozenset(("counter", "gauge", "summary", "histogram",
+                    "gaugehistogram", "unknown", "info", "stateset",
+                    "untyped"))
+
+
+def _close(family: str, kind: str) -> None:
+    """A family ends (another begins, or the page does): its TYPE must
+    have been one the format knows."""
+    if family and kind not in _KINDS:
+        raise ValueError(f"invalid metric type {kind!r} of {family!r}")
+
+
+def parse_text(text: str) -> Iterator[Sample]:
+    """The samples of a Prometheus text page (format 0.0.4) in order, as
+    ``(name, labels, value)``: a histogram's ``_bucket``, ``_sum`` and
+    ``_count`` lines are samples of their own, ``+Inf``, ``-Inf`` and
+    ``NaN`` are floats, label values are unescaped, comments and a
+    sample's timestamp are read and dropped.  It reads a page as
+    ``prometheus_client.parser`` does, renaming included: a sample of a
+    family typed ``counter`` whose name lacks ``_total`` gets it.  A
+    malformed line or an unknown TYPE (a page torn mid-write) raises
+    ``ValueError``."""
+    family, kind, members = "", "untyped", ()
+    for line in text.split("\n"):
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) < 2 or (len(parts) > 2
+                                  and parts[1] not in ("HELP", "TYPE")):
+                continue
+            name = ""
+            if len(parts) > 2:
+                name, quoted = _unquote(parts[2])
+                if not quoted and not _METRIC_NAME.match(name):
+                    raise ValueError(f"invalid metric name in {line!r}")
+            if parts[1] == "HELP":
+                if name != family:
+                    _close(family, kind)
+                    family, kind, members = name, "untyped", (name,)
+            elif parts[1] == "TYPE":
+                if len(parts) < 4:
+                    raise ValueError(f"TYPE without a type: {line!r}")
+                if name != family:
+                    _close(family, kind)
+                family, kind = name, parts[3]
+                members = tuple(name + s for s in _SUFFIXES.get(kind, ("",)))
+            continue
+        name, labels, value = _parse_sample(line)
+        if name not in members:
+            _close(family, kind)
+            family, kind, members = "", "untyped", ()
+        elif kind == "counter" and not family.endswith("_total"):
+            name += "_total"
+        yield name, labels, value
+    _close(family, kind)

@@ -14,7 +14,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "kubeflow_tpu_torch"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "kubeflow_tpu", "werkzeug",
-           "prometheus_client", "yaml", "requests")
+           "prometheus_client", "yaml", "requests", "cryptography")
+# Absent from the card's machine, and imported only inside the function
+# that needs it (the self-signed key generation), as the reference does.
+LAZY = ("cryptography",)
 
 
 def test_every_module_imports_with_jax_and_reference_blocked():
@@ -34,7 +37,7 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 102
 
 
 @pytest.mark.parametrize("module", [
@@ -92,6 +95,15 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.platform.native",
     "kubeflow_tpu_torch.platform.testing.httpkube",
     "kubeflow_tpu_torch.data.packing",
+    "kubeflow_tpu_torch.platform.webhook.certs",
+    "kubeflow_tpu_torch.platform.webhook.server",
+    "kubeflow_tpu_torch.telemetry.metrics",
+    "kubeflow_tpu_torch.telemetry.tsdb",
+    "kubeflow_tpu_torch.telemetry.fleetscrape",
+    "kubeflow_tpu_torch.platform.runtime.autoscale",
+    "kubeflow_tpu_torch.platform.activator",
+    "kubeflow_tpu_torch.platform.controllers.inferenceservice",
+    "kubeflow_tpu_torch.platform.testing.servesim",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
     """The modules that save and serve a trained model, the replica's
@@ -100,10 +112,12 @@ def test_checkpoint_and_scheduler_stand_alone(module):
     and the culler, the webhook, the controller runtime with its
     informers, leader election and shard leases, the chaos wrapper and
     the sharded fleet, the REST client, the wire codec, the native
-    engine's loader and the HTTP server, and the packer on the engine)
-    import with JAX, the JAX package, the
-    serving libraries, yaml and requests blocked, and pull none of them
-    in."""
+    engine's loader and the HTTP server, the packer on the engine, and
+    the serving front door: the webhook's TLS server and its pair, the
+    text parser, the TSDB, the fleet scrape, the autoscaler, the
+    activator, the InferenceService controller and the fleet sim)
+    import with JAX, the JAX package, the serving libraries, yaml,
+    requests and cryptography blocked, and pull none of them in."""
     path = REPO / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = REPO / module.replace(".", "/") / "__init__.py"
@@ -126,6 +140,9 @@ def test_checkpoint_and_scheduler_stand_alone(module):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_nothing_of_jax_or_the_reference(path):
     tree = ast.parse(path.read_text())
+    in_functions = {id(n) for f in ast.walk(tree)
+                    if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    for n in ast.walk(f)}
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             mods = [a.name for a in node.names]
@@ -135,6 +152,8 @@ def test_source_imports_nothing_of_jax_or_the_reference(path):
             continue
         for mod in mods:
             top = mod.split(".")[0]
+            if top in LAZY and id(node) in in_functions:
+                continue
             assert top not in BLOCKED, f"{path}:{node.lineno} imports {mod}"
     text = path.read_text()
     assert "import jax" not in text

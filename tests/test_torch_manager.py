@@ -293,6 +293,11 @@ def test_gpujob_queue_under_manager_equals_the_reference():
             w.finish_gang("a")
             wait_for(lambda: w.alloc("b") == 2, "admission of b")
             wait_for(lambda: w.phase("a") == "Succeeded", "a Succeeded")
+            # c is re-queued by a kick after b's admission: its reason
+            # moves from QueuedBehind to InsufficientQuota a moment after
+            # b's grant is visible (2.8 ms in one traced run under load).
+            wait_for(lambda: w.job("c")["status"].get("reason")
+                     == "InsufficientQuota", "c re-queued on the quota")
         assert port.statuses("abc") == ref.statuses("abc")
         assert [port.phase(n) for n in "abc"] == ["Succeeded", "Pending",
                                                   "Queued"]

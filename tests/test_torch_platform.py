@@ -432,10 +432,13 @@ def _kube_script(kube, errors_mod):
         except errors_mod.ApiError as e:
             out.append((type(e).__name__, e.status, str(e)))
             return None
-        if isinstance(obj, dict):
+        if isinstance(obj, (dict, list)):
             obj = copy.deepcopy(obj)
-            for k in ("uid", "creationTimestamp"):
-                obj.get("metadata", {}).pop(k, None)
+            # A list's items too: a second may pass between the two
+            # packages' scripts.
+            for o in obj if isinstance(obj, list) else [obj]:
+                for k in ("uid", "creationTimestamp"):
+                    o.get("metadata", {}).pop(k, None)
         out.append(obj)
         return obj
 
