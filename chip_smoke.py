@@ -139,27 +139,50 @@ Between 6c and 7 (llama3_8b is freed after beam):
    ``parallel/launch.py`` (NCCL at world size 1), token-equal to the
    first.  The phase prints the hold, the wake, the ready and the
    park's seconds, the activator's and the webhook's counts.
-6d1b. platform_notebook: the notebook's control plane around this card.
-   In the port's in-memory API server (``FakeKube``): a namespace, an
-   h100-80gb node (its product this card's name), a ResourceQuota of
-   one ``nvidia.com/gpu`` and ``gpu_pod_default``.  The Notebook ``nb``
-   with ``spec.gpu {h100-80gb, 1 GPU}`` is reconciled: a StatefulSet of
-   1 replica asking one GPU as limit and request on the product, its env
-   block, the Service, the headless Service and the VirtualService.  Pod
-   ``nb-0`` from its template (pod index 0, the PodDefault's opt-in
-   label) goes through ``mutate_admission_review`` and its JSON patch,
-   and is admitted; a second notebook's 1-GPU pod is refused with the
-   apiserver's "exceeded quota" words; ``nb-0`` marked ready gives
-   ``readyReplicas`` 1.  Then ``nb-0``'s main container runs as a
-   subprocess with the patched env (pod index 0) and ``python -c
-   NOTEBOOK_CELL`` for the image's command: llama_1b4 (24 layers, seed
-   0) on the card, ``generate`` of one NOTEBOOK_PROMPT-token prompt and
-   NOTEBOOK_NEW tokens, whose tokens equal the same cell run in this
-   process, with exact launches (K2 a layer, K5 a layer a decode step,
-   K1 2L+1 a forward) and the attention route counter at one kernel call
-   a layer and no plain call.  Deleting the Notebooks removes every
-   child by the cascade.  Reconcile ms, the cell's seconds and its
-   generate's ms are printed beside the card's name and power limit.
+6d1b. platform_notebook: the notebook's control plane around this card,
+   entered through the user's front door.  In the port's in-memory API
+   server (``FakeKube``): an h100-80gb node (its product this card's
+   name) and the Profile ``smoke`` (owner FRONT_OWNER, a quota of one
+   ``nvidia.com/gpu``), which the port's ``ProfileReconciler`` turns
+   into the namespace, the editor and viewer ServiceAccounts, the
+   bindings, the AuthorizationPolicy and ``kf-resource-quota``; then
+   ``gpu_pod_default``.  ``FakeKube.authz_policy`` (``front_door_authz``)
+   grants a verb in a namespace only to a user a RoleBinding there
+   names.  KFAM, the Jupyter web app and the tensorboards app serve on
+   loopback (``test_server()``); as the owner, KFAM's POST makes
+   FRONT_CONTRIBUTOR a contributor.  As the contributor, with the
+   identity header and the CSRF cookie echoed in its header: the SPA's
+   files with their types, the GPU picker (this card, quota 1 of 1
+   free), and the spawn of ``nb`` (``gpus {h100-80gb, 1}``, the
+   PodDefault's label, ``/dev/shm`` left to the PodDefault) whose
+   Notebook and workspace claim the JWA writes.  ``nb`` is reconciled: a
+   StatefulSet of 1 replica asking the form's cpu and memory and one GPU
+   on the product, its env block, the Service, the headless Service and
+   the VirtualService.  Pod ``nb-0`` from its template (pod index 0, the
+   PodDefault's opt-in label) goes through ``mutate_admission_review``
+   and its JSON patch, is bound to the node and admitted; a second
+   notebook's 1-GPU pod is refused with the apiserver's "exceeded quota"
+   words; ``nb-0`` marked ready gives ``readyReplicas`` 1.  Then
+   ``nb-0``'s main container runs as a subprocess with the patched env
+   (pod index 0; the workspace claim's mount a directory of the phase,
+   its HOME) and ``python -c NOTEBOOK_CELL`` for the image's command:
+   llama_1b4 (24 layers, seed 0) on the card, ``generate`` of one
+   NOTEBOOK_PROMPT-token prompt and NOTEBOOK_NEW tokens, whose tokens
+   equal the same cell run in this process, with exact launches (K2 a
+   layer, K5 a layer a decode step, K1 2L+1 a forward) and the attention
+   route counter at one kernel call a layer and no plain call.  While
+   the cell runs: the notebooks' table shows ``nb`` running with its
+   GPU; a second 1-GPU spawn is a 403 with the quota's words; a user
+   with no binding and a POST without the CSRF header are 403s; a
+   Tensorboard on the workspace claim, made through the tensorboards
+   app and reconciled by the port's ``TensorboardReconciler``
+   (RWO_PVC_SCHEDULING on), mounts the claim's ``logs`` and is pinned to
+   ``nb-0``'s node.  Deleting the Notebooks and the Tensorboard removes
+   every child by the cascade.  Reconcile ms, the cell's seconds and its
+   generate's ms are printed beside the card's name and power limit,
+   and a ``front_door_ui`` line: the profile's reconcile seconds, KFAM's
+   binding ms, each front-door request's ms, the spawn-to-Notebook ms,
+   the tensorboard's reconcile ms and the HTTP status counts (no 5xx).
 6d2. t5_serve: ``load_service("t5_large")`` (24 + 24 layers, d1024,
    random bf16 weights from seed 0, W_q scaled as T5 initialises it:
    ``t5_conditioned``) over HTTP through the wire client
@@ -633,6 +656,11 @@ SERVE_PODDEFAULT_ENV = ("KFT_SMOKE_PODDEFAULT", "admitted")
 # of one token (the prefill alone) timed on its own.  The cell must end
 # within NOTEBOOK_CELL_S.
 NOTEBOOK_MODEL = "llama_1b4"
+# The notebook phase's front door: the Profile's owner, the contributor
+# KFAM binds, who spawns the notebook, and a user no binding names.
+FRONT_OWNER = "alice@example.com"
+FRONT_CONTRIBUTOR = "bob@example.com"
+FRONT_STRANGER = "carol@example.com"
 NOTEBOOK_PROMPT = 128
 NOTEBOOK_NEW = 8
 NOTEBOOK_CELL_S = 300.0
@@ -7230,26 +7258,163 @@ def notebook_pod(kube, ns, sts, label, what):
     return apply_patch(pod, json.loads(base64.b64decode(review["patch"])))
 
 
+def front_door_authz(kube):
+    """The authorization the front door's SubjectAccessReviews meet: a
+    verb in a namespace is granted to a user a RoleBinding there names
+    (``kubeflow-admin`` and ``kubeflow-edit`` any verb, ``kubeflow-view``
+    reads), and a cluster-scoped read of nodes or storage classes to a
+    user some binding names; nothing else, so no user is a cluster
+    admin."""
+    from kubeflow_tpu_torch.platform.k8s.types import ROLEBINDING
+
+    reads = ("get", "list", "watch")
+
+    def roles(user, namespace):
+        return {rb["roleRef"]["name"] for rb in kube.list(ROLEBINDING,
+                                                          namespace)
+                for subject in rb.get("subjects") or []
+                if subject.get("kind") == "User"
+                and subject.get("name") == user}
+
+    def policy(*, user, verb, gvk, namespace, groups, subresource):
+        if namespace is None:
+            return (verb in reads and gvk.kind in ("Node", "StorageClass")
+                    and bool(roles(user, None)))
+        held = roles(user, namespace)
+        if held & {"kubeflow-admin", "kubeflow-edit"}:
+            return True
+        return "kubeflow-view" in held and verb in reads
+
+    return policy
+
+
+class FrontDoorUser:
+    """A browser at the front door: the identity header the gateway sets
+    and, once a response has set it, the CSRF cookie echoed in its
+    header.  Every request's status, milliseconds and label are kept."""
+
+    def __init__(self, user, log):
+        self.user = user
+        self.cookie = None
+        self.log = log
+
+    def request(self, base, method, path, body=None, *, label,
+                csrf=True):
+        import http.client
+
+        headers = {"kubeflow-userid": self.user}
+        data = None
+        if body is not None:
+            data = json.dumps(body).encode()
+            headers["Content-Type"] = "application/json"
+        if self.cookie:
+            headers["Cookie"] = f"XSRF-TOKEN={self.cookie}"
+            if csrf:
+                headers["X-XSRF-TOKEN"] = self.cookie
+        host, port = base.rsplit("/", 1)[-1].split(":")
+        conn = http.client.HTTPConnection(host, int(port), timeout=60)
+        t0 = time.perf_counter()
+        try:
+            conn.request(method, path, body=data, headers=headers)
+            resp = conn.getresponse()
+            raw = resp.read()
+        finally:
+            conn.close()
+        ms = (time.perf_counter() - t0) * 1e3
+        for cookie in resp.headers.get_all("Set-Cookie") or []:
+            name, _, rest = cookie.partition("=")
+            if name == "XSRF-TOKEN":
+                self.cookie = rest.split(";")[0]
+        ctype = resp.headers.get("Content-Type", "")
+        payload = json.loads(raw) if ctype == "application/json" else raw
+        self.log.append({"label": label, "user": self.user,
+                         "method": method, "path": path,
+                         "status": resp.status, "ms": ms})
+        return resp.status, payload, ctype
+
+
+def front_door_expect(what, got, want):
+    if got != want:
+        raise AssertionError(f"platform_notebook front door: {what}: "
+                             f"{got!r}, expected {want!r}")
+
+
+def front_door_profile(kube, ns):
+    """The Profile ``ns`` reconciled by the port's ProfileReconciler into
+    its workspace, checked; returns the reconcile's seconds."""
+    from kubeflow_tpu_torch.platform import ProfileReconciler, Request
+    from kubeflow_tpu_torch.platform.gpu import RESOURCE_GPU
+    from kubeflow_tpu_torch.platform.k8s.types import (
+        AUTHORIZATIONPOLICY,
+        NAMESPACE,
+        PROFILE,
+        RESOURCEQUOTA,
+        ROLEBINDING,
+        SERVICEACCOUNT,
+    )
+
+    kube.create({"apiVersion": "kubeflow.org/v1", "kind": "Profile",
+                 "metadata": {"name": ns},
+                 "spec": {"owner": {"kind": "User", "name": FRONT_OWNER},
+                          "resourceQuotaSpec": {
+                              "hard": {RESOURCE_GPU: "1"}}}})
+    t0 = time.perf_counter()
+    ProfileReconciler(kube).reconcile(Request("", ns))
+    seconds = time.perf_counter() - t0
+    front_door_expect("profile status", kube.get(PROFILE, ns).get("status"),
+                      {"status": "Succeeded", "message": ""})
+    front_door_expect("namespace owner", kube.get(NAMESPACE, ns)[
+        "metadata"]["annotations"].get("owner"), FRONT_OWNER)
+    front_door_expect("service accounts", sorted(
+        o["metadata"]["name"] for o in kube.list(SERVICEACCOUNT, ns)),
+        ["default-editor", "default-viewer"])
+    front_door_expect("bindings", sorted(
+        (o["metadata"]["name"], o["roleRef"]["name"])
+        for o in kube.list(ROLEBINDING, ns)),
+        [("default-editor", "kubeflow-edit"),
+         ("default-viewer", "kubeflow-view"),
+         ("namespaceAdmin", "kubeflow-admin")])
+    policy = kube.get(AUTHORIZATIONPOLICY, "ns-owner-access-istio", ns)
+    front_door_expect("authorization policy", policy["spec"]["rules"][0],
+                      {"when": [{"key": "request.headers[kubeflow-userid]",
+                                 "values": [FRONT_OWNER]}]})
+    front_door_expect("quota", kube.get(RESOURCEQUOTA, "kf-resource-quota",
+                                        ns)["spec"],
+                      {"hard": {RESOURCE_GPU: "1"}})
+    return seconds
+
+
 def phase_platform_notebook(torch, dev):
-    """The notebook path of the platform (the docstring's 6d1b): the port's
-    reconciler, PodDefault webhook and quota admission in its in-memory
-    API server, then the notebook pod's main container running one cell
-    on the card.  Returns the cell's launch counts and its tokens."""
+    """The notebook path of the platform (the docstring's 6d1b): the
+    user's front door (the Profile, KFAM, the Jupyter and tensorboards
+    apps), the port's reconciler, PodDefault webhook and quota admission
+    in its in-memory API server, then the notebook pod's main container
+    running one cell on the card.  Returns the cell's launch counts and
+    its tokens."""
+    import collections
+
     from kubeflow_tpu_torch.models.llama import CONFIGS as LLAMA_CONFIGS
     from kubeflow_tpu_torch.platform import (
         FakeKube,
         NotebookReconciler,
         Request,
+        TensorboardReconciler,
+        create_jupyter_app,
+        create_kfam_app,
+        create_tensorboards_app,
         gpu_pod_default,
     )
     from kubeflow_tpu_torch.platform.gpu import ACCELERATORS
     from kubeflow_tpu_torch.platform.k8s import errors
     from kubeflow_tpu_torch.platform.k8s.types import (
+        DEPLOYMENT,
         NOTEBOOK,
         POD,
+        PVC,
         RESOURCEQUOTA,
         SERVICE,
         STATEFULSET,
+        TENSORBOARD,
         VIRTUALSERVICE,
     )
 
@@ -7260,94 +7425,239 @@ def phase_platform_notebook(torch, dev):
         raise AssertionError(f"{PLATFORM_ACCELERATOR}'s product "
                              f"{acc.product!r} is not this card, {card!r}")
     ns, label = "smoke", f"gpu-{PLATFORM_ACCELERATOR}"
+    node = "gpu-node-0"
     kube = FakeKube()
-    kube.add_namespace(ns)
-    kube.add_gpu_node("gpu-node-0", accelerator=PLATFORM_ACCELERATOR,
+    kube.add_namespace("default")
+    kube.add_gpu_node(node, accelerator=PLATFORM_ACCELERATOR,
                       gpus=torch.cuda.device_count())
-    kube.create({"apiVersion": "v1", "kind": "ResourceQuota",
-                 "metadata": {"name": "gpus", "namespace": ns},
-                 "spec": {"hard": {"nvidia.com/gpu": "1"}}})
+    profile_s = front_door_profile(kube, ns)
     kube.create(gpu_pod_default(ns, PLATFORM_ACCELERATOR, 1))
+    kube.authz_policy = front_door_authz(kube)
 
-    def notebook(name):
-        return {"apiVersion": "kubeflow.org/v1beta1", "kind": "Notebook",
-                "metadata": {"name": name, "namespace": ns},
-                "spec": {"gpu": {"accelerator": PLATFORM_ACCELERATOR,
-                                 "gpus": 1},
-                         "template": {"spec": {"containers": [{
-                             "name": name, "image": "kubeflow-tpu-torch",
-                             "ports": [{"containerPort": 8888}]}]}}}}
+    requests_log = []
+    owner = FrontDoorUser(FRONT_OWNER, requests_log)
+    user = FrontDoorUser(FRONT_CONTRIBUTOR, requests_log)
+    stranger = FrontDoorUser(FRONT_STRANGER, requests_log)
+    servers = []
 
-    reconciler = NotebookReconciler(kube, use_istio=True,
-                                    mirror_min_interval=0)
-    kube.create(notebook("nb"))
-    t0 = time.perf_counter()
-    reconciler.reconcile(Request(ns, "nb"))
-    reconcile_ms = (time.perf_counter() - t0) * 1e3
-    sts = kube.get(STATEFULSET, "nb", ns)
-    pod_spec = sts["spec"]["template"]["spec"]
-    main = pod_spec["containers"][0]
-    one = {"nvidia.com/gpu": "1"}
-    env = {e["name"]: e.get("value", e.get("valueFrom"))
-           for e in main["env"]}
-    want_env = {
-        "NB_PREFIX": f"/notebook/{ns}/nb",
-        "TPU_WORKER_ID": {"fieldRef": {"fieldPath":
-                          "metadata.labels['apps.kubernetes.io/pod-index']"}},
-        "TPU_WORKER_HOSTNAMES": f"nb-0.nb-workers.{ns}.svc.cluster.local",
-        "KFT_GPUS_PER_HOST": "1", "TPU_HOSTS_PER_SLICE": "1"}
-    if (sts["spec"]["replicas"] != 1
-            or main["resources"] != {"limits": one, "requests": one}
-            or pod_spec["nodeSelector"] != {"nvidia.com/gpu.product":
-                                            acc.product}
-            or env != want_env):
-        raise AssertionError(f"platform_notebook: StatefulSet {sts}")
-    children = {g.kind + "/" + o["metadata"]["name"]
-                for g in (SERVICE, VIRTUALSERVICE) for o in kube.list(g, ns)}
-    if children != {"Service/nb", "Service/nb-workers",
-                    f"VirtualService/notebook-{ns}-nb"}:
-        raise AssertionError(f"platform_notebook: children {children}")
+    def serve(app):
+        server, base = app.test_server()
+        servers.append(server)
+        return base
 
-    def pod_of(sts):
-        return notebook_pod(kube, ns, sts, label, "platform_notebook")
-
-    pod = pod_of(sts)
-    main = pod["spec"]["containers"][0]
-    if ({"name": "gpu-shm", "mountPath": "/dev/shm"}
-            not in main.get("volumeMounts", [])
-            or f"poddefault.admission.kubeflow.org/poddefault-{label}"
-            not in pod["metadata"]["annotations"]):
-        raise AssertionError(f"platform_notebook: the PodDefault was not "
-                             f"applied: {pod}")
-    kube.create(pod)
-    # A second notebook's pod asks the GPU the quota has no room for.
-    kube.create(notebook("nb2"))
-    reconciler.reconcile(Request(ns, "nb2"))
-    refused = None
+    workspace = tempfile.mkdtemp(prefix="workspace-")
+    cell = None
     try:
-        kube.create(pod_of(kube.get(STATEFULSET, "nb2", ns)))
-    except errors.Forbidden as e:
-        refused = str(e)
-    want_refusal = ('pods "nb2-0" is forbidden: exceeded quota: gpus, '
-                    "requested: nvidia.com/gpu=1, used: nvidia.com/gpu=1, "
-                    "limited: nvidia.com/gpu=1")
-    if refused != want_refusal:
-        raise AssertionError(f"platform_notebook: second pod {refused!r}")
-    kube.set_pod_phase(ns, "nb-0", "Running", ready=True)
-    reconciler.reconcile(Request(ns, "nb"))
-    status = kube.get(NOTEBOOK, "nb", ns)["status"]
-    if status.get("readyReplicas") != 1 or status.get("replicas") != 1:
-        raise AssertionError(f"platform_notebook: status {status}")
+        kfam = serve(create_kfam_app(kube))
+        jwa = serve(create_jupyter_app(kube))
+        twa = serve(create_tensorboards_app(kube))
+        # The owner makes the contributor: the first response sets the
+        # CSRF cookie, which the POST echoes.
+        owner.request(kfam, "GET", "/healthz", label="kfam healthz")
+        status, body, _ = owner.request(kfam, "POST", "/kfam/v1/bindings", {
+            "user": {"kind": "User", "name": FRONT_CONTRIBUTOR},
+            "referredNamespace": ns,
+            "roleRef": {"kind": "ClusterRole", "name": "kubeflow-edit"}},
+            label="kfam binding")
+        front_door_expect("KFAM binding", (status, body),
+                          (200, {"success": True, "status": 200}))
+        binding_ms = requests_log[-1]["ms"]
+        # The contributor opens the SPA and its picker.
+        for path, ctype in [("/", "text/html"),
+                            ("/app.js", "application/javascript; "
+                                        "charset=utf-8"),
+                            ("/shared/common.js", "application/javascript; "
+                                                  "charset=utf-8")]:
+            status, _, got = user.request(jwa, "GET", path, label=f"GET "
+                                                                  f"{path}")
+            front_door_expect(f"GET {path}", (status, got), (200, ctype))
+        status, body, _ = user.request(jwa, "GET", f"/api/namespaces/{ns}/"
+                                       "gpus", label="GET gpus")
+        front_door_expect("the GPU picker", (status, body), (200, {
+            "success": True, "status": 200,
+            "gpus": [{"accelerator": PLATFORM_ACCELERATOR, "gpus": [1]}],
+            "quota": {"hard": 1, "used": 0, "remaining": 1}}))
+        # The spawn: the form's defaults with one GPU and the PodDefault,
+        # which mounts /dev/shm itself.
+        spawn = {"name": "nb", "gpus": {"accelerator": PLATFORM_ACCELERATOR,
+                                        "gpus": 1},
+                 "configurations": [label], "shm": False}
+        t0 = time.perf_counter()
+        status, body, _ = user.request(jwa, "POST",
+                                       f"/api/namespaces/{ns}/notebooks",
+                                       spawn, label="POST notebooks")
+        kube.get(NOTEBOOK, "nb", ns)
+        spawn_ms = (time.perf_counter() - t0) * 1e3
+        front_door_expect("spawn", status, 200)
+        front_door_expect("the workspace claim", [
+            o["metadata"]["name"] for o in kube.list(PVC, ns)],
+            ["nb-workspace"])
 
-    # The pod's main container runs the cell on the card.
-    args = [NOTEBOOK_MODEL, str(SEED), str(NOTEBOOK_PROMPT),
-            str(NOTEBOOK_NEW), dev.type]
-    cmd = [sys.executable, "-c", NOTEBOOK_CELL, *args]
-    cell = Pod(cmd, kubelet_env(main, 0), "platform_notebook cell")
-    rc = cell.wait(NOTEBOOK_CELL_S)
-    cell_s = time.perf_counter() - cell.t0
-    out = cell.output()
-    cell.stop()
+        reconciler = NotebookReconciler(kube, use_istio=True,
+                                        mirror_min_interval=0)
+        t0 = time.perf_counter()
+        reconciler.reconcile(Request(ns, "nb"))
+        reconcile_ms = (time.perf_counter() - t0) * 1e3
+        sts = kube.get(STATEFULSET, "nb", ns)
+        pod_spec = sts["spec"]["template"]["spec"]
+        main = pod_spec["containers"][0]
+        want_resources = {
+            "limits": {"cpu": "4.8", "memory": "9.6Gi",
+                       "nvidia.com/gpu": "1"},
+            "requests": {"cpu": "4", "memory": "8Gi", "nvidia.com/gpu": "1"}}
+        env = {e["name"]: e.get("value", e.get("valueFrom"))
+               for e in main["env"]}
+        want_env = {
+            "NB_PREFIX": f"/notebook/{ns}/nb",
+            "TPU_WORKER_ID": {"fieldRef": {"fieldPath":
+                              "metadata.labels['apps.kubernetes.io/"
+                              "pod-index']"}},
+            "TPU_WORKER_HOSTNAMES": f"nb-0.nb-workers.{ns}.svc.cluster.local",
+            "KFT_GPUS_PER_HOST": "1", "TPU_HOSTS_PER_SLICE": "1"}
+        if (sts["spec"]["replicas"] != 1
+                or main["resources"] != want_resources
+                or pod_spec["nodeSelector"] != {"nvidia.com/gpu.product":
+                                                acc.product}
+                or env != want_env):
+            raise AssertionError(f"platform_notebook: StatefulSet {sts}")
+        children = {g.kind + "/" + o["metadata"]["name"]
+                    for g in (SERVICE, VIRTUALSERVICE)
+                    for o in kube.list(g, ns)}
+        if children != {"Service/nb", "Service/nb-workers",
+                        f"VirtualService/notebook-{ns}-nb"}:
+            raise AssertionError(f"platform_notebook: children {children}")
+
+        def pod_of(sts):
+            pod = notebook_pod(kube, ns, sts, label, "platform_notebook")
+            # The scheduler's binding: the GPU node.
+            pod["spec"]["nodeName"] = node
+            return pod
+
+        pod = pod_of(sts)
+        main = pod["spec"]["containers"][0]
+        shm = [m for m in main.get("volumeMounts", [])
+               if m["mountPath"] == "/dev/shm"]
+        if (shm != [{"name": "gpu-shm", "mountPath": "/dev/shm"}]
+                or f"poddefault.admission.kubeflow.org/poddefault-{label}"
+                not in pod["metadata"]["annotations"]):
+            raise AssertionError(f"platform_notebook: the PodDefault was "
+                                 f"not applied: {pod}")
+        kube.create(pod)
+        # A second notebook's pod asks the GPU the quota has no room for.
+        nb2 = json.loads(json.dumps(kube.get(NOTEBOOK, "nb", ns)))
+        nb2["metadata"] = {"name": "nb2", "namespace": ns,
+                           "labels": nb2["metadata"].get("labels", {})}
+        nb2.pop("status", None)
+        kube.create(nb2)
+        reconciler.reconcile(Request(ns, "nb2"))
+        refused = None
+        try:
+            kube.create(pod_of(kube.get(STATEFULSET, "nb2", ns)))
+        except errors.Forbidden as e:
+            refused = str(e)
+        want_refusal = ('pods "nb2-0" is forbidden: exceeded quota: '
+                        "kf-resource-quota, requested: nvidia.com/gpu=1, "
+                        "used: nvidia.com/gpu=1, limited: nvidia.com/gpu=1")
+        if refused != want_refusal:
+            raise AssertionError(f"platform_notebook: second pod "
+                                 f"{refused!r}")
+        kube.set_pod_phase(ns, "nb-0", "Running", ready=True)
+        reconciler.reconcile(Request(ns, "nb"))
+        nb_status = kube.get(NOTEBOOK, "nb", ns)["status"]
+        if (nb_status.get("readyReplicas") != 1
+                or nb_status.get("replicas") != 1):
+            raise AssertionError(f"platform_notebook: status {nb_status}")
+
+        # The pod's main container runs the cell on the card; the kubelet
+        # stand-in mounts the workspace claim at a directory of the
+        # phase, the image's HOME.
+        mounts = {m["name"]: m["mountPath"]
+                  for m in main.get("volumeMounts", [])}
+        claims = {v["name"]: v["persistentVolumeClaim"]["claimName"]
+                  for v in pod["spec"].get("volumes", [])
+                  if "persistentVolumeClaim" in v}
+        front_door_expect("the workspace mount", [
+            (claims[n], mounts[n]) for n in claims if n in mounts],
+            [("nb-workspace", "/home/jovyan")])
+        pod_env = {**kubelet_env(main, 0), "HOME": workspace}
+        args = [NOTEBOOK_MODEL, str(SEED), str(NOTEBOOK_PROMPT),
+                str(NOTEBOOK_NEW), dev.type]
+        cmd = [sys.executable, "-c", NOTEBOOK_CELL, *args]
+        cell = Pod(cmd, pod_env, "platform_notebook cell")
+
+        # While the cell runs: the table, the quota's 403, a stranger's
+        # 403, a POST without the CSRF header, and a Tensorboard on the
+        # workspace claim.
+        status, body, _ = user.request(jwa, "GET",
+                                       f"/api/namespaces/{ns}/notebooks",
+                                       label="GET notebooks")
+        row = next((r for r in body.get("notebooks", [])
+                    if r["name"] == "nb"), None) if status == 200 else None
+        front_door_expect("the notebooks' table", (
+            status, row and row["gpu"], row and row["status"]["phase"]),
+            (200, {"accelerator": PLATFORM_ACCELERATOR, "gpus": 1},
+             "running"))
+        status, body, _ = user.request(jwa, "POST",
+                                       f"/api/namespaces/{ns}/notebooks",
+                                       {**spawn, "name": "nb3"},
+                                       label="POST notebooks over quota")
+        front_door_expect("the second spawn", (status, body.get("log")), (
+            403, f"GPU quota exceeded (requested 1, remaining 0 of 1 GPUs "
+                 f"in {ns})"))
+        status, body, _ = stranger.request(
+            jwa, "GET", f"/api/namespaces/{ns}/notebooks",
+            label="GET notebooks without a binding")
+        front_door_expect("a user without a binding", (status, body.get(
+            "log")), (403, f"user {FRONT_STRANGER!r} cannot list notebooks "
+                           f"in namespace {ns}"))
+        status, body, _ = user.request(
+            jwa, "POST", f"/api/namespaces/{ns}/notebooks",
+            {**spawn, "name": "nb4"}, label="POST without the CSRF header",
+            csrf=False)
+        front_door_expect("a POST without the CSRF header", (status, body),
+                          (403, {"success": False, "status": 403,
+                                 "log": "CSRF check failed"}))
+        user.request(twa, "GET", "/healthz", label="twa healthz")
+        status, body, _ = user.request(
+            twa, "POST", f"/api/namespaces/{ns}/tensorboards",
+            {"name": "tb", "logspath": "pvc://nb-workspace/logs"},
+            label="POST tensorboards")
+        front_door_expect("the Tensorboard's create", status, 200)
+        t0 = time.perf_counter()
+        TensorboardReconciler(kube, rwo_pvc_scheduling=True).reconcile(
+            Request(ns, "tb"))
+        tensorboard_ms = (time.perf_counter() - t0) * 1e3
+        tb_spec = kube.get(DEPLOYMENT, "tb", ns)["spec"]["template"]["spec"]
+        front_door_expect("the Tensorboard's Deployment", (
+            tb_spec["volumes"], tb_spec["containers"][0]["volumeMounts"],
+            tb_spec["containers"][0]["args"][0], tb_spec["affinity"]),
+            ([{"name": "logs",
+               "persistentVolumeClaim": {"claimName": "nb-workspace"}}],
+             [{"name": "logs", "mountPath": "/logs", "subPath": "logs"}],
+             "--logdir=/logs",
+             {"nodeAffinity": {
+                 "requiredDuringSchedulingIgnoredDuringExecution": {
+                     "nodeSelectorTerms": [{"matchExpressions": [{
+                         "key": "kubernetes.io/hostname", "operator": "In",
+                         "values": [node]}]}]}}}))
+        front_door_expect("the Tensorboard's children", sorted(
+            g.kind + "/" + o["metadata"]["name"]
+            for g in (SERVICE, VIRTUALSERVICE) for o in kube.list(g, ns)
+            if o["metadata"]["name"].endswith("tb")),
+            ["Service/tb", f"VirtualService/tensorboard-{ns}-tb"])
+
+        rc = cell.wait(NOTEBOOK_CELL_S)
+        cell_s = time.perf_counter() - cell.t0
+        out = cell.output()
+        cell.stop()
+        cell = None
+    finally:
+        if cell is not None:
+            cell.stop()
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+        shutil.rmtree(workspace, ignore_errors=True)
     lines = [ln[len("CELL "):] for ln in out.splitlines()
              if ln.startswith("CELL ")]
     if rc != 0 or len(lines) != 1:
@@ -7395,17 +7705,19 @@ def phase_platform_notebook(torch, dev):
     for name in ("nb", "nb2"):
         kube.delete(NOTEBOOK, name, ns)
         reconciler.reconcile(Request(ns, name))
+    kube.delete(TENSORBOARD, "tb", ns)
     left = [g.kind + "/" + o["metadata"]["name"]
-            for g in (STATEFULSET, SERVICE, VIRTUALSERVICE, POD)
+            for g in (STATEFULSET, SERVICE, VIRTUALSERVICE, POD, DEPLOYMENT)
             for o in kube.list(g, ns)]
-    used = kube.get(RESOURCEQUOTA, "gpus", ns)["status"]["used"]
+    used = kube.get(RESOURCEQUOTA, "kf-resource-quota", ns)["status"][
+        "used"]
     if left or used != {"nvidia.com/gpu": "0"}:
         raise AssertionError(f"platform_notebook: after delete {left}, "
                              f"quota used {used}")
     emit({"phase": "platform_notebook", "model": NOTEBOOK_MODEL,
           "reconcile_ms": reconcile_ms, "statefulset_env": env,
           "pod_labels": pod["metadata"]["labels"],
-          "second_pod_refused": refused, "status": status,
+          "second_pod_refused": refused, "status": nb_status,
           "cell_command": ["python", "-c", "<NOTEBOOK_CELL>", *args],
           "cell_exit": rc, "cell_seconds": cell_s,
           "cell_generate_ms": got["generate_ms"],
@@ -7420,6 +7732,18 @@ def phase_platform_notebook(torch, dev):
               {k: r[k] for k in ("kernel", "shape", "max_abs_err", "tol")}
               for r in kernel_rows],
           "cell_device": got["device"], "nvidia_smi": smi})
+    statuses = collections.Counter(str(r["status"]) for r in requests_log)
+    if any(r["status"] >= 500 for r in requests_log):
+        raise AssertionError(f"platform_notebook: a 5xx at the front door: "
+                             f"{requests_log}")
+    emit({"phase": "platform_notebook", "path": "front_door_ui",
+          "profile_reconcile_seconds": profile_s,
+          "kfam_binding_ms": binding_ms,
+          "requests_ms": {r["label"]: r["ms"] for r in requests_log},
+          "spawn_to_notebook_ms": spawn_ms,
+          "tensorboard_reconcile_ms": tensorboard_ms,
+          "http_status_counts": dict(sorted(statuses.items())),
+          "requests": len(requests_log), "nvidia_smi": smi})
     return got["launches"], got["tokens"]
 
 

@@ -1,7 +1,8 @@
 """The platform on NVIDIA GPUs: the port's copy of the notebook control
-plane, the culler, the job path, the serving front door and the
-controller runtime that drives them of ``kubeflow_tpu/platform/``, and
-the GPU seams their pods are made of.
+plane, the culler, the job path, the serving front door, the user's
+front door (the web apps, KFAM and the profile and tensorboard
+controllers) and the controller runtime that drives them of
+``kubeflow_tpu/platform/``, and the GPU seams their pods are made of.
 
 * ``gpu/``: the accelerator table and slice math (``topology.py``) and
   the pod pieces of a notebook, a job's worker and a serving replica
@@ -31,6 +32,18 @@ the GPU seams their pods are made of.
 * ``activator.py``: the serving front door, which holds a request to a
   parked service, stamps its wake and replays it into the woken
   replica, with per-tenant admission and fair-share drain;
+* ``controllers/profile.py``: ``ProfileReconciler``, a Profile into its
+  namespace, RBAC, AuthorizationPolicy and ``kf-resource-quota`` (where
+  ``nvidia.com/gpu`` quotas live); ``controllers/tensorboard.py``:
+  ``TensorboardReconciler``, a Tensorboard into its Deployment, Service
+  and VirtualService;
+* ``web/``: a WSGI framework on the standard library (``framework.py``,
+  served on ``wsgiref``), the CRUD backends' authn, authz, CSRF and
+  probes (``crud_backend.py``) and the SPAs' static files
+  (``static_serving.py``); ``apps/``: the Jupyter web app with its GPU
+  picker (``apps/jupyter/``, its config ``spawner_ui_config.json``), the
+  volumes and tensorboards apps; ``kfam/``: contributor bindings and
+  profiles over REST; ``frontend/``: the SPAs;
 * ``webhook/``: the PodDefault merge and its AdmissionReview with a
   JSON patch, served over HTTPS with live cert rotation
   (``server.py``, ``certs.py``);
@@ -85,6 +98,16 @@ over HTTP (or an API server through ``RestKubeClient()``)::
     mgr.add(notebook_controller(client, use_istio=False))
     mgr.start(); ...; mgr.stop(); server.stop()
 
+The user's front door: a Profile's reconcile makes the workspace, KFAM
+binds a contributor, and the Jupyter web app spawns a notebook inside
+the Profile's GPU quota::
+
+    mgr.add(profile_controller(kube))
+    kfam = create_kfam_app(kube).make_server("127.0.0.1", 0)
+    jwa = create_jupyter_app(kube).make_server("127.0.0.1", 0)
+    # POST /kfam/v1/bindings, then POST /api/namespaces/<ns>/notebooks
+    # with {"name", "gpus": {"accelerator", "gpus"}} as the contributor
+
 The serving front door: the controller publishes ready endpoints into
 the book the activator reads, and the sim plays the Deployments' pods::
 
@@ -129,15 +152,20 @@ _EXPORTS = {
     "LeaderElector": "runtime.leader",
     "Manager": "runtime.controller",
     "NotebookReconciler": "controllers.notebook",
+    "ProfileReconciler": "controllers.profile",
     "Request": "runtime.controller",
     "RestKubeClient": "k8s.client",
     "ShardCoordinator": "runtime.sharding",
     "ShardFilter": "runtime.sharding",
     "ShardedFleet": "testing.shardfleet",
+    "TensorboardReconciler": "controllers.tensorboard",
     "WebhookApp": "webhook.server",
     "WebhookServer": "webhook.server",
     "codec": ("k8s.codec", None),
     "create_activator_app": "activator",
+    "create_jupyter_app": ("apps.jupyter.app", "create_app"),
+    "create_kfam_app": ("kfam.app", "create_app"),
+    "create_tensorboards_app": ("apps.tensorboards.app", "create_app"),
     "culling_controller": ("controllers.culling", "make_controller"),
     "default_prober": "controllers.culling",
     "gpu_pod_default": "apis.poddefault",
@@ -148,7 +176,9 @@ _EXPORTS = {
     "mutate_admission_review": "webhook.mutate",
     "native": ("native", None),
     "notebook_controller": ("controllers.notebook", "make_controller"),
+    "profile_controller": ("controllers.profile", "make_controller"),
     "shard_of": "runtime.sharding",
+    "tensorboard_controller": ("controllers.tensorboard", "make_controller"),
 }
 
 __all__ = sorted(_EXPORTS)

@@ -30,7 +30,12 @@ cold starts, rollouts and scrape errors with the scrape-time
 ``inferenceservice_ready_replicas`` per namespace; the activator's held
 requests, sheds, per-tenant first-byte seconds, proxy outcomes and wake
 stamps; and the fleet scrape's errors, samples, targets and the TSDB's
-evictions (``telemetry/fleetscrape.py``).  ``render()`` is the
+evictions (``telemetry/fleetscrape.py``).  And the user's front
+door's: ``request_kf{component,kind}`` and ``request_kf_failure{component,
+kind,severity}`` (the web apps, KFAM and the profile controller),
+``degraded_responses_total{component}`` (a web read served from a cache)
+and ``service_heartbeat{component,severity}`` with its ticker
+(``start_heartbeat``/``stop_heartbeat``).  ``render()`` is the
 ``/metrics`` page.
 """
 from __future__ import annotations
@@ -648,6 +653,69 @@ kft_tsdb_series_evicted_total = Counter(
     "(oldest-last-sample first); a climbing rate means the store is "
     "undersized for the fleet (KFT_TSDB_MAX_SERIES)",
     registry=registry)
+
+
+# The profile controller's and KFAM's monitoring pattern (reference
+# profile-controller/controllers/monitoring.go:28-60, kfam/monitoring.go),
+# which the web apps share through their middleware: per-kind request
+# counters, severity-labelled failure counters and a liveness heartbeat
+# on a fixed cadence.
+SEVERITY_MINOR = "minor"
+SEVERITY_MAJOR = "major"
+SEVERITY_CRITICAL = "critical"
+
+request_kf = Counter(
+    "request_kf_total",
+    "Requests handled, by component and resource kind",
+    ["component", "kind"], registry=registry)
+request_kf_failure = Counter(
+    "request_kf_failure_total",
+    "Failed requests, by component, resource kind, and severity",
+    ["component", "kind", "severity"], registry=registry)
+service_heartbeat = Counter(
+    "service_heartbeat_total",
+    "Heartbeat signal on a fixed cadence indicating the service is alive",
+    ["component", "severity"], registry=registry)
+degraded_responses_total = Counter(
+    "degraded_responses_total",
+    "Web responses served from a possibly-stale informer cache because "
+    "the live apiserver read failed transiently (degraded: true)",
+    ["component"], registry=registry)
+
+_heartbeats: Dict[str, threading.Event] = {}
+_heartbeats_lock = threading.Lock()
+
+
+def start_heartbeat(component: str, *, interval: float = 10.0):
+    """Tick ``service_heartbeat{component}`` every ``interval`` seconds
+    from a daemon thread.  Idempotent per component while its heartbeat
+    lives; a stopped one is replaced, so a component can restart its
+    heartbeat.  Returns the stop Event."""
+    with _heartbeats_lock:
+        existing = _heartbeats.get(component)
+        if existing is not None and not existing.is_set():
+            return existing
+        stop = threading.Event()
+        _heartbeats[component] = stop
+
+    def tick():
+        counter = service_heartbeat.labels(component=component,
+                                           severity=SEVERITY_CRITICAL)
+        while not stop.wait(interval):
+            counter.inc()
+
+    threading.Thread(target=tick, name=f"heartbeat-{component}",
+                     daemon=True).start()
+    return stop
+
+
+def stop_heartbeat(component: str) -> None:
+    """Stop a component's heartbeat and drop its entry, so a later
+    ``start_heartbeat(component)`` starts a fresh ticker."""
+    with _heartbeats_lock:
+        stop = _heartbeats.pop(component, None)
+    if stop is not None:
+        stop.set()
 
 
 def render() -> str:

@@ -37,7 +37,7 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 102
+    assert int(out.stdout.strip()) >= 120
 
 
 @pytest.mark.parametrize("module", [
@@ -104,6 +104,19 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     "kubeflow_tpu_torch.platform.activator",
     "kubeflow_tpu_torch.platform.controllers.inferenceservice",
     "kubeflow_tpu_torch.platform.testing.servesim",
+    "kubeflow_tpu_torch.platform.web",
+    "kubeflow_tpu_torch.platform.web.framework",
+    "kubeflow_tpu_torch.platform.web.crud_backend",
+    "kubeflow_tpu_torch.platform.web.static_serving",
+    "kubeflow_tpu_torch.platform.controllers.profile",
+    "kubeflow_tpu_torch.platform.controllers.tensorboard",
+    "kubeflow_tpu_torch.platform.kfam.bindings",
+    "kubeflow_tpu_torch.platform.kfam.app",
+    "kubeflow_tpu_torch.platform.apps.jupyter.form",
+    "kubeflow_tpu_torch.platform.apps.jupyter.status",
+    "kubeflow_tpu_torch.platform.apps.jupyter.app",
+    "kubeflow_tpu_torch.platform.apps.volumes.app",
+    "kubeflow_tpu_torch.platform.apps.tensorboards.app",
 ])
 def test_checkpoint_and_scheduler_stand_alone(module):
     """The modules that save and serve a trained model, the replica's
@@ -115,8 +128,10 @@ def test_checkpoint_and_scheduler_stand_alone(module):
     engine's loader and the HTTP server, the packer on the engine, and
     the serving front door: the webhook's TLS server and its pair, the
     text parser, the TSDB, the fleet scrape, the autoscaler, the
-    activator, the InferenceService controller and the fleet sim)
-    import with JAX, the JAX package, the serving libraries, yaml,
+    activator, the InferenceService controller and the fleet sim; and
+    the user's front door: the web framework, the CRUD backend, static
+    serving, the profile and tensorboard controllers, KFAM and the
+    Jupyter, volumes and tensorboards apps) import with JAX, the JAX package, the serving libraries, yaml,
     requests and cryptography blocked, and pull none of them in."""
     path = REPO / (module.replace(".", "/") + ".py")
     if not path.exists():
@@ -160,6 +175,35 @@ def test_source_imports_nothing_of_jax_or_the_reference(path):
     # The JAX package may be named as a file path in documentation
     # ("kubeflow_tpu/ops/..."), never as a module.
     assert re.search(r"kubeflow_tpu(?!_torch)(?!/)", text) is None
+
+
+# Source files only: a compiled .pyc appears once a module is imported.
+FRONT_DOOR = sorted(
+    p for d in ("frontend", "apps")
+    for p in (PKG / "platform" / d).rglob("*")
+    if p.suffix in (".py", ".js", ".html", ".css", ".json", ".yaml"))
+
+
+def test_the_front_door_is_not_the_reference_files():
+    """The SPAs and the apps were copied and rewritten, not linked."""
+    assert {p.suffix for p in FRONT_DOOR} >= {".py", ".js", ".html",
+                                              ".css", ".json"}
+    assert not any(p.is_symlink() for p in FRONT_DOOR)
+
+
+@pytest.mark.parametrize("path", FRONT_DOOR,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_front_door_files_name_no_yaml_werkzeug_or_tpu_resource(path):
+    """No file of the port's SPAs or apps names ``yaml`` (the spawner's
+    config is JSON; the card's machine has no YAML parser), ``werkzeug``
+    (the apps run on the port's framework) or ``google.com/tpu`` (the
+    resource is ``nvidia.com/gpu``).  The check is on the lower-case
+    word: the detail page's tab that renders an object in YAML syntax is
+    named "manifest" in the code and "YAML" on screen."""
+    text = path.read_text()
+    for word in ("yaml", "werkzeug", "google.com/tpu"):
+        assert word not in text, f"{path.relative_to(REPO)} names {word}"
+    assert path.suffix != ".yaml"
 
 
 def test_nvcc_command_targets_sm90a(tmp_path, monkeypatch):
