@@ -350,6 +350,45 @@ After 11:
    second line prints the requests by verb with their p50 and p99
    seconds, the watch establishments by kind, the codec's counts and the
    engine's components.
+11e. platform_main: the production entrypoint around this card.
+   ``FakeKube`` (one h100-80gb node of one GPU) is served by
+   ``HttpKubeServer`` in this process and a JSON kubeconfig points two
+   child processes at it: ``python -m kubeflow_tpu_torch.platform.main
+   controllers --health-port P`` (MAIN_KNOBS: leader election in
+   ``kubeflow`` as ``ctrl-0``, the metrics pipeline every
+   MAIN_PIPELINE_S, the queue-wait SLO cut to a 1 s threshold over 10 /
+   60 s windows; the activator on a free port) and ``... main dashboard
+   --port Q``.  /healthz answers 200 with the engine and the REST
+   client, and the Lease names the controllers' elector.  User
+   MAIN_USER registers through the dashboard (``POST
+   /api/workgroup/create``, the XSRF cookie echoed), the controllers'
+   profile controller makes namespace ``kubeflow-smoke``, an admin sets
+   the Profile's one-GPU quota.  GPUJob ``hold`` (one GPU, a container
+   that sleeps MAIN_HOLD_S and does no card work) is admitted; GPUJob
+   ``train`` (one GPU, MESH_ARGS at MANAGER_JOB_STEPS steps) waits
+   Queued behind it; ``GpuJobGangSim`` plays the kubelet with
+   ``JobPods``.  While train waits, ``/api/gpu-overview?ns=`` shows 1 GPU
+   of capacity and the quota with 0 remaining, env-info names the user
+   as owner, ``/`` serves the SPA and ``/api/metrics/gpu`` answers 405
+   (no Prometheus).  train is admitted within a Queued job's poll plus
+   one reconcile of hold's exit, its losses 11a's first
+   MANAGER_JOB_STEPS within MESH_LOSS_TOL and its launches exact.  On
+   the health port: the queue-wait alert fired at train's admission; one
+   incident bundle for it holds the rule's burn rates, the TSDB window,
+   journeys, the queue and goodput snapshots and the knobs; train's
+   journey (``/debug/journey/<trace id>``) decomposes into segments
+   that tile it, its ``admission_queue`` the Queued-to-admitted wait
+   within one pipeline pass plus one poll; ``/debug/goodput`` tiles the
+   profile (its states' ``gpu_seconds_total`` against the allocation
+   ``gpu_goodput_ratio`` implies, to 1e-9 relative), the allocation the
+   two gangs' admitted-to-done walls within two passes a job;
+   ``gpu_goodput_ratio`` and ``kft_profile_samples_total`` above 0;
+   ``/debug/knobs`` lists every knob set, from the environment; no
+   pipeline pass logged a failure.  SIGTERM ends both processes with 0
+   within 10 s, and no pid of theirs or of a pod is left on the card.
+   A ``platform_main`` line prints each step's seconds, the wait, the
+   segment, the alert's and the incident's times, goodput by state and
+   the dashboard's request ms beside the card's name and power limit.
 11d. platform_shards: the sharded HA control plane around this card.
    A ``ShardedFleet`` of SHARD_REPLICAS replicas over one ``FakeKube``,
    each a ``Manager`` over its own ``ShardCoordinator`` (SHARD_COUNT
@@ -722,6 +761,23 @@ if __name__ == "__main__":
 PLATFORM_IDLE_MINUTES = 0.1
 PLATFORM_CHECK_MINUTES = 0.02
 MANAGER_JOB_STEPS = 2
+# The entrypoint phase (platform_main): the controllers' process runs
+# with these knobs: the pipeline every MAIN_PIPELINE_S, and the
+# queue-wait SLO cut from its defaults (a 300 s threshold over 300/3600 s
+# windows) so that train's wait behind hold burns it within the phase.
+# hold's container sleeps MAIN_HOLD_S on the host and does no card work.
+MAIN_USER = "smoke@example.com"
+MAIN_PIPELINE_S = 1.0
+# A Queued job's poll: the job controller's max(queue_poll, 2 s).
+MAIN_QUEUE_POLL_S = 2.0
+MAIN_KNOBS = {"LEADER_ELECT": "true", "POD_NAMESPACE": "kubeflow",
+              "POD_NAME": "ctrl-0",
+              "KFT_PIPELINE_INTERVAL_SECONDS": str(MAIN_PIPELINE_S),
+              "KFT_SLO_QUEUE_WAIT_SECONDS": "1",
+              "KFT_SLO_FAST_WINDOW_SECONDS": "10",
+              "KFT_SLO_SLOW_WINDOW_SECONDS": "60"}
+MAIN_HOLD_S = 3.0
+MAIN_HOLD = f"import time; time.sleep({MAIN_HOLD_S})"
 # The manager phase's watch window over the wire: every watch the client
 # opens closes after this many seconds and resumes from its version.
 MANAGER_WATCH_WINDOW_S = 5
@@ -8635,6 +8691,433 @@ def phase_platform_manager(torch, dev, mesh_losses):
     return launches
 
 
+def main_process(argv, env, what):
+    """``python -m kubeflow_tpu_torch.platform.main <argv>`` as a
+    deployment runs it, its output in a temporary file."""
+    return Pod([sys.executable, "-m", "kubeflow_tpu_torch.platform.main",
+                *argv], env, what)
+
+
+def http_json(base, path, what, *, headers=None):
+    """(status, JSON body) of a GET; a 5xx fails ``what``."""
+    req = urllib.request.Request(base + path, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            status, raw = resp.status, resp.read()
+            ctype = resp.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        status, raw, ctype = e.code, e.read(), ""
+    if status >= 500:
+        raise AssertionError(f"{what}: GET {path} answered {status}: "
+                             f"{raw[:2000]!r}")
+    return status, (json.loads(raw) if ctype.startswith("application/json")
+                    else raw.decode(errors="replace"))
+
+
+def metric_samples(page, name):
+    """{labels text: value} of ``name``'s samples on a /metrics page."""
+    out = {}
+    for line in page.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            key, _, value = line.rpartition(" ")
+            out[key[len(name):]] = float(value)
+    return out
+
+
+def phase_platform_main(torch, dev, mesh_losses):
+    """The production entrypoint on this card (the docstring's 11e): the
+    controllers and the dashboard run as ``python -m
+    kubeflow_tpu_torch.platform.main`` processes against ``FakeKube``
+    served over HTTP; a user registers through the dashboard, GPUJob
+    ``train`` waits behind GPUJob ``hold`` on the Profile's one-GPU quota,
+    then trains on the card; the controllers' health port shows its
+    admission, its alert, its incident, its critical path and the
+    goodput of both.  Returns train's launch counts."""
+    from kubeflow_tpu_torch.models.llama import CONFIGS as LLAMA_CONFIGS
+    from kubeflow_tpu_torch.platform import FakeKube, GpuJobGangSim
+    from kubeflow_tpu_torch.platform.gpu import RESOURCE_GPU
+    from kubeflow_tpu_torch.platform.k8s.types import (
+        GPUJOB,
+        LEASE,
+        NAMESPACE,
+        PROFILE,
+        RESOURCEQUOTA,
+    )
+    from kubeflow_tpu_torch.platform.testing.httpkube import HttpKubeServer
+    from kubeflow_tpu_torch.telemetry import critical_path
+    from kubeflow_tpu_torch.telemetry.causal import TRACEPARENT_ANNOTATION
+
+    smi = nvidia_smi_name_power()
+    user_ns = "kubeflow-" + MAIN_USER.split("@")[0]
+    kube = FakeKube()
+    kube.add_namespace("kubeflow")
+    kube.add_gpu_node("gpu-node-0", accelerator=PLATFORM_ACCELERATOR,
+                      gpus=1)
+    server = HttpKubeServer(kube).start()
+    tmp = tempfile.mkdtemp(prefix="platform_main-")
+    kubeconfig = os.path.join(tmp, "kubeconfig.json")
+    with open(kubeconfig, "w") as f:
+        json.dump({"current-context": "smoke",
+                   "contexts": [{"name": "smoke", "context": {
+                       "cluster": "smoke", "user": "smoke"}}],
+                   "clusters": [{"name": "smoke", "cluster": {
+                       "server": server.base_url}}],
+                   "users": [{"name": "smoke", "user": {}}]}, f)
+    health, act, dash = free_port(), free_port(), free_port()
+    knobs = {**MAIN_KNOBS, "KUBECONFIG": kubeconfig,
+             "KFT_ACTIVATOR_PORT": str(act)}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("KFT_SLO_", "KFT_PIPELINE", "KFT_ACTIVATOR",
+                                "LEADER_ELECT", "POD_NAME"))}
+    hbase, dbase = f"http://127.0.0.1:{health}", f"http://127.0.0.1:{dash}"
+    jobs = JobPods(kube, user_ns, {
+        f"{j}-0.{j}-workers.{user_ns}.svc.cluster.local": "127.0.0.1"
+        for j in ("hold", "train")})
+    sim = ctrl = dboard = None
+    marks, requests_log = {}, []
+    t_start = time.perf_counter()
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_start
+        return time.time()
+
+    def alive():
+        for pod in (ctrl, dboard):
+            if pod is not None and pod.proc.poll() is not None:
+                pod.fail(f"exited {pod.proc.returncode}")
+        if sim is not None and sim.errors:
+            raise sim.errors[0]
+
+    def wait_until(cond, what, timeout):
+        deadline = time.perf_counter() + timeout
+        while True:
+            alive()
+            got = cond()
+            if got:
+                return got
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"platform_main: no {what} within "
+                                     f"{timeout} s")
+            time.sleep(0.05)
+
+    def answers(base, path):
+        try:
+            return http_json(base, path, "platform_main")[0] == 200
+        except OSError:
+            return False
+
+    def status(name):
+        found = kube.list(GPUJOB, user_ns)
+        return next((j.get("status") or {} for j in found
+                     if j["metadata"]["name"] == name), {})
+
+    def expect(what, got, ok):
+        if not ok:
+            raise AssertionError(f"platform_main: {what}: {got!r}")
+
+    stamps = {}
+
+    def watch_jobs():
+        """The phase's clock on each job: admitted, done (50 ms polls)."""
+        for name in ("hold", "train"):
+            st = status(name) if stamps.get("ns") else {}
+            if st.get("allocatedSlices") and (name, "admitted") not in stamps:
+                stamps[(name, "admitted")] = time.time()
+            if st.get("phase") == "Queued" and (name, "queued") not in stamps:
+                # The controller's own stamp of the Queued transition.
+                stamps[(name, "queued")] = float(st.get("queuedAt")
+                                                 or time.time())
+            if st.get("phase") in ("Succeeded", "Failed") \
+                    and (name, "done") not in stamps:
+                stamps[(name, "done")] = time.time()
+
+    try:
+        ctrl = main_process(["controllers", "--health-port", str(health)],
+                            {**env, **knobs}, "platform_main controllers")
+        dboard = main_process(["dashboard", "--port", str(dash)],
+                              {**env, "KUBECONFIG": kubeconfig},
+                              "platform_main dashboard")
+        wait_until(lambda: answers(hbase, "/healthz"), "controllers' "
+                   "/healthz", 120)
+        mark("controllers_up")
+        wait_until(lambda: answers(dbase, "/"), "dashboard", 120)
+        mark("dashboard_up")
+        _, body = http_json(hbase, "/healthz", "platform_main")
+        expect("healthz", body, body.get("healthy") is True
+               and body.get("engine") and "rest_client" in body)
+        wait_until(lambda: kube.list(LEASE, "kubeflow"), "Lease", 30)
+        lease = kube.get(LEASE, "kubeflow-tpu-controller-leader", "kubeflow")
+        holder = lease["spec"]["holderIdentity"]
+        expect("lease holder", holder,
+               holder.startswith("kubeflow-tpu-controller-leader-"))
+
+        # 1-2. Registration through the dashboard, the namespace from the
+        # controllers' profile controller, the admin's one-GPU quota.
+        user = FrontDoorUser(MAIN_USER, requests_log)
+        st, info, _ = user.request(dbase, "GET", "/api/workgroup/env-info",
+                                   label="env-info before")
+        expect("env-info", (st, info), st == 200
+               and info["hasWorkgroup"] is False)
+        st, made, _ = user.request(dbase, "POST", "/api/workgroup/create",
+                                   {}, label="register")
+        expect("register", (st, made), st == 200
+               and made.get("namespace") == user_ns)
+        mark("registered")
+        wait_until(lambda: any(n["metadata"]["name"] == user_ns
+                               for n in kube.list(NAMESPACE)),
+                   "the profile's namespace", 30)
+        mark("namespace")
+        stamps["ns"] = True
+        profile = kube.get(PROFILE, user_ns)
+        profile["spec"]["resourceQuotaSpec"] = {"hard": {RESOURCE_GPU: "1"}}
+        kube.update(profile)
+        wait_until(lambda: any(
+            (q["spec"].get("hard") or {}).get(RESOURCE_GPU) == "1"
+            for q in kube.list(RESOURCEQUOTA, user_ns)), "the quota", 30)
+        mark("quota")
+
+        # 3-5. hold, then train behind it; the sim plays the kubelet.
+        sim = GpuJobGangSim(kube, user_ns, work=jobs.work)
+        argv = list(MESH_ARGS)
+        argv[argv.index("--steps") + 1] = str(MANAGER_JOB_STEPS)
+        for name, command in (("hold", ["python", "-c", MAIN_HOLD]),
+                              ("train", ["python", "-m",
+                                         "kubeflow_tpu_torch.train.run",
+                                         *argv])):
+            kube.create({
+                "apiVersion": "kubeflow.org/v1alpha1", "kind": "GPUJob",
+                "metadata": {"name": name, "namespace": user_ns},
+                "spec": {"gpu": {"accelerator": PLATFORM_ACCELERATOR,
+                                 "gpus": 1},
+                         "template": {"spec": {"containers": [{
+                             "name": "trainer", "image": "kubeflow-tpu-torch",
+                             "command": command}]}}}})
+            if name == "hold":
+                wait_until(lambda: (watch_jobs(), status("hold").get(
+                    "allocatedSlices"))[1], "hold's admission", 30)
+        trace_id = kube.get(GPUJOB, "train", user_ns)["metadata"][
+            "annotations"][TRACEPARENT_ANNOTATION].split("-")[1]
+        wait_until(lambda: (watch_jobs(), status("train").get("phase")
+                            == "Queued")[1], "Queued train", 30)
+        mark("train_queued")
+        # The dashboard while train waits: hold's pod holds the GPU.
+        wait_until(lambda: (watch_jobs(), jobs.runs.get(("hold", 0)))[1],
+                   "hold's pod", 60)
+        st, ov, _ = user.request(dbase, "GET",
+                                 f"/api/gpu-overview?ns={user_ns}",
+                                 label="gpu-overview while train waits")
+        expect("gpu-overview", ov, st == 200
+               and ov["clusterCapacityGPUs"] == 1
+               and ov["quota"] == {"hard": 1, "used": 1, "remaining": 0})
+        st, info, _ = user.request(dbase, "GET", "/api/workgroup/env-info",
+                                   label="env-info after")
+        expect("env-info owner", info, st == 200 and info["hasWorkgroup"]
+               and {"namespace": user_ns, "role": "owner",
+                    "user": MAIN_USER} in info["namespaces"])
+        st, page, _ = user.request(dbase, "GET", "/", label="spa")
+        expect("the SPA", st, st == 200 and b"GPUs (cluster)" in page)
+        st, _, _ = user.request(dbase, "GET", "/api/metrics/gpu",
+                                label="metrics without Prometheus")
+        expect("/api/metrics/gpu", st, st == 405)
+        expect("train still queued", status("train"),
+               status("train").get("phase") == "Queued")
+
+        # train: admitted within its queue poll plus one reconcile of
+        # hold's pod exit, then it trains.
+        wait_until(lambda: (watch_jobs(), jobs.runs[("hold", 0)].get(
+            "exit_at"))[1], "hold's exit", 60)
+        hold_exit = time.time() - (time.perf_counter()
+                                   - jobs.runs[("hold", 0)]["exit_at"])
+        wait_until(lambda: (watch_jobs(), ("train", "admitted") in
+                            stamps)[1], "train's admission", 30)
+        admit_s = stamps[("train", "admitted")] - hold_exit
+        admit_limit = MAIN_QUEUE_POLL_S + PLATFORM_RECONCILE_S
+        expect("train admitted after hold's exit", admit_s,
+               admit_s <= admit_limit)
+        mark("train_admitted")
+        wait_until(lambda: (watch_jobs(), ("train", "done") in stamps)[1],
+                   "train's end", PLATFORM_JOB_S)
+        mark("train_done")
+        expect("train", status("train"),
+               status("train").get("phase") == "Succeeded")
+        run = jobs.runs[("train", 0)]
+        losses = [st["loss"] for st in train_step_lines(run["output"])]
+        want = mesh_losses[:MANAGER_JOB_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        if (run["rc"] != 0 or len(losses) != MANAGER_JOB_STEPS
+                or any(r > t for r, t in zip(rel, loss_limits(want)))):
+            raise AssertionError(
+                f"platform_main: train exited {run['rc']}, losses {losses} "
+                f"against the mesh phase's {want} ({rel})\n"
+                + run["output"][-6000:])
+        per_step = train_launches_per_step(LLAMA_CONFIGS[TRAIN_MODEL])
+        job_got = kernel_launch_line(run["output"], "platform_main train")
+        job_want = {k: c * MANAGER_JOB_STEPS for k, c in per_step.items()}
+        expect(f"train's launches against {job_want}", job_got,
+               job_got == job_want)
+
+        # The health port, two pipeline passes after the last state.
+        time.sleep(2.5 * MAIN_PIPELINE_S)
+        _, alerts = http_json(hbase, "/debug/alerts", "platform_main")
+        (rule,) = [a for a in alerts["alerts"] if a["alert"] == "queue-wait"]
+        expect("queue-wait alert", rule, rule["transitions"] >= 1
+               and rule["since"] is not None
+               and rule["metric"] == "gpujob_queue_wait_seconds_bucket")
+        fire_s = rule["since"] - stamps[("train", "admitted")]
+        cross_s = rule["since"] - (stamps[("train", "queued")]
+                                   + float(MAIN_KNOBS[
+                                       "KFT_SLO_QUEUE_WAIT_SECONDS"]))
+        expect("the alert fired after train's admission", fire_s,
+               -0.5 <= fire_s <= 2 * MAIN_PIPELINE_S + 1.0)
+        _, listing = http_json(hbase, "/debug/incidents", "platform_main")
+        ours = [m for m in listing["incidents"] if m["alert"] == "queue-wait"]
+        expect("one queue-wait incident", listing, len(ours) == 1)
+        t0 = time.perf_counter()
+        st, bundle = http_json(hbase, f"/debug/incidents/{ours[0]['id']}",
+                               "platform_main")
+        bundle_ms = (time.perf_counter() - t0) * 1e3
+        expect("the incident bundle", sorted(bundle), st == 200
+               and bundle["alert"]["alert"] == "queue-wait"
+               and bundle["alert"]["fastBurn"] is not None
+               and bundle["alert"]["slowBurn"] is not None
+               and bundle["tsdb"]["metric"]
+               == "gpujob_queue_wait_seconds_bucket"
+               and bundle["tsdb"]["series"]
+               and bundle["journeys"]
+               and bundle["queue"] is not None
+               and bundle["goodput"] is not None
+               and "KFT_SLO_QUEUE_WAIT_SECONDS" in bundle["knobs"])
+        capture_s = (bundle["alert"]["capturedAt"]
+                     - stamps[("train", "admitted")])
+
+        # The critical path of train's journey.
+        _, journey = http_json(hbase, f"/debug/journey/{trace_id}",
+                               "platform_main")
+        path = critical_path.decompose(journey["spans"])
+        segs = path["segments"]
+        wait_s = stamps[("train", "admitted")] - stamps[("train", "queued")]
+        limit = MAIN_PIPELINE_S + MAIN_QUEUE_POLL_S
+        entries = path["path"]
+        # The entries tile [first start, last end]: no gap, and no
+        # overlap past the analyzer's causal tolerance (EPS: a cause may
+        # end that much after its effect starts), so the segments sum to
+        # the total within EPS an entry.
+        slack = critical_path.EPS * len(entries) + 1e-5
+        tiles = (all(abs(b["start_ts"] - a["end_ts"]) <= critical_path.EPS
+                     for a, b in zip(entries, entries[1:]))
+                 and abs(entries[-1]["end_ts"] - entries[0]["start_ts"]
+                         - path["total_s"]) <= slack
+                 and abs(sum(segs.values()) - path["total_s"]) <= slack)
+        admission_entries = len([e for e in entries
+                                 if e.get("segment") == "admission_queue"])
+        expect(f"admission_queue against the {wait_s} s wait (limit "
+               f"{limit} s), the path tiling {path['total_s']} s",
+               (segs, admission_entries, tiles),
+               abs(segs.get("admission_queue", 0.0) - wait_s) <= limit
+               and tiles)
+
+        # Goodput: the two gangs' GPU-seconds, tiled.
+        _, gp = http_json(hbase, "/debug/goodput", "platform_main")
+        row = gp["profiles"].get(user_ns) or {}
+        _, page = http_json(hbase, "/metrics", "platform_main")
+        states = {k: v for k, v in metric_samples(
+            page, "gpu_seconds_total").items() if f'"{user_ns}"' in k}
+        ratio = metric_samples(page, "gpu_goodput_ratio").get(
+            f'{{profile="{user_ns}"}}', 0.0)
+        good = sum(v for k, v in states.items() if '"goodput"' in k)
+        tiled = sum(states.values())
+        allocated = good / ratio if ratio else 0.0
+        walls = sum(stamps[(j, "done")] - stamps[(j, "admitted")]
+                    for j in ("hold", "train"))
+        expect("goodput", (row, states, ratio, walls),
+               row.get("tiles") is True and ratio > 0
+               and abs(tiled - allocated) <= 1e-9 * allocated
+               and abs(row["allocatedGpuSeconds"] - tiled) <= 5e-4
+               and abs(tiled - walls) <= 2 * 2 * MAIN_PIPELINE_S)
+        samples = sum(metric_samples(page,
+                                     "kft_profile_samples_total").values())
+        expect("profiler samples", samples, samples > 0)
+        errors = sum(metric_samples(page, "reconcile_errors_total").values())
+
+        # Knobs: every one the phase set, from the environment.
+        _, table = http_json(hbase, "/debug/knobs", "platform_main")
+        def same(got, want):
+            if str(got).lower() == want.lower():
+                return True
+            try:
+                return float(got) == float(want)
+            except (TypeError, ValueError):
+                return False
+
+        missing = {k: table["knobs"].get(k) for k, v in knobs.items()
+                   if (table["knobs"].get(k) or {}).get("source") != "env"
+                   or not same(table["knobs"][k]["value"], v)}
+        expect("knobs from the environment", missing, not missing)
+        wait_until(lambda: answers(f"http://127.0.0.1:{act}", "/healthz"),
+                   "the activator", 10)
+    finally:
+        if sim is not None:
+            sim.close()
+        jobs.close()
+        shutdown = {}
+        logs = {}
+        for pod in (ctrl, dboard):
+            if pod is None or pod.log.closed:
+                continue
+            logs[pod.what] = pod.output()
+            t0 = time.perf_counter()
+            rc = pod.stop()
+            shutdown[pod.what] = {"rc": rc,
+                                  "seconds": time.perf_counter() - t0}
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for what, out in logs.items():
+        # The pipeline logs a failed pass and carries on, as the
+        # reference's does; here any such line fails the phase.
+        bad = [ln for ln in out.splitlines() if any(
+            w in ln for w in ("pipeline step failed", "rule evaluation failed",
+                              "goodput tick failed"))]
+        expect(f"{what}'s log", bad[:20], not bad)
+    expect("SIGTERM", shutdown, all(v["rc"] == 0 and v["seconds"] <= 10.0
+                                    for v in shutdown.values())
+           and len(shutdown) == 2)
+    pids = {ctrl.proc.pid, dboard.proc.pid} | {
+        r["pod"].proc.pid for r in jobs.runs.values()}
+    left = pids & gpu_pids()
+    expect("pids left on the card", left, not left)
+    launches = {name: job_got.get(name, 0) for name in SOURCES}
+    emit({"phase": "platform_main", "lease_holder": holder,
+          "seconds": marks, "seconds_train_queued_to_admitted": wait_s,
+          "seconds_hold_exit_to_train_admitted": admit_s,
+          "admission_limit_seconds": admit_limit,
+          "admission_queue_segment_seconds": segs.get("admission_queue"),
+          "admission_queue_path_entries": admission_entries,
+          "critical_path_segments": segs,
+          "critical_path_total_seconds": path["total_s"],
+          "alert": {"fast_burn_at_capture": bundle["alert"]["fastBurn"],
+                    "slow_burn_at_capture": bundle["alert"]["slowBurn"],
+                    "state": rule["state"],
+                    "seconds_admission_to_fire": fire_s,
+                    "seconds_threshold_crossed_to_fire": cross_s,
+                    "windows": rule["windows"]},
+          "incident": {"id": ours[0]["id"], "sections": ours[0]["sections"],
+                       "seconds_admission_to_capture": capture_s,
+                       "bundle_fetch_ms": bundle_ms,
+                       "journeys": len(bundle["journeys"]),
+                       "series": len(bundle["tsdb"]["series"])},
+          "goodput_gpu_seconds": {k: row.get(f"{k}GpuSeconds") for k in (
+              "allocated", "goodput", "queued", "restarting", "idle")},
+          "goodput_ratio": ratio, "jobs_admitted_to_done_seconds": walls,
+          "profile_samples": samples, "reconcile_errors": errors,
+          "dashboard_requests": [{k: r[k] for k in ("label", "status", "ms")}
+                                 for r in requests_log],
+          "shutdown": shutdown, "train_losses": losses,
+          "mesh_phase_losses": want, "loss_rel_diff": rel,
+          "train_wall_seconds": run["wall_s"], "launches": job_got,
+          "knobs": MAIN_KNOBS, "nvidia_smi": smi})
+    return launches
+
+
 def phase_platform_shards(torch, dev, notebook_tokens):
     """The sharded HA control plane around this card (the docstring's
     11d): a fleet of replicas, each a ``Manager`` over its own shard
@@ -9116,6 +9599,7 @@ def main() -> int:
     mesh_counts, mesh_losses = timed(phase_mesh, torch, train)
     job_counts = timed(phase_platform_job, torch, mesh_losses)
     manager_counts = timed(phase_platform_manager, torch, dev, mesh_losses)
+    main_counts = timed(phase_platform_main, torch, dev, mesh_losses)
     shards_counts = timed(phase_platform_shards, torch, dev, notebook_tokens)
     timed(phase_checkpoint, torch, dev)
     vit_counts = timed(phase_vit, torch, dev)
@@ -9156,6 +9640,7 @@ def main() -> int:
                              "mesh": mesh_counts[name],
                              "platform_job": job_counts[name],
                              "platform_manager": manager_counts[name],
+                             "platform_main": main_counts[name],
                              "platform_shards": shards_counts[name],
                              "resnet": resnet_counts[name],
                              "vit": vit_counts[name],

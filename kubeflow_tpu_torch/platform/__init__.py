@@ -62,7 +62,19 @@ controllers) and the controller runtime that drives them of
   churned; ``testing/httpkube.py``: ``HttpKubeServer``, a ``FakeKube``
   served over HTTP, and ``make_transport``; ``testing/servesim.py``:
   ``InferenceFleetSim``, the pods of an InferenceService's Deployments;
-* ``config.py``: the platform's env knobs.
+* ``config.py``: the platform's env knobs and their registry
+  (``knob``, ``effective``);
+* ``dashboard/``: the central dashboard's backend with its GPU overview
+  (``app.py``) and its Prometheus utilization series
+  (``metrics_service.py``), beside the SPA in ``frontend/dashboard/``;
+* ``main.py``: the production entrypoint, one service a process
+  (``python -m kubeflow_tpu_torch.platform.main controllers|webhook|
+  jupyter|volumes|tensorboards|kfam|dashboard``): the controllers with
+  the activator, the fleet metrics pipeline (``telemetry/
+  fleetscrape.MetricsPipeline`` over the SLO rules, goodput and the
+  incident recorder) and the profiler behind one health port;
+  ``demo.py``: a notebook's spawn on ``FakeKube``, or with ``--serve``
+  the whole platform on loopback ports.
 
 Standard library only (with the port's ``parallel/envspec.py`` and
 ``telemetry/``, and ``g++`` for the engine, whose absence leaves the
@@ -139,6 +151,7 @@ _EXPORTS = {
     "Controller": "runtime.controller",
     "CullingReconciler": "controllers.culling",
     "EndpointBook": "activator",
+    "Interval": "dashboard.metrics_service",
     "FakeKube": "testing.fake",
     "FencedClient": "runtime.sharding",
     "FencingError": "runtime.sharding",
@@ -150,8 +163,10 @@ _EXPORTS = {
     "Informer": "runtime.informer",
     "JobQueue": "runtime.jobqueue",
     "LeaderElector": "runtime.leader",
+    "MetricsService": "dashboard.metrics_service",
     "Manager": "runtime.controller",
     "NotebookReconciler": "controllers.notebook",
+    "PrometheusMetricsService": "dashboard.metrics_service",
     "ProfileReconciler": "controllers.profile",
     "Request": "runtime.controller",
     "RestKubeClient": "k8s.client",
@@ -163,15 +178,20 @@ _EXPORTS = {
     "WebhookServer": "webhook.server",
     "codec": ("k8s.codec", None),
     "create_activator_app": "activator",
+    "create_dashboard_app": ("dashboard.app", "create_app"),
     "create_jupyter_app": ("apps.jupyter.app", "create_app"),
     "create_kfam_app": ("kfam.app", "create_app"),
     "create_tensorboards_app": ("apps.tensorboards.app", "create_app"),
     "culling_controller": ("controllers.culling", "make_controller"),
     "default_prober": "controllers.culling",
+    "demo": ("demo", None),
     "gpu_pod_default": "apis.poddefault",
     "gpujob_controller": ("controllers.gpujob", "make_controller"),
     "inferenceservice_controller": ("controllers.inferenceservice",
                                     "make_controller"),
+    "effective_knobs": ("config", "effective"),
+    "knob": "config",
+    "main": ("main", None),
     "make_transport": "testing.httpkube",
     "mutate_admission_review": "webhook.mutate",
     "native": ("native", None),

@@ -36,9 +36,9 @@ publishes each service's ready endpoints (and its TTFT target) into the
 process-shared ``EndpointBook`` every pass, and ``forget``s them on
 delete.
 
-Every knob is ``KFT_ACTIVATOR_*`` with the reference's default; a value
-that does not parse or is out of range raises ``ValueError`` where it is
-read.
+Every knob is ``KFT_ACTIVATOR_*`` with the reference's default, read
+through ``config.knob(validate=)``: a value that does not parse or is
+out of range raises ``ValueError`` where it is read.
 
 Drive it on the CPU::
 
@@ -49,13 +49,12 @@ Drive it on the CPU::
 from __future__ import annotations
 
 import math
-import os
 import random
 import threading
 import time
 import urllib.error
 import urllib.request
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from kubeflow_tpu_torch.models.client import (
     HEADER_DEADLINE,
@@ -64,32 +63,13 @@ from kubeflow_tpu_torch.models.client import (
     full_jitter_backoff,
 )
 from kubeflow_tpu_torch.models.serve import App, failure, json_response, success
+from kubeflow_tpu_torch.platform import config
 from kubeflow_tpu_torch.platform.apis import inferenceservice as api
 from kubeflow_tpu_torch.platform.k8s.types import INFERENCESERVICE
 from kubeflow_tpu_torch.platform.runtime import metrics
 
 
 # -- knobs --------------------------------------------------------------------
-
-def _knob(name: str, default: Any, parser: Callable[[str], Any],
-          validate: Callable[[Any], Optional[str]]) -> Any:
-    """The env value of ``name`` parsed, or ``default`` when unset; a
-    value that does not parse, or that ``validate`` finds a problem with,
-    raises ``ValueError``."""
-    raw = os.environ.get(name)
-    if raw is None:
-        return default
-    try:
-        value = parser(raw)
-    except (TypeError, ValueError):
-        raise ValueError(
-            f"{name}={raw!r}: not a valid "
-            f"{getattr(parser, '__name__', 'value')}") from None
-    problem = validate(value)
-    if problem:
-        raise ValueError(f"{name}={raw!r}: {problem}")
-    return value
-
 
 def _positive(what):
     return lambda v: None if v > 0 else f"{what} must be > 0, got {v!r}"
@@ -103,61 +83,73 @@ def _at_least(floor, what):
 def hold_queue_limit() -> int:
     """Requests held a service across a cold start; the next sheds with
     503 hold-overflow."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_HOLD_QUEUE", 64, int,
-        _at_least(1, "hold queue"))
+        doc="max requests held per service across a cold start; the "
+            "next one sheds with 503 hold-overflow",
+        validate=_at_least(1, "hold queue"))
 
 
 def wake_deadline_seconds() -> float:
     """Seconds a request stays held waiting for the wake; past it the
     hold sheds with 503 wake-timeout."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_WAKE_DEADLINE_SECONDS", 120.0, float,
-        _positive("wake deadline"))
+        doc="max seconds a request stays held waiting for the wake; "
+            "past it the hold sheds with 503 wake-timeout",
+        validate=_positive("wake deadline"))
 
 
 def restamp_seconds() -> float:
     """Re-stamp cadence of the wake-at annotation while requests stay
     held."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_RESTAMP_SECONDS", 2.0, float,
-        _positive("restamp interval"))
+        doc="re-stamp cadence for the wake-at annotation while requests "
+            "stay held (defeats a controller holding a stale stamp)",
+        validate=_positive("restamp interval"))
 
 
 def replay_retries() -> int:
     """Full-jitter replay attempts against a just-woken service before
     the hold fails."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_REPLAY_RETRIES", 6, int,
-        _at_least(0, "replay retries"))
+        doc="max full-jitter replay attempts against a just-woken "
+            "service before the hold fails",
+        validate=_at_least(0, "replay retries"))
 
 
 def replay_base_seconds() -> float:
     """Full-jitter replay backoff base (the cap doubles from here)."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_REPLAY_BASE_SECONDS", 0.1, float,
-        _positive("replay base"))
+        doc="full-jitter replay backoff base (cap doubles from here)",
+        validate=_positive("replay base"))
 
 
 def replay_cap_seconds() -> float:
     """Full-jitter replay backoff cap."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_REPLAY_CAP_SECONDS", 5.0, float,
-        _positive("replay cap"))
+        doc="full-jitter replay backoff cap",
+        validate=_positive("replay cap"))
 
 
 def tenant_rate() -> float:
     """Token-bucket refill rate a tenant, requests a second."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_TENANT_RATE", 50.0, float,
-        _positive("tenant rate"))
+        doc="token-bucket refill rate per tenant, requests/second",
+        validate=_positive("tenant rate"))
 
 
 def tenant_burst() -> float:
     """Token-bucket burst a tenant (the bucket's capacity)."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_TENANT_BURST", 100.0, float,
-        _at_least(1.0, "tenant burst"))
+        doc="token-bucket burst per tenant (bucket capacity)",
+        validate=_at_least(1.0, "tenant burst"))
 
 
 def tenant_weights() -> Dict[str, float]:
@@ -172,25 +164,31 @@ def tenant_weights() -> Dict[str, float]:
             out[name.strip()] = float(val)
         return out
 
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_TENANT_WEIGHTS", {}, parse,
-        lambda v: (None if all(w > 0 for w in v.values())
-                   else "weights must be > 0"))
+        doc="weighted fair-share dequeue weights, 'tenantA=2,tenantB=1' "
+            "(unlisted tenants weigh 1)",
+        validate=lambda v: (None if all(w > 0 for w in v.values())
+                            else "weights must be > 0"))
 
 
 def shed_ttft_multiple() -> float:
     """The SLO knee: a stored-series TTFT p99 above this multiple of the
     service's ttftP99TargetSeconds turns the admission surcharge on."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_SHED_TTFT_MULTIPLE", 4.0, float,
-        _at_least(1.0, "shed multiple"))
+        doc="SLO knee: stored-series TTFT p99 above this multiple of the "
+            "service's ttftP99TargetSeconds turns on admission surcharge",
+        validate=_at_least(1.0, "shed multiple"))
 
 
 def shed_cost() -> float:
     """Tokens one request costs past the SLO knee (1 below it)."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_SHED_COST", 4.0, float,
-        _at_least(1.0, "shed cost"))
+        doc="tokens one request costs past the SLO knee (1 below it): "
+            "the burn-driven surcharge that sheds heavy tenants first",
+        validate=_at_least(1.0, "shed cost"))
 
 
 # -- endpoint book ------------------------------------------------------------
@@ -713,9 +711,11 @@ def debug_snapshot() -> Optional[dict]:
 
 def activator_port() -> int:
     """The front door's listen port (0: no activator in this replica)."""
-    return _knob(
+    return config.knob(
         "KFT_ACTIVATOR_PORT", 8012, int,
-        _at_least(0, "activator port"))
+        doc="serving front-door listen port (0 disables the activator "
+            "data path in this replica)",
+        validate=_at_least(0, "activator port"))
 
 
 def create_activator_app(activator: Activator) -> App:

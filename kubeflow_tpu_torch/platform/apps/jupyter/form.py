@@ -39,8 +39,9 @@ _cache: Dict[str, tuple] = {}
 
 
 def load_spawner_config(path: Optional[str] = None) -> Dict[str, Any]:
-    # SPAWNER_CONFIG: the spawner UI config (a mounted ConfigMap).
-    resolved = path or platform_config.env("SPAWNER_CONFIG", CONFIG_PATH)
+    resolved = path or platform_config.knob(
+        "SPAWNER_CONFIG", CONFIG_PATH,
+        doc="spawner UI config JSON (mounted ConfigMap)")
     try:
         mtime = os.stat(resolved).st_mtime
     except OSError:

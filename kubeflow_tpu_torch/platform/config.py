@@ -1,9 +1,15 @@
 """The platform's environment knobs: the readers of the port's copy of
 ``kubeflow_tpu/platform/config.py`` (the reference's GetEnvDefault
 pattern, culling_controller.go:385-391 / notebook_controller.go:203,427,
-489,503).  An unset or unparseable value resolves to the default.  The
-reference's knob registry serves its /debug/knobs page, which the port
-does not have yet.  The compute side's readers stay in
+489,503), and its knob registry.  Every knob resolves through
+``knob(name, default, parser)``, which reads the environment and records
+the knob (name, default, parser, doc, secrecy, check) in ``KNOBS``, so
+``effective()`` can list the live surface: the controllers' health port
+serves it at ``/debug/knobs`` and each incident bundle carries it.  An
+unset or unparseable value resolves to the default; a knob with a
+``validate`` check raises ``ValueError`` on a bad value instead.  The
+``env``/``env_bool``/``env_float``/``env_int`` readers are thin
+wrappers over ``knob``.  The compute side's readers stay in
 ``kubeflow_tpu_torch/config.py``.
 
 The controller runtime's knobs, the reference's names and defaults,
@@ -40,32 +46,115 @@ each read through these helpers where it is used:
 from __future__ import annotations
 
 import os
-from typing import Any, Callable
+import threading
+from typing import Any, Callable, Dict, NamedTuple
 
 from kubeflow_tpu_torch.config import parse_bool
 
+__all__ = ["KNOBS", "Knob", "effective", "env", "env_bool", "env_float",
+           "env_int", "knob", "parse_bool"]
 
-def _read(name: str, default: Any, parser: Callable[[str], Any]) -> Any:
+_SECRET_MARKERS = (
+    "TOKEN", "SECRET", "PASSWORD", "PASSWD", "CREDENTIAL", "API_KEY",
+    "APIKEY", "PRIVATE",
+)
+
+
+class Knob(NamedTuple):
+    name: str
+    default: Any
+    parser: Callable[[str], Any]
+    doc: str
+    secret: bool
+    # value -> an error message, or None for a good value.  A knob with
+    # a check refuses a bad value where it is read (ValueError) instead
+    # of falling back to the default.
+    validate: Callable[[Any], Any] = None
+
+
+# name -> Knob; the first registration wins (the table documents a knob,
+# each read still returns with its own default).
+KNOBS: Dict[str, Knob] = {}
+_lock = threading.Lock()
+
+
+def knob(name: str, default: Any = None, parser: Callable[[str], Any] = str,
+         *, doc: str = "", secret: bool = None,
+         validate: Callable[[Any], Any] = None) -> Any:
+    """The env value of ``name`` parsed, or ``default`` when it is unset
+    or (without ``validate``) does not parse; the knob is recorded in
+    ``KNOBS``.  ``secret`` defaults to a sniff of the name (TOKEN,
+    SECRET, ...) and redacts the value in ``effective()``."""
+    if secret is None:
+        secret = any(m in name.upper() for m in _SECRET_MARKERS)
+    with _lock:
+        if name not in KNOBS:
+            KNOBS[name] = Knob(name, default, parser, doc, secret, validate)
     raw = os.environ.get(name)
     if raw is None:
         return default
     try:
-        return parser(raw)
+        value = parser(raw)
     except (TypeError, ValueError):
+        if validate is not None:
+            raise ValueError(
+                f"{name}={raw!r}: not a valid "
+                f"{getattr(parser, '__name__', 'value')}") from None
         return default
+    if validate is not None:
+        problem = validate(value)
+        if problem:
+            raise ValueError(f"{name}={raw!r}: {problem}")
+    return value
+
+
+def _plain(value: Any) -> Any:
+    return (value if isinstance(value, (str, int, float, bool, type(None)))
+            else str(value))
+
+
+def effective(*, redact: bool = True) -> Dict[str, dict]:
+    """Every registered knob with its value resolved now: ``{name:
+    {"value", "default", "source"[, "doc"]}}``.  ``source`` is
+    ``default``, ``env``, ``env-unparseable`` (the value did not parse,
+    so the default runs) or ``env-invalid`` (its check refused it); a
+    secret set from the environment shows as ``<redacted>``."""
+    out: Dict[str, dict] = {}
+    with _lock:
+        items = sorted(KNOBS.items())
+    for name, k in items:
+        raw = os.environ.get(name)
+        if raw is None:
+            value, source = k.default, "default"
+        else:
+            try:
+                value, source = k.parser(raw), "env"
+            except (TypeError, ValueError):
+                value, source = k.default, "env-unparseable"
+            if source == "env" and k.validate is not None \
+                    and k.validate(value):
+                value, source = k.default, "env-invalid"
+        if redact and k.secret and source == "env":
+            value = "<redacted>"
+        entry = {"value": _plain(value), "default": _plain(k.default),
+                 "source": source}
+        if k.doc:
+            entry["doc"] = k.doc
+        out[name] = entry
+    return out
 
 
 def env(name: str, default: str = "") -> str:
-    return os.environ.get(name, default)
+    return knob(name, default, str)
 
 
 def env_bool(name: str, default: bool = False) -> bool:
-    return _read(name, default, parse_bool)
+    return knob(name, default, parse_bool)
 
 
 def env_float(name: str, default: float) -> float:
-    return _read(name, default, float)
+    return knob(name, default, float)
 
 
 def env_int(name: str, default: int) -> int:
-    return _read(name, default, int)
+    return knob(name, default, int)

@@ -428,29 +428,33 @@ class RestKubeClient:
             base_url, token, ca_cert, client_cert = self._resolve_config()
         self.base_url = base_url.rstrip("/")
 
-        def knob(value, name, default, read):
-            return value if value is not None else read(name, default)
+        def knob(value, name, default, parser, doc):
+            return value if value is not None else config.knob(
+                name, default, parser, doc=doc)
 
-        self.timeout = knob(timeout, "K8S_CLIENT_TIMEOUT", 30.0,
-                            config.env_float)
+        self.timeout = knob(timeout, "K8S_CLIENT_TIMEOUT", 30.0, float,
+                            "per-request read timeout (s)")
         self.connect_timeout = knob(connect_timeout,
-                                    "K8S_CLIENT_TIMEOUT_CONNECT", 5.0,
-                                    config.env_float)
-        self.retries = knob(retries, "K8S_CLIENT_RETRIES", 3, config.env_int)
+                                    "K8S_CLIENT_TIMEOUT_CONNECT", 5.0, float,
+                                    "per-request connect timeout (s)")
+        self.retries = knob(retries, "K8S_CLIENT_RETRIES", 3, int,
+                            "retry budget, idempotent verbs")
         self.retry_base = knob(retry_base, "K8S_CLIENT_RETRY_BASE", 0.1,
-                               config.env_float)
-        self.retry_cap = knob(retry_cap, "K8S_CLIENT_RETRY_CAP", 5.0,
-                              config.env_float)
+                               float, "full-jitter backoff base (s)")
+        self.retry_cap = knob(retry_cap, "K8S_CLIENT_RETRY_CAP", 5.0, float,
+                              "full-jitter backoff cap (s)")
         self.breaker = CircuitBreaker(
-            knob(breaker_threshold, "K8S_CLIENT_CB_THRESHOLD", 5,
-                 config.env_int),
-            knob(breaker_cooldown, "K8S_CLIENT_CB_COOLDOWN", 10.0,
-                 config.env_float))
-        qps = knob(qps, "K8S_CLIENT_QPS", 50.0, config.env_float)
-        burst = knob(burst, "K8S_CLIENT_BURST", 100, config.env_int)
+            knob(breaker_threshold, "K8S_CLIENT_CB_THRESHOLD", 5, int,
+                 "consecutive failures that open the circuit"),
+            knob(breaker_cooldown, "K8S_CLIENT_CB_COOLDOWN", 10.0, float,
+                 "open-circuit cooldown before half-open (s)"))
+        qps = knob(qps, "K8S_CLIENT_QPS", 50.0, float,
+                   "client-side rate limit (0 disables)")
+        burst = knob(burst, "K8S_CLIENT_BURST", 100, int,
+                     "token-bucket burst for the rate limit")
         self._limiter = TokenBucket(qps, burst) if qps > 0 else None
         self.pool_size = max(1, knob(pool_size, "K8S_CLIENT_POOL_SIZE", 32,
-                                     config.env_int))
+                                     int, "connection-pool size per host"))
         parts = urlsplit(self.base_url)
         if parts.scheme not in ("http", "https") or not parts.hostname:
             raise ValueError(f"not an http(s) URL: {base_url!r}")
@@ -485,15 +489,19 @@ class RestKubeClient:
     @staticmethod
     def _resolve_config() -> Tuple[str, Optional[str], Optional[str],
                                    Optional[Tuple[str, str]]]:
-        host = config.env("KUBERNETES_SERVICE_HOST", "")
+        host = config.knob("KUBERNETES_SERVICE_HOST", "",
+                           doc="in-cluster apiserver host (set by kubelet)")
         if host and os.path.exists(f"{SERVICE_ACCOUNT_DIR}/token"):
-            port = config.env("KUBERNETES_SERVICE_PORT", "443")
+            port = config.knob("KUBERNETES_SERVICE_PORT", "443",
+                               doc="in-cluster apiserver port")
             with open(f"{SERVICE_ACCOUNT_DIR}/token") as f:
                 token = f.read().strip()
             ca = f"{SERVICE_ACCOUNT_DIR}/ca.crt"
             return (f"https://{host}:{port}", token,
                     ca if os.path.exists(ca) else None, None)
-        path = config.env("KUBECONFIG", os.path.expanduser("~/.kube/config"))
+        path = config.knob("KUBECONFIG",
+                           os.path.expanduser("~/.kube/config"),
+                           doc="kubeconfig path when not in-cluster")
         if not os.path.exists(path):
             raise RuntimeError(
                 "no API server config: not in-cluster and no kubeconfig at "

@@ -62,8 +62,16 @@ _engine_cache: Optional[bool] = None
 
 
 def _knob_codec() -> str:
-    value = config.env("KF_WIRE_CODEC", "auto")
-    return value if value in ("auto", "native", "python") else "auto"
+    # A bad value shows at /debug/knobs as env-invalid; the default runs.
+    try:
+        return config.knob(
+            "KF_WIRE_CODEC", "auto",
+            doc="wire codec engine: auto (native when loadable), native, "
+                "or python",
+            validate=lambda v: None if v in ("auto", "native", "python")
+            else "must be 'auto', 'native' or 'python'")
+    except ValueError:
+        return "auto"
 
 
 def engine_native() -> bool:

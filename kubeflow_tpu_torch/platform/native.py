@@ -136,8 +136,15 @@ def _try_build() -> bool:
 
 
 def _knob_native() -> str:
-    value = config.env("KF_NATIVE", "1")
-    return value if value in ("0", "1") else "1"
+    # A bad value shows at /debug/knobs as env-invalid; the default runs.
+    try:
+        return config.knob(
+            "KF_NATIVE", "1",
+            doc="'0' disables the native C++ engine, '1' enables it",
+            validate=lambda v: None if v in ("0", "1")
+            else "must be '0' or '1'")
+    except ValueError:
+        return "1"
 
 
 def _set_engine_gauge(active: bool) -> None:

@@ -242,8 +242,16 @@ def _server_filter_enabled() -> bool:
     the server (the ``shard_filter`` of list and watch), so a replica's
     stream carries only its own ranges.  ``0`` turns it off (the full
     stream, the informer's admit filter alone); any other value leaves
-    it on."""
-    return config.env("KF_SHARD_SERVER_FILTER", "1") != "0"
+    it on, and shows at /debug/knobs as env-invalid."""
+    try:
+        return config.knob(
+            "KF_SHARD_SERVER_FILTER", "1",
+            doc="server-side shard filtering of watch/list streams: "
+                "1 on (default), 0 off (client-side admit only)",
+            validate=lambda v: None if v in ("0", "1")
+            else "must be '0' or '1'") != "0"
+    except ValueError:
+        return True
 
 
 class Controller:

@@ -30,7 +30,14 @@ cold starts, rollouts and scrape errors with the scrape-time
 ``inferenceservice_ready_replicas`` per namespace; the activator's held
 requests, sheds, per-tenant first-byte seconds, proxy outcomes and wake
 stamps; and the fleet scrape's errors, samples, targets and the TSDB's
-evictions (``telemetry/fleetscrape.py``).  And the user's front
+evictions (``telemetry/fleetscrape.py``).  And the fleet telemetry's:
+the burn-rate alerts' state and transitions (``telemetry/slo.py``),
+the incidents captured (``telemetry/incidents.py``), the profiler's
+samples by role with the scrape-time ``kft_profile_self_seconds{role}``
+(``telemetry/profiler.py``), and the goodput pair under GPU names,
+``gpu_goodput_ratio{profile}`` and ``gpu_seconds_total{profile,state}``
+in place of the reference's ``tpu_goodput_ratio`` and
+``tpu_chip_seconds_total`` (``telemetry/goodput.py``).  And the user's front
 door's: ``request_kf{component,kind}`` and ``request_kf_failure{component,
 kind,severity}`` (the web apps, KFAM and the profile controller),
 ``degraded_responses_total{component}`` (a web read served from a cache)
@@ -653,6 +660,64 @@ kft_tsdb_series_evicted_total = Counter(
     "(oldest-last-sample first); a climbing rate means the store is "
     "undersized for the fleet (KFT_TSDB_MAX_SERIES)",
     registry=registry)
+
+
+# -- fleet telemetry (telemetry/slo.py, incidents.py, profiler.py, goodput.py)
+
+kft_alerts_firing = Gauge(
+    "kft_alerts_firing",
+    "burn-rate alert state per SLO rule: 1 = firing (both windows over "
+    "their burn thresholds), 0 = inactive (the live detail is "
+    "/debug/alerts)",
+    ["alert"], registry=registry)
+kft_alert_transitions_total = Counter(
+    "kft_alert_transitions_total",
+    "burn-rate alert state transitions ('firing' / 'resolved'), also "
+    "recorded as one fleet-wide Kubernetes Event each",
+    ["alert", "state"], registry=registry)
+kft_profile_samples_total = Counter(
+    "kft_profile_samples_total",
+    "stack samples folded into the rotating profile windows by the "
+    "always-on sampler, per attributed thread role (the windows "
+    "themselves are /debug/profile)",
+    ["role"], registry=registry)
+kft_incidents_captured_total = Counter(
+    "kft_incidents_captured_total",
+    "incident evidence bundles captured by the flight recorder on "
+    "burn-rate firing transitions, per alert (listed at "
+    "/debug/incidents, debounced per alert)",
+    ["alert"], registry=registry)
+gpu_goodput_ratio = Gauge(
+    "gpu_goodput_ratio",
+    "cumulative productive GPU-seconds over allocated GPU-seconds per "
+    "profile namespace (the decomposition tiles exactly; see "
+    "/debug/goodput)",
+    ["profile"], registry=registry)
+gpu_seconds_total = Counter(
+    "gpu_seconds_total",
+    "allocated GPU-seconds per profile, decomposed by state: 'goodput' "
+    "(training steps on ready workers, busy decode slots), 'queued' "
+    "(granted but not yet working), 'restarting' (gang restart / "
+    "preemption drain), 'idle' (ready but unoccupied); the four states "
+    "sum to the allocation exactly",
+    ["profile", "state"], registry=registry)
+
+
+def _profile_self_seconds():
+    from kubeflow_tpu_torch.telemetry import profiler
+
+    p = profiler.debug_profiler()
+    if p is None:
+        return []
+    return [((role,), seconds)
+            for role, seconds in sorted(p.self_seconds().items())]
+
+
+ScrapeGauge(
+    "kft_profile_self_seconds",
+    "per-role sampled self time over the open profile window "
+    "(samples / KFT_PROFILE_HZ; see /debug/profile)",
+    _profile_self_seconds, ["role"], registry=registry)
 
 
 # The profile controller's and KFAM's monitoring pattern (reference

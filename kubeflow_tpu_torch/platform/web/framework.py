@@ -538,8 +538,7 @@ class App:
 
     def make_server(self, host: str = "127.0.0.1", port: int = 0):
         """A threading ``wsgiref`` server of this app, not yet serving."""
-        return make_server(host, port, self, server_class=_ThreadingServer,
-                           handler_class=_QuietHandler)
+        return wsgi_server(self, host, port)
 
     def serve(self, host: str = "0.0.0.0", port: int = 5000):
         """Blocking server (production runs behind the Istio gateway)."""
@@ -552,6 +551,13 @@ class App:
                              name=f"{self.name}-http")
         t.start()
         return server, f"http://{host}:{server.server_port}"
+
+
+def wsgi_server(app, host: str = "127.0.0.1", port: int = 0):
+    """A threading ``wsgiref`` server of any WSGI callable, a thread a
+    request and no request log, not yet serving."""
+    return make_server(host, port, app, server_class=_ThreadingServer,
+                       handler_class=_QuietHandler)
 
 
 class _ThreadingServer(ThreadingMixIn, WSGIServer):

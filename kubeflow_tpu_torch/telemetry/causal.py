@@ -38,7 +38,7 @@ import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
-from kubeflow_tpu_torch import config
+from kubeflow_tpu_torch.platform import config
 
 TRACEPARENT_ANNOTATION = "kubeflow.org/traceparent"
 TRACESTATE_ANNOTATION = "kubeflow.org/tracestate"
@@ -50,10 +50,14 @@ TRACEPARENT_HEADER = "traceparent"
 MINT_API_GROUP = "kubeflow.org"
 
 # The span store's size (spans, one ring a process) and its off switch.
-JOURNEY_BUFFER_SIZE = config.env_int("JOURNEY_BUFFER_SIZE", 8192)
+JOURNEY_BUFFER_SIZE = config.knob(
+    "JOURNEY_BUFFER_SIZE", 8192, int,
+    doc="causal span store size (spans, process-wide ring)")
 # A watch_lag longer than this is a replay of an object stamped long
 # before (a handler's ADDED replay, a relist), not a lag: no span.
-WATCH_LAG_MAX_S = 60.0
+WATCH_LAG_MAX_S = config.knob(
+    "JOURNEY_WATCH_LAG_MAX_SECONDS", 60.0, float,
+    doc="watch_lag spans longer than this are dropped as replays")
 ENABLED = not config.env_bool("JOURNEY_DISABLE", False)
 
 _TRACEPARENT_RE = re.compile(
@@ -300,6 +304,25 @@ class SpanStore:
                      if s["trace_id"] == trace_id]
         spans.sort(key=lambda s: (s["start_ts"], s["end_ts"]))
         return spans
+
+    def recent(self, *, start: float = float("-inf"),
+               end: float = float("inf")) -> List[dict]:
+        """Copies of every stored span whose end lands in ``[start,
+        end]``, time-ordered: the incident recorder's worst-journey
+        scan."""
+        with self._lock:
+            spans = [dict(s) for s in self._spans
+                     if start <= s["end_ts"] <= end]
+        spans.sort(key=lambda s: (s["start_ts"], s["end_ts"]))
+        return spans
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._spans)
 
 
 

@@ -24,9 +24,13 @@ stored series alone: per-replica gauge means, summed counters, TTFT p99
 over the merged-bucket delta between this pass and the previous one
 (first pass and post-outage passes re-baseline to no signal).
 
-The reference's ``MetricsPipeline`` (the cadence loop over the SLO
-rules and goodput) and ``peer_targets`` wait for the port of those
-modules.
+``MetricsPipeline`` is the cadence loop ``platform/main.py`` runs
+beside the controllers: scrape the discovered targets (the self-scrape
+and the ``KFT_SCRAPE_PEERS`` of ``peer_targets`` included), evaluate
+the SLO rules (``telemetry/slo.py``, with the incident recorder of
+``telemetry/incidents.py`` on their firing transitions), tick the
+goodput accountant (``telemetry/goodput.py``): one thread, one knobbed
+interval.
 """
 from __future__ import annotations
 
@@ -64,12 +68,16 @@ def default_tsdb() -> TSDB:
     global _default_tsdb
     with _default_tsdb_lock:
         if _default_tsdb is None:
-            # KFT_TSDB_CAPACITY: samples kept a series (a ring; ~1.5 h
-            # at a 15 s cadence); KFT_TSDB_MAX_SERIES: the series bound,
-            # past which the oldest-last-sample series is evicted.
             _default_tsdb = TSDB(
-                capacity=config.env_int("KFT_TSDB_CAPACITY", 360),
-                max_series=config.env_int("KFT_TSDB_MAX_SERIES", 8192))
+                capacity=config.knob(
+                    "KFT_TSDB_CAPACITY", 360, int,
+                    doc="samples kept per series in the fleet TSDB "
+                        "(ring; ~1.5h at the 15s cadence)"),
+                max_series=config.knob(
+                    "KFT_TSDB_MAX_SERIES", 8192, int,
+                    doc="series bound of the fleet TSDB; exceeding it "
+                        "evicts oldest-last-sample series (size for "
+                        "targets x series-per-page)"))
         return _default_tsdb
 
 
@@ -110,7 +118,9 @@ def scrape_pool():
     from kubeflow_tpu_torch.platform.runtime.flight import FlightPool
 
     global _scrape_pool
-    size = config.env_int("KFT_FLEETSCRAPE_POOL_SIZE", 8)
+    size = config.knob(
+        "KFT_FLEETSCRAPE_POOL_SIZE", 8, int,
+        doc="worker threads fanning out fleet scrape targets")
     with _scrape_pool_lock:
         if _scrape_pool is None or _scrape_pool.size != size:
             _scrape_pool = FlightPool(size, name="fleetscrape")
@@ -367,6 +377,22 @@ def self_target(render: Callable[[], bytes], *,
     return Target(fetch=fetch, labels=dict(labels or {}))
 
 
+def peer_targets() -> List[Target]:
+    """Controller-replica peers from the ``KFT_SCRAPE_PEERS`` knob
+    (comma-separated health-port base URLs; the Deployment's headless
+    service resolves replicas): each peer's /metrics joins the fleet
+    store with a ``replica`` label."""
+    peers = config.knob(
+        "KFT_SCRAPE_PEERS", "", str,
+        doc="comma-separated controller health-port base URLs to scrape "
+            "into the fleet TSDB (e.g. http://controllers-0:8080)")
+    out = []
+    for base in [p.strip() for p in peers.split(",") if p.strip()]:
+        out.append(Target(url=base.rstrip("/") + "/metrics",
+                          labels={"replica": base.rstrip("/")}))
+    return out
+
+
 # The serve series the decision loops actually read: the autoscaler's
 # sample (serve_sample), the serve-TTFT burn rule, and goodput's slot
 # occupancy.  Replica pages carry much more; at hundreds of replicas
@@ -409,3 +435,148 @@ def inferenceservice_targets(pods: List[dict], *, port: int,
                                   "replica": name_of(pod)},
                           names=names))
     return out
+
+
+# -- the cadence loop ---------------------------------------------------------
+
+
+class MetricsPipeline:
+    """scrape → store → evaluate on one knobbed cadence
+    (``KFT_PIPELINE_INTERVAL_SECONDS``): the thread ``platform/main.py``
+    starts next to the controller manager.  Each ``step()`` scrapes the
+    discovered targets into the shared TSDB, evaluates the SLO rule
+    engine (burn-rate alerts + recording rules), and ticks the goodput
+    accountant from watch/list state.  Pure parts stay swappable: tests
+    drive ``step()`` directly with a fake clock."""
+
+    def __init__(self, *, tsdb: Optional[TSDB] = None,
+                 scraper: Optional[Callable] = None,
+                 engine=None, goodput=None, client=None,
+                 informers: Optional[dict] = None,
+                 interval: Optional[float] = None,
+                 incidents=None, now=time.time):
+        from kubeflow_tpu_torch.telemetry import goodput as goodput_mod
+        from kubeflow_tpu_torch.telemetry import incidents as incidents_mod
+        from kubeflow_tpu_torch.telemetry import slo
+
+        self.tsdb = tsdb if tsdb is not None else default_tsdb()
+        self.now = now
+        self.scraper = FleetScraper(self.tsdb, scraper=scraper, now=now)
+        self.engine = (engine if engine is not None
+                       else slo.RuleEngine(self.tsdb, slo.default_rules(),
+                                           client=client, now=now))
+        # The incident flight recorder rides the engine's firing
+        # transitions by default (pass ``incidents=False`` to run
+        # without one; a caller-built engine keeps its own recorder).
+        if incidents is None and self.engine.incidents is None:
+            incidents = incidents_mod.IncidentRecorder(
+                self.tsdb, client=client, now=now)
+        self.incidents = incidents or self.engine.incidents
+        if incidents:
+            self.engine.incidents = incidents
+        self.goodput = (goodput if goodput is not None
+                        else goodput_mod.GoodputAccountant(now=now))
+        self.client = client
+        self.interval = (interval if interval is not None
+                         else config.knob(
+                             "KFT_PIPELINE_INTERVAL_SECONDS", 15.0, float,
+                             doc="fleet metrics pipeline cadence: scrape, "
+                                 "rule evaluation and goodput tick"))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # Workload feed for the goodput tick: cache-backed lists, never
+        # a raw client.list per cadence.  ``informers`` injects existing
+        # unsharded {GPUJOB: Informer, INFERENCESERVICE: Informer}
+        # caches (goodput wants the global view: a shard-filtered
+        # controller informer would under-count); absent that, start()
+        # opens its own pair (one extra LIST+WATCH per kind).  Direct
+        # step() callers without start() fall back to client lists.
+        self._informers: Optional[dict] = informers
+        self._owns_informers = False
+
+    def step(self, at: Optional[float] = None) -> ScrapeStats:
+        if at is None:
+            at = self.now()
+        stats = self.scrape(at)
+        try:
+            self.engine.evaluate(at=at)
+        except Exception:
+            log.warning("slo rule evaluation failed", exc_info=True)
+        self._tick_goodput(at)
+        return stats
+
+    def scrape(self, at: float) -> ScrapeStats:
+        return self.scraper.scrape(ts=at)
+
+    def _tick_goodput(self, at: float) -> None:
+        if self.goodput is None:
+            return
+        try:
+            from kubeflow_tpu_torch.platform.k8s.types import (
+                INFERENCESERVICE,
+                GPUJOB,
+            )
+
+            jobs, services = [], []
+            if self._informers is not None:
+                # Cache-backed reads (frozen views; goodput only reads).
+                jobs = self._informers[GPUJOB].list()
+                services = self._informers[INFERENCESERVICE].list()
+            elif self.client is not None:
+                from kubeflow_tpu_torch.platform.k8s import errors
+
+                try:
+                    jobs = self.client.list(GPUJOB, None)
+                except errors.ApiError:
+                    jobs = []
+                try:
+                    services = self.client.list(INFERENCESERVICE, None)
+                except errors.ApiError:
+                    services = []
+            self.goodput.observe(jobs, services, tsdb=self.tsdb, at=at)
+        except Exception:
+            log.warning("goodput tick failed", exc_info=True)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def start(self) -> "MetricsPipeline":
+        if self._thread is not None:
+            return self
+        if self.client is not None and self._informers is None:
+            from kubeflow_tpu_torch.platform.k8s.types import (
+                INFERENCESERVICE,
+                GPUJOB,
+            )
+            from kubeflow_tpu_torch.platform.runtime.informer import Informer
+
+            self._informers = {
+                GPUJOB: Informer(self.client, GPUJOB),
+                INFERENCESERVICE: Informer(self.client, INFERENCESERVICE),
+            }
+            self._owns_informers = True
+            for informer in self._informers.values():
+                informer.start()
+        self._stop.clear()
+
+        def run():
+            while not self._stop.wait(self.interval):
+                try:
+                    self.step()
+                except Exception:
+                    log.warning("pipeline step failed", exc_info=True)
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="fleet-metrics-pipeline")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=5)
+        if self._owns_informers:
+            informers, self._informers = self._informers, None
+            self._owns_informers = False
+            for informer in (informers or {}).values():
+                informer.stop()

@@ -21,10 +21,12 @@ Exports are folded-stack text (``role;frame;...;frame count`` a line,
 root first), a signed window diff and a synchronous ``capture(seconds)``,
 served at a replica's ``/debug/profile`` (``models/serve.py``, gated by
 ``DEBUG_TRACES``) from the profiler a caller registered with
-``register_debug_profiler``.  The reference also counts samples in the
-control plane's ``kft_profile_samples_total``; the port has no control
-plane, so it keeps the per-role sample counts inside the profiler
-(``Profiler.role_samples``).
+``register_debug_profiler``, and at the controllers' health port
+(``platform/main.py``).  Samples are counted per role in the control
+plane's ``kft_profile_samples_total{role}`` (``platform/runtime/
+metrics.py``, which also serves the scrape-time
+``kft_profile_self_seconds{role}`` of the registered profiler) and in
+``Profiler.role_samples``.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import weakref
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
-from kubeflow_tpu_torch import config
+from kubeflow_tpu_torch.platform import config
 
 # -- thread-role registries ---------------------------------------------------
 #
@@ -181,22 +183,28 @@ class Profiler:
                  max_stacks: Optional[int] = None,
                  stack_depth: Optional[int] = None,
                  now=time.time):
-        # Samples a second; the window's rotation period; closed windows
-        # kept; distinct (role, stack) aggregates a window (overflow folds
-        # into the role's <other>); frames kept a stack (leaf-most win).
-        self.hz = float(hz if hz is not None
-                        else config.env_float("KFT_PROFILE_HZ", 67.0))
+        self.hz = float(hz if hz is not None else config.knob(
+            "KFT_PROFILE_HZ", 67.0, float,
+            doc="sampling profiler rate; the sampler thread walks "
+                "sys._current_frames() this many times per second"))
         self.window_seconds = float(
-            window_seconds if window_seconds is not None
-            else config.env_float("KFT_PROFILE_WINDOW_SECONDS", 60.0))
-        ring = int(windows if windows is not None
-                   else config.env_int("KFT_PROFILE_WINDOWS", 8))
+            window_seconds if window_seconds is not None else config.knob(
+                "KFT_PROFILE_WINDOW_SECONDS", 60.0, float,
+                doc="profile window rotation period; /debug/profile?diff "
+                    "compares two of these"))
+        ring = int(windows if windows is not None else config.knob(
+            "KFT_PROFILE_WINDOWS", 8, int,
+            doc="closed profile windows kept in the ring (memory bound)"))
         self.max_stacks = int(max_stacks if max_stacks is not None
-                              else config.env_int("KFT_PROFILE_MAX_STACKS",
-                                                  512))
+                              else config.knob(
+            "KFT_PROFILE_MAX_STACKS", 512, int,
+            doc="distinct (role, stack) aggregates per window; overflow "
+                "folds into the per-role <other> bucket"))
         self.stack_depth = int(stack_depth if stack_depth is not None
-                               else config.env_int("KFT_PROFILE_STACK_DEPTH",
-                                                   24))
+                               else config.knob(
+            "KFT_PROFILE_STACK_DEPTH", 24, int,
+            doc="frames kept per sampled stack (leaf-most win; deeper "
+                "stacks are marked <truncated> at the root)"))
         self._now = now
         self._lock = threading.Lock()
         self._wid = 0
@@ -205,9 +213,10 @@ class Profiler:
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
         self._sampler_ident: Optional[int] = None
-        # Samples folded by sample_once, by role (the reference's
-        # kft_profile_samples_total{role}).
+        # Samples folded by sample_once, by role, as counted into
+        # kft_profile_samples_total{role}; the counter's children a role.
         self.role_samples: Dict[str, int] = {}
+        self._metric_children: Dict[str, object] = {}
         self.errors = 0
         # CPU time of the sampler thread itself (time.thread_time around
         # each pass): what always-on sampling costs.
@@ -307,10 +316,20 @@ class Profiler:
         return n
 
     def _bump_samples(self, role_counts: Dict[str, int]) -> None:
+        if not role_counts:
+            return
+        from kubeflow_tpu_torch.platform.runtime import metrics
+
         with self._lock:
             for role, count in role_counts.items():
                 self.role_samples[role] = (
                     self.role_samples.get(role, 0) + count)
+                child = self._metric_children.get(role)
+                if child is None:
+                    child = metrics.kft_profile_samples_total.labels(
+                        role=role)
+                    self._metric_children[role] = child
+                child.inc(count)
 
     def rotate(self, at: Optional[float] = None) -> int:
         """Force-close the current window (tests; rotation is

@@ -179,13 +179,19 @@ def span_or_null(tel: Optional[ServeTelemetry], name: str, **attrs):
 
 
 def filter_traces(traces: List[dict], *, n: Optional[int] = None,
-                  trace_id: Optional[str] = None) -> List[dict]:
-    """The ``/debug/traces`` query: ``trace_id`` matches a trace's own id
-    or its ``causal_trace_id`` link, then ``n`` keeps the newest n matches
-    (n <= 0 returns nothing)."""
+                  trace_id: Optional[str] = None,
+                  **fields: Optional[str]) -> List[dict]:
+    """The ``/debug/traces`` query of a replica and of the controllers'
+    health port: ``trace_id`` matches a trace's own id or its
+    ``causal_trace_id`` link, extra ``fields`` (``controller=``) match
+    exactly, then ``n`` keeps the newest n matches (n <= 0 returns
+    nothing)."""
     if trace_id:
         traces = [t for t in traces if t.get("trace_id") == trace_id
                   or t.get("causal_trace_id") == trace_id]
+    for key, want in fields.items():
+        if want:
+            traces = [t for t in traces if t.get(key) == want]
     if n is not None:
         traces = traces[-n:] if n > 0 else []
     return traces

@@ -673,9 +673,12 @@ PORT_JS = sorted(glob.glob(os.path.join(FRONTEND[PORT.root], "*", "*.js")))
 
 
 def test_the_port_ships_the_four_spas():
+    # The four of the user's front door and, since the entrypoint's
+    # slice, the central dashboard's.
     apps = {os.path.basename(os.path.dirname(p)) for p in PORT_JS}
-    assert apps == {"shared", "jupyter", "volumes", "tensorboards"}
-    for app in ("jupyter", "volumes", "tensorboards"):
+    assert apps == {"shared", "jupyter", "volumes", "tensorboards",
+                    "dashboard"}
+    for app in ("jupyter", "volumes", "tensorboards", "dashboard"):
         assert os.path.isfile(os.path.join(FRONTEND[PORT.root], app,
                                            "index.html"))
 
