@@ -389,6 +389,21 @@ After 11:
    A ``platform_main`` line prints each step's seconds, the wait, the
    segment, the alert's and the incident's times, goodput by state and
    the dashboard's request ms beside the card's name and power limit.
+11f. platform_services: the control plane without torch.  The port's
+   kftlint (``python -m kubeflow_tpu_torch.analysis --baseline
+   ci/kftlint_torch_baseline.json``, from the checkout's root) exits 0
+   with 0 findings and 0 baselined.  Then each of ``main.py``'s seven
+   services starts as its own process, with ``torch`` and ``triton`` set
+   to None in ``sys.modules`` before ``kubeflow_tpu_torch.platform.main``
+   runs, against ``FakeKube`` served by ``HttpKubeServer``: the
+   controllers with the activator on a free port, the webhook over
+   HTTPS on an openssl pair, the Jupyter, volumes and tensorboards apps,
+   KFAM and the dashboard.  Each one's /healthz (the controllers' health
+   port and the activator's too) answers 200 within SERVICES_READY_S;
+   SIGTERM ends each with 0, no traceback in any log.  A
+   ``platform_services`` line prints the lint's seconds and each cold
+   start (process start to its first 200) beside the card's name and
+   power limit.  The phase launches no kernel.
 11d. platform_shards: the sharded HA control plane around this card.
    A ``ShardedFleet`` of SHARD_REPLICAS replicas over one ``FakeKube``,
    each a ``Manager`` over its own ``ShardCoordinator`` (SHARD_COUNT
@@ -8724,6 +8739,20 @@ def metric_samples(page, name):
     return out
 
 
+def write_kubeconfig(directory, server_url):
+    """A JSON kubeconfig under ``directory`` that points at
+    ``server_url``; returns its path."""
+    path = os.path.join(directory, "kubeconfig.json")
+    with open(path, "w") as f:
+        json.dump({"current-context": "smoke",
+                   "contexts": [{"name": "smoke", "context": {
+                       "cluster": "smoke", "user": "smoke"}}],
+                   "clusters": [{"name": "smoke", "cluster": {
+                       "server": server_url}}],
+                   "users": [{"name": "smoke", "user": {}}]}, f)
+    return path
+
+
 def phase_platform_main(torch, dev, mesh_losses):
     """The production entrypoint on this card (the docstring's 11e): the
     controllers and the dashboard run as ``python -m
@@ -8755,14 +8784,7 @@ def phase_platform_main(torch, dev, mesh_losses):
                       gpus=1)
     server = HttpKubeServer(kube).start()
     tmp = tempfile.mkdtemp(prefix="platform_main-")
-    kubeconfig = os.path.join(tmp, "kubeconfig.json")
-    with open(kubeconfig, "w") as f:
-        json.dump({"current-context": "smoke",
-                   "contexts": [{"name": "smoke", "context": {
-                       "cluster": "smoke", "user": "smoke"}}],
-                   "clusters": [{"name": "smoke", "cluster": {
-                       "server": server.base_url}}],
-                   "users": [{"name": "smoke", "user": {}}]}, f)
+    kubeconfig = write_kubeconfig(tmp, server.base_url)
     health, act, dash = free_port(), free_port(), free_port()
     knobs = {**MAIN_KNOBS, "KUBECONFIG": kubeconfig,
              "KFT_ACTIVATOR_PORT": str(act)}
@@ -9116,6 +9138,156 @@ def phase_platform_main(torch, dev, mesh_losses):
           "train_wall_seconds": run["wall_s"], "launches": job_got,
           "knobs": MAIN_KNOBS, "nvidia_smi": smi})
     return launches
+
+
+# The platform_services phase: main.py's seven services, each started as
+# one process with torch and triton set to None in sys.modules, as a
+# controller pod starts without the accelerator stack; each must answer
+# 200 within SERVICES_READY_S.  Before them, the port's kftlint over its
+# tree against its empty baseline.
+SERVICES_READY_S = 20.0
+SERVICES_BLOCKED = ("torch", "triton")
+SERVICES_LINT = ["-m", "kubeflow_tpu_torch.analysis", "--baseline",
+                 "ci/kftlint_torch_baseline.json"]
+
+
+def blocked_main_process(argv, env, what):
+    """``main_process`` with ``SERVICES_BLOCKED`` set to None in
+    ``sys.modules`` first, so that any import of them fails the
+    process."""
+    code = ("import runpy, sys\n"
+            f"for name in {SERVICES_BLOCKED!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"sys.argv = ['main'] + {list(argv)!r}\n"
+            "runpy.run_module('kubeflow_tpu_torch.platform.main',\n"
+            "                 run_name='__main__', alter_sys=True)\n")
+    return Pod([sys.executable, "-c", code], env, what)
+
+
+def answers_200(url, context=None):
+    """Whether a GET of ``url`` answers 200 (no proxy); False while
+    nothing listens."""
+    handlers = [urllib.request.ProxyHandler({})]
+    if context is not None:
+        handlers.append(urllib.request.HTTPSHandler(context=context))
+    try:
+        with urllib.request.build_opener(*handlers).open(
+                url, timeout=5) as resp:
+            return resp.status == 200
+    except (urllib.error.URLError, OSError):
+        return False
+
+
+def phase_platform_services():
+    """The control plane without torch (the docstring's 11f): the port's
+    kftlint, then each of ``main.py``'s seven services as a process with
+    torch and triton blocked, against ``FakeKube`` over HTTP; each
+    service's cold start, from its process start to its first 200."""
+    import ssl
+
+    from kubeflow_tpu_torch.platform import FakeKube
+    from kubeflow_tpu_torch.platform.main import SERVICES
+    from kubeflow_tpu_torch.platform.testing.httpkube import HttpKubeServer
+    from kubeflow_tpu_torch.platform.webhook import certs
+
+    smi = nvidia_smi_name_power()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    lint = subprocess.run([sys.executable, *SERVICES_LINT], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    lint_s = time.perf_counter() - t0
+    summary = (lint.stdout.strip().splitlines() or [""])[-1]
+    if lint.returncode != 0 or summary != "kftlint: 0 finding(s), 0 baselined":
+        raise AssertionError(
+            f"platform_services: kftlint exited {lint.returncode}:\n"
+            f"{lint.stdout[-6000:]}{lint.stderr[-6000:]}")
+
+    kube = FakeKube()
+    kube.add_namespace("kubeflow")
+    server = HttpKubeServer(kube).start()
+    tmp = tempfile.mkdtemp(prefix="platform_services-")
+    cert_file, key_file = certs.write_pair(tmp, *openssl_pair())
+    tls = ssl.create_default_context(cafile=cert_file)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("KFT_", "LEADER_ELECT", "POD_NAME", "PORT",
+                                "HEALTH_PORT", "WEBHOOK_PORT", "TLS_"))}
+    env["KUBECONFIG"] = write_kubeconfig(tmp, server.base_url)
+    # service -> (argv, its env, the URL whose 200 means it is up).
+    specs, act = {}, free_port()
+    for name in SERVICES:
+        port = free_port()
+        argv, extra = [name, "--port", str(port)], {}
+        url = f"http://127.0.0.1:{port}/healthz"
+        if name == "controllers":
+            argv = [name, "--health-port", str(port)]
+            extra = {"KFT_ACTIVATOR_PORT": str(act)}
+        elif name == "webhook":
+            argv = [name]
+            extra = {"WEBHOOK_PORT": str(port), "TLS_CERT_FILE": cert_file,
+                     "TLS_KEY_FILE": key_file}
+            url = f"https://127.0.0.1:{port}/healthz"
+        specs[name] = (argv, {**env, **extra}, url)
+    waits = {name: url for name, (_, _, url) in specs.items()}
+    waits["activator"] = f"http://127.0.0.1:{act}/healthz"
+
+    def owner(name):
+        """The service whose process answers ``name``: the activator
+        shares the controllers' process."""
+        return "controllers" if name == "activator" else name
+
+    pods, cold, rcs = {}, {}, {}
+    try:
+        for name, (argv, penv, _) in specs.items():
+            pods[name] = blocked_main_process(
+                argv, penv, f"platform_services {name}")
+        deadline = time.perf_counter() + SERVICES_READY_S
+        while len(cold) < len(waits):
+            for name, url in waits.items():
+                if name in cold:
+                    continue
+                pod = pods[owner(name)]
+                if pod.proc.poll() is not None:
+                    pod.fail(f"exited {pod.proc.returncode} before its "
+                             "first 200")
+                if answers_200(url, tls if name == "webhook" else None):
+                    cold[name] = time.perf_counter() - pod.t0
+            if time.perf_counter() > deadline:
+                missing = sorted(set(waits) - set(cold))
+                pods[owner(missing[0])].fail(
+                    f"{missing} not answering 200 within "
+                    f"{SERVICES_READY_S} s")
+            time.sleep(0.02)
+        # SIGTERM each once it waits for it: after its last start-up line.
+        ready = {name: ("controllers running" if name == "controllers"
+                        else f"{name} serving on") for name in pods}
+        while True:
+            logs = {name: pod.output() for name, pod in pods.items()}
+            if all(ready[n] in out for n, out in logs.items()):
+                break
+            if time.perf_counter() > deadline:
+                late = [n for n, out in logs.items() if ready[n] not in out]
+                pods[late[0]].fail(f"no {ready[late[0]]!r} line")
+            time.sleep(0.02)
+        for name in list(pods):
+            rcs[name] = pods.pop(name).stop()
+    finally:
+        for pod in pods.values():
+            with contextlib.suppress(Exception):
+                pod.stop()
+        server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = {name: rc for name, rc in rcs.items() if rc != 0}
+    traced = [name for name, out in logs.items() if "Traceback" in out]
+    if bad or traced:
+        raise AssertionError(
+            f"platform_services: exit codes {bad}, tracebacks in {traced}:\n"
+            + "\n".join(logs[n][-3000:] for n in traced or bad))
+    emit({"phase": "platform_services",
+          "lint": {"findings": 0, "baselined": 0, "seconds": lint_s},
+          "blocked": list(SERVICES_BLOCKED),
+          "cold_start_seconds": cold,
+          "exit_codes": rcs,
+          "nvidia_smi": smi})
 
 
 def phase_platform_shards(torch, dev, notebook_tokens):
@@ -9600,6 +9772,7 @@ def main() -> int:
     job_counts = timed(phase_platform_job, torch, mesh_losses)
     manager_counts = timed(phase_platform_manager, torch, dev, mesh_losses)
     main_counts = timed(phase_platform_main, torch, dev, mesh_losses)
+    timed(phase_platform_services)
     shards_counts = timed(phase_platform_shards, torch, dev, notebook_tokens)
     timed(phase_checkpoint, torch, dev)
     vit_counts = timed(phase_vit, torch, dev)

@@ -11,10 +11,10 @@ Every TPU kernel on a ported path has a hand-written CUDA counterpart in
 Entry points take ``device=`` and default to ``"cuda"``: without a card
 they raise instead of falling back to the CPU.  Tests pass
 ``device="cpu"``, where every kernel wrapper uses its plain version.
+Importing the package root loads no torch, so the control plane
+(``platform/``) starts without it.
 """
 from __future__ import annotations
-
-import torch
 
 __version__ = "0.1.0"
 
@@ -22,6 +22,8 @@ __version__ = "0.1.0"
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device without a card
     raises ``RuntimeError`` (never a silent move to the CPU)."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

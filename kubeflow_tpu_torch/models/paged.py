@@ -65,7 +65,6 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from kubeflow_tpu_torch import config
 from kubeflow_tpu_torch.models.generate import (
     NEG_INF,
     SamplingRows,
@@ -87,6 +86,7 @@ from kubeflow_tpu_torch.parallel.sharding import (
     page_pool_shards,
     page_pool_spec,
 )
+from kubeflow_tpu_torch.platform import config
 
 
 # -- the device steps ---------------------------------------------------------
@@ -428,16 +428,24 @@ class PagedDecodeScheduler(DecodeScheduler):
         # The pool's position axis splits over the data axes (1 on a
         # mesh without one: the pool then replicates, tp splits heads).
         self.pool_shards = page_pool_shards(mesh)
-        self.page_len = page_len or config.env_int_strict(
-            *config.SERVE_PAGE_LEN)
+        self.page_len = page_len or config.knob(
+            "KFT_SERVE_PAGE_LEN", 64, int,
+            doc="Paged-KV page size in tokens (models/paged.py); the "
+                "serve slot length must be a multiple of it",
+            validate=lambda v: None if 1 <= v <= 4096
+            else "must be in [1, 4096]")
         if self.page_len < 1 or self.slot_len % self.page_len:
             raise ValueError(
                 f"KFT_SERVE_PAGE_LEN {self.page_len} must be a positive "
                 f"divisor of slot_len {self.slot_len} — a bad page size "
                 f"must fail loudly, not quietly serve the fallback path")
         self.max_pages_row = self.slot_len // self.page_len
-        self.num_pages = num_pages or config.env_int_strict(
-            *config.SERVE_PAGES) or self.slots * self.max_pages_row + 1
+        self.num_pages = num_pages or config.knob(
+            "KFT_SERVE_PAGES", 0, int,
+            doc="Physical KV pages in the paged pool, null page "
+                "included (0 = the fixed pool's capacity + 1)",
+            validate=lambda v: None if v >= 0 else "must be >= 0",
+        ) or self.slots * self.max_pages_row + 1
         if self.num_pages < self.max_pages_row + 1:
             raise ValueError(
                 f"KFT_SERVE_PAGES {self.num_pages} cannot hold one "
@@ -449,9 +457,18 @@ class PagedDecodeScheduler(DecodeScheduler):
                 self.pool_shards
         self.pool_positions = self.num_pages * self.page_len
         self.prefill_chunk = prefill_chunk if prefill_chunk is not None \
-            else config.env_int_strict(*config.SERVE_PREFILL_CHUNK)
+            else config.knob(
+                "KFT_SERVE_PREFILL_CHUNK", 512, int,
+                doc="Chunked-prefill pass size in tokens (0 = whole "
+                    "prompt suffix in one pass)",
+                validate=lambda v: None if v >= 0 else "must be >= 0")
         self.spec_tokens = spec_tokens if spec_tokens is not None \
-            else config.env_int_strict(*config.SERVE_SPEC_TOKENS)
+            else config.knob(
+                "KFT_SERVE_SPEC_TOKENS", 4, int,
+                doc="Draft tokens proposed per speculative-decoding "
+                    "step (needs --draft-model; 0 disables)",
+                validate=lambda v: None if 0 <= v <= 64
+                else "must be in [0, 64]")
         if not 0 <= self.spec_tokens <= 64:
             raise ValueError(
                 f"KFT_SERVE_SPEC_TOKENS {self.spec_tokens} outside [0, 64]")
@@ -467,7 +484,7 @@ class PagedDecodeScheduler(DecodeScheduler):
                     f"draft max_seq_len {draft_model.cfg.max_seq_len} < "
                     f"slot_len {self.slot_len}")
         use_prefix = prefix_cache if prefix_cache is not None else \
-            config.env_bool(*config.SERVE_PREFIX_CACHE)
+            config.env_bool("KFT_SERVE_PREFIX_CACHE", True)
         self.allocator = PageAllocator(self.num_pages)
         self.prefix = (PrefixCache(self.allocator, self.page_len)
                        if use_prefix else None)

@@ -68,7 +68,6 @@ from typing import Callable, List, Optional
 
 import torch
 
-from kubeflow_tpu_torch import config
 from kubeflow_tpu_torch.models.generate import (
     NEG_INF,
     DecodeState,
@@ -78,6 +77,7 @@ from kubeflow_tpu_torch.models.generate import (
     row_generators,
 )
 from kubeflow_tpu_torch.parallel.sharding import data_coordinates, gather_data
+from kubeflow_tpu_torch.platform import config
 
 # Request priority classes (the X-KFT-Priority wire vocabulary), lowest
 # value admitted first, FIFO within a class; decode slots already held are
@@ -261,11 +261,11 @@ class DecodeScheduler:
         # of its processes (None on one process).
         self.mesh = mesh
         self.lockstep = lockstep
-        self.slots = slots or config.env_int(*config.SERVE_SLOTS)
+        self.slots = slots or config.env_int("KFT_SERVE_SLOTS", 8)
         self.slot_len = slot_len or config.env_int(
-            *config.SERVE_SLOT_LEN) or model.cfg.max_seq_len
+            "KFT_SERVE_SLOT_LEN", 0) or model.cfg.max_seq_len
         self.quantum = quantum or config.env_int(
-            *config.SERVE_DECODE_QUANTUM)
+            "KFT_SERVE_DECODE_QUANTUM", 8)
         if self.slots < 1 or self.quantum < 1 or self.slot_len < 2:
             raise ValueError(
                 f"slots {self.slots} and quantum {self.quantum} must be >= "
@@ -275,7 +275,7 @@ class DecodeScheduler:
                 f"slot_len {self.slot_len} exceeds the model's "
                 f"max_seq_len {model.cfg.max_seq_len}")
         self.pipeline = pipeline if pipeline is not None else \
-            config.env_bool(*config.SERVE_PIPELINE)
+            config.env_bool("KFT_SERVE_PIPELINE", True)
         # The slots this process holds and computes, [lo, hi).
         self._lo, self._hi, self._row_shards = self._local_rows()
         # Zero-arg callable, so a service can re-attach telemetry (every

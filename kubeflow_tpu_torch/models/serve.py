@@ -15,7 +15,9 @@ lock-serialized path; library use of a bare ``GenerationService`` takes
 the lock path.  A scheduler whose loop crashed fails over to the lock
 path.  An encoder-decoder (``--model t5_large``) is served by
 ``Seq2SeqGenerationService``, always on the lock path.  The server is
-the standard library's ``ThreadingHTTPServer``; weights are random,
+the standard library's ``ThreadingHTTPServer`` under the torch-free
+app of ``platform/web/serve_app.py``, which this module re-exports
+(``App``, ``Request``, ``json_response``, ...); weights are random,
 drawn from ``--seed`` on the device, unless ``--checkpoint-dir`` names a
 trainer's checkpoints (``train/checkpoint.py``), whose latest parameters
 are restored in the serving dtype.  ``--quantize int8`` keeps the
@@ -83,13 +85,10 @@ import logging
 import sys
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Dict, Optional, Tuple
-from urllib.parse import parse_qs, urlsplit
+from typing import Optional
 
 import torch
 
-from kubeflow_tpu_torch import config
 from kubeflow_tpu_torch.models.paged import PagedDecodeScheduler
 from kubeflow_tpu_torch.models.quantize import quantize_model, quantized_bytes
 from kubeflow_tpu_torch.models.scheduler import (
@@ -99,7 +98,17 @@ from kubeflow_tpu_torch.models.scheduler import (
     DecodeScheduler,
 )
 from kubeflow_tpu_torch.parallel.lockstep import WorldBroken
-from kubeflow_tpu_torch.telemetry import causal, profiler
+from kubeflow_tpu_torch.platform import config
+from kubeflow_tpu_torch.platform.web.serve_app import (  # noqa: F401
+    App,
+    HttpError,
+    Request,
+    Response,
+    failure,
+    json_response,
+    success,
+)
+from kubeflow_tpu_torch.telemetry import profiler
 from kubeflow_tpu_torch.telemetry import compute as ctel  # /metrics
 from kubeflow_tpu_torch.telemetry.metrics import Counter, Gauge, Histogram, Registry
 from kubeflow_tpu_torch.telemetry.serve import (
@@ -324,7 +333,7 @@ class GenerationService(_MeshService):
             return None
         use = self.use_scheduler
         if use is None:
-            use = config.env_bool(*config.SERVE_SCHEDULER)
+            use = config.env_bool("KFT_SERVE_SCHEDULER", True)
         if not use:
             return None
         with self._scheduler_lock:
@@ -352,7 +361,7 @@ class GenerationService(_MeshService):
         to the followers, which build the same."""
         telemetry = lambda: self.telemetry
         reason = detail = None
-        if not config.env_bool(*config.SERVE_PAGED):
+        if not config.env_bool("KFT_SERVE_PAGED", True):
             reason = "env-disabled"
             detail = "KFT_SERVE_PAGED=0 pins the fixed-slot pool"
         elif self.mesh is not None and self.draft_model is not None:
@@ -579,136 +588,6 @@ class Seq2SeqGenerationService(_MeshService):
                 top_k=top_k, eos_token=eos_token, seed=seed)), work)
 
         return _lock_request(self, rows, eos_token, validate, run)
-
-
-# -- a minimal HTTP app on the standard library ------------------------------
-
-
-class HttpError(Exception):
-    def __init__(self, status: int, message: str):
-        super().__init__(message)
-        self.status = status
-        self.message = message
-
-
-@dataclasses.dataclass
-class Request:
-    args: Dict[str, str]
-    headers: object  # email.message.Message: case-insensitive .get
-    body: bytes
-    method: str = "GET"
-
-    def get_json(self):
-        """The body as JSON, or None when it is not valid JSON."""
-        try:
-            return json.loads(self.body or b"null")
-        except ValueError:
-            return None
-
-
-Response = Tuple[int, Dict[str, str], bytes]
-
-
-def json_response(data, status: int = 200,
-                  headers: Optional[Dict[str, str]] = None) -> Response:
-    h = {"Content-Type": "application/json"}
-    h.update(headers or {})
-    return status, h, json.dumps(data).encode()
-
-
-def success(data: Optional[dict] = None, status: int = 200) -> Response:
-    body = {"success": True, "status": status}
-    body.update(data or {})
-    return json_response(body, status)
-
-
-def failure(message: str, status: int = 400,
-            headers: Optional[Dict[str, str]] = None) -> Response:
-    return json_response({"success": False, "status": status, "log": message,
-                          "user_action": message}, status, headers)
-
-
-class App:
-    """Routes (method, path) to handlers ``fn(request) -> Response``, and
-    a path under a prefix with no route of its own to ``fn(request,
-    rest)`` (``route_prefix``); a handler runs with the request's
-    ``traceparent`` header, when it has a valid one, as its thread's
-    current causal context."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.routes: Dict[str, Dict[str, Callable]] = {}
-        self.prefix_routes: Dict[str, Dict[str, Callable]] = {}
-
-    def route(self, path: str, methods=("GET",)):
-        def deco(fn):
-            for m in methods:
-                self.routes.setdefault(path, {})[m] = fn
-            return fn
-        return deco
-
-    def route_prefix(self, prefix: str, methods=("GET",)):
-        def deco(fn):
-            for m in methods:
-                self.prefix_routes.setdefault(prefix, {})[m] = fn
-            return fn
-        return deco
-
-    def handle(self, method: str, target: str, headers,
-               body: bytes) -> Response:
-        url = urlsplit(target)
-        args = {k: v[-1] for k, v in parse_qs(url.query).items()}
-        handlers, extra = self.routes.get(url.path), ()
-        if handlers is None:
-            for prefix, by_method in self.prefix_routes.items():
-                if url.path.startswith(prefix):
-                    handlers, extra = by_method, (url.path[len(prefix):],)
-                    break
-        if handlers is None:
-            return failure(f"no route {url.path}", 404)
-        fn = handlers.get(method)
-        if fn is None:
-            return failure(f"method {method} not allowed", 405)
-        ctx = causal.parse_traceparent(
-            headers.get(causal.TRACEPARENT_HEADER) if headers else None)
-        try:
-            with causal.use(ctx):
-                return fn(Request(args, headers, body, method), *extra)
-        except HttpError as e:
-            return failure(e.message, e.status)
-        except Exception as e:  # noqa: BLE001 — the server must keep serving
-            log.exception("%s %s failed", method, url.path)
-            return failure(f"{type(e).__name__}: {e}", 500)
-
-    def make_server(self, host: str = "127.0.0.1",
-                    port: int = 0) -> ThreadingHTTPServer:
-        """A threaded HTTP server for this app (port 0: any free port,
-        read it back from ``server.server_address``)."""
-        app = self
-
-        class Handler(BaseHTTPRequestHandler):
-            protocol_version = "HTTP/1.1"
-
-            def _dispatch(self):
-                length = int(self.headers.get("Content-Length") or 0)
-                body = self.rfile.read(length) if length else b""
-                status, headers, payload = app.handle(
-                    self.command, self.path, self.headers, body)
-                self.send_response(status)
-                for k, v in headers.items():
-                    self.send_header(k, v)
-                self.send_header("Content-Length", str(len(payload)))
-                self.end_headers()
-                self.wfile.write(payload)
-
-            do_GET = do_POST = _dispatch
-
-            def log_message(self, fmt, *args):
-                log.debug("%s " + fmt, self.address_string(), *args)
-
-        server = ThreadingHTTPServer((host, port), Handler)
-        server.daemon_threads = True
-        return server
 
 
 def create_app(service, *, model_name: str = "model",

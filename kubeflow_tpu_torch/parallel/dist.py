@@ -40,7 +40,7 @@ ENV_MASTER_ADDR, ENV_MASTER_PORT = "MASTER_ADDR", "MASTER_PORT"
 def worker_env() -> dict:
     """The platform's worker env of this process (``envspec.worker_env_from``
     over ``os.environ``)."""
-    return envspec.worker_env_from(os.environ)
+    return envspec.worker_env_from(os.environ)  # kft: disable=R005 full-environ handoff
 
 
 def num_slices() -> int:
@@ -99,7 +99,7 @@ def torchrun_grid(environ: Optional[Mapping[str, str]] = None
     """``(address, world_size, rank, local_rank)`` from torchrun's env, or
     None when ``WORLD_SIZE`` is unset.  A world of 1 is a grid too: the
     caller asked for a process group."""
-    environ = os.environ if environ is None else environ
+    environ = os.environ if environ is None else environ  # kft: disable=R005 full-environ handoff
     if not environ.get(ENV_WORLD_SIZE):
         return None
     missing = [k for k in (ENV_RANK, ENV_MASTER_ADDR, ENV_MASTER_PORT)

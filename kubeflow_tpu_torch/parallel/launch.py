@@ -42,6 +42,7 @@ import time
 from typing import Mapping, Optional
 
 from kubeflow_tpu_torch.parallel import envspec
+from kubeflow_tpu_torch.platform import config
 
 LOCALHOST = "127.0.0.1"
 # Seconds from a SIGTERM to the launcher until it kills the processes
@@ -126,6 +127,7 @@ def supervise(command: list, envs: list, *,
     procs = []
     try:
         for env in envs:
+            # kft: disable=R005 full-environ handoff to the child
             procs.append(subprocess.Popen(command, env={**os.environ,
                                                         **env}))
         forwarded = False
@@ -184,7 +186,7 @@ def main(argv: Optional[list] = None) -> int:
     if not command:
         ap.error("no command: give it after '--'")
     try:
-        nproc = gpus_per_host(os.environ)
+        nproc = gpus_per_host(os.environ)  # kft: disable=R005 full-environ handoff
     except ValueError as e:
         ap.error(str(e))
     if args.device == "cuda":
@@ -194,12 +196,16 @@ def main(argv: Optional[list] = None) -> int:
         if found < nproc:
             ap.error(f"{envspec.ENV_KFT_GPUS_PER_HOST}={nproc} but this "
                      f"host has {found} CUDA device(s)")
+    # kft: disable=R005 full-environ handoff to discovery
     grid = launch_grid(envspec.worker_env_from(os.environ), nproc,
                        port=args.master_port)
     if grid[1] is None:
         grid = grid[:1] + (_free_port(),) + grid[2:]
     envs = worker_envs(grid)
-    if nproc > 1 and "OMP_NUM_THREADS" not in os.environ:
+    if nproc > 1 and config.knob(
+            "OMP_NUM_THREADS", None,
+            doc="threads a process; the launcher sets 1 for G > 1 "
+                "processes a host when it is unset") is None:
         # As torchrun does: G processes of one host share its cores.
         for env in envs:
             env["OMP_NUM_THREADS"] = "1"

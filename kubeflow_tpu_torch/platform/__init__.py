@@ -39,8 +39,11 @@ controllers) and the controller runtime that drives them of
   and VirtualService;
 * ``web/``: a WSGI framework on the standard library (``framework.py``,
   served on ``wsgiref``), the CRUD backends' authn, authz, CSRF and
-  probes (``crud_backend.py``) and the SPAs' static files
-  (``static_serving.py``); ``apps/``: the Jupyter web app with its GPU
+  probes (``crud_backend.py``), the SPAs' static files
+  (``static_serving.py``), and the serving app and wire client of the
+  /v1/generate contract that the model server and the activator share
+  (``serve_app.py``, ``generate_client.py``: no torch, so neither is
+  the controllers process's); ``apps/``: the Jupyter web app with its GPU
   picker (``apps/jupyter/``, its config ``spawner_ui_config.json``), the
   volumes and tensorboards apps; ``kfam/``: contributor bindings and
   profiles over REST; ``frontend/``: the SPAs;

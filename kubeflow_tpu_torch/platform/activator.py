@@ -1,6 +1,7 @@
 """The serving front door: hold-and-replay cold starts, per-tenant QoS.
 The port's copy of ``kubeflow_tpu/platform/activator.py``; its front
-runs on the port's standard-library ``App`` (``models/serve.py``) with
+runs on the port's standard-library ``App`` (``web/serve_app.py``, the
+replica's app too; it loads no torch, nor does this module) with
 the prefix route ``/serve/<ns>/<name>/<rest>``, where the reference's
 runs on werkzeug.
 
@@ -56,17 +57,22 @@ import urllib.error
 import urllib.request
 from typing import Callable, Dict, List, Optional, Tuple
 
-from kubeflow_tpu_torch.models.client import (
+from kubeflow_tpu_torch.platform import config
+from kubeflow_tpu_torch.platform.apis import inferenceservice as api
+from kubeflow_tpu_torch.platform.k8s.types import INFERENCESERVICE
+from kubeflow_tpu_torch.platform.runtime import metrics
+from kubeflow_tpu_torch.platform.web.generate_client import (
     HEADER_DEADLINE,
     HEADER_PRIORITY,
     HEADER_TENANT,
     full_jitter_backoff,
 )
-from kubeflow_tpu_torch.models.serve import App, failure, json_response, success
-from kubeflow_tpu_torch.platform import config
-from kubeflow_tpu_torch.platform.apis import inferenceservice as api
-from kubeflow_tpu_torch.platform.k8s.types import INFERENCESERVICE
-from kubeflow_tpu_torch.platform.runtime import metrics
+from kubeflow_tpu_torch.platform.web.serve_app import (
+    App,
+    failure,
+    json_response,
+    success,
+)
 
 
 # -- knobs --------------------------------------------------------------------
@@ -496,7 +502,7 @@ class Activator:
     # -- request path ------------------------------------------------------
 
     def handle(self, ns: str, name: str, rest: str, request):
-        """One request (the port's ``models.serve.Request``) through the
+        """One request (the port's ``web.serve_app.Request``) through the
         front door; returns ``(status, headers, body)``.  ``rest`` is
         the path past the VirtualService prefix (the backend sees
         ``/<rest>``: the Istio rewrite, honored)."""

@@ -9,8 +9,11 @@ serves it at ``/debug/knobs`` and each incident bundle carries it.  An
 unset or unparseable value resolves to the default; a knob with a
 ``validate`` check raises ``ValueError`` on a bad value instead.  The
 ``env``/``env_bool``/``env_float``/``env_int`` readers are thin
-wrappers over ``knob``.  The compute side's readers stay in
-``kubeflow_tpu_torch/config.py``.
+wrappers over ``knob``.  It is the port's one registry: the model side
+(``models/``, ``telemetry/``, ``train/``) reads its knobs here too, so
+they show in ``effective()`` as the reference's do.  A raw
+``os.environ`` read anywhere else in the port is a kftlint finding
+(R005, ``analysis/rules.py``).
 
 The controller runtime's knobs, the reference's names and defaults,
 each read through these helpers where it is used:
@@ -42,14 +45,30 @@ each read through these helpers where it is used:
   value keeps it on): ``native.py``; ``KF_WIRE_CODEC`` (``auto``, or
   ``native`` or ``python``; any other value keeps ``auto``):
   ``k8s/codec.py``.
+
+The model side's knobs, the reference's names, defaults and checks:
+
+* ``KFT_SERVE_SLOTS`` (8), ``KFT_SERVE_SLOT_LEN`` (0: the model's
+  ``max_seq_len``), ``KFT_SERVE_DECODE_QUANTUM`` (8) and
+  ``KFT_SERVE_PIPELINE`` (on): ``models/scheduler.py``;
+* ``KFT_SERVE_PAGE_LEN`` (64, in [1, 4096]), ``KFT_SERVE_PAGES`` (0: the
+  fixed pool's capacity + 1), ``KFT_SERVE_PREFILL_CHUNK`` (512) and
+  ``KFT_SERVE_SPEC_TOKENS`` (4, in [0, 64]), each strict, and
+  ``KFT_SERVE_PREFIX_CACHE`` (on): ``models/paged.py``;
+* ``KFT_SERVE_SCHEDULER`` and ``KFT_SERVE_PAGED`` (on),
+  ``KFT_SERVE_REVISION`` (0) and ``DEBUG_TRACES`` (on):
+  ``models/serve.py``; ``SERVE_SLOW_REQUEST_SECONDS`` (30) and
+  ``SERVE_TRACE_BUFFER_SIZE`` (64): ``telemetry/serve.py``;
+* ``TRAIN_SLOW_STEP_SECONDS`` (10), ``TRAIN_TRACE_DISABLE``,
+  ``TRAIN_TRACE_BUFFER_SIZE`` (64) and ``ATTENTION_HBM_BUDGET_FRACTION``
+  (0.5): ``telemetry/compute.py``; ``KFT_CHECKPOINT_DIR``:
+  ``train/run.py``; ``KFT_SLOW_STEP_PROFILE_DIR``: ``train/loop.py``.
 """
 from __future__ import annotations
 
 import os
 import threading
 from typing import Any, Callable, Dict, NamedTuple
-
-from kubeflow_tpu_torch.config import parse_bool
 
 __all__ = ["KNOBS", "Knob", "effective", "env", "env_bool", "env_float",
            "env_int", "knob", "parse_bool"]
@@ -76,6 +95,10 @@ class Knob(NamedTuple):
 # each read still returns with its own default).
 KNOBS: Dict[str, Knob] = {}
 _lock = threading.Lock()
+
+
+def parse_bool(v: str) -> bool:
+    return v.strip().lower() in ("1", "true", "yes", "on")
 
 
 def knob(name: str, default: Any = None, parser: Callable[[str], Any] = str,

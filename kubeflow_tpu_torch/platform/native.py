@@ -511,7 +511,8 @@ class NativeWorkQueue:
             self._q = None
             try:
                 self._lib.kfq_delete(q)
-            except Exception:  # interpreter shutdown: ctypes may be gone
+            # kft: disable=R006 interpreter-shutdown __del__: ctypes may be gone
+            except Exception:
                 pass
 
 

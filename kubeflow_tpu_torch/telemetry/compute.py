@@ -43,7 +43,7 @@ import logging
 import time
 from typing import Dict, Optional
 
-from kubeflow_tpu_torch import config
+from kubeflow_tpu_torch.platform import config
 from kubeflow_tpu_torch.telemetry.metrics import (
     Counter,
     Gauge,

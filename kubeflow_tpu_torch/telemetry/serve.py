@@ -27,7 +27,7 @@ import itertools
 from contextlib import nullcontext
 from typing import Dict, List, Optional
 
-from kubeflow_tpu_torch import config
+from kubeflow_tpu_torch.platform import config
 from kubeflow_tpu_torch.telemetry import causal
 from kubeflow_tpu_torch.telemetry.metrics import Counter, Gauge, Histogram
 from kubeflow_tpu_torch.telemetry.trace import Trace, Tracer

@@ -26,11 +26,11 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import os
 import time
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
+from kubeflow_tpu_torch.platform import config
 from kubeflow_tpu_torch.telemetry import compute as ctel
 
 log = logging.getLogger("kubeflow_tpu_torch.train")
@@ -106,8 +106,9 @@ def train_loop(state, step_fn: Callable, batches, cfg: LoopConfig, *,
     t0 = time.perf_counter()
     window_started_at = start_step
     tokens_per_step = cfg.tokens_per_step
-    profile_dir = (cfg.slow_step_profile_dir
-                   or os.environ.get(ENV_SLOW_STEP_PROFILE_DIR) or None)
+    profile_dir = cfg.slow_step_profile_dir or config.knob(
+        ENV_SLOW_STEP_PROFILE_DIR, None,
+        doc="directory for slow-step profiler dumps") or None
     profile_next = profile_done = False
     tracer = ctel.train_tracer
     try:

@@ -38,7 +38,6 @@ unsharded.
 from __future__ import annotations
 
 import argparse
-import os
 import signal
 import sys
 import threading
@@ -46,7 +45,8 @@ from typing import Optional
 
 import torch
 
-from kubeflow_tpu_torch import config
+from kubeflow_tpu_torch.parallel.envspec import ENV_KFT_CHECKPOINT_DIR
+from kubeflow_tpu_torch.platform import config
 
 
 def install_preemption_handler(stop: threading.Event,
@@ -258,10 +258,12 @@ def parse_args(argv: Optional[list] = None):
     # KFT_CHECKPOINT_DIR is what a job controller injects: a restarted
     # worker resumes without its command line naming the directory.
     ap.add_argument("--checkpoint-dir",
-                    default=os.environ.get(config.ENV_KFT_CHECKPOINT_DIR)
-                    or None,
+                    default=config.knob(
+                        ENV_KFT_CHECKPOINT_DIR, None,
+                        doc="checkpoint dir injected by the GPUJob "
+                            "controller") or None,
                     help="resume from and save checkpoints in this "
-                         f"directory (default ${config.ENV_KFT_CHECKPOINT_DIR})")
+                         f"directory (default ${ENV_KFT_CHECKPOINT_DIR})")
     ap.add_argument("--checkpoint-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--distributed", action="store_true",

@@ -11,10 +11,10 @@ import math
 import pytest
 
 import chip_smoke as cs
-from kubeflow_tpu_torch import config
 from kubeflow_tpu_torch.models import create_model
 from kubeflow_tpu_torch.models.llama import CONFIGS
 from kubeflow_tpu_torch.models.paged import PagedDecodeScheduler
+from kubeflow_tpu_torch.platform import config
 
 PAGED_KNOBS = ("KFT_SERVE_PAGE_LEN", "KFT_SERVE_PAGES",
                "KFT_SERVE_PREFILL_CHUNK", "KFT_SERVE_SPEC_TOKENS",
@@ -40,14 +40,17 @@ def engine(monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [
-    (config.SERVE_PAGE_LEN, cs.PAGED_PAGE_LEN),
-    (config.SERVE_PREFILL_CHUNK, cs.PAGED_CHUNK),
-    (config.SERVE_SPEC_TOKENS, cs.SPEC_TOKENS),
-])
-def test_phase_knobs_are_the_defaults_and_valid(knob, value):
-    name, default, validate = knob
-    assert value == default, name
-    assert validate(value) is None, name
+    ("KFT_SERVE_PAGE_LEN", cs.PAGED_PAGE_LEN),
+    ("KFT_SERVE_PREFILL_CHUNK", cs.PAGED_CHUNK),
+    ("KFT_SERVE_SPEC_TOKENS", cs.SPEC_TOKENS),
+], ids=["knob0-64", "knob1-512", "knob2-4"])
+def test_phase_knobs_are_the_defaults_and_valid(engine, knob, value):
+    """Each knob as the paged engine registers it in the knob registry
+    (``platform/config.py``) when it reads it."""
+    engine(cs.POOL_SLOT_LEN)
+    registered = config.KNOBS[knob]
+    assert value == registered.default, knob
+    assert registered.validate(value) is None, knob
 
 
 @pytest.mark.parametrize("slot_len,pages", [
